@@ -5,25 +5,41 @@
 
 Phases, each of which fails the run (non-zero exit) on any fault:
   1. device: the card's name and power limit; TF32 off; build the CUDA
-     kernel from `videocof_torch/csrc/` with nvcc (sm_90a).
-  2. kernel vs plain: the flash-attention kernel against its plain PyTorch
-     version on the card in bf16, at the main path's shapes and at the edge
-     cases (ragged length, key mask with a fully masked batch row, D = 64,
-     fp16): max abs error <= 3e-2 and relative L2 error <= 1e-2 (at the
-     main path's lengths the outputs are small, so the absolute bound alone
-     would pass a wrong kernel); then one full-width DiT forward at a small
-     latent through the kernel against the naive attention backend.
-  3. kernel timing at the two main-path shapes (12 heads): the kernel, its
+     kernels from `videocof_torch/csrc/` with nvcc (sm_90a), one process per
+     source, all at once; ptxas registers and spills of every kernel.
+  2. kernels vs plain, on the card, at the main paths' shapes and at the
+     edge cases (ragged length, key mask with a fully masked batch row,
+     D = 64, fp16): the forward B1 and the forward with LSE B2 on the output
+     (max abs error <= 3e-2 and relative L2 error <= 1e-2: at the main
+     path's lengths the outputs are small, so the absolute bound alone would
+     pass a wrong kernel) and on the LSE (relative error <= 1e-4: both sides
+     sum the same fp32 probabilities); the backward kernels B3a (dq) and
+     B3b (dk, dv) on the same gates (the plain backward keeps P and dS in
+     fp32 as JAX does, the kernels round them to bf16 for the tensor cores
+     as FlashAttention-2 does; about 3e-3 relative L2 expected). Then a
+     2-block full-width DiT on a small latent through the kernels against
+     the naive attention backend: the forward, and the gradient of its LoRA
+     adapters (relative L2 error <= 2e-2 each).
+  3. kernel timing at the two main-path shapes (12 heads): each kernel, its
      plain version, the least time the card could take (bound), and one
-     PyTorch call that computes the same function (SDPA, a yardstick the
-     port never calls); CUDA events, median of the runs after a warm-up.
-  4. the main path: `WanPipeline` at full width (Wan2.1 1.3B DiT, Wan2.1 VAE,
+     PyTorch call that computes the same function (SDPA's forward, with and
+     without a gradient to carry, and SDPA's backward: yardsticks the port
+     never calls); CUDA events, median of the runs after a warm-up.
+  4. the edit: `WanPipeline` at full width (Wan2.1 1.3B DiT, Wan2.1 VAE,
      umT5-XXL, random bf16 weights from a seed) edits a 33-frame 480x832
      uint8 video with 4 reasoning frames in 4 Flow-UniPC steps; checks the
-     output and that the kernel ran exactly 2 x layers x steps times; then
-     one DiT step of the main geometry under torch.profiler (device time by
-     kernel, idle share).
-  5. a `kernels` JSON line and, last, the device JSON line.
+     output and that B1 ran exactly 2 x layers x steps times and no other
+     kernel ran; then one DiT step of the edit's geometry under
+     torch.profiler (device time by kernel, idle share).
+  5. training: `CoFTrainer` on the same models with rank-16 LoRA adapters and
+     the default `TrainerConfig` (480x832, 33 source + 4 reasoning + 33
+     target frames, block remat) takes 3 steps on synthetic triplets, the
+     first a warm-up; checks finite losses, adapters that moved in step 1,
+     base weights bitwise unchanged, and the launches the design implies
+     (per step: B2 in every attention's forward and again in its remat
+     recompute, B3a and B3b once per attention, no B1); then one step under
+     torch.profiler.
+  6. a `kernels` JSON line and, last, the device JSON line.
 
 It exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
@@ -32,17 +48,21 @@ checkout of the repository.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
 import time
 from pathlib import Path
 
-TOL = 3e-2                     # bf16 tolerance of the kernel vs its plain version
+TOL = 3e-2                     # bf16 tolerance of a kernel vs its plain version
 REL_TOL = 1e-2                 # ... and of ||kernel - plain|| / ||plain||
+LSE_TOL = 1e-4                 # max |lse kernel - plain| / max(1, |lse plain|)
+DIT_REL_TOL = 2e-2             # DiT through the kernels vs the naive backend
 PEAK_BF16_FLOPS = 989e12       # H100 SXM dense bf16 (data sheet)
 PEAK_BYTES = 3.35e12           # H100 SXM HBM3
 SEED = 0
+TRAIN_STEPS = 3
 
 
 def log(*args):
@@ -71,19 +91,59 @@ def cuda_ms(fn, runs, warmup=2):
     return statistics.median(times)
 
 
-def attention_bound(B, Lq, Lk, N, D, elem_bytes=2):
-    """(ms, "operations" | "bytes"): 4*B*N*Lq*Lk*D FLOP over the bf16 peak
-    against q, k, v read once and o written once over the memory rate."""
-    flops = 4.0 * B * N * Lq * Lk * D
-    nbytes = elem_bytes * B * N * D * (2 * Lq + 2 * Lk)
+def bound(flops, nbytes):
+    """(ms, "operations" | "bytes"): the larger of FLOP over the bf16 peak
+    and bytes over the memory rate."""
     ops_ms, bytes_ms = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def kernel_bounds(B, Lq, Lk, N, D, eb=2):
+    """Bounds of the four kernels: FLOP of their products, and bytes of
+    their inputs read once and outputs written once (q, k, v, o, dO, dq, dk,
+    dv in bf16; lse and delta [B, N, Lq] fp32)."""
+    mm = B * N * Lq * Lk * D
+    q_b, kv_b, vec_b = eb * B * Lq * N * D, eb * B * Lk * N * D, 4 * B * N * Lq
+    return {
+        "flash_attention_fwd": bound(4 * mm, 2 * q_b + 2 * kv_b),
+        "flash_attention_fwd_lse": bound(4 * mm, 2 * q_b + 2 * kv_b + vec_b),
+        # S, dP, dQ; reads q, k, v, dO, lse, delta, writes dq
+        "flash_attention_bwd_dq": bound(6 * mm, 3 * q_b + 2 * kv_b + 2 * vec_b),
+        # S, dP, dV, dK; reads q, k, v, dO, lse, delta, writes dk, dv
+        "flash_attention_bwd_dkv": bound(8 * mm,
+                                         2 * q_b + 4 * kv_b + 2 * vec_b),
+    }
+
+
+def ptxas_report(log_text):
+    """[(kernel, registers, spill stores, spill loads)] from nvcc -Xptxas -v."""
+    rows, name, spills = [], None, (0, 0)
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            kernel = next((k for k in ("flash_fwd_kernel", "flash_bwd_dq_kernel",
+                                       "flash_bwd_dkv_kernel") if k in name),
+                          name)
+            dim = re.search(r"Li(\d+)E", name)
+            short = (f"{kernel}<{'bf16' if 'bfloat16' in name else 'fp16'}, "
+                     f"D={dim.group(1) if dim else '?'}"
+                     + (", lse" if "Lb1E" in name else "") + ">")
+            rows.append((short, int(m.group(1)), *spills))
+            name, spills = None, (0, 0)
+    return rows
 
 
 def profile_kernels(fn):
     """Run ``fn()`` once under torch.profiler: (wall ms, device busy ms,
     [(device ms, launches, kernel name)] sorted by device time). Kernels are
-    the trace's "kernel" events; busy is the union of their intervals."""
+    the trace's "kernel" events; busy is the union of their intervals and
+    those of the device's copies and memsets."""
     import tempfile
 
     import torch
@@ -100,8 +160,9 @@ def profile_kernels(fn):
         events = json.loads(path.read_text())["traceEvents"]
     spans, by_name = [], {}
     for ev in events:
-        if ev.get("cat") == "kernel":
+        if ev.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
             spans.append((ev["ts"], ev["ts"] + ev["dur"]))
+        if ev.get("cat") == "kernel":
             ms, n = by_name.get(ev["name"], (0.0, 0))
             by_name[ev["name"]] = (ms + ev["dur"] / 1e3, n + 1)
     busy_us, end = 0.0, float("-inf")
@@ -111,6 +172,39 @@ def profile_kernels(fn):
     rows = sorted(((ms, n, name) for name, (ms, n) in by_name.items()),
                   reverse=True)
     return wall_ms, busy_us / 1e3, rows
+
+
+def report_profile(label, wall_ms, busy_ms, kernels):
+    """Print a profile: idle share, our kernels, cuBLAS, the rest, the top."""
+    if busy_ms <= 0.0:
+        log(f"[profile] {label}: wall {wall_ms:.1f} ms; device time by "
+            "kernel not measured (torch.profiler saw no device events)")
+        return
+    ours = {}
+    for ms, n, name in kernels:
+        for key in ("flash_fwd_kernel", "flash_bwd_dq_kernel",
+                    "flash_bwd_dkv_kernel"):
+            if key in name:
+                lse = "Lb1E" in name or re.search(r"fwd_kernel<[^>]*true>",
+                                                  name)
+                tag = key + ("<lse>" if lse else "")
+                a, c = ours.get(tag, (0.0, 0))
+                ours[tag] = (a + ms, c + n)
+    conv_ms = sum(ms for ms, _, name in kernels if "implicit_gemm" in name)
+    gemm_ms = sum(ms for ms, _, name in kernels
+                  if "implicit_gemm" not in name and any(
+                      s in name.lower() for s in ("gemm", "nvjet", "cutlass")))
+    kernel_ms = sum(ms for ms, _, _ in kernels)
+    ours_ms = sum(ms for ms, _ in ours.values())
+    log(f"[profile] {label}: wall {wall_ms:.1f} ms, device busy "
+        f"{busy_ms:.1f} ms (idle {1 - busy_ms / wall_ms:.1%}); kernel time "
+        f"{kernel_ms:.1f} ms: flash kernels {ours_ms:.1f} ms ("
+        + ", ".join(f"{k} {ms:.1f} ms x{n}" for k, (ms, n) in ours.items())
+        + f"), cuBLAS GEMMs {gemm_ms:.1f} ms, cuDNN convolutions "
+        f"{conv_ms:.1f} ms, everything else "
+        f"{kernel_ms - ours_ms - gemm_ms - conv_ms:.1f} ms")
+    for ms, count, name in kernels[:15]:
+        log(f"[profile]   {ms:9.3f} ms  {count:5d} x  {name[:110]}")
 
 
 def dit_step_flops(cfg, L, Lt):
@@ -129,6 +223,26 @@ def dit_step_flops(cfg, L, Lt):
     return cfg.num_layers * per_block + io
 
 
+def compare(name, got, want):
+    """Gate ``got`` against ``want``: finite, max abs error <= TOL *
+    max(1, max |want|) (a few bf16 ulps of the largest value: gradients can
+    exceed 1) and relative L2 error <= REL_TOL; returns (max abs err,
+    relative L2 err)."""
+    import torch
+    diff = got.float() - want.float()
+    err = diff.abs().max().item()
+    rel = (diff.norm() / want.float().norm()).item()
+    top = want.float().abs().max().item()
+    tol = TOL * max(1.0, top)
+    ok = bool(torch.isfinite(got).all()) and err <= tol and rel <= REL_TOL
+    log(f"[kernel vs plain] {name}: max abs err {err:.3e} (tol {tol:.3g}), "
+        f"relative L2 err {rel:.3e} (tol {REL_TOL}), max |plain| "
+        f"{top:.3e}: {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"kernel disagrees with its plain version: {name}")
+    return err, rel
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -140,6 +254,7 @@ def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     from videocof_torch.configs import (GenerationConfig, T5Config,
                                         WAN21_T2V_1_3B, WanVAEConfig)
+    from videocof_torch.models.lora import ADAPTER_TARGETS, init_lora_adapters
     from videocof_torch.models.t5_encoder import init_t5_encoder
     from videocof_torch.models.wan_dit import (init_wan_dit,
                                                make_rope_for_geometry)
@@ -147,9 +262,12 @@ def main() -> int:
     from videocof_torch.ops import _build
     from videocof_torch.ops import flash_attention as fa
     from videocof_torch.pipeline import WanPipeline, latent_frame_count
+    from videocof_torch.training import (CoFTrainer, TrainerConfig,
+                                         flow_matching_loss)
 
     dev = torch.device("cuda")
     bf16 = torch.bfloat16
+    names = list(fa.KERNEL_WRAPPERS)    # B1, B2, B3a, B3b
 
     # ------------------------------------------------------------ 1. device
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -163,17 +281,22 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     build_s = fa.build()
-    log(f"[build] {fa.SOURCE}: nvcc {build_s:.2f} s (load {time.perf_counter() - t0:.2f} s)")
-    for line in _build.build_info[fa.SOURCE]["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build] {line.strip()}")
+    log(f"[build] nvcc in parallel: " + ", ".join(
+        f"{src} {s:.2f} s" for src, s in build_s.items())
+        + f" (wall {time.perf_counter() - t0:.2f} s)")
+    for src in build_s:
+        for kernel, regs, st, ld in ptxas_report(_build.build_info[src]["log"]):
+            log(f"[build] {kernel}: {regs} registers, spill stores {st} B, "
+                f"spill loads {ld} B")
 
-    # ------------------------------------------------------ 2. kernel vs plain
+    # ----------------------------------------------------- 2. kernels vs plain
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
+    def randn(*shape, dtype=bf16):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
     def qkv(B, Lq, Lk, N, D, dtype=bf16):
-        return [torch.randn(B, L, N, D, generator=gen, device=dev).to(dtype)
-                for L in (Lq, Lk, Lk)]
+        return [randn(B, L, N, D, dtype=dtype) for L in (Lq, Lk, Lk)]
 
     geo = GenerationConfig()
     vcfg, dcfg = WanVAEConfig(), WAN21_T2V_1_3B
@@ -196,35 +319,69 @@ def main() -> int:
         ("head_dim 64", (1, 3000, 3000, 4, 64), None, bf16),
         ("fp16", (1, 1000, 700, 2, D), None, torch.float16),
     ]
-    max_err = max_rel = 0.0
+    errs = {n: [0.0, 0.0] for n in names}     # max abs, max relative L2
+
+    def note(kernel, err_rel):
+        errs[kernel] = [max(a, b) for a, b in zip(errs[kernel], err_rel)]
+
     for name, shape, masked, dtype in cases:
+        B, Lq, Lk, Nh, Dh = shape
+        label = f"{name} {shape} {str(dtype)[6:]}"
         q, k, v = qkv(*shape, dtype=dtype)
         mask = None
         if masked:
-            mask = torch.rand(shape[0], shape[2], generator=gen,
-                              device=dev) > 0.3
+            mask = torch.rand(B, Lk, generator=gen, device=dev) > 0.3
             mask[-1] = False
+        # B1
         out = fa.flash_attention(q, k, v, kv_mask=mask)
         torch.cuda.synchronize()
         ref = fa.flash_attention_reference(q, k, v, kv_mask=mask)
-        diff = out.float() - ref.float()
-        err = diff.abs().max().item()
-        rel = (diff.norm() / ref.float().norm()).item()
-        ok = bool(torch.isfinite(out).all()) and err <= TOL and rel <= REL_TOL
-        log(f"[kernel vs plain] {name} {shape} {str(dtype)[6:]}: "
-            f"max abs err {err:.3e} (tol {TOL}), relative L2 err {rel:.3e} "
-            f"(tol {REL_TOL}), max |plain| {ref.float().abs().max().item():.3e}"
-            f": {'ok' if ok else 'FAIL'}")
-        if not ok:
-            fail(f"kernel disagrees with its plain version on {name}")
-        max_err, max_rel = max(max_err, err), max(max_rel, rel)
-        del q, k, v, out, ref
+        note("flash_attention_fwd", compare(f"B1 {label}", out, ref))
+        del out, ref
+        # B2, on the scale-folded q as the training forward runs it
+        qs = q * fa._rounded(Dh ** -0.5, dtype)
+        out, lse = fa.flash_fwd_lse(qs, k, v, kv_mask=mask)
+        torch.cuda.synchronize()
+        ref, ref_lse = fa.flash_fwd_lse_reference(qs, k, v, kv_mask=mask)
+        note("flash_attention_fwd_lse", compare(f"B2 out {label}", out, ref))
+        lse_err = ((lse - ref_lse).abs() / ref_lse.abs().clamp(min=1.0)
+                   ).max().item()
+        log(f"[kernel vs plain] B2 lse {label}: max relative err "
+            f"{lse_err:.3e} (tol {LSE_TOL}), lse in [{ref_lse.min().item():.4g}"
+            f", {ref_lse.max().item():.4g}]: "
+            f"{'ok' if lse_err <= LSE_TOL else 'FAIL'}")
+        if not (torch.isfinite(lse).all() and lse_err <= LSE_TOL):
+            fail(f"B2's LSE disagrees with its plain version: {label}")
+        del out
+        if masked:
+            # B3 takes no mask (the masked path's backward is plain, as in
+            # JAX): hold it at this case's shape without the mask
+            ref, ref_lse = fa.flash_fwd_lse_reference(qs, k, v)
+            label += " (B3 unmasked)"
+        # B3a, B3b, from the plain LSE and delta so each kernel is held alone
+        do = randn(B, Lq, Nh, Dh, dtype=dtype)
+        delta = fa.flash_bwd_delta(ref, do)
+        dq = fa.flash_bwd_dq(qs, k, v, do, ref_lse, delta)
+        dk, dv = fa.flash_bwd_dkv(qs, k, v, do, ref_lse, delta)
+        torch.cuda.synchronize()
+        ref_dq = fa.flash_bwd_dq_reference(qs, k, v, do, ref_lse, delta)
+        note("flash_attention_bwd_dq", compare(f"B3a dq {label}", dq, ref_dq))
+        del dq, ref_dq
+        ref_dk, ref_dv = fa.flash_bwd_dkv_reference(qs, k, v, do, ref_lse,
+                                                    delta)
+        for part, got, want in (("dk", dk, ref_dk), ("dv", dv, ref_dv)):
+            note("flash_attention_bwd_dkv",
+                 compare(f"B3b {part} {label}", got, want))
+        del q, k, v, qs, do, ref, ref_lse, delta, dk, dv, ref_dk, ref_dv
+    torch.cuda.empty_cache()
 
-    # the kernel inside a full-width DiT (2 blocks) on a small latent
+    # the kernels inside a full-width DiT (2 blocks) on a small latent: the
+    # forward, and the gradient of LoRA adapters (non-zero up, so every
+    # adapter gets one) against the naive backend
     small = dcfg.replace(num_layers=2)
     dit_small = init_wan_dit(small, gen, bf16, dev)
     x = torch.randn(1, small.in_dim, 5, 30, 52, generator=gen, device=dev)
-    ctx = torch.randn(1, Lt, small.text_dim, generator=gen, device=dev).to(bf16)
+    ctx = randn(1, Lt, small.text_dim)
     cos, sin = (torch.as_tensor(a, device=dev) for a in make_rope_for_geometry(
         small, (5, 15, 26), f_src=2, f_ground=1))
     t = torch.full((1,), 937.0, device=dev)
@@ -233,42 +390,116 @@ def main() -> int:
         v_naive = dit_small(x.to(bf16), t, ctx, cos, sin, attn_backend="naive")
     rel = ((v_flash - v_naive).norm() / v_naive.norm()).item()
     log(f"[kernel vs plain] 2-block 1.3B-width DiT, 1950 tokens, flash vs "
-        f"naive: relative L2 error {rel:.3e} (tol 2e-2)")
-    if not (torch.isfinite(v_flash).all() and rel <= 2e-2):
-        fail("DiT through the kernel disagrees with the naive backend")
-    del dit_small, v_flash, v_naive
-
-    # ---------------------------------------------------------- 3. timing
-    timing = {}
-    for name, (B, Lq, Lk), plain_runs in (("self", (1, L, L), 3),
-                                          ("cross", (1, L, Lt), 10)):
-        q, k, v = qkv(B, Lq, Lk, N, D)
-        ms = cuda_ms(lambda: fa.flash_attention(q, k, v), runs=10)
-        plain_ms = cuda_ms(lambda: fa.flash_attention_reference(q, k, v),
-                           runs=plain_runs, warmup=1)
-        qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
-        library_ms = cuda_ms(
-            lambda: torch.nn.functional.scaled_dot_product_attention(
-                qt, kt, vt), runs=10)
-        bound_ms, bound_by = attention_bound(B, Lq, Lk, N, D)
-        timing[name] = dict(shape=f"B={B} Lq={Lq} Lk={Lk} N={N} D={D} bf16",
-                            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                            bound_by=bound_by, library_ms=library_ms)
-        log(f"[timing] {name} {timing[name]['shape']}: kernel_ms {ms:.4f} "
-            f"bound_ms {bound_ms:.4f} ({bound_by}) plain_ms {plain_ms:.4f} "
-            f"library_ms(SDPA) {library_ms:.4f} "
-            f"kernel TFLOP/s {4 * B * N * Lq * Lk * D / ms / 1e9:.1f}")
-        del q, k, v, qt, kt, vt
+        f"naive: relative L2 error {rel:.3e} (tol {DIT_REL_TOL})")
+    if not (torch.isfinite(v_flash).all() and rel <= DIT_REL_TOL):
+        fail("DiT through the kernels disagrees with the naive backend")
+    dit_small.requires_grad_(False)
+    adapters = init_lora_adapters(small, gen, rank=16)
+    with torch.no_grad():
+        for p in adapters.parameters():
+            if p.abs().max() == 0:
+                p.copy_(1e-2 * torch.randn(p.shape, generator=gen, device=dev))
+    noise = torch.randn(x.shape, generator=gen, device=dev)
+    frame_mask = torch.tensor([0.0, 0.0, 1.0, 1.0, 1.0], device=dev)
+    grads = {}
+    for backend in ("flash", "naive"):
+        adapters.zero_grad(set_to_none=True)
+        before = fa.launch_counts()
+        loss = flow_matching_loss(
+            dit_small, x, ctx, cos, sin, torch.tensor([700], device=dev),
+            noise, attn_backend=backend, remat=True, frame_mask=frame_mask,
+            lora=(adapters, adapters.scale))
+        loss.backward()
+        after = fa.launch_counts()
+        grads[backend] = torch.cat([p.grad.flatten()
+                                    for p in adapters.parameters()])
+        if backend == "flash" and [after[n] - before[n] for n in names] != [
+                0, 8, 4, 4]:
+            fail(f"DiT gradient through the kernels launched "
+                 f"{ {n: after[n] - before[n] for n in names} }")
+    rel = ((grads["flash"] - grads["naive"]).norm()
+           / grads["naive"].norm()).item()
+    log(f"[kernel vs plain] 2-block 1.3B-width DiT, LoRA adapter gradient "
+        f"(remat, frame mask), flash vs naive: relative L2 error {rel:.3e} "
+        f"(tol {DIT_REL_TOL})")
+    if not (torch.isfinite(grads["flash"]).all() and rel <= DIT_REL_TOL):
+        fail("LoRA gradient through the kernels disagrees with the naive "
+             "backend")
+    del dit_small, v_flash, v_naive, adapters, grads, loss
     torch.cuda.empty_cache()
 
-    # ------------------------------------------------------ 4. the main path
+    # ---------------------------------------------------------- 3. timing
+    F = torch.nn.functional
+    timing = {}
+    for shape_name, (B, Lq, Lk), plain_runs in (("self", (1, L, L), 3),
+                                                ("cross", (1, L, Lt), 10)):
+        q, k, v = qkv(B, Lq, Lk, N, D)
+        qs = q * fa._rounded(D ** -0.5, bf16)
+        do = randn(B, Lq, N, D)
+        out, lse = fa.flash_fwd_lse(qs, k, v)
+        delta = fa.flash_bwd_delta(out, do)
+        runs = {
+            "flash_attention_fwd": (lambda: fa.flash_attention(q, k, v),
+                                    lambda: fa.flash_attention_reference(
+                                        q, k, v)),
+            "flash_attention_fwd_lse": (
+                lambda: fa.flash_fwd_lse(qs, k, v),
+                lambda: fa.flash_fwd_lse_reference(qs, k, v)),
+            "flash_attention_bwd_dq": (
+                lambda: fa.flash_bwd_dq(qs, k, v, do, lse, delta),
+                lambda: fa.flash_bwd_dq_reference(qs, k, v, do, lse, delta)),
+            "flash_attention_bwd_dkv": (
+                lambda: fa.flash_bwd_dkv(qs, k, v, do, lse, delta),
+                lambda: fa.flash_bwd_dkv_reference(qs, k, v, do, lse,
+                                                   delta)),
+        }
+        # yardsticks: SDPA's forward without and with a gradient to carry
+        # (then it keeps its LSE), and SDPA's backward alone
+        qt, kt, vt, dot = (a.transpose(1, 2) for a in (q, k, v, do))
+        lq, lk, lv = (a.detach().requires_grad_() for a in (qt, kt, vt))
+        with torch.enable_grad():
+            sdpa_out = F.scaled_dot_product_attention(lq, lk, lv)
+
+        def sdpa_fwd_grad():
+            with torch.enable_grad():
+                F.scaled_dot_product_attention(lq, lk, lv)
+
+        library = {
+            "flash_attention_fwd": lambda: F.scaled_dot_product_attention(
+                qt, kt, vt),
+            "flash_attention_fwd_lse": sdpa_fwd_grad,
+            "flash_attention_bwd_dq": lambda: torch.autograd.grad(
+                sdpa_out, (lq, lk, lv), dot, retain_graph=True),
+        }
+        library["flash_attention_bwd_dkv"] = library["flash_attention_bwd_dq"]
+        bounds = kernel_bounds(B, Lq, Lk, N, D)
+        shape = f"B={B} Lq={Lq} Lk={Lk} N={N} D={D} bf16"
+        timing[shape_name] = {}
+        for kname in names:
+            kernel_fn, plain_fn = runs[kname]
+            ms = cuda_ms(kernel_fn, runs=10)
+            plain_ms = cuda_ms(plain_fn, runs=plain_runs, warmup=1)
+            library_ms = cuda_ms(library[kname], runs=10)
+            bound_ms, bound_by = bounds[kname]
+            timing[shape_name][kname] = dict(
+                shape=shape, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms)
+            log(f"[timing] {kname} {shape_name} {shape}: kernel_ms {ms:.4f} "
+                f"bound_ms {bound_ms:.4f} ({bound_by}) plain_ms "
+                f"{plain_ms:.4f} library_ms {library_ms:.4f} (share of bound "
+                f"{bound_ms / ms:.1%})")
+        del q, k, v, qs, do, out, lse, delta, qt, kt, vt, dot, lq, lk, lv
+        del sdpa_out, runs, library
+        torch.cuda.empty_cache()
+
+    # ----------------------------------------------------------- 4. the edit
     t0 = time.perf_counter()
     t5 = init_t5_encoder(T5Config(), gen, bf16, dev)
     vae = init_wan_vae(vcfg, gen, bf16, dev)
     dit = init_wan_dit(dcfg, gen, bf16, dev)
     pipe = WanPipeline(dit, vae, t5, dtype=bf16)
     torch.cuda.synchronize()
-    log(f"[main path] random weights (seed {SEED}) on the card in "
+    log(f"[edit] random weights (seed {SEED}) on the card in "
         f"{time.perf_counter() - t0:.1f} s")
     video = np.random.default_rng(SEED).integers(
         0, 256, (1, 3, geo.source_frames, geo.height, geo.width),
@@ -276,7 +507,7 @@ def main() -> int:
     prompt = "replace the red car with a blue bicycle"
     timings = {}
     torch.cuda.reset_peak_memory_stats()
-    fa.flash_attention.launches = 0
+    fa.reset_launch_counts()
     t0 = time.perf_counter()
     out = pipe(video, prompt, source_frames=geo.source_frames,
                reasoning_frames=geo.reasoning_frames,
@@ -285,82 +516,150 @@ def main() -> int:
                sampler=geo.sampler, repeat_rope=geo.repeat_rope,
                cot=geo.cot, seed=geo.seed, timings=timings)
     wall = time.perf_counter() - t0
-    launches = fa.flash_attention.launches
+    edit_launches = fa.launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     out_frames = 1 + (ground - 1) * tc + geo.source_frames
     want_shape = (1, 3, out_frames, geo.height, geo.width)
-    want_launches = 2 * dcfg.num_layers * geo.num_inference_steps
+    want_launches = dict.fromkeys(names, 0)
+    want_launches["flash_attention_fwd"] = (2 * dcfg.num_layers
+                                            * geo.num_inference_steps)
     vid = out.videos
-    log(f"[main path] output {vid.shape} min {vid.min():.4f} max {vid.max():.4f}")
+    log(f"[edit] output {vid.shape} min {vid.min():.4f} max {vid.max():.4f}")
     if vid.shape != want_shape:
         fail(f"output shape {vid.shape} != {want_shape}")
     if not (np.isfinite(vid).all() and vid.min() >= 0.0 and vid.max() <= 1.0):
         fail("output frames not finite or outside [0, 1]")
-    if launches != want_launches:
-        fail(f"flash kernel launched {launches} times on the main path, "
-             f"expected {want_launches}")
+    if edit_launches != want_launches:
+        fail(f"the edit launched {edit_launches}, expected {want_launches}")
     step_flops = dit_step_flops(dcfg, L, Lt)
     steps = [timings[f"step{i}"] for i in range(geo.num_inference_steps)]
-    log("[main path] stage walls (s): " + ", ".join(
+    log("[edit] stage walls (s): " + ", ".join(
         f"{k} {v:.3f}" for k, v in timings.items()))
-    log(f"[main path] seconds per edit {wall:.3f}; peak device memory "
-        f"{peak_gb:.2f} GB; flash launches {launches}; DiT "
+    log(f"[edit] seconds per edit {wall:.3f}; peak device memory "
+        f"{peak_gb:.2f} GB; launches {edit_launches}; DiT "
         f"{step_flops:.3e} FLOP/step, {step_flops / statistics.median(steps) / 1e12:.1f} "
         f"TFLOP/s (median step)")
-    log("[main path] " + json.dumps({
+    log("[edit] " + json.dumps({
         "card": card, "seconds_per_edit": wall, "stages_s": timings,
         "peak_memory_gb": peak_gb, "dit_flop_per_step": step_flops,
-        "flash_launches": launches}))
+        "launches": edit_launches}))
+    del out, vid
 
-    # one DiT step of the main geometry under torch.profiler: device time by
-    # kernel, and the device's idle share of the step's wall time
+    # one DiT step of the edit's geometry under torch.profiler: device time
+    # by kernel, and the device's idle share of the step's wall time
     grid = (latent_frames, geo.height // sc // ph, geo.width // sc // pw)
     x = torch.randn(1, dcfg.in_dim, latent_frames, geo.height // sc,
                     geo.width // sc, generator=gen, device=dev).to(bf16)
-    ctx = torch.randn(1, Lt, dcfg.text_dim, generator=gen, device=dev).to(bf16)
+    ctx = randn(1, Lt, dcfg.text_dim)
     cos, sin = (torch.as_tensor(arr, device=dev) for arr in
                 make_rope_for_geometry(dcfg, grid, f_src=cond,
                                        f_ground=ground))
     t = torch.full((1,), 937.0, device=dev)
     with torch.no_grad():
-        prof_ms, busy_ms, kernels = profile_kernels(
-            lambda: dit(x, t, ctx, cos, sin))
-    flash_ms = sum(ms for ms, _, name in kernels if "flash_fwd_kernel" in name)
-    gemm_ms = sum(ms for ms, _, name in kernels
-                  if any(s in name.lower() for s in ("gemm", "nvjet", "cutlass")))
-    if busy_ms > 0.0:
-        kernel_ms = sum(ms for ms, _, _ in kernels)
-        log(f"[profile] one DiT step at {L} tokens: wall {prof_ms:.1f} ms, "
-            f"device busy {busy_ms:.1f} ms (idle {1 - busy_ms / prof_ms:.1%}); "
-            f"kernel time {kernel_ms:.1f} ms: flash kernel {flash_ms:.1f} ms, "
-            f"cuBLAS GEMMs {gemm_ms:.1f} ms, everything else "
-            f"{kernel_ms - flash_ms - gemm_ms:.1f} ms")
-        for ms, count, name in kernels[:15]:
-            log(f"[profile]   {ms:9.3f} ms  {count:4d} x  {name[:110]}")
-    else:
-        log(f"[profile] one DiT step: wall {prof_ms:.1f} ms; device time by "
-            "kernel not measured (torch.profiler saw no device events)")
-    del x, ctx, cos, sin
+        report_profile(f"one DiT step at {L} tokens",
+                       *profile_kernels(lambda: dit(x, t, ctx, cos, sin)))
+    del x, ctx, cos, sin, pipe
+    torch.cuda.empty_cache()
 
-    # ------------------------------------------------------------ 5. report
-    main_shape = timing["self"]
-    log(json.dumps({"kernels": [{
-        "name": "flash_attention_fwd",
-        "route": "cuda",
-        "source": "videocof_torch/csrc/flash_attention_fwd.cu",
-        "replaces": "videocof_tpu/ops/flash_attention.py:41",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "max_rel_l2_err": max_rel,
-        "ms": main_shape["ms"],
-        "plain_ms": main_shape["plain_ms"],
-        "bound_ms": main_shape["bound_ms"],
-        "bound_by": main_shape["bound_by"],
-        "library_ms": main_shape["library_ms"],
-        "shape": main_shape["shape"],
-        "cross": timing["cross"],
-    }]}))
+    # --------------------------------------------------------- 5. training
+    tcfg = TrainerConfig(lora_rank=16)
+    base = {name: p.detach().clone() for name, p in dit.named_parameters()}
+    trainer = CoFTrainer(dit, vae, t5, None, tcfg)
+    rng = np.random.default_rng(SEED)
+
+    def triplet():
+        return {key: rng.uniform(-1, 1, (3, frames, tcfg.height, tcfg.width)
+                                 ).astype(np.float32)
+                for key, frames in (("pixel_src", tcfg.source_frames),
+                                    ("pixel_ground", tcfg.reasoning_frames),
+                                    ("pixel_tgt", tcfg.target_frames))
+                } | {"text": prompt}
+
+    # drawn ahead, as a data loader would prefetch them: the steps time the
+    # trainer, not numpy
+    samples = iter([triplet() for _ in range(TRAIN_STEPS + 1)])
+    train_stages = []
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    step_walls = []
+    for step in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        trainer.train(samples, total_steps=1, timings=train_stages)
+        step_walls.append(time.perf_counter() - t0)
+        if step == 0:
+            moved = max(lin.up.detach().abs().max().item()
+                        for block in trainer.state.adapters.blocks
+                        for mod in ADAPTER_TARGETS for lin in block[mod].values())
+            log(f"[train] after step 1: max |up| {moved:.3e}")
+            if not moved > 0.0:
+                fail("no adapter moved in the first training step")
+    train_launches = fa.launch_counts()
+    train_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    attentions = 2 * dcfg.num_layers            # self + cross per block
+    want_train = {"flash_attention_fwd": 0,
+                  "flash_attention_fwd_lse": 2 * attentions * TRAIN_STEPS,
+                  "flash_attention_bwd_dq": attentions * TRAIN_STEPS,
+                  "flash_attention_bwd_dkv": attentions * TRAIN_STEPS}
+    losses = trainer.losses
+    log(f"[train] losses {losses}")
+    for i, (st, w) in enumerate(zip(train_stages, step_walls)):
+        log(f"[train] step {i + 1}{' (warm-up)' if i == 0 else ''}: "
+            + ", ".join(f"{k} {v:.3f} s" for k, v in st.items())
+            + f"; wall {w:.3f} s")
+    log(f"[train] seconds per step {statistics.median(step_walls[1:]):.3f} "
+        f"(median after the warm-up); peak device memory {train_peak_gb:.2f} "
+        f"GB; launches {train_launches} (expected {want_train})")
+    if not all(np.isfinite(losses)) or len(losses) != TRAIN_STEPS:
+        fail(f"training losses {losses}")
+    changed = [name for name, p in dit.named_parameters()
+               if not torch.equal(p.detach(), base[name])]
+    if changed:
+        fail(f"training changed base weights: {changed[:5]}")
+    if train_launches != want_train:
+        fail(f"training launched {train_launches}, expected {want_train}")
+    log("[train] " + json.dumps({
+        "card": card, "seconds_per_step": step_walls, "stages_s": train_stages,
+        "losses": losses, "peak_memory_gb": train_peak_gb,
+        "launches": train_launches}))
+    del base
+    report_profile("one LoRA training step", *profile_kernels(
+        lambda: trainer.train(samples, total_steps=1)))
+
+    # ------------------------------------------------------------ 6. report
+    sources = {"flash_attention_fwd": "flash_attention_fwd.cu",
+               "flash_attention_fwd_lse": "flash_attention_fwd.cu",
+               "flash_attention_bwd_dq": "flash_attention_bwd.cu",
+               "flash_attention_bwd_dkv": "flash_attention_bwd.cu"}
+    replaces = {"flash_attention_fwd": ("41", "_flash_kernel, need_lse=False"),
+                "flash_attention_fwd_lse": ("41", "_flash_kernel, need_lse=True"
+                                            " (lse_ref :96-98)"),
+                "flash_attention_bwd_dq": ("201", "_bwd_dq_kernel"),
+                "flash_attention_bwd_dkv": ("233", "_bwd_dkv_kernel")}
+    launches = {n: (edit_launches if n == "flash_attention_fwd"
+                    else train_launches)[n] for n in names}
+    rows = []
+    for kname in names:
+        main_shape = timing["self"][kname]
+        line, tpu = replaces[kname]
+        rows.append({
+            "name": kname, "route": "cuda",
+            "source": f"videocof_torch/csrc/{sources[kname]}",
+            "replaces": f"videocof_tpu/ops/flash_attention.py:{line}",
+            "tpu_kernel": tpu,
+            "launches": launches[kname],
+            "launches_on": "edit" if kname == "flash_attention_fwd"
+                           else f"{TRAIN_STEPS} training steps",
+            "max_abs_err": errs[kname][0],
+            "max_rel_l2_err": errs[kname][1],
+            "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
+            "bound_ms": main_shape["bound_ms"],
+            "bound_by": main_shape["bound_by"],
+            "library_ms": main_shape["library_ms"],
+            "shape": main_shape["shape"],
+            "cross": timing["cross"][kname],
+        })
+    log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -49,8 +49,8 @@ def _port(q, k, v, mask, dtype):
     return flash_attention_reference(q, k, v, kv_mask=m).float().numpy()
 
 
-# Lk is a multiple of the Pallas test block (128) wherever a row is fully
-# masked: the TPU kernel averages such a row over its padded key length.
+# Lk fills the Pallas test block (128) wherever a row is fully masked: the
+# port pads as the wrapper's default block does (see the ragged test below).
 @pytest.mark.parametrize("Lq,Lk,masked,full_row", [
     (128, 128, False, False), (300, 300, False, False),
     (256, 130, False, False), (128, 128, True, True),
@@ -75,27 +75,28 @@ def test_plain_matches_pallas_bf16(Lq, Lk, masked, D):
 
 
 def test_fully_masked_row_is_mean_of_v():
-    q, k, v = _qkv(3, 1, 40, 130, 2, 64)
-    mask = torch.zeros(1, 130, dtype=torch.bool)
-    out = flash_attention_reference(*map(torch.from_numpy, (q, k, v)),
-                                    kv_mask=mask)
-    want = np.broadcast_to(v.mean(axis=1, keepdims=True), out.shape)
-    np.testing.assert_allclose(out.numpy(), want, rtol=1e-5, atol=1e-5)
+    """A fully masked row is the sum of V over the Pallas wrapper's padded
+    key length (its padded keys weigh as the masked ones): the mean of V
+    when Lk fills its block, sum(V) / 256 for Lk = 130."""
+    for Lk, Lkp in ((130, 256), (128, 128), (1100, 2048)):
+        q, k, v = _qkv(3, 1, 40, Lk, 2, 64)
+        mask = torch.zeros(1, Lk, dtype=torch.bool)
+        out = flash_attention_reference(*map(torch.from_numpy, (q, k, v)),
+                                        kv_mask=mask)
+        want = np.broadcast_to(v.sum(axis=1, keepdims=True) / Lkp, out.shape)
+        np.testing.assert_allclose(out.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
 def test_fully_masked_row_with_ragged_keys_vs_pallas():
-    """The one place the port differs from the TPU kernel: a fully masked
-    row over a ragged key length. The Pallas kernel gives its padded keys
-    the same -1e30 as masked ones, so the row is sum(V) over the padded
-    length (256 at block 128 for Lk = 130); the port weighs only the real
-    keys, so the row is the mean of V. Other rows agree as they are."""
-    Lk, Lkp = 130, 256
-    q, k, v = _qkv(11, 2, 96, Lk, 2, 64)
-    mask = _mask(11, 2, Lk, fully_masked_row=True)
-    got, want = (_port(q, k, v, mask, torch.float32),
-                 _jax(q, k, v, mask, jnp.float32))
-    np.testing.assert_allclose(got[0], want[0], **FP32_TOL)
-    np.testing.assert_allclose(got[1] * (Lk / Lkp), want[1], **FP32_TOL)
+    """A fully masked row over a ragged key length, at the Pallas wrapper's
+    default blocks: the kernel gives its padded keys the same -1e30 as
+    masked ones, and the port adds them to the row sum as it does."""
+    q, k, v = _qkv(11, 2, 96, 130, 2, 64)
+    mask = _mask(11, 2, 130, fully_masked_row=True)
+    want = np.asarray(jax_flash(*(jnp.asarray(a) for a in (q, k, v)),
+                                kv_mask=jnp.asarray(mask), interpret=True))
+    np.testing.assert_allclose(_port(q, k, v, mask, torch.float32), want,
+                               **FP32_TOL)
 
 
 def test_cpu_dispatch():

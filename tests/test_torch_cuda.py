@@ -1,5 +1,7 @@
-"""The port on a CUDA device: the hand-written flash-attention kernel against
-its plain version, its shape checks, and the pipeline's default device.
+"""The port on a CUDA device: the hand-written flash-attention kernels (the
+forward B1, the forward with LSE B2, the backward B3a/B3b) against their
+plain versions, their shape checks, and the pipeline's and the trainer's
+default device.
 
 These tests need an NVIDIA GPU and nvcc, and skip without them. The module
 imports neither JAX nor the JAX package, so that on a GPU machine without
@@ -17,9 +19,11 @@ from videocof_torch.models.t5_encoder import init_t5_encoder
 from videocof_torch.models.wan_dit import init_wan_dit
 from videocof_torch.models.wan_vae import init_wan_vae
 from videocof_torch.ops import attention
+from videocof_torch.ops import flash_attention as fa
 from videocof_torch.ops.flash_attention import (flash_attention,
                                                 flash_attention_reference)
 from videocof_torch.pipeline import WanPipeline
+from videocof_torch.training import CoFTrainer, TrainerConfig
 
 # bf16: the kernel and the plain version round P to bf16 against different
 # running maxima (the tolerance of tests/test_flash_attention.py)
@@ -114,3 +118,157 @@ def test_pipeline_defaults_to_the_kernel(cuda):
     assert np.isfinite(a.latents).all()
     rel = np.linalg.norm(a.latents - b.latents) / np.linalg.norm(b.latents)
     assert rel <= 5e-2
+
+
+# B2 and B3 against their plain versions: relative L2 error; the kernel
+# feeds P and dS to the tensor cores in bf16/fp16 where the plain backward
+# keeps them fp32 (as JAX does)
+REL_TOL = 1e-2
+
+
+def _close(got, want, rel_tol=REL_TOL):
+    """Finite, relative L2 error <= rel_tol (None: not checked), and max abs
+    error <= 3e-2 * max(1, max |want|): a few bf16 ulps of the largest
+    value (gradients reach several units at these lengths)."""
+    assert torch.isfinite(got).all()
+    diff = got.float() - want.float()
+    err = diff.abs().max().item()
+    rel = (diff.norm() / want.float().norm()).item()
+    scale = max(1.0, want.float().abs().max().item())
+    assert err <= 3e-2 * scale, (err, rel, scale)
+    assert rel_tol is None or rel <= rel_tol, (err, rel, scale)
+
+
+def _check_fwd_bwd(q, k, v, do, mask=None):
+    """B2 and B3 against their plain versions on the same inputs (the
+    backward kernels get the plain LSE and delta, so each is held alone)."""
+    dtype = q.dtype
+    qs = q * fa._rounded(q.shape[-1] ** -0.5, dtype)
+    before = fa.launch_counts()
+    out, lse = fa.flash_fwd_lse(qs, k, v, kv_mask=mask)
+    ref_out, ref_lse = fa.flash_fwd_lse_reference(qs, k, v, kv_mask=mask)
+    torch.cuda.synchronize()
+    _close(out, ref_out)
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-4, atol=1e-4)
+    if mask is not None:
+        return
+    delta = fa.flash_bwd_delta(ref_out, do)
+    dq = fa.flash_bwd_dq(qs, k, v, do, ref_lse, delta)
+    dk, dv = fa.flash_bwd_dkv(qs, k, v, do, ref_lse, delta)
+    torch.cuda.synchronize()
+    assert dq.dtype == dk.dtype == dv.dtype == dtype
+    after = fa.launch_counts()
+    assert {n: after[n] - before[n] for n in after} == {
+        "flash_attention_fwd": 0, "flash_attention_fwd_lse": 1,
+        "flash_attention_bwd_dq": 1, "flash_attention_bwd_dkv": 1}
+    # with one key P = 1 and dS = P (dP - delta) = 0 but for rounding: dq
+    # and dk are rounding noise there, held by the absolute bound alone
+    rel_tol = None if k.shape[1] == 1 else REL_TOL
+    _close(dq, fa.flash_bwd_dq_reference(qs, k, v, do, ref_lse, delta),
+           rel_tol)
+    ref_dk, ref_dv = fa.flash_bwd_dkv_reference(qs, k, v, do, ref_lse, delta)
+    _close(dk, ref_dk, rel_tol)
+    _close(dv, ref_dv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Lq,Lk,D,dtype", [
+    (300, 300, 128, torch.bfloat16), (256, 130, 64, torch.bfloat16),
+    (1000, 700, 128, torch.float16), (64, 1, 64, torch.bfloat16),
+    (77, 513, 128, torch.bfloat16), (1000, 700, 64, torch.float16),
+])
+def test_lse_and_backward_kernels_match_plain(cuda, Lq, Lk, D, dtype):
+    q, k, v = _qkv(cuda, 2, Lq, Lk, 3, D, dtype)
+    g = torch.Generator(device=cuda).manual_seed(7)
+    do = torch.randn(2, Lq, 3, D, generator=g, device=cuda).to(dtype)
+    _check_fwd_bwd(q, k, v, do)
+
+
+@pytest.mark.cuda
+def test_lse_kernel_with_fully_masked_row(cuda):
+    q, k, v = _qkv(cuda, 2, 256, 130, 3, 64)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    mask = torch.rand(2, 130, generator=g, device=cuda) > 0.3
+    mask[-1] = False
+    _check_fwd_bwd(q, k, v, None, mask)
+    _, lse = fa.flash_fwd_lse(q, k, v, kv_mask=mask)
+    assert torch.isfinite(lse).all() and lse[-1].max().item() < -6e29
+
+
+@pytest.mark.cuda
+def test_backward_kernels_read_strided_inputs(cuda):
+    """q, k, v as views of one packed [B, L, 3, N, D] tensor, dO a view too."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    qkv = torch.randn(1, 333, 3, 2, 128, generator=g, device=cuda
+                      ).to(torch.bfloat16)
+    do2 = torch.randn(1, 333, 2, 2, 128, generator=g, device=cuda
+                      ).to(torch.bfloat16)
+    _check_fwd_bwd(*qkv.unbind(2), do2[:, :, 1])
+
+
+@pytest.mark.cuda
+def test_autograd_runs_the_kernels(cuda):
+    """flash_attention with inputs that need a gradient: B2 forward, B3a and
+    B3b backward, and gradients that agree with autograd through the naive
+    backend."""
+    q, k, v = (t.requires_grad_() for t in _qkv(cuda, 1, 400, 300, 2, 128))
+    do = torch.randn(1, 400, 2, 128, device=cuda).to(torch.bfloat16)
+    before = fa.launch_counts()
+    out = attention(q, k, v)
+    torch.autograd.backward(out, do)
+    after = fa.launch_counts()
+    assert [after[n] - before[n] for n in after] == [0, 1, 1, 1]
+    grads = [t.grad for t in (q, k, v)]
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    torch.autograd.backward(attention(*leaves, backend="naive"), do)
+    _close(out, attention(*leaves, backend="naive"), rel_tol=2e-2)
+    for got, leaf in zip(grads, leaves):
+        _close(got, leaf.grad, rel_tol=2e-2)
+
+
+@pytest.mark.cuda
+def test_backward_kernels_raise_on_unsupported_inputs(cuda):
+    x = torch.zeros(1, 64, 2, 96, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(NotImplementedError):       # head_dim 96
+        flash_attention(x.requires_grad_(), x, x)
+    q = torch.zeros(1, 64, 2, 128, dtype=torch.bfloat16, device=cuda)
+    lse = torch.zeros(1, 2, 64, device=cuda)
+    with pytest.raises(NotImplementedError):       # fp32
+        fa.flash_bwd_dq(q.float(), q.float(), q.float(), q.float(), lse, lse)
+    with pytest.raises(NotImplementedError):       # dO of another dtype
+        fa.flash_bwd_dkv(q, q, q, q.half(), lse, lse)
+    with pytest.raises(ValueError):                # lse not fp32 [B, N, Lq]
+        fa.flash_bwd_dq(q, q, q, q, lse.transpose(1, 2), lse)
+
+
+@pytest.mark.cuda
+def test_trainer_defaults_to_the_kernels(cuda):
+    """CoFTrainer with no device trains on CUDA through B2, B3a and B3b:
+    with block remat, B2 runs in the forward and again in the recompute."""
+    dcfg = WAN_TINY.replace(dim=128, ffn_dim=256, num_heads=2,
+                            in_dim=VAE_TINY.z_dim, out_dim=VAE_TINY.z_dim,
+                            text_dim=T5_TINY.dim)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    bf16 = torch.bfloat16
+    dit = init_wan_dit(dcfg, g, bf16)
+    tcfg = TrainerConfig(height=16, width=16, source_frames=5,
+                         target_frames=5, reasoning_frames=4, lora_rank=4,
+                         learning_rate=1e-3)
+    trainer = CoFTrainer(dit, init_wan_vae(VAE_TINY, g, bf16),
+                         init_t5_encoder(T5_TINY, g, bf16), None, tcfg)
+    assert trainer.device.type == "cuda"
+    rng = np.random.default_rng(0)
+
+    def samples():
+        while True:
+            yield {k: rng.uniform(-1, 1, (3, T, 16, 16)).astype(np.float32)
+                   for k, T in (("pixel_src", 5), ("pixel_ground", 4),
+                                ("pixel_tgt", 5))} | {"text": "remove it"}
+
+    fa.reset_launch_counts()
+    trainer.train(samples(), total_steps=1)
+    n = 2 * dcfg.num_layers
+    assert fa.launch_counts() == {
+        "flash_attention_fwd": 0, "flash_attention_fwd_lse": 2 * n,
+        "flash_attention_bwd_dq": n, "flash_attention_bwd_dkv": n}
+    assert np.isfinite(trainer.losses).all()

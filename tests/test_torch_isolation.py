@@ -30,11 +30,21 @@ def test_no_jax_import(path):
     assert not bad, f"{path} imports {bad}"
 
 
+def test_new_modules_are_covered():
+    names = {str(p.relative_to(ROOT)) for p in SOURCES}
+    assert {"videocof_torch/models/lora.py",
+            "videocof_torch/training/train_step.py",
+            "videocof_torch/training/trainer.py",
+            "videocof_torch/training/timestep_sampler.py"} <= names
+
+
 def test_pipeline_imports_without_jax():
     code = ("import sys\n"
             "for m in ('jax', 'jaxlib', 'videocof_tpu'): sys.modules[m] = None\n"
             "import videocof_torch.pipeline.wan_pipeline\n"
-            "import videocof_torch.convert\n")
+            "import videocof_torch.convert\n"
+            "import videocof_torch.models.lora\n"
+            "import videocof_torch.training\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr

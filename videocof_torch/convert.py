@@ -16,6 +16,8 @@ from typing import Any, Dict, Iterator, Tuple, Type, TypeVar
 import numpy as np
 import torch
 
+from .models.lora import LoRAAdapters
+
 C = TypeVar("C")
 
 
@@ -62,6 +64,25 @@ def dit_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
 def t5_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """`videocof_tpu.models.t5_encoder` params -> `T5Encoder` state dict."""
     return _linear_tree(params)
+
+
+def lora_from_jax(adapters: Dict[str, Any], cfg) -> LoRAAdapters:
+    """`videocof_tpu.models.lora.init_lora_adapters`-style adapters
+    ({"rank", "alpha", "blocks": {module: {name: {down [L, r, din],
+    up [L, dout, r]}}}}) -> the port's `LoRAAdapters` for the DiT config
+    ``cfg``. Both sides keep the torch orientation: no transpose."""
+    blocks = adapters["blocks"]
+    rank = int(np.asarray(adapters["rank"]))
+    module = LoRAAdapters(cfg, rank, float(np.asarray(adapters["alpha"])))
+    sd = {}
+    for mod, names in blocks.items():
+        for name, ad in names.items():
+            for part in ("down", "up"):
+                arr = np.asarray(ad[part], np.float32)
+                for i in range(arr.shape[0]):
+                    sd[f"blocks.{i}.{mod}.{name}.{part}"] = torch.tensor(arr[i])
+    module.load_state_dict(sd)
+    return module
 
 
 def vae_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:

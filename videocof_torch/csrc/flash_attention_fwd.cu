@@ -2,14 +2,25 @@
 // plain C entry point (ctypes).
 //
 // Replaces the Pallas TPU kernel `videocof_tpu/ops/flash_attention.py::
-// _flash_kernel` on its no-LSE inference path (`_flash_bnld(need_lse=False)`,
-// reached by `flash_attention`). Same function: bidirectional softmax
-// attention in the exp2 domain, with q pre-scaled exactly as the TPU wrapper
-// does (q * scale rounded to the input type, then * log2(e) rounded to the
-// input type), fp32 logits, running max, running sum and accumulator, keys
-// with mask 0 set to -1e30 (so a fully masked row yields the mean of V, never
-// NaN). Keys past Lk (the ragged edge) are excluded outright, and q rows past
-// Lq are never stored.
+// _flash_kernel` on both of its paths: without the LSE (`_flash_bnld(
+// need_lse=False)`, reached by `flash_attention`; kernel B1) and with it
+// (`need_lse=True`, reached by the training forward `_flash_core_fwd` and by
+// `flash_attention_with_lse`; kernel B2). One template, the LSE a compile-time
+// flag, so B1 carries no LSE code. Same function as the TPU kernel:
+// bidirectional softmax attention in the exp2 domain, with q pre-scaled
+// exactly as the TPU wrapper does (q * scale rounded to the input type, then
+// * log2(e) rounded to the input type), fp32 logits, running max, running sum
+// and accumulator, keys with mask 0 set to -1e30 (so a fully masked row never
+// yields NaN). Keys past Lk (the ragged edge) are excluded outright, and q rows
+// past Lq are never stored.
+//
+// The TPU wrapper pads Lk to its key block and gives the padded keys the same
+// -1e30 as masked ones; that matters only for a fully masked row, which it
+// averages over the padded length. The caller passes the padding as `n_pad`,
+// and the epilogue adds n_pad * exp2(-1e30 - m) to the row sum: exactly 0
+// for a row with any unmasked key, exactly n_pad for a fully masked row.
+// The LSE is natural-domain, m * ln 2 + ln l, in fp32 [B, N, Lq]; a fully
+// masked row keeps an LSE near -1e30 * ln 2, finite.
 //
 // Inputs are read in their [B, L, N, D] layout through element strides: no
 // transpose and no padding copy. The key mask is [B, Lk] bytes, read per
@@ -33,18 +44,14 @@
 // them fully; the softmax of one tile is not overlapped with the products of
 // the next; and CTAs are not persistent.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
+using namespace flash;
+
 constexpr int kBlockM = 64;   // q rows per CTA
 constexpr int kBlockN = 64;   // keys per K/V tile
-constexpr int kWarps = 4;     // 16 q rows per warp
-constexpr int kThreads = kWarps * 32;
-constexpr float kMaskedLogit = -1e30f;
 
 struct Params {
   const void* q;
@@ -52,7 +59,8 @@ struct Params {
   const void* v;
   const uint8_t* mask;  // [B, Lk] bytes or null
   void* o;
-  int Lq, Lk;
+  float* lse;           // [B, N, Lq] fp32, written when the LSE is asked for
+  int Lq, Lk, n_pad;
   long long q_sb, q_sl, q_sn;
   long long k_sb, k_sl, k_sn;
   long long v_sb, v_sl, v_sn;
@@ -61,120 +69,9 @@ struct Params {
   float log2e_q;   // log2(e), already rounded to the input type
 };
 
-template <typename T> struct Elem;
-
-template <> struct Elem<__nv_bfloat16> {
-  static __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-    return __bfloat162float(x);
-  }
-  static __device__ __forceinline__ __nv_bfloat16 from_float(float x) {
-    return __float2bfloat16_rn(x);
-  }
-  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-    __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&h);
-  }
-  static __device__ __forceinline__ void mma(float* c, const uint32_t* a,
-                                             const uint32_t* b) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-  }
-};
-
-template <> struct Elem<__half> {
-  static __device__ __forceinline__ float to_float(__half x) {
-    return __half2float(x);
-  }
-  static __device__ __forceinline__ __half from_float(float x) {
-    return __float2half_rn(x);
-  }
-  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-    __half2 h = __floats2half2_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&h);
-  }
-  static __device__ __forceinline__ void mma(float* c, const uint32_t* a,
-                                             const uint32_t* b) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-  }
-};
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// 16-byte async copy; src_bytes 0 fills the destination with zeros.
-__device__ __forceinline__ void cp_async_16(void* dst, const void* src,
-                                            bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
-
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// Element offset of (row, 16-byte chunk) in a [rows, D] tile whose chunks are
-// XOR-swizzled by the row's low three bits.
-template <int D>
-__device__ __forceinline__ int swz(int row, int chunk) {
-  return row * D + ((chunk ^ (row & 7)) << 3);
-}
-
-// Stage rows [row0, row0 + 64) of one head into a swizzled tile; rows at or
-// past `len` are zero-filled.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(T* tile, const T* base, int row0,
-                                          int len, long long row_stride,
-                                          int tid) {
-  constexpr int kChunks = D / 8;
-  static_assert(kBlockN * kChunks % kThreads == 0, "whole chunks per thread");
-#pragma unroll
-  for (int it = 0; it < kBlockN * kChunks / kThreads; ++it) {
-    const int i = tid + it * kThreads;
-    const int r = i / kChunks, c = i % kChunks;
-    const bool valid = row0 + r < len;
-    const T* src = valid ? base + (long long)(row0 + r) * row_stride + c * 8
-                         : base;
-    cp_async_16(tile + swz<D>(r, c), src, valid);
-  }
-}
-
-template <typename T, int D>
+template <typename T, int D, bool kLse>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const Params p) {
-  static_assert(kBlockM == kBlockN, "load_tile stages 64-row tiles");
   using E = Elem<T>;
   extern __shared__ __align__(128) unsigned char smem[];
   T* sQ = reinterpret_cast<T*>(smem);
@@ -190,10 +87,10 @@ flash_fwd_kernel(const Params p) {
   const uint8_t* mb = p.mask ? p.mask + (long long)b * p.Lk : nullptr;
   const int n_tiles = (p.Lk + kBlockN - 1) / kBlockN;
 
-  load_tile<T, D>(sQ, qb, q0, p.Lq, p.q_sl, tid);
+  load_tile<T, D, kBlockM>(sQ, qb, q0, p.Lq, p.q_sl, tid);
   cp_async_commit();
-  load_tile<T, D>(sK, kb, 0, p.Lk, p.k_sl, tid);
-  load_tile<T, D>(sV, vb, 0, p.Lk, p.v_sl, tid);
+  load_tile<T, D, kBlockN>(sK, kb, 0, p.Lk, p.k_sl, tid);
+  load_tile<T, D, kBlockN>(sV, vb, 0, p.Lk, p.v_sl, tid);
   cp_async_commit();
 
   // q * scale, then * log2(e), each rounded to the input type as the TPU
@@ -226,10 +123,10 @@ flash_fwd_kernel(const Params p) {
   for (int t = 0; t < n_tiles; ++t) {
     const int stage = t & 1;
     if (t + 1 < n_tiles) {
-      load_tile<T, D>(sK + (stage ^ 1) * kBlockN * D, kb, (t + 1) * kBlockN,
-                      p.Lk, p.k_sl, tid);
-      load_tile<T, D>(sV + (stage ^ 1) * kBlockN * D, vb, (t + 1) * kBlockN,
-                      p.Lk, p.v_sl, tid);
+      load_tile<T, D, kBlockN>(sK + (stage ^ 1) * kBlockN * D, kb,
+                               (t + 1) * kBlockN, p.Lk, p.k_sl, tid);
+      load_tile<T, D, kBlockN>(sV + (stage ^ 1) * kBlockN * D, vb,
+                               (t + 1) * kBlockN, p.Lk, p.v_sl, tid);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -326,6 +223,8 @@ flash_fwd_kernel(const Params p) {
     float l = row_sum[r];
     l += __shfl_xor_sync(0xffffffffu, l, 1);
     l += __shfl_xor_sync(0xffffffffu, l, 2);
+    // the TPU kernel's padded keys: 0 unless every real key was masked
+    l += p.n_pad * fast_exp2(kMaskedLogit - row_max[r]);
     const int row = q0 + warp * 16 + (lane >> 2) + r * 8;
     if (row >= p.Lq) continue;
     T* orow = ob + (long long)row * p.o_sl;
@@ -335,39 +234,49 @@ flash_fwd_kernel(const Params p) {
       *reinterpret_cast<uint32_t*>(orow + col) =
           E::pack(acc[jd][2 * r] / l, acc[jd][2 * r + 1] / l);
     }
+    if (kLse && (lane & 3) == 0)
+      p.lse[((long long)b * gridDim.y + h) * p.Lq + row] =
+          row_max[r] * kLn2 + logf(l);
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kLse>
 cudaError_t launch(const Params& p, int B, int N, cudaStream_t stream) {
   const int smem = (kBlockM + 4 * kBlockN) * D * static_cast<int>(sizeof(T));
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      flash_fwd_kernel<T, D, kLse>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.Lq + kBlockM - 1) / kBlockM, N, B);
-  flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(p);
+  flash_fwd_kernel<T, D, kLse><<<grid, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch_lse(const Params& p, int B, int N, cudaStream_t s) {
+  return p.lse ? launch<T, D, true>(p, B, N, s) : launch<T, D, false>(p, B, N, s);
 }
 
 }  // namespace
 
 // Returns a cudaError_t: 0 when the launch was accepted. Strides are in
 // elements; every row must start on a 16-byte boundary (the caller checks).
+// `lse` null runs B1 (no LSE), otherwise B2 writes the LSE [B, N, Lq] fp32.
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, const void* kv_mask, void* o,
-    int B, int N, int Lq, int Lk, int D, int is_fp16,
+    float* lse, int B, int N, int Lq, int Lk, int D, int is_fp16, int n_pad,
     long long q_sb, long long q_sl, long long q_sn,
     long long k_sb, long long k_sl, long long k_sn,
     long long v_sb, long long v_sl, long long v_sn,
     long long o_sb, long long o_sl, long long o_sn,
     float scale_q, float log2e_q, void* stream) {
-  if (B <= 0 || N <= 0 || Lq <= 0 || Lk <= 0 || N > 65535 || B > 65535)
+  if (B <= 0 || N <= 0 || Lq <= 0 || Lk <= 0 || n_pad < 0 || N > 65535 ||
+      B > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
-  p.q = q; p.k = k; p.v = v; p.o = o;
+  p.q = q; p.k = k; p.v = v; p.o = o; p.lse = lse;
   p.mask = static_cast<const uint8_t*>(kv_mask);
-  p.Lq = Lq; p.Lk = Lk;
+  p.Lq = Lq; p.Lk = Lk; p.n_pad = n_pad;
   p.q_sb = q_sb; p.q_sl = q_sl; p.q_sn = q_sn;
   p.k_sb = k_sb; p.k_sl = k_sl; p.k_sn = k_sn;
   p.v_sb = v_sb; p.v_sl = v_sl; p.v_sn = v_sn;
@@ -376,11 +285,11 @@ extern "C" int flash_attention_fwd(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (D == 128)
-    err = is_fp16 ? launch<__half, 128>(p, B, N, s)
-                  : launch<__nv_bfloat16, 128>(p, B, N, s);
+    err = is_fp16 ? launch_lse<__half, 128>(p, B, N, s)
+                  : launch_lse<__nv_bfloat16, 128>(p, B, N, s);
   else if (D == 64)
-    err = is_fp16 ? launch<__half, 64>(p, B, N, s)
-                  : launch<__nv_bfloat16, 64>(p, B, N, s);
+    err = is_fp16 ? launch_lse<__half, 64>(p, B, N, s)
+                  : launch_lse<__nv_bfloat16, 64>(p, B, N, s);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

@@ -13,6 +13,7 @@ the other); linear weights are [out, in] as in ``nn.Linear``.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -20,10 +21,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 from ..configs import WanDiTConfig
 from ..ops import attention
 from . import rope as rope_lib
+from .lora import fuse_block_adapters
 
 
 # --------------------------------------------------------------------- helpers
@@ -203,6 +207,17 @@ def unpatchify(x: torch.Tensor, grid, patch_size, out_dim: int) -> torch.Tensor:
 
 # ---------------------------------------------------------------------- model
 
+def _block_call(block, ad, lora_scale, attn_backend, stream, e0, ctx,
+                rope_cos, rope_sin, seq_mask):
+    """One block, with its LoRA adapters ``ad`` fused into its weights for
+    this call only when given."""
+    args = (stream, e0, ctx, (rope_cos, rope_sin), seq_mask, attn_backend)
+    if ad is None:
+        return block(*args)
+    return functional_call(block, fuse_block_adapters(block, ad, lora_scale),
+                           args)
+
+
 class WanDiT(nn.Module):
     """Velocity prediction [B, out_dim, F, H, W] from latents, timesteps,
     text embeddings and per-token RoPE tables."""
@@ -222,7 +237,13 @@ class WanDiT(nn.Module):
 
     def forward(self, x: torch.Tensor, t: torch.Tensor, context: torch.Tensor,
                 rope_cos: torch.Tensor, rope_sin: torch.Tensor,
-                attn_backend: Optional[str] = None) -> torch.Tensor:
+                attn_backend: Optional[str] = None, lora=None,
+                remat_blocks: bool = False) -> torch.Tensor:
+        """``lora`` = (`LoRAAdapters`, scale) fuses each block's adapters into
+        its weights inside that block's call, as the JAX scan does, so only
+        one block's fused weights exist at a time. ``remat_blocks`` wraps each
+        block in activation checkpointing (JAX's full remat): the backward
+        recomputes the block from its input stream."""
         cfg = self.cfg
         compute_dtype = self.patch_embed.weight.dtype
         tokens, grid = patchify(x.to(compute_dtype), cfg.patch_size)
@@ -250,11 +271,17 @@ class WanDiT(nn.Module):
             seq_mask = (torch.arange(Lp, device=hseq.device) < L_real
                         )[None].expand(hseq.shape[0], Lp)
 
-        rope_cs = (rope_cos, rope_sin)
         stream = hseq.to(getattr(torch, cfg.stream_dtype))
-        for block in self.blocks:
-            stream = block(stream, e0, ctx, rope_cs, seq_mask=seq_mask,
-                           attn_backend=attn_backend)
+        for i, block in enumerate(self.blocks):
+            ad = None if lora is None else lora[0].blocks[i]
+            call = functools.partial(_block_call, block, ad,
+                                     None if lora is None else lora[1],
+                                     attn_backend)
+            args = (stream, e0, ctx, rope_cos, rope_sin, seq_mask)
+            if remat_blocks and torch.is_grad_enabled():
+                stream = checkpoint(call, *args, use_reentrant=False)
+            else:
+                stream = call(*args)
 
         hm = self.head.modulation[None].float() + e[:, None, :]
         he0, he1 = hm[:, 0][:, None, :], hm[:, 1][:, None, :]

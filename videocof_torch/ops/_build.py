@@ -2,8 +2,10 @@
 
 Each source under `videocof_torch/csrc/` is compiled by `nvcc` into a shared
 library with a plain C interface, at first use, into `videocof_torch/_build/`
-(listed in `.gitignore`). The file name carries a hash of the source and the
-flags, so an edited source is rebuilt and an unchanged one is loaded as is.
+(listed in `.gitignore`). The file name carries a hash of the source, the
+shared headers (`csrc/*.cuh`) and the flags, so an edited source or header is
+rebuilt and an unchanged one is loaded as is. `build_all` compiles several
+sources at once, one nvcc process each.
 Nothing is built when a module is imported: the CPU tests import every module
 on a machine without `nvcc`.
 """
@@ -17,6 +19,7 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict
 
@@ -27,6 +30,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
+_source_locks: Dict[str, threading.Lock] = {}
 _loaded: Dict[str, ctypes.CDLL] = {}
 # per source: {"seconds": build wall time (0.0 when loaded from the cache),
 # "log": nvcc's output, including ptxas register/shared-memory report}
@@ -47,14 +51,26 @@ def _nvcc() -> str:
 
 def library_path(source: str) -> Path:
     src = (CSRC / source).read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src + headers + " ".join(NVCC_FLAGS).encode()
+                            ).hexdigest()
     return BUILD_DIR / f"lib{Path(source).stem}-{digest[:16]}.so"
+
+
+def build_all(sources) -> None:
+    """Compile the missing libraries of ``sources`` in parallel (one nvcc
+    process each) and load them all; raises on the first failed build."""
+    with ThreadPoolExecutor(max_workers=max(1, len(sources))) as pool:
+        for fut in [pool.submit(load, s) for s in sources]:
+            fut.result()
 
 
 def load(source: str) -> ctypes.CDLL:
     """Compile ``csrc/<source>`` (if its hashed library is missing) and load
     it. Raises with nvcc's output when the build fails."""
     with _lock:
+        lock = _source_locks.setdefault(source, threading.Lock())
+    with lock:
         if source in _loaded:
             return _loaded[source]
         lib_path = library_path(source)

@@ -1,30 +1,53 @@
-"""Flash-attention forward: the CUDA kernel `csrc/flash_attention_fwd.cu`,
-its launcher, and its plain PyTorch version.
+"""Flash attention: the CUDA kernels under `csrc/`, their launchers, their
+plain PyTorch versions, and the autograd Function that makes
+``flash_attention`` differentiable.
 
-Counterpart of `videocof_tpu/ops/flash_attention.py::flash_attention` (the
-Pallas `_flash_kernel` on its no-LSE path). ``flash_attention`` launches the
-kernel for a CUDA tensor and raises for what the kernel does not take; for a
-CPU tensor it computes ``flash_attention_reference``, the plain version the
-tests hold against JAX and the kernel against on the card.
+Counterpart of `videocof_tpu/ops/flash_attention.py`. Four kernels, each
+replacing one Pallas kernel (or one path of it):
+
+* B1 ``flash_attention_fwd.cu`` without the LSE: the inference forward
+  (`_flash_kernel` via `_flash_bnld(need_lse=False)`), counted in
+  ``flash_attention.launches``.
+* B2 the same kernel with the LSE (`_flash_bnld(need_lse=True)`): the
+  forward of every attention that needs a gradient, and
+  ``flash_attention_with_lse``; counted in ``flash_fwd_lse.launches``.
+* B3a ``flash_attention_bwd.cu``'s dQ kernel (`_bwd_dq_kernel`), counted in
+  ``flash_bwd_dq.launches``.
+* B3b its dK/dV kernel (`_bwd_dkv_kernel`), counted in
+  ``flash_bwd_dkv.launches``.
+
+Each wrapper launches its kernel for a CUDA tensor and raises for what the
+kernel does not take; for a CPU tensor it computes the plain version beside
+it, which the tests hold against JAX and the kernel against on the card.
+
+``flash_attention`` takes the autograd Function only when grad mode is on and
+an input requires grad; otherwise it launches B1. As in JAX, the softmax
+scale is folded into q outside the Function (``q * scale`` rounded to q's
+dtype), so autograd carries that chain rule and the Function runs at scale 1.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from . import _build
 
 LOG2E = 1.4426950408889634
+LN2 = 0.6931471805599453
 MASKED_LOGIT = -1e30
 SOURCE = "flash_attention_fwd.cu"
+BWD_SOURCE = "flash_attention_bwd.cu"
 HEAD_DIMS = (64, 128)
 DTYPES = (torch.bfloat16, torch.float16)
-# rows of q per chunk of the plain version: keeps its fp32 logits near 1 GiB
+# the Pallas wrapper's default key block (`flash_attention`'s block_k)
+JAX_BLOCK_K = 1024
+# rows of q per chunk of the plain versions: keeps their fp32 logits near 1 GiB
 _PLAIN_LOGIT_BYTES = 1 << 30
+
 
 def _check_shapes(q, k, v, kv_mask):
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
@@ -43,109 +66,411 @@ def _rounded(value: float, dtype: torch.dtype) -> float:
     return torch.tensor(value, dtype=dtype).item()
 
 
-def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
-                              v: torch.Tensor, *,
-                              kv_mask: Optional[torch.Tensor] = None,
-                              scale: Optional[float] = None) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: [B, L, N, D] softmax attention
-    with fp32 logits in the exp2 domain. q is scaled as the TPU wrapper does
-    it (``q * scale`` rounded to q's dtype, then ``* log2 e`` rounded to q's
-    dtype); keys with ``kv_mask`` False get the logit -1e30, so a fully
-    masked row is the mean of V; probabilities are rounded to v's dtype
-    before the PV product. Processes q in row chunks so the fp32 logits of a
-    long sequence stay bounded."""
+def key_padding(Lk: int) -> int:
+    """Keys the Pallas wrapper pads Lk with at its default block:
+    ``rup(Lk, min(1024, rup(Lk, 128))) - Lk``. They get the masked logit, so
+    they weigh only in a fully masked row."""
+    rup = lambda x, m: -(-x // m) * m  # noqa: E731
+    return rup(Lk, min(JAX_BLOCK_K, rup(Lk, 128))) - Lk
+
+
+def _row_chunk(B, N, Lk):
+    return max(1, _PLAIN_LOGIT_BYTES // (4 * B * N * max(Lk, 1)))
+
+
+# -------------------------------------------------------------- plain versions
+
+def _forward_reference(q, k, v, kv_mask, scale, need_lse):
     _check_shapes(q, k, v, kv_mask)
     B, Lq, N, D = q.shape
     Lk = k.shape[1]
-    scale = D ** -0.5 if scale is None else scale
     q2 = (q * _rounded(scale, q.dtype)) * _rounded(LOG2E, q.dtype)
     kf, vf = k.float(), v.float()
-    rows = max(1, _PLAIN_LOGIT_BYTES // (4 * B * N * Lk))
-    outs = []
+    n_pad = key_padding(Lk)
+    rows = _row_chunk(B, N, Lk)
+    outs, lses = [], []
     for r0 in range(0, Lq, rows):
         s = torch.einsum("bqnd,bknd->bnqk", q2[:, r0:r0 + rows].float(), kf)
         if kv_mask is not None:
             s = s.masked_fill(~kv_mask.bool()[:, None, None, :], MASKED_LOGIT)
-        p = torch.exp2(s - s.amax(dim=-1, keepdim=True))
-        denom = p.sum(dim=-1)                                   # [B, N, q]
+        m = s.amax(dim=-1)                                      # [B, N, q]
+        p = torch.exp2(s - m[..., None])
+        denom = p.sum(dim=-1) + n_pad * torch.exp2(MASKED_LOGIT - m)
         o = torch.einsum("bnqk,bknd->bqnd", p.to(v.dtype).float(), vf)
         outs.append((o / denom.transpose(1, 2)[..., None]).to(q.dtype))
-    return torch.cat(outs, dim=1)
+        if need_lse:
+            lses.append(m * LN2 + torch.log(denom))
+    out = torch.cat(outs, dim=1)
+    return out, (torch.cat(lses, dim=2) if need_lse else None)
 
+
+def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, *,
+                              kv_mask: Optional[torch.Tensor] = None,
+                              scale: Optional[float] = None) -> torch.Tensor:
+    """Plain PyTorch version of kernel B1: [B, L, N, D] softmax attention
+    with fp32 logits in the exp2 domain. q is scaled as the TPU wrapper does
+    it (``q * scale`` rounded to q's dtype, then ``* log2 e`` rounded to q's
+    dtype); keys with ``kv_mask`` False get the logit -1e30, and so do the
+    Pallas wrapper's padded keys (`key_padding`): a fully masked row is
+    sum(V) / (Lk + padding), as on the TPU. Probabilities are rounded to v's
+    dtype before the PV product. Processes q in row chunks so the fp32
+    logits of a long sequence stay bounded."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    return _forward_reference(q, k, v, kv_mask, scale, need_lse=False)[0]
+
+
+def flash_fwd_lse_reference(q, k, v, *, kv_mask=None, scale=1.0
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of kernel B2: ``flash_attention_reference`` and the
+    natural-domain LSE ``m * ln 2 + ln l`` [B, N, Lq] fp32, m the max of the
+    log2-domain logits and l the row sum, exactly as the Pallas kernel's
+    `lse_ref`. A fully masked row keeps an LSE near -1e30 * ln 2."""
+    return _forward_reference(q, k, v, kv_mask, scale, need_lse=True)
+
+
+def flash_bwd_delta(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
+    """delta = rowsum(dO * O) in fp32, [B, N, Lq] (outside the kernels, as
+    in `_flash_bwd_bnld`)."""
+    return (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+def _bwd_chunk(q, k, v, do, lse, delta, scale, r0, r1):
+    """P and dS of q rows [r0, r1) in fp32, as `_bwd_dq_kernel` and
+    `_bwd_dkv_kernel` recompute them: S in the natural domain from the
+    scale-folded q, P = exp(S - lse)."""
+    s = torch.einsum("bqnd,bknd->bnqk", q[:, r0:r1].float(), k.float()) * scale
+    p = torch.exp(s - lse[:, :, r0:r1, None])
+    dp = torch.einsum("bqnd,bknd->bnqk", do[:, r0:r1].float(), v.float())
+    return p, p * (dp - delta[:, :, r0:r1, None]) * scale
+
+
+def flash_bwd_dq_reference(q, k, v, do, lse, delta, *, scale=1.0):
+    """Plain version of kernel B3a: dQ = dS K in fp32, cast to q's dtype."""
+    B, Lq, N, _ = q.shape
+    rows = _row_chunk(B, N, k.shape[1])
+    out = []
+    for r0 in range(0, Lq, rows):
+        _, ds = _bwd_chunk(q, k, v, do, lse, delta, scale, r0, r0 + rows)
+        out.append(torch.einsum("bnqk,bknd->bqnd", ds, k.float()).to(q.dtype))
+    return torch.cat(out, dim=1)
+
+
+def flash_bwd_dkv_reference(q, k, v, do, lse, delta, *, scale=1.0):
+    """Plain version of kernel B3b: dV = P^T dO and dK = dS^T Q in fp32,
+    summed over q rows, cast to k's and v's dtypes."""
+    B, Lq, N, _ = q.shape
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+    rows = _row_chunk(B, N, k.shape[1])
+    for r0 in range(0, Lq, rows):
+        p, ds = _bwd_chunk(q, k, v, do, lse, delta, scale, r0, r0 + rows)
+        dv += torch.einsum("bnqk,bqnd->bknd", p, do[:, r0:r0 + rows].float())
+        dk += torch.einsum("bnqk,bqnd->bknd", ds, q[:, r0:r0 + rows].float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def masked_attention_reference(q, k, v, kv_mask):
+    """`_masked_ref_bnld`: attention with a key mask over the scale-folded q
+    (masked logits -1e30, no padded keys). The backward of the masked path
+    differentiates this, as JAX's `_flash_core_masked_bwd` does."""
+    s = torch.einsum("bqnd,bknd->bnqk", q.float(), k.float())
+    s = s.masked_fill(~kv_mask.bool()[:, None, None, :], MASKED_LOGIT)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bnqk,bknd->bqnd", p, v.float()).to(q.dtype)
+
+
+# --------------------------------------------------------------------- kernels
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
     fn = lib.flash_attention_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
                    + [ctypes.c_longlong] * 12
                    + [ctypes.c_float] * 2 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib
 
 
-def build() -> float:
-    """Build (or load) the kernel's library; returns the build seconds
-    (0.0 when it came from the build cache)."""
+@functools.lru_cache(maxsize=None)
+def _bwd_library() -> ctypes.CDLL:
+    lib = _build.load(BWD_SOURCE)
+    strides = ctypes.POINTER(ctypes.c_longlong)
+    head = [ctypes.c_void_p] * 7
+    sizes = [ctypes.c_int] * 6
+    lib.flash_attention_bwd_dq.argtypes = (
+        head + sizes + [strides] + [ctypes.c_longlong] * 3
+        + [ctypes.c_float, ctypes.c_void_p])
+    lib.flash_attention_bwd_dkv.argtypes = (
+        head + [ctypes.c_void_p] + sizes + [strides] + [ctypes.c_longlong] * 6
+        + [ctypes.c_float, ctypes.c_void_p])
+    lib.flash_attention_bwd_dq.restype = ctypes.c_int
+    lib.flash_attention_bwd_dkv.restype = ctypes.c_int
+    return lib
+
+
+def build() -> Dict[str, float]:
+    """Build (or load) every kernel's library, in parallel; returns the
+    build seconds per source (0.0 when it came from the build cache)."""
+    _build.build_all([SOURCE, BWD_SOURCE])
     _library()
-    return _build.build_info[SOURCE]["seconds"]
+    _bwd_library()
+    return {s: _build.build_info[s]["seconds"] for s in (SOURCE, BWD_SOURCE)}
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    kv_mask: Optional[torch.Tensor] = None,
-                    scale: Optional[float] = None) -> torch.Tensor:
-    """[B, L, N, D] bidirectional attention (heads on axis -2).
+def _layout_ok(t: torch.Tensor) -> bool:
+    return (t.stride(3) == 1 and not any(s % 8 for s in t.stride()[:3])
+            and t.data_ptr() % 16 == 0)
 
-    ``kv_mask`` [B, Lk] bool: keys with False are excluded from the softmax.
-    A CUDA tensor goes through the hand-written kernel, which takes bf16 or
-    fp16, head_dim 64 or 128, a unit stride on D and 16-byte aligned rows,
-    and raises otherwise. A CPU tensor goes through the plain version."""
-    _check_shapes(q, k, v, kv_mask)
-    if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, kv_mask=kv_mask, scale=scale)
+
+def _check_kernel_inputs(q, *others):
+    """Raise for what the kernels do not take: a non-CUDA tensor, a head dim
+    other than 64 or 128, a dtype other than bf16/fp16 (the same for all),
+    D not contiguous or rows not 16-byte aligned."""
     if q.device.type != "cuda":
-        raise NotImplementedError(f"flash_attention on {q.device}")
-    B, Lq, N, D = q.shape
-    Lk = k.shape[1]
+        raise NotImplementedError(f"flash attention kernels on {q.device}")
+    D = q.shape[-1]
     if D not in HEAD_DIMS:
         raise NotImplementedError(f"head_dim {D} not in {HEAD_DIMS}")
-    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise NotImplementedError(
-            f"dtypes {q.dtype}/{k.dtype}/{v.dtype}; the kernel takes one of "
-            f"{DTYPES}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
+    if q.dtype not in DTYPES:
+        raise NotImplementedError(f"dtype {q.dtype}; the kernels take one of "
+                                  f"{DTYPES}")
+    for i, t in enumerate((q, *others)):
+        if t.dtype != q.dtype:
+            raise NotImplementedError(f"input {i} is {t.dtype}, q {q.dtype}")
         if t.device != q.device:
-            raise ValueError(f"{name} on {t.device}, q on {q.device}")
-        if (t.stride(3) != 1 or any(s % 8 for s in t.stride()[:3])
-                or t.data_ptr() % 16):
+            raise ValueError(f"input {i} on {t.device}, q on {q.device}")
+        if not _layout_ok(t):
             raise NotImplementedError(
-                f"{name} strides {t.stride()}: D must be contiguous and rows "
-                "16-byte aligned")
-    if Lq == 0:
-        return q.new_empty(q.shape)
+                f"input {i} strides {t.stride()}: D must be contiguous and "
+                "rows 16-byte aligned")
+
+
+def _check_rowvec(name, t, q):
+    B, Lq, N, _ = q.shape
+    if (t.dtype != torch.float32 or t.device != q.device
+            or tuple(t.shape) != (B, N, Lq) or not t.is_contiguous()):
+        raise ValueError(f"{name} must be a contiguous fp32 [B, N, Lq] = "
+                         f"{(B, N, Lq)} tensor on {q.device}, got "
+                         f"{t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def _bld(t):
+    return t.stride(0), t.stride(1), t.stride(2)
+
+
+def _launch_fwd(q, k, v, kv_mask, scale, need_lse):
+    """Kernel B1 (need_lse False) or B2 on CUDA tensors."""
+    _check_kernel_inputs(q, k, v)
+    B, Lq, N, D = q.shape
+    Lk = k.shape[1]
     if Lk == 0:
         raise ValueError("attention over zero keys")
+    out = torch.empty((B, Lq, N, D), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((B, N, Lq), dtype=torch.float32, device=q.device)
+           if need_lse else None)
+    if Lq == 0:
+        return out, lse
     mask = None
     if kv_mask is not None:
         mask = kv_mask.to(device=q.device, dtype=torch.bool).contiguous()
-    out = torch.empty((B, Lq, N, D), dtype=q.dtype, device=q.device)
     lib = _library()
     with torch.cuda.device(q.device):   # the launch goes to the current device
         rc = lib.flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if mask is None else mask.data_ptr(), out.data_ptr(),
-            B, N, Lq, Lk, D, int(q.dtype == torch.float16),
-            q.stride(0), q.stride(1), q.stride(2),
-            k.stride(0), k.stride(1), k.stride(2),
-            v.stride(0), v.stride(1), v.stride(2),
-            out.stride(0), out.stride(1), out.stride(2),
-            _rounded(D ** -0.5 if scale is None else scale, q.dtype),
-            _rounded(LOG2E, q.dtype),
+            None if lse is None else lse.data_ptr(),
+            B, N, Lq, Lk, D, int(q.dtype == torch.float16), key_padding(Lk),
+            *_bld(q), *_bld(k), *_bld(v), *_bld(out),
+            _rounded(scale, q.dtype), _rounded(LOG2E, q.dtype),
             torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention_fwd launch failed: CUDA error {rc}")
+    return out, lse
+
+
+def _forward_b1(q, k, v, kv_mask, scale):
+    """Kernel B1 on a CUDA tensor, its plain version on a CPU tensor."""
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v, kv_mask=kv_mask, scale=scale)
+    out, _ = _launch_fwd(q, k, v, kv_mask, scale, need_lse=False)
     flash_attention.launches += 1
     return out
 
 
+def flash_fwd_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  kv_mask: Optional[torch.Tensor] = None, scale: float = 1.0
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel B2: (out [B, Lq, N, D], lse [B, N, Lq] fp32, natural domain).
+    ``scale`` defaults to 1: the callers fold it into q."""
+    _check_shapes(q, k, v, kv_mask)
+    if q.device.type == "cpu":
+        return flash_fwd_lse_reference(q, k, v, kv_mask=kv_mask, scale=scale)
+    out_lse = _launch_fwd(q, k, v, kv_mask, scale, need_lse=True)
+    flash_fwd_lse.launches += 1
+    return out_lse
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, *, scale: float = 1.0
+                 ) -> torch.Tensor:
+    """Kernel B3a: dQ [B, Lq, N, D] in q's dtype, from the scale-folded q,
+    the forward's LSE and delta (`flash_bwd_delta`)."""
+    _check_shapes(q, k, v, None)
+    if q.device.type == "cpu":
+        return flash_bwd_dq_reference(q, k, v, do, lse, delta, scale=scale)
+    _check_kernel_inputs(q, k, v, do)
+    _check_rowvec("lse", lse, q)
+    _check_rowvec("delta", delta, q)
+    B, Lq, N, D = q.shape
+    dq = torch.empty((B, Lq, N, D), dtype=q.dtype, device=q.device)
+    if Lq == 0 or k.shape[1] == 0:
+        return dq.zero_()
+    strides = (ctypes.c_longlong * 12)(*_bld(q), *_bld(k), *_bld(v), *_bld(do))
+    with torch.cuda.device(q.device):
+        rc = _bwd_library().flash_attention_bwd_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            B, N, Lq, k.shape[1], D, int(q.dtype == torch.float16),
+            strides, *_bld(dq), float(scale),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention_bwd_dq launch failed: CUDA error "
+                           f"{rc}")
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, *, scale: float = 1.0
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel B3b: (dK, dV) [B, Lk, N, D] in k's dtype, from the
+    scale-folded q, the forward's LSE and delta (`flash_bwd_delta`)."""
+    _check_shapes(q, k, v, None)
+    if q.device.type == "cpu":
+        return flash_bwd_dkv_reference(q, k, v, do, lse, delta, scale=scale)
+    _check_kernel_inputs(q, k, v, do)
+    _check_rowvec("lse", lse, q)
+    _check_rowvec("delta", delta, q)
+    B, Lq, N, D = q.shape
+    Lk = k.shape[1]
+    dk = torch.empty((B, Lk, N, D), dtype=k.dtype, device=q.device)
+    dv = torch.empty((B, Lk, N, D), dtype=v.dtype, device=q.device)
+    if Lq == 0 or Lk == 0:
+        return dk.zero_(), dv.zero_()
+    strides = (ctypes.c_longlong * 12)(*_bld(q), *_bld(k), *_bld(v), *_bld(do))
+    with torch.cuda.device(q.device):
+        rc = _bwd_library().flash_attention_bwd_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            B, N, Lq, Lk, D, int(q.dtype == torch.float16),
+            strides, *_bld(dk), *_bld(dv), float(scale),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention_bwd_dkv launch failed: CUDA "
+                           f"error {rc}")
+    flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+# -------------------------------------------------------------------- autograd
+
+class _FlashAttention(torch.autograd.Function):
+    """`_flash_core` with its custom VJP, at scale 1: the forward is B2 and
+    saves (q, k, v, out, lse); the backward is delta, B3a and B3b."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        out, lse = flash_fwd_lse(q, k, v)
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        if dout.device.type == "cuda" and not _layout_ok(dout):
+            dout = dout.contiguous()
+        delta = flash_bwd_delta(out, dout)
+        dq = flash_bwd_dq(q, k, v, dout, lse, delta)
+        dk, dv = flash_bwd_dkv(q, k, v, dout, lse, delta)
+        return dq, dk, dv
+
+
+class _FlashAttentionMasked(torch.autograd.Function):
+    """`_flash_core_masked`: the forward is B1 with the key mask (no LSE, as
+    on the TPU); the backward recomputes through `masked_attention_reference`
+    in plain PyTorch (O(L^2) memory), as JAX recomputes through XLA."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_mask):
+        ctx.save_for_backward(q, k, v, kv_mask)
+        return _forward_b1(q, k, v, kv_mask, 1.0)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, kv_mask = ctx.saved_tensors
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            out = masked_attention_reference(*leaves, kv_mask)
+        dq, dk, dv = torch.autograd.grad(out, leaves, dout)
+        return dq, dk, dv, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    kv_mask: Optional[torch.Tensor] = None,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """[B, L, N, D] bidirectional attention (heads on axis -2),
+    differentiable.
+
+    ``kv_mask`` [B, Lk] bool: keys with False are excluded from the softmax.
+    Without a gradient to carry this is kernel B1; with one (grad mode on
+    and an input requiring grad) the forward is B2 and the backward B3a and
+    B3b, or, with a key mask, B1 and a plain recompute. The kernels take
+    bf16 or fp16, head_dim 64 or 128, a unit stride on D and 16-byte aligned
+    rows, and raise otherwise. A CPU tensor goes through the plain
+    versions."""
+    _check_shapes(q, k, v, kv_mask)
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        q_s = q * _rounded(scale, q.dtype)
+        if kv_mask is None:
+            return _FlashAttention.apply(q_s, k, v)
+        return _FlashAttentionMasked.apply(q_s, k, v, kv_mask.bool())
+    return _forward_b1(q, k, v, kv_mask, scale)
+
+
+def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, *,
+                             kv_mask: Optional[torch.Tensor] = None,
+                             scale: Optional[float] = None
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Like ``flash_attention`` but also returns the natural-domain
+    log-sum-exp [B, Lq, N, 1] fp32 (kernel B2), the blockwise-combine
+    primitive of ring attention. Not differentiable, as in JAX."""
+    _check_shapes(q, k, v, kv_mask)
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    out, lse = flash_fwd_lse(q * _rounded(scale, q.dtype), k, v,
+                             kv_mask=kv_mask)
+    return out, lse.transpose(1, 2)[..., None]
+
+
 flash_attention.launches = 0
+flash_fwd_lse.launches = 0
+flash_bwd_dq.launches = 0
+flash_bwd_dkv.launches = 0
+
+# kernel name -> its wrapper (which carries the launch count)
+KERNEL_WRAPPERS = {
+    "flash_attention_fwd": flash_attention,
+    "flash_attention_fwd_lse": flash_fwd_lse,
+    "flash_attention_bwd_dq": flash_bwd_dq,
+    "flash_attention_bwd_dkv": flash_bwd_dkv,
+}
+
+
+def launch_counts() -> Dict[str, int]:
+    return {name: fn.launches for name, fn in KERNEL_WRAPPERS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNEL_WRAPPERS.values():
+        fn.launches = 0

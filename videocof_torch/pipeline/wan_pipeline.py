@@ -46,7 +46,7 @@ def latent_frame_count(pixel_frames: int, ratio: int = 4) -> int:
 def _resolve_device(device) -> torch.device:
     device = torch.device("cuda" if device is None else device)
     if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("WanPipeline runs on CUDA by default and no CUDA "
+        raise RuntimeError("the port runs on CUDA by default and no CUDA "
                            "device is available; pass device='cpu' to run "
                            "the plain versions on the CPU")
     return device
