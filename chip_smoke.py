@@ -9,29 +9,47 @@ Phases, each of which fails the run (non-zero exit) on any fault:
      source, all at once; ptxas registers and spills of every kernel.
   2. kernels vs plain, on the card, at the main paths' shapes and at the
      edge cases (ragged length, key mask with a fully masked batch row,
-     D = 64, fp16): the forward B1 and the forward with LSE B2 on the output
+     D = 64 (flash) or 256 (int8), fp16): the forward B1 and the forward
+     with LSE B2 on the output
      (max abs error <= 3e-2 and relative L2 error <= 1e-2: at the main
      path's lengths the outputs are small, so the absolute bound alone would
      pass a wrong kernel) and on the LSE (relative error <= 1e-4: both sides
      sum the same fp32 probabilities); the backward kernels B3a (dq) and
      B3b (dk, dv) on the same gates (the plain backward keeps P and dS in
      fp32 as JAX does, the kernels round them to bf16 for the tensor cores
-     as FlashAttention-2 does; about 3e-3 relative L2 expected). Then a
-     2-block full-width DiT on a small latent through the kernels against
-     the naive attention backend: the forward, and the gradient of its LoRA
-     adapters (relative L2 error <= 2e-2 each).
-  3. kernel timing at the two main-path shapes (12 heads): each kernel, its
-     plain version, the least time the card could take (bound), and one
-     PyTorch call that computes the same function (SDPA's forward, with and
-     without a gradient to carry, and SDPA's backward: yardsticks the port
-     never calls); CUDA events, median of the runs after a warm-up.
+     as FlashAttention-2 does; about 3e-3 relative L2 expected); the int8
+     kernel B4 in its two kernels, K's quantization pre-pass (at most one
+     int8 level off its plain version, in at most 1e-4 of the values) and
+     the attention on the same quantized K (B1's gates), and the whole of
+     B4 against its plain version (B1's gates) and against unquantized
+     attention (cosine similarity > 0.999, JAX's test). Then a 2-block
+     full-width DiT on a small latent through the kernels against the naive
+     attention backend: the forward, and the gradient of its LoRA adapters
+     (relative L2 error <= 2e-2 each), and the forward through B4 (<= 1e-2;
+     1.8e-3 measured on the CPU with B4's plain version); B4 under autograd
+     raises.
+  3. kernel timing at the two main-path shapes (12 heads; batch 2 for B4,
+     as batched CFG runs it): each kernel, its plain version, the least time
+     the card could take (bound), and one PyTorch call that computes the
+     same function (SDPA's forward, with and without a gradient to carry,
+     and SDPA's backward: yardsticks the port never calls; for B4 SDPA's
+     unquantized bf16 forward, not the same function); CUDA events, median
+     of the runs after a warm-up.
   4. the edit: `WanPipeline` at full width (Wan2.1 1.3B DiT, Wan2.1 VAE,
      umT5-XXL, random bf16 weights from a seed) edits a 33-frame 480x832
      uint8 video with 4 reasoning frames in 4 Flow-UniPC steps; checks the
      output and that B1 ran exactly 2 x layers x steps times and no other
      kernel ran; then one DiT step of the edit's geometry under
      torch.profiler (device time by kernel, idle share).
-  5. training: `CoFTrainer` on the same models with rank-16 LoRA adapters and
+  5. the standard edit: the same models and video through
+     `WanPipeline(attn_backend="int8")` in 50 Flow-UniPC steps at shift 3,
+     guidance 5 against the default negative prompt, TeaCache with Wan2.1
+     T2V 1.3B's coefficients on a plan pinned at a 40% skip rate (18 of 50
+     steps; random weights would skip most steps, and the plan they give
+     is printed); checks the output and that B4 ran exactly 2 x layers x
+     computed steps times and no other kernel ran; then one batched-CFG
+     DiT step (batch 2) under torch.profiler.
+  6. training: `CoFTrainer` on the same models with rank-16 LoRA adapters and
      the default `TrainerConfig` (480x832, 33 source + 4 reasoning + 33
      target frames, block remat) takes 3 steps on synthetic triplets, the
      first a warm-up; checks finite losses, adapters that moved in step 1,
@@ -39,7 +57,7 @@ Phases, each of which fails the run (non-zero exit) on any fault:
      (per step: B2 in every attention's forward and again in its remat
      recompute, B3a and B3b once per attention, no B1); then one step under
      torch.profiler.
-  6. a `kernels` JSON line and, last, the device JSON line.
+  7. a `kernels` JSON line and, last, the device JSON line.
 
 It exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
@@ -55,14 +73,23 @@ import sys
 import time
 from pathlib import Path
 
+# the port's kernel functions, as their names appear in ptxas and the profiler
+OUR_KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_kernel",
+               "flash_bwd_dkv_kernel", "int8_attn_kernel", "quant_k_kernel")
 TOL = 3e-2                     # bf16 tolerance of a kernel vs its plain version
 REL_TOL = 1e-2                 # ... and of ||kernel - plain|| / ||plain||
 LSE_TOL = 1e-4                 # max |lse kernel - plain| / max(1, |lse plain|)
 DIT_REL_TOL = 2e-2             # DiT through the kernels vs the naive backend
+DIT_INT8_REL_TOL = 1e-2        # ... through B4 (1.8e-3 measured on the CPU)
+QUANT_FLIP_TOL = 1e-4          # share of int8 values one level off the plain
+COS_TOL = 0.999                # B4 vs unquantized attention (JAX's test)
 PEAK_BF16_FLOPS = 989e12       # H100 SXM dense bf16 (data sheet)
+PEAK_INT8_OPS = 1979e12        # H100 SXM dense int8 (data sheet)
 PEAK_BYTES = 3.35e12           # H100 SXM HBM3
 SEED = 0
 TRAIN_STEPS = 3
+STD_STEPS = 50                 # the standard edit (the reference's inference.py)
+TEACACHE_PIN = 0.4             # pinned TeaCache skip rate (bench.py's)
 
 
 def log(*args):
@@ -91,10 +118,12 @@ def cuda_ms(fn, runs, warmup=2):
     return statistics.median(times)
 
 
-def bound(flops, nbytes):
-    """(ms, "operations" | "bytes"): the larger of FLOP over the bf16 peak
-    and bytes over the memory rate."""
-    ops_ms, bytes_ms = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+def bound(flops, nbytes, int8_ops=0):
+    """(ms, "operations" | "bytes"): the larger of the operations' time (bf16
+    FLOP over the bf16 peak plus int8 OP over the int8 peak) and bytes over
+    the memory rate."""
+    ops_ms = (flops / PEAK_BF16_FLOPS + int8_ops / PEAK_INT8_OPS) * 1e3
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
@@ -115,6 +144,34 @@ def kernel_bounds(B, Lq, Lk, N, D, eb=2):
     }
 
 
+def int8_bounds(B, Lq, Lk, N, D, eb=2):
+    """Bounds of B4 and its two kernels: the int8 product qi ki^T at the
+    int8 peak and the bf16 product PV at the bf16 peak; bytes of the inputs
+    read once and outputs written once (q, k, v, o in bf16; the pre-pass
+    writes int8 K and fp32 row scales that the attention kernel reads, and
+    reads the fp32 K mean)."""
+    mm = B * N * Lq * Lk * D
+    q_b, kv_b = eb * B * Lq * N * D, eb * B * Lk * N * D
+    ki_b, sk_b, mean_b = B * Lk * N * D, 4 * B * N * Lk, 4 * B * N * D
+    return {
+        "int8_flash_attention": bound(2 * mm, 2 * q_b + 2 * kv_b, 2 * mm),
+        "int8_quantize_k": bound(0, kv_b + mean_b + ki_b + sk_b),
+        "int8_attention_fwd": bound(2 * mm, 2 * q_b + kv_b + ki_b + sk_b,
+                                    2 * mm),
+    }
+
+
+def pinned_teacache_plan(steps, rate, warmup=5):
+    """A TeaCache plan at a fixed skip rate, spread evenly after the warm-up
+    steps (bench.py's BENCH_TEACACHE_PIN plan): True = skipped."""
+    plan, acc = [], 0.0
+    for i in range(steps):
+        acc += rate if i >= warmup else 0.0
+        plan.append(acc >= 1.0)
+        acc -= int(acc)
+    return plan
+
+
 def ptxas_report(log_text):
     """[(kernel, registers, spill stores, spill loads)] from nvcc -Xptxas -v."""
     rows, name, spills = [], None, (0, 0)
@@ -127,9 +184,7 @@ def ptxas_report(log_text):
             spills = (int(m.group(1)), int(m.group(2)))
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
-            kernel = next((k for k in ("flash_fwd_kernel", "flash_bwd_dq_kernel",
-                                       "flash_bwd_dkv_kernel") if k in name),
-                          name)
+            kernel = next((k for k in OUR_KERNELS if k in name), name)
             dim = re.search(r"Li(\d+)E", name)
             short = (f"{kernel}<{'bf16' if 'bfloat16' in name else 'fp16'}, "
                      f"D={dim.group(1) if dim else '?'}"
@@ -182,8 +237,7 @@ def report_profile(label, wall_ms, busy_ms, kernels):
         return
     ours = {}
     for ms, n, name in kernels:
-        for key in ("flash_fwd_kernel", "flash_bwd_dq_kernel",
-                    "flash_bwd_dkv_kernel"):
+        for key in OUR_KERNELS:
             if key in name:
                 lse = "Lb1E" in name or re.search(r"fwd_kernel<[^>]*true>",
                                                   name)
@@ -198,7 +252,7 @@ def report_profile(label, wall_ms, busy_ms, kernels):
     ours_ms = sum(ms for ms, _ in ours.values())
     log(f"[profile] {label}: wall {wall_ms:.1f} ms, device busy "
         f"{busy_ms:.1f} ms (idle {1 - busy_ms / wall_ms:.1%}); kernel time "
-        f"{kernel_ms:.1f} ms: flash kernels {ours_ms:.1f} ms ("
+        f"{kernel_ms:.1f} ms: attention kernels {ours_ms:.1f} ms ("
         + ", ".join(f"{k} {ms:.1f} ms x{n}" for k, (ms, n) in ours.items())
         + f"), cuBLAS GEMMs {gemm_ms:.1f} ms, cuDNN convolutions "
         f"{conv_ms:.1f} ms, everything else "
@@ -256,18 +310,30 @@ def main() -> int:
                                         WAN21_T2V_1_3B, WanVAEConfig)
     from videocof_torch.models.lora import ADAPTER_TARGETS, init_lora_adapters
     from videocof_torch.models.t5_encoder import init_t5_encoder
+    from videocof_torch.models.teacache import (get_teacache_coefficients,
+                                                plan_teacache_skips)
     from videocof_torch.models.wan_dit import (init_wan_dit,
                                                make_rope_for_geometry)
     from videocof_torch.models.wan_vae import init_wan_vae
     from videocof_torch.ops import _build
     from videocof_torch.ops import flash_attention as fa
+    from videocof_torch.ops import int8_attention as i8
     from videocof_torch.pipeline import WanPipeline, latent_frame_count
+    from videocof_torch.schedulers import get_scheduler
     from videocof_torch.training import (CoFTrainer, TrainerConfig,
                                          flow_matching_loss)
 
     dev = torch.device("cuda")
     bf16 = torch.bfloat16
     names = list(fa.KERNEL_WRAPPERS)    # B1, B2, B3a, B3b
+    names8 = list(i8.KERNEL_WRAPPERS)   # B4: its pre-pass and its attention
+
+    def launch_counts():
+        return {**fa.launch_counts(), **i8.launch_counts()}
+
+    def reset_launch_counts():
+        fa.reset_launch_counts()
+        i8.reset_launch_counts()
 
     # ------------------------------------------------------------ 1. device
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -319,7 +385,7 @@ def main() -> int:
         ("head_dim 64", (1, 3000, 3000, 4, 64), None, bf16),
         ("fp16", (1, 1000, 700, 2, D), None, torch.float16),
     ]
-    errs = {n: [0.0, 0.0] for n in names}     # max abs, max relative L2
+    errs = {n: [0.0, 0.0] for n in names + names8 + ["int8_flash_attention"]}
 
     def note(kernel, err_rel):
         errs[kernel] = [max(a, b) for a, b in zip(errs[kernel], err_rel)]
@@ -375,6 +441,75 @@ def main() -> int:
         del q, k, v, qs, do, ref, ref_lse, delta, dk, dv, ref_dk, ref_dv
     torch.cuda.empty_cache()
 
+    # B4: the pre-pass against its plain version on the same K mean, the
+    # attention kernel against its plain version on the same quantized K,
+    # and the two together against B4's plain version and against
+    # unquantized attention; batch 2 at the path's shapes (batched CFG)
+    cases8 = [
+        ("self-attention, CFG batch, 2 of 12 heads", (2, L, L, 2, D), None,
+         bf16),
+        ("cross-attention, CFG batch", (2, L, Lt, N, D), None, bf16),
+        ("ragged L=3000", (1, 3000, 3000, 4, D), None, bf16),
+        ("key mask, fully masked batch row", (2, 1000, 777, 3, D), "mask",
+         bf16),
+        ("head_dim 256", (1, 3000, 3000, 2, 256), None, bf16),
+        ("fp16", (1, 1000, 700, 2, D), None, torch.float16),
+    ]
+    for name, shape, masked, dtype in cases8:
+        B, Lq, Lk, Nh, Dh = shape
+        label = f"{name} {shape} {str(dtype)[6:]}"
+        q, k, v = qkv(*shape, dtype=dtype)
+        mask = None
+        if masked:
+            mask = torch.rand(B, Lk, generator=gen, device=dev) > 0.3
+            mask[-1] = False
+        mean = i8.k_mean(k)
+        ki, sk = i8.int8_quantize_k(k, mean)
+        torch.cuda.synchronize()
+        ki_ref, sk_ref = i8.quantize_k_reference(k, mean)
+        levels = (ki.int() - ki_ref.int()).abs()
+        flips = (levels > 0).float().mean().item()
+        sk_err = ((sk - sk_ref).abs() / sk_ref).max().item()
+        deq = ki.float() * sk[..., None]
+        deq_ref = ki_ref.float() * sk_ref[..., None]
+        deq_err = (deq - deq_ref).abs().max().item()
+        deq_rel = ((deq - deq_ref).norm() / deq_ref.norm()).item()
+        ok = (levels.max().item() <= 1 and flips <= QUANT_FLIP_TOL
+              and sk_err <= 1e-6)
+        log(f"[kernel vs plain] B4 pre-pass {label}: int8 values off by "
+            f"<= {levels.max().item()} level in a share {flips:.3e} (tol 1 "
+            f"level, {QUANT_FLIP_TOL}), row scales max relative err "
+            f"{sk_err:.3e} (tol 1e-6), dequantized K max abs err "
+            f"{deq_err:.3e}: {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"B4's quantization pre-pass disagrees: {label}")
+        note("int8_quantize_k", (deq_err, deq_rel))
+        del ki_ref, sk_ref, levels, deq, deq_ref
+        out = i8.int8_attention_fwd(q, ki, sk, v, kv_mask=mask)
+        torch.cuda.synchronize()
+        ref = i8.int8_attention_reference(q, ki, sk, v, kv_mask=mask)
+        note("int8_attention_fwd", compare(f"B4 attention {label}", out, ref))
+        del out, ref, ki, sk
+        out = i8.int8_flash_attention(q, k, v, kv_mask=mask)
+        torch.cuda.synchronize()
+        ref = i8.int8_flash_attention_reference(q, k, v, kv_mask=mask)
+        note("int8_flash_attention", compare(f"B4 whole {label}", out, ref))
+        # a fully masked row averages V over each wrapper's own padded
+        # length (B1's key block is 1024, B4's 512): left out here
+        rows = slice(0, B - 1) if masked else slice(None)
+        exact = fa.flash_attention_reference(q, k, v, kv_mask=mask)[rows]
+        got, exact = out[rows].float(), exact.float()
+        diff = got - exact
+        rel = (diff.norm() / exact.norm()).item()
+        cos = (got * exact).sum().item() / (got.norm() * exact.norm()).item()
+        log(f"[int8 vs unquantized] B4 {label}: relative L2 err {rel:.3e}, "
+            f"cosine similarity {cos:.6f} (tol > {COS_TOL}): "
+            f"{'ok' if cos > COS_TOL else 'FAIL'}")
+        if not cos > COS_TOL:
+            fail(f"B4 strays from unquantized attention: {label}")
+        del q, k, v, mean, out, ref, got, exact, diff
+    torch.cuda.empty_cache()
+
     # the kernels inside a full-width DiT (2 blocks) on a small latent: the
     # forward, and the gradient of LoRA adapters (non-zero up, so every
     # adapter gets one) against the naive backend
@@ -393,6 +528,29 @@ def main() -> int:
         f"naive: relative L2 error {rel:.3e} (tol {DIT_REL_TOL})")
     if not (torch.isfinite(v_flash).all() and rel <= DIT_REL_TOL):
         fail("DiT through the kernels disagrees with the naive backend")
+    before = launch_counts()
+    with torch.no_grad():
+        v_int8 = dit_small(x.to(bf16), t, ctx, cos, sin, attn_backend="int8")
+    after = launch_counts()
+    ran = {n: after[n] - before[n] for n in after}
+    rel = ((v_int8 - v_naive).norm() / v_naive.norm()).item()
+    log(f"[kernel vs plain] 2-block 1.3B-width DiT, 1950 tokens, int8 (B4) "
+        f"vs naive: relative L2 error {rel:.3e} (tol {DIT_INT8_REL_TOL}); "
+        f"launches {ran}")
+    if not (torch.isfinite(v_int8).all() and rel <= DIT_INT8_REL_TOL):
+        fail("DiT through B4 disagrees with the naive backend")
+    if ran != dict(dict.fromkeys(names, 0), int8_quantize_k=4,
+                   int8_attention_fwd=4):
+        fail(f"DiT through B4 launched {ran}")
+    try:
+        leaf = torch.zeros(1, 64, 2, 128, dtype=bf16, device=dev,
+                           requires_grad=True)
+        i8.int8_flash_attention(leaf, leaf, leaf)
+    except NotImplementedError as exc:
+        log(f"[int8] under autograd: raises NotImplementedError ({exc})")
+    else:
+        fail("B4 under autograd did not raise")
+    del v_int8
     dit_small.requires_grad_(False)
     adapters = init_lora_adapters(small, gen, rank=16)
     with torch.no_grad():
@@ -492,6 +650,48 @@ def main() -> int:
         del sdpa_out, runs, library
         torch.cuda.empty_cache()
 
+    # B4 at the standard edit's shapes (batched CFG: batch 2): the whole of
+    # it (K mean, pre-pass, attention) and each kernel; the yardstick is
+    # SDPA's unquantized bf16 forward, which is not the same function (no
+    # PyTorch call computes int8 attention)
+    timing8 = {}
+    for shape_name, (B, Lq, Lk), plain_runs in (("self", (2, L, L), 3),
+                                                ("cross", (2, L, Lt), 10)):
+        q, k, v = qkv(B, Lq, Lk, N, D)
+        mean = i8.k_mean(k)
+        ki, sk = i8.int8_quantize_k(k, mean)
+        runs = {
+            "int8_flash_attention": (
+                lambda: i8.int8_flash_attention(q, k, v),
+                lambda: i8.int8_flash_attention_reference(q, k, v)),
+            "int8_quantize_k": (lambda: i8.int8_quantize_k(k, mean),
+                                lambda: i8.quantize_k_reference(k, mean)),
+            "int8_attention_fwd": (
+                lambda: i8.int8_attention_fwd(q, ki, sk, v),
+                lambda: i8.int8_attention_reference(q, ki, sk, v)),
+        }
+        qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+        sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt),
+                          runs=10)
+        bounds = int8_bounds(B, Lq, Lk, N, D)
+        shape = f"B={B} Lq={Lq} Lk={Lk} N={N} D={D} bf16"
+        timing8[shape_name] = {}
+        for kname, (kernel_fn, plain_fn) in runs.items():
+            ms = cuda_ms(kernel_fn, runs=10)
+            plain_ms = cuda_ms(plain_fn, runs=plain_runs, warmup=1)
+            bound_ms, bound_by = bounds[kname]
+            timing8[shape_name][kname] = dict(
+                shape=shape, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None,
+                sdpa_unquantized_ms=sdpa_ms)
+            log(f"[timing] {kname} {shape_name} {shape}: kernel_ms {ms:.4f} "
+                f"bound_ms {bound_ms:.4f} ({bound_by}) plain_ms "
+                f"{plain_ms:.4f} (share of bound {bound_ms / ms:.1%}); SDPA "
+                f"bf16 forward, unquantized, not the same function: "
+                f"{sdpa_ms:.4f} ms")
+        del q, k, v, mean, ki, sk, runs, qt, kt, vt
+        torch.cuda.empty_cache()
+
     # ----------------------------------------------------------- 4. the edit
     t0 = time.perf_counter()
     t5 = init_t5_encoder(T5Config(), gen, bf16, dev)
@@ -507,7 +707,7 @@ def main() -> int:
     prompt = "replace the red car with a blue bicycle"
     timings = {}
     torch.cuda.reset_peak_memory_stats()
-    fa.reset_launch_counts()
+    reset_launch_counts()
     t0 = time.perf_counter()
     out = pipe(video, prompt, source_frames=geo.source_frames,
                reasoning_frames=geo.reasoning_frames,
@@ -516,12 +716,12 @@ def main() -> int:
                sampler=geo.sampler, repeat_rope=geo.repeat_rope,
                cot=geo.cot, seed=geo.seed, timings=timings)
     wall = time.perf_counter() - t0
-    edit_launches = fa.launch_counts()
+    edit_launches = launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     out_frames = 1 + (ground - 1) * tc + geo.source_frames
     want_shape = (1, 3, out_frames, geo.height, geo.width)
-    want_launches = dict.fromkeys(names, 0)
+    want_launches = dict.fromkeys(names + names8, 0)
     want_launches["flash_attention_fwd"] = (2 * dcfg.num_layers
                                             * geo.num_inference_steps)
     vid = out.videos
@@ -562,7 +762,91 @@ def main() -> int:
     del x, ctx, cos, sin, pipe
     torch.cuda.empty_cache()
 
-    # --------------------------------------------------------- 5. training
+    # ------------------------------------------------ 5. the standard edit
+    std = GenerationConfig(num_inference_steps=STD_STEPS, guidance_scale=5.0,
+                           enable_teacache=True)
+    pipe = WanPipeline(dit, vae, t5, dtype=bf16, attn_backend="int8")
+    sched = get_scheduler(std.sampler)
+    sched.set_timesteps(std.num_inference_steps, shift=std.shift)
+    coeffs = get_teacache_coefficients("wan2.1-t2v-1.3b")
+    own_plan = plan_teacache_skips(dit, sched.timesteps, coeffs,
+                                   std.teacache_threshold,
+                                   std.teacache_skip_start_steps)
+    plan = pinned_teacache_plan(std.num_inference_steps, TEACACHE_PIN)
+    show = lambda p: "".join("s" if x else "c" for x in p)  # noqa: E731
+    log(f"[standard edit] TeaCache plan these random weights give "
+        f"(threshold {std.teacache_threshold}, {std.teacache_skip_start_steps}"
+        f" warm-up steps): {sum(own_plan)} of {len(own_plan)} steps skipped, "
+        f"{show(own_plan)}; pinned at {TEACACHE_PIN}: {sum(plan)} skipped, "
+        f"{show(plan)}")
+    std_timings = {}
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = pipe(video, prompt, negative_prompt=std.negative_prompt,
+               source_frames=std.source_frames,
+               reasoning_frames=std.reasoning_frames,
+               num_inference_steps=std.num_inference_steps,
+               guidance_scale=std.guidance_scale, shift=std.shift,
+               sampler=std.sampler, repeat_rope=std.repeat_rope, cot=std.cot,
+               seed=std.seed, enable_teacache=std.enable_teacache,
+               teacache_threshold=std.teacache_threshold,
+               teacache_skip_start_steps=std.teacache_skip_start_steps,
+               teacache_coefficients=coeffs, teacache_forced_plan=plan,
+               cfg_skip_ratio=std.cfg_skip_ratio, timings=std_timings)
+    std_wall = time.perf_counter() - t0
+    std_launches = launch_counts()
+    std_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    computed = plan.count(False)
+    want_std = dict(dict.fromkeys(names, 0),
+                    int8_quantize_k=2 * dcfg.num_layers * computed,
+                    int8_attention_fwd=2 * dcfg.num_layers * computed)
+    vid = out.videos
+    log(f"[standard edit] output {vid.shape} min {vid.min():.4f} max "
+        f"{vid.max():.4f}")
+    if vid.shape != want_shape:
+        fail(f"standard edit output shape {vid.shape} != {want_shape}")
+    if not (np.isfinite(vid).all() and vid.min() >= 0.0 and vid.max() <= 1.0):
+        fail("standard edit frames not finite or outside [0, 1]")
+    if std_launches != want_std:
+        fail(f"the standard edit launched {std_launches}, expected "
+             f"{want_std}")
+    walls = [v for k, v in std_timings.items() if k.startswith("step")]
+    skipped = [v for k, v in std_timings.items() if k.endswith("skipped")]
+    computed_walls = [v for k, v in std_timings.items()
+                      if k.startswith("step") and not k.endswith("skipped")]
+    log("[standard edit] stage walls (s): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in std_timings.items()))
+    log(f"[standard edit] seconds per edit {std_wall:.3f}; peak device memory "
+        f"{std_peak_gb:.2f} GB; launches {std_launches}; {computed} computed "
+        f"steps, median {statistics.median(computed_walls):.3f} s (batch 2, "
+        f"{2 * step_flops:.3e} FLOP, "
+        f"{2 * step_flops / statistics.median(computed_walls) / 1e12:.1f} "
+        f"TFLOP/s); {len(skipped)} skipped steps, median "
+        f"{statistics.median(skipped):.3f} s; the 50 steps {sum(walls):.3f} s")
+    log("[standard edit] " + json.dumps({
+        "card": card, "seconds_per_edit": std_wall, "stages_s": std_timings,
+        "peak_memory_gb": std_peak_gb, "launches": std_launches,
+        "teacache_plan": show(plan), "teacache_plan_own": show(own_plan)}))
+    del out, vid, pipe
+
+    # one batched-CFG DiT step (batch 2) through B4 under torch.profiler
+    x = torch.randn(2, dcfg.in_dim, latent_frames, geo.height // sc,
+                    geo.width // sc, generator=gen, device=dev).to(bf16)
+    ctx = randn(2, Lt, dcfg.text_dim)
+    cos, sin = (torch.as_tensor(arr, device=dev) for arr in
+                make_rope_for_geometry(dcfg, grid, f_src=cond,
+                                       f_ground=ground))
+    t = torch.full((2,), 937.0, device=dev)
+    with torch.no_grad():
+        report_profile(f"one batched-CFG DiT step (batch 2) through B4 at {L} "
+                       "tokens", *profile_kernels(
+                           lambda: dit(x, t, ctx, cos, sin,
+                                       attn_backend="int8")))
+    del x, ctx, cos, sin
+    torch.cuda.empty_cache()
+
+    # --------------------------------------------------------- 6. training
     tcfg = TrainerConfig(lora_rank=16)
     base = {name: p.detach().clone() for name, p in dit.named_parameters()}
     trainer = CoFTrainer(dit, vae, t5, None, tcfg)
@@ -581,7 +865,7 @@ def main() -> int:
     samples = iter([triplet() for _ in range(TRAIN_STEPS + 1)])
     train_stages = []
     torch.cuda.reset_peak_memory_stats()
-    fa.reset_launch_counts()
+    reset_launch_counts()
     step_walls = []
     for step in range(TRAIN_STEPS):
         t0 = time.perf_counter()
@@ -594,10 +878,10 @@ def main() -> int:
             log(f"[train] after step 1: max |up| {moved:.3e}")
             if not moved > 0.0:
                 fail("no adapter moved in the first training step")
-    train_launches = fa.launch_counts()
+    train_launches = launch_counts()
     train_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     attentions = 2 * dcfg.num_layers            # self + cross per block
-    want_train = {"flash_attention_fwd": 0,
+    want_train = {**dict.fromkeys(names8, 0), "flash_attention_fwd": 0,
                   "flash_attention_fwd_lse": 2 * attentions * TRAIN_STEPS,
                   "flash_attention_bwd_dq": attentions * TRAIN_STEPS,
                   "flash_attention_bwd_dkv": attentions * TRAIN_STEPS}
@@ -626,7 +910,7 @@ def main() -> int:
     report_profile("one LoRA training step", *profile_kernels(
         lambda: trainer.train(samples, total_steps=1)))
 
-    # ------------------------------------------------------------ 6. report
+    # ------------------------------------------------------------ 7. report
     sources = {"flash_attention_fwd": "flash_attention_fwd.cu",
                "flash_attention_fwd_lse": "flash_attention_fwd.cu",
                "flash_attention_bwd_dq": "flash_attention_bwd.cu",
@@ -658,6 +942,32 @@ def main() -> int:
             "library_ms": main_shape["library_ms"],
             "shape": main_shape["shape"],
             "cross": timing["cross"][kname],
+        })
+    # B4: its two kernels, with the whole of it (K mean, pre-pass,
+    # attention) beside the attention kernel's row
+    tpu8 = {"int8_quantize_k": "_int8_kernel's K quantization (:68-71)",
+            "int8_attention_fwd": "_int8_kernel"}
+    for kname in names8:
+        main_shape = timing8["self"][kname]
+        rows.append({
+            "name": kname, "route": "cuda",
+            "source": f"videocof_torch/csrc/{i8.SOURCE}",
+            "replaces": "videocof_tpu/ops/int8_attention.py:51",
+            "tpu_kernel": tpu8[kname],
+            "launches": std_launches[kname],
+            "launches_on": "standard edit",
+            "max_abs_err": errs[kname][0],
+            "max_rel_l2_err": errs[kname][1],
+            **{key: main_shape[key] for key in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "sdpa_unquantized_ms", "shape")},
+            "cross": timing8["cross"][kname],
+            **({"b4_whole": dict(
+                timing8["self"]["int8_flash_attention"],
+                max_abs_err=errs["int8_flash_attention"][0],
+                max_rel_l2_err=errs["int8_flash_attention"][1],
+                cross=timing8["cross"]["int8_flash_attention"])}
+               if kname == "int8_attention_fwd" else {}),
         })
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

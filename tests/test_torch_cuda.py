@@ -1,7 +1,7 @@
 """The port on a CUDA device: the hand-written flash-attention kernels (the
-forward B1, the forward with LSE B2, the backward B3a/B3b) against their
-plain versions, their shape checks, and the pipeline's and the trainer's
-default device.
+forward B1, the forward with LSE B2, the backward B3a/B3b) and the int8
+attention kernel B4 against their plain versions, their shape checks, and the
+pipeline's and the trainer's default device.
 
 These tests need an NVIDIA GPU and nvcc, and skip without them. The module
 imports neither JAX nor the JAX package, so that on a GPU machine without
@@ -20,6 +20,7 @@ from videocof_torch.models.wan_dit import init_wan_dit
 from videocof_torch.models.wan_vae import init_wan_vae
 from videocof_torch.ops import attention
 from videocof_torch.ops import flash_attention as fa
+from videocof_torch.ops import int8_attention as i8
 from videocof_torch.ops.flash_attention import (flash_attention,
                                                 flash_attention_reference)
 from videocof_torch.pipeline import WanPipeline
@@ -272,3 +273,108 @@ def test_trainer_defaults_to_the_kernels(cuda):
         "flash_attention_fwd": 0, "flash_attention_fwd_lse": 2 * n,
         "flash_attention_bwd_dq": n, "flash_attention_bwd_dkv": n}
     assert np.isfinite(trainer.losses).all()
+
+
+# B4 against its plain version: the same int8 values on both sides (an
+# element on a rounding boundary may flip one level where the two K means
+# differ in the last bit), then B1's bf16 tolerances
+def _check_int8(q, k, v, mask=None):
+    before = i8.launch_counts()
+    got = i8.int8_flash_attention(q, k, v, kv_mask=mask)
+    torch.cuda.synchronize()
+    after = i8.launch_counts()
+    assert {n: after[n] - before[n] for n in after} == {
+        "int8_quantize_k": 1, "int8_attention_fwd": 1}
+    assert got.dtype == v.dtype
+    _close(got, i8.int8_flash_attention_reference(q, k, v, kv_mask=mask))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Lq,Lk,D,dtype", [
+    (300, 300, 128, torch.bfloat16), (256, 130, 128, torch.bfloat16),
+    (1000, 700, 128, torch.float16), (64, 1, 128, torch.bfloat16),
+    (77, 513, 256, torch.bfloat16), (333, 200, 256, torch.float16),
+])
+def test_int8_kernel_matches_plain(cuda, Lq, Lk, D, dtype):
+    _check_int8(*_qkv(cuda, 2, Lq, Lk, 3, D, dtype))
+
+
+@pytest.mark.cuda
+def test_int8_kernel_key_mask_with_fully_masked_row(cuda):
+    """A fully masked row averages V over the Pallas wrapper's padded key
+    length (256 for Lk = 130)."""
+    q, k, v = _qkv(cuda, 2, 256, 130, 3, 128)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    mask = torch.rand(2, 130, generator=g, device=cuda) > 0.3
+    mask[-1] = False
+    _check_int8(q, k, v, mask)
+    out = i8.int8_flash_attention(q, k, v, kv_mask=mask)
+    want = (v[-1].float().sum(0) / 256).expand(256, 3, 128)
+    torch.testing.assert_close(out[-1].float(), want, rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.cuda
+def test_int8_kernels_read_strided_inputs(cuda):
+    """q, k, v as views of one packed [B, L, 3, N, D] tensor: no copy."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    qkv = torch.randn(2, 333, 3, 2, 128, generator=g, device=cuda
+                      ).to(torch.bfloat16)
+    q, k, v = qkv.unbind(2)
+    _check_int8(q, k, v)
+    ki, sk = i8.int8_quantize_k(k, i8.k_mean(k))
+    want_i, want_s = i8.quantize_k_reference(k, i8.k_mean(k))
+    torch.testing.assert_close(sk, want_s, rtol=1e-6, atol=0)
+    assert (ki.int() - want_i.int()).abs().max().item() <= 1
+
+
+@pytest.mark.cuda
+def test_int8_unsupported_inputs_raise(cuda):
+    x = torch.zeros(1, 64, 2, 64, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(NotImplementedError):            # head_dim 64
+        attention(x, x, x, backend="int8")
+    x = torch.zeros(1, 64, 2, 384, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(NotImplementedError):            # no D = 384 build
+        attention(x, x, x, backend="int8")
+    x = torch.zeros(1, 64, 2, 128, device=cuda)
+    with pytest.raises(NotImplementedError):            # fp32
+        attention(x, x, x, backend="int8")
+    x = x.to(torch.bfloat16)
+    with pytest.raises(NotImplementedError):            # D not contiguous
+        attention(x, x, x.transpose(1, 3).contiguous().transpose(1, 3),
+                  backend="int8")
+    with pytest.raises(NotImplementedError):            # no gradient
+        attention(x.requires_grad_(), x, x, backend="int8")
+
+
+@pytest.mark.cuda
+def test_int8_cfg_edit_runs_the_kernel(cuda):
+    """A 2-step CFG edit through the int8 backend on the card: every
+    attention goes through B4 (both of its kernels, batch 2), no flash
+    kernel runs, and the edit agrees with the naive backend."""
+    dcfg = WAN_TINY.replace(dim=256, ffn_dim=512, num_heads=2,
+                            in_dim=VAE_TINY.z_dim, out_dim=VAE_TINY.z_dim,
+                            text_dim=T5_TINY.dim)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    bf16 = torch.bfloat16
+    pipe = WanPipeline(init_wan_dit(dcfg, g, bf16),
+                       init_wan_vae(VAE_TINY, g, bf16),
+                       init_t5_encoder(T5_TINY, g, bf16), dtype=bf16,
+                       attn_backend="int8")
+    video = np.random.default_rng(0).integers(0, 256, (1, 3, 9, 32, 32),
+                                              dtype=np.uint8)
+    kw = dict(source_frames=9, reasoning_frames=4, num_inference_steps=2,
+              guidance_scale=5.0, negative_prompt="blurry",
+              output_latents=True)
+    fa.reset_launch_counts()
+    i8.reset_launch_counts()
+    a = pipe(video, "remove the ball", **kw)
+    n = 2 * dcfg.num_layers * 2
+    assert i8.launch_counts() == {"int8_quantize_k": n,
+                                  "int8_attention_fwd": n}
+    assert not any(fa.launch_counts().values())
+    pipe.attn_backend = "naive"
+    b = pipe(video, "remove the ball", **kw)
+    assert a.videos.shape == (1, 3, 10, 32, 32)
+    assert np.isfinite(a.latents).all()
+    rel = np.linalg.norm(a.latents - b.latents) / np.linalg.norm(b.latents)
+    assert rel <= 5e-2

@@ -35,7 +35,11 @@ def test_new_modules_are_covered():
     assert {"videocof_torch/models/lora.py",
             "videocof_torch/training/train_step.py",
             "videocof_torch/training/trainer.py",
-            "videocof_torch/training/timestep_sampler.py"} <= names
+            "videocof_torch/training/timestep_sampler.py",
+            "videocof_torch/ops/int8_attention.py",
+            "videocof_torch/models/teacache.py",
+            "videocof_torch/schedulers/flow_euler.py",
+            "videocof_torch/schedulers/flow_dpm.py"} <= names
 
 
 def test_pipeline_imports_without_jax():
@@ -44,7 +48,11 @@ def test_pipeline_imports_without_jax():
             "import videocof_torch.pipeline.wan_pipeline\n"
             "import videocof_torch.convert\n"
             "import videocof_torch.models.lora\n"
-            "import videocof_torch.training\n")
+            "import videocof_torch.training\n"
+            "import videocof_torch.ops.int8_attention\n"
+            "import videocof_torch.models.teacache\n"
+            "import videocof_torch.schedulers.flow_euler\n"
+            "import videocof_torch.schedulers.flow_dpm\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr

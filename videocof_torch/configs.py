@@ -2,7 +2,7 @@
 
 The same frozen dataclasses and published geometries as
 `videocof_tpu/configs.py`, minus the fields whose behaviour the port does not
-carry yet (i2v, fp8, remat, FFN chunking, TeaCache knobs).
+carry yet (i2v, fp8, remat, FFN chunking).
 """
 
 from __future__ import annotations
@@ -111,7 +111,9 @@ T5_TINY = T5Config(vocab=128, dim=32, dim_attn=32, dim_ffn=64, num_heads=4,
 
 @dataclass(frozen=True)
 class GenerationConfig:
-    """Knobs of the 4-step chain-of-frames edit (the main path)."""
+    """Knobs of a chain-of-frames edit; the defaults are the 4-step edit
+    (the main path). The standard edit sets 50 steps, guidance 5 and
+    TeaCache."""
 
     height: int = 480
     width: int = 832
@@ -120,7 +122,20 @@ class GenerationConfig:
     num_inference_steps: int = 4
     guidance_scale: float = 1.0
     shift: float = 3.0
-    sampler: str = "unipc"
+    sampler: str = "unipc"  # unipc | euler | dpm++
     repeat_rope: bool = True
     cot: bool = True
     seed: int = 0
+    negative_prompt: str = (
+        "Bright tones, overexposed, static, blurred details, subtitles, style,"
+        " works, paintings, images, static, overall gray, worst quality, low"
+        " quality, JPEG compression residue, ugly, incomplete, extra fingers,"
+        " poorly drawn hands, poorly drawn faces, deformed, disfigured,"
+        " misshapen limbs, fused fingers, still picture, messy background,"
+        " three legs, many people in the background, walking backwards"
+    )
+    # TeaCache (reference `inference.py:106-109`)
+    enable_teacache: bool = False
+    teacache_threshold: float = 0.10
+    teacache_skip_start_steps: int = 5
+    cfg_skip_ratio: float = 0.0

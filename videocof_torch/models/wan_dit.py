@@ -244,6 +244,31 @@ class WanDiT(nn.Module):
         one block's fused weights exist at a time. ``remat_blocks`` wraps each
         block in activation checkpointing (JAX's full remat): the backward
         recomputes the block from its input stream."""
+        return self._run(x, t, context, rope_cos, rope_sin, attn_backend,
+                         lora=lora, remat_blocks=remat_blocks)[0]
+
+    def forward_with_residual(self, x: torch.Tensor, t: torch.Tensor,
+                              context: torch.Tensor, rope_cos: torch.Tensor,
+                              rope_sin: torch.Tensor,
+                              attn_backend: Optional[str] = None,
+                              residual: Optional[torch.Tensor] = None,
+                              skip_blocks: bool = False
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The forward that exposes TeaCache's token-stream residual
+        (`wan_dit_forward_with_residual` with a Python-bool skip): returns
+        (velocity, residual). Computing, the residual is the block stack's
+        output stream minus its input; with ``skip_blocks`` the stack is
+        bypassed, ``residual`` (of an earlier computed step) is added to the
+        embedded stream and returned as it is, and the head still runs."""
+        if skip_blocks and residual is None:
+            raise ValueError("skip_blocks needs a cached residual")
+        return self._run(x, t, context, rope_cos, rope_sin, attn_backend,
+                         residual=residual, skip_blocks=skip_blocks,
+                         want_residual=True)
+
+    def _run(self, x, t, context, rope_cos, rope_sin, attn_backend, lora=None,
+             remat_blocks=False, residual=None, skip_blocks=False,
+             want_residual=False):
         cfg = self.cfg
         compute_dtype = self.patch_embed.weight.dtype
         tokens, grid = patchify(x.to(compute_dtype), cfg.patch_size)
@@ -271,8 +296,11 @@ class WanDiT(nn.Module):
             seq_mask = (torch.arange(Lp, device=hseq.device) < L_real
                         )[None].expand(hseq.shape[0], Lp)
 
-        stream = hseq.to(getattr(torch, cfg.stream_dtype))
-        for i, block in enumerate(self.blocks):
+        stream0 = hseq.to(getattr(torch, cfg.stream_dtype))
+        stream = stream0
+        if skip_blocks:
+            stream = stream0 + residual
+        for i, block in enumerate(() if skip_blocks else self.blocks):
             ad = None if lora is None else lora[0].blocks[i]
             call = functools.partial(_block_call, block, ad,
                                      None if lora is None else lora[1],
@@ -282,12 +310,17 @@ class WanDiT(nn.Module):
                 stream = checkpoint(call, *args, use_reentrant=False)
             else:
                 stream = call(*args)
+        if skip_blocks:
+            residual_out = residual
+        else:
+            residual_out = stream - stream0 if want_residual else None
 
         hm = self.head.modulation[None].float() + e[:, None, :]
         he0, he1 = hm[:, 0][:, None, :], hm[:, 1][:, None, :]
         out = _layer_norm(stream, cfg.eps) * (1.0 + he1) + he0
         out = _linear(out.to(compute_dtype), self.head.fc)[:, :L_real]
-        return unpatchify(out.float(), grid, cfg.patch_size, cfg.out_dim)
+        return (unpatchify(out.float(), grid, cfg.patch_size, cfg.out_dim),
+                residual_out)
 
 
 def make_rope_for_geometry(cfg: WanDiTConfig, grid,

@@ -211,12 +211,16 @@ def _bwd_library() -> ctypes.CDLL:
 
 
 def build() -> Dict[str, float]:
-    """Build (or load) every kernel's library, in parallel; returns the
-    build seconds per source (0.0 when it came from the build cache)."""
-    _build.build_all([SOURCE, BWD_SOURCE])
+    """Build (or load) every kernel's library of the port, the int8 kernel
+    B4's too, in parallel; returns the build seconds per source (0.0 when it
+    came from the build cache)."""
+    from . import int8_attention   # it imports this module
+    sources = (SOURCE, BWD_SOURCE, int8_attention.SOURCE)
+    _build.build_all(sources)
     _library()
     _bwd_library()
-    return {s: _build.build_info[s]["seconds"] for s in (SOURCE, BWD_SOURCE)}
+    int8_attention._library()
+    return {s: _build.build_info[s]["seconds"] for s in sources}
 
 
 def _layout_ok(t: torch.Tensor) -> bool:

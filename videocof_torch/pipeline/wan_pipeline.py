@@ -1,12 +1,22 @@
 """Chain-of-frames editing pipeline, PyTorch (the stepwise path).
 
 Counterpart of `videocof_tpu/pipeline/wan_pipeline.py` (`WanPipeline.__call__`
-with ``cot=True``, no CFG, and the uint8 RGB output of
-``VIDEOCOF_FETCH_YUV420=0``): umT5 prompt encoding with zero-padded
-embeddings and no cross-attention mask; CoT latents ``[mu | noise(ground +
-target)]``; CoF repeat-RoPE as per-token tables; Flow-UniPC steps, each one
-DiT forward followed by the source freeze ``v[:, :, :condition_count] = 0``;
-separate decodes of the ground and edit segments, quantized to uint8.
+with ``cot=True`` on its stepwise loop, ``VIDEOCOF_STEPWISE=1``, and the uint8
+RGB output of ``VIDEOCOF_FETCH_YUV420=0``): umT5 prompt encoding with
+zero-padded embeddings and no cross-attention mask; CoT latents ``[mu |
+noise(ground + target)]``; CoF repeat-RoPE as per-token tables; the sampler's
+steps (Flow-UniPC, Euler or DPM++), each one DiT forward followed by the
+source freeze ``v[:, :, :condition_count] = 0``; separate decodes of the
+ground and edit segments, quantized to uint8.
+
+Classifier-free guidance (``guidance_scale > 1``) encodes the negative
+prompt and runs the uncond and cond rows as one batch (uncond first), or as
+two batch-B forwards with ``cfg_sequential``, combined as ``vu + g (vc -
+vu)``; ``cfg_skip_ratio`` drops the uncond rows in the last fraction of the
+steps. TeaCache plans its skipped steps once from the timestep schedule and
+replays the cached residual of the block stack on them. JAX's fused and
+segmented samplers compute the same trajectory as this loop in one compiled
+program; the port stays stepwise.
 """
 
 from __future__ import annotations
@@ -19,11 +29,11 @@ import numpy as np
 import torch
 
 from ..data.tokenizer import WanTokenizer
-from ..models import wan_dit
+from ..models import teacache, wan_dit
 from ..models.t5_encoder import T5Encoder
 from ..models.wan_dit import WanDiT
 from ..models.wan_vae import WanVAE
-from ..schedulers import FlowUniPCScheduler
+from ..schedulers import get_scheduler
 
 
 @dataclasses.dataclass
@@ -64,6 +74,9 @@ class WanPipeline:
         self.tokenizer = tokenizer or WanTokenizer(vocab_size=t5.cfg.vocab)
         self.dtype = dtype
         self.attn_backend = attn_backend
+        # CFG as two batch-B DiT forwards instead of one batch-2B forward:
+        # half the activations, the same result
+        self.cfg_sequential = False
 
     # ------------------------------------------------------------------ text
     @torch.no_grad()
@@ -111,32 +124,80 @@ class WanPipeline:
         x = self.vae.decode(z.to(self.dtype)).float()
         return torch.round(x * 127.5 + 127.5).clamp(0, 255).to(torch.uint8)
 
+    # ------------------------------------------------------------------ step
+    def _dit(self, x, t_i, context, cos, sin, residual, skip):
+        t = torch.full((x.shape[0],), t_i, dtype=torch.float32,
+                       device=self.device)
+        return self.dit.forward_with_residual(
+            x.to(self.dtype), t, context, cos, sin,
+            attn_backend=self.attn_backend, residual=residual,
+            skip_blocks=skip)
+
+    def _denoise_step(self, latents, t_i, context, cos, sin, cfg: bool,
+                      guidance_scale: float, condition_count: int,
+                      residual=None, skip: bool = False):
+        """One step's velocity and the DiT's TeaCache residual: with ``cfg``
+        the latents are doubled against ``context`` = [uncond | cond] and
+        combined as ``vu + g (vc - vu)``; then the source freeze. With
+        ``cfg_sequential`` the two halves run as two batch-B forwards (the
+        freeze is linear, so it commutes with the combine) and the residual
+        is [uncond | cond] as the batched one."""
+        if cfg and self.cfg_sequential:
+            B = latents.shape[0]
+            res = (None, None) if residual is None else residual.split(B)
+            vu, res_u = self._dit(latents, t_i, context[:B], cos, sin,
+                                  res[0], skip)
+            vc, res_c = self._dit(latents, t_i, context[B:], cos, sin,
+                                  res[1], skip)
+            v, res = vu + guidance_scale * (vc - vu), torch.cat([res_u, res_c])
+        else:
+            x = torch.cat([latents, latents]) if cfg else latents
+            v, res = self._dit(x, t_i, context, cos, sin, residual, skip)
+            if cfg:
+                vu, vc = v.chunk(2)
+                v = vu + guidance_scale * (vc - vu)
+        v[:, :, :condition_count] = 0.0      # freeze the source latents
+        return v, res
+
     # ------------------------------------------------------------------- call
     @torch.no_grad()
     def __call__(self, video, prompt: Union[str, Sequence[str]],
+                 negative_prompt: str = "",
                  source_frames: int = 33, reasoning_frames: int = 4,
                  num_inference_steps: int = 4, guidance_scale: float = 1.0,
                  shift: float = 3.0, sampler: str = "unipc",
                  repeat_rope: bool = True, cot: bool = True, seed: int = 0,
                  max_sequence_length: int = 512,
-                 prompt_embeds=None, noise=None, latents=None,
-                 output_latents: bool = False,
+                 prompt_embeds=None, negative_prompt_embeds=None,
+                 enable_teacache: bool = False,
+                 teacache_threshold: float = 0.10,
+                 teacache_skip_start_steps: int = 5,
+                 teacache_coefficients: Optional[Sequence[float]] = None,
+                 teacache_forced_plan: Optional[Sequence[bool]] = None,
+                 cfg_skip_ratio: float = 0.0,
+                 noise=None, latents=None, output_latents: bool = False,
+                 solver_order: Optional[int] = None,
                  timings: Optional[Dict[str, float]] = None
                  ) -> WanPipelineOutput:
         """Edit ``video`` ([B, 3, T, H, W], uint8 or float in [-1, 1]) per
-        ``prompt``.
+        ``prompt``, with the JAX pipeline's defaults and semantics.
 
-        ``noise`` replaces the latent noise draw; ``latents`` skips latent
-        preparation; ``prompt_embeds`` skips the text encoder;
-        ``output_latents`` attaches the final latents. A dict passed as
-        ``timings`` receives the wall seconds of each stage (the device is
-        synchronized at each stage boundary only then)."""
-        if guidance_scale > 1.0:
-            raise NotImplementedError("classifier-free guidance is not ported")
+        ``guidance_scale > 1`` turns on CFG against ``negative_prompt`` (or
+        ``negative_prompt_embeds``); ``cfg_skip_ratio`` runs the last
+        ``round(steps * ratio)`` steps on the cond rows only. TeaCache
+        (``enable_teacache``) plans its skips from ``teacache_coefficients``
+        (default: Wan2.1 T2V 14B's), ``teacache_threshold`` and
+        ``teacache_skip_start_steps``; ``teacache_forced_plan`` pins the
+        plan instead (step 0 is always computed). ``solver_order`` reaches
+        UniPC and DPM++ only. ``noise`` replaces the latent noise draw;
+        ``latents`` skips latent preparation; ``prompt_embeds`` skips the
+        text encoder; ``output_latents`` attaches the final latents. A dict
+        passed as ``timings`` receives the wall seconds of each stage, one
+        entry a step (``stepI``, or ``stepI skipped`` where TeaCache replayed
+        the residual); the device is synchronized at each stage boundary
+        only then."""
         if not cot:
             raise NotImplementedError("only the chain-of-frames path is ported")
-        if sampler != "unipc":
-            raise NotImplementedError(f"sampler {sampler!r} is not ported")
         t0 = time.perf_counter()
 
         def tick(label):
@@ -157,10 +218,19 @@ class WanPipeline:
         condition_count = latent_frame_count(source_frames, tc)
         ground_latent_count = latent_frame_count(reasoning_frames, tc)
 
+        do_cfg = guidance_scale > 1.0
         if prompt_embeds is not None:
             context = torch.as_tensor(prompt_embeds, device=self.device)
         else:
             context = self.encode_prompt(prompts, max_sequence_length)
+        if do_cfg:
+            if negative_prompt_embeds is not None:
+                neg = torch.as_tensor(negative_prompt_embeds,
+                                      device=self.device)
+            else:
+                neg = self.encode_prompt([negative_prompt] * len(prompts),
+                                         max_sequence_length)
+            context = torch.cat([neg.to(context.dtype), context])  # uncond first
         context = context.to(self.dtype)
         tick("text")
 
@@ -183,18 +253,48 @@ class WanPipeline:
         cos = torch.as_tensor(cos, device=self.device)
         sin = torch.as_tensor(sin, device=self.device)
 
-        sched = FlowUniPCScheduler()
+        sched_kw = ({"solver_order": solver_order}
+                    if solver_order is not None
+                    and sampler in ("unipc", "dpm++") else {})
+        sched = get_scheduler(sampler, **sched_kw)
         sched.set_timesteps(num_inference_steps, shift=shift)
         state = sched.init_state(latents)
-        B = latents.shape[0]
+
+        skips = [False] * num_inference_steps
+        if enable_teacache and teacache_forced_plan is not None:
+            if len(teacache_forced_plan) != num_inference_steps:
+                raise ValueError(f"teacache_forced_plan has "
+                                 f"{len(teacache_forced_plan)} entries for "
+                                 f"{num_inference_steps} steps")
+            skips = [bool(x) for x in teacache_forced_plan]
+            skips[0] = False   # step 0 has no residual to replay
+        elif enable_teacache:
+            skips = teacache.plan_teacache_skips(
+                self.dit, sched.timesteps,
+                teacache_coefficients
+                or teacache.TEACACHE_COEFFICIENTS["wan2.1-t2v-14b"],
+                teacache_threshold, teacache_skip_start_steps)
+        # cfg-skip: the uncond rows leave the last fraction of the steps
+        cfg_off_after = num_inference_steps - int(
+            round(num_inference_steps * cfg_skip_ratio))
+
+        residual = None
         for i in range(num_inference_steps):
-            t = torch.full((B,), float(sched.timesteps[i]), dtype=torch.float32,
-                           device=self.device)
-            v = self.dit(latents.to(self.dtype), t, context, cos, sin,
-                         attn_backend=self.attn_backend)
-            v[:, :, :condition_count] = 0.0      # freeze the source latents
+            step_cfg = do_cfg and i < cfg_off_after
+            ctx_i = context
+            if do_cfg and not step_cfg:
+                ctx_i = context[context.shape[0] // 2:]   # cond rows only
+            res_in = None
+            if skips[i]:
+                need = latents.shape[0] * (2 if step_cfg else 1)
+                res_in = residual[-need:]   # cfg-skip keeps the cond rows
+            v, res = self._denoise_step(
+                latents, float(sched.timesteps[i]), ctx_i, cos, sin, step_cfg,
+                guidance_scale, condition_count, res_in, skips[i])
+            if not skips[i]:
+                residual = res
             latents, state = sched.step(v, i, latents, state)
-            tick(f"step{i}")
+            tick(f"step{i} skipped" if skips[i] else f"step{i}")
 
         g0, g1 = condition_count, condition_count + ground_latent_count
         parts = []

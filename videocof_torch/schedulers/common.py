@@ -35,3 +35,20 @@ def lam(sigma) -> np.ndarray:
     """lambda(sigma) = log(alpha) - log(sigma); +inf at sigma=0."""
     with np.errstate(divide="ignore"):
         return np.log(1.0 - sigma) - np.log(sigma)
+
+
+def get_scheduler(name: str, **kwargs):
+    """A sampler by name (aliases as in the JAX package: "flow" is "euler",
+    "flow_unipc" "unipc", "flow_dpm++" "dpm++"). DDIM ("ddim",
+    "cogvideox_ddim") is not ported and raises."""
+    from . import SCHEDULERS
+    aliases = {"flow": "euler", "flow_unipc": "unipc", "flow_dpm++": "dpm++",
+               "cogvideox_ddim": "ddim"}
+    key = name.lower()
+    key = aliases.get(key, key)
+    if key == "ddim":
+        raise NotImplementedError(f"scheduler {name!r} (DDIM) is not ported")
+    if key not in SCHEDULERS:
+        raise ValueError(f"unknown scheduler {name!r}; have "
+                         f"{sorted(SCHEDULERS)}")
+    return SCHEDULERS[key](**kwargs)
