@@ -6,11 +6,16 @@
 Phases, each of which fails the run (non-zero exit) on any fault:
   1. device: the card's name and power limit; TF32 off; build the CUDA
      kernels from `videocof_torch/csrc/` with nvcc (sm_90a), one process per
-     source, all at once; ptxas registers and spills of every kernel.
+     source, all at once; ptxas registers, spills and warnings of every
+     kernel; the count of wgmma (HGMMA) and TMA load (UTMALDG) instructions
+     in each instantiation of the forward `flash_fwd_kernel` (cuobjdump
+     -sass), which fails the run if either is 0.
   2. kernels vs plain, on the card, at the main paths' shapes and at the
      edge cases (ragged length, key mask with a fully masked batch row,
-     D = 64 (flash) or 256 (int8), fp16): the forward B1 and the forward
-     with LSE B2 on the output
+     D = 64 (flash) or 256 (int8), fp16, and for B1 and B2 the lengths on
+     and beside their 128-row q tiles and 128-key K/V tiles, Lq in {1, 127,
+     129} by Lk in {1, 127, 129, 512}): the forward B1 and the forward with
+     LSE B2 on the output
      (max abs error <= 3e-2 and relative L2 error <= 1e-2: at the main
      path's lengths the outputs are small, so the absolute bound alone would
      pass a wrong kernel) and on the LSE (relative error <= 1e-4: both sides
@@ -34,7 +39,8 @@ Phases, each of which fails the run (non-zero exit) on any fault:
      same function (SDPA's forward, with and without a gradient to carry,
      and SDPA's backward: yardsticks the port never calls; for B4 SDPA's
      unquantized bf16 forward, not the same function); CUDA events, median
-     of the runs after a warm-up.
+     of the runs after a warm-up; the achieved TFLOP/s of each flash
+     kernel.
   4. the edit: `WanPipeline` at full width (Wan2.1 1.3B DiT, Wan2.1 VAE,
      umT5-XXL, random bf16 weights from a seed) edits a 33-frame 480x832
      uint8 video with 4 reasoning frames in 4 Flow-UniPC steps; checks the
@@ -86,6 +92,8 @@ COS_TOL = 0.999                # B4 vs unquantized attention (JAX's test)
 PEAK_BF16_FLOPS = 989e12       # H100 SXM dense bf16 (data sheet)
 PEAK_INT8_OPS = 1979e12        # H100 SXM dense int8 (data sheet)
 PEAK_BYTES = 3.35e12           # H100 SXM HBM3
+# SASS of the forward's Hopper design: wgmma and TMA loads
+SASS_OPCODES = ("HGMMA", "UTMALDG")
 SEED = 0
 TRAIN_STEPS = 3
 STD_STEPS = 50                 # the standard edit (the reference's inference.py)
@@ -127,20 +135,19 @@ def bound(flops, nbytes, int8_ops=0):
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
-def kernel_bounds(B, Lq, Lk, N, D, eb=2):
-    """Bounds of the four kernels: FLOP of their products, and bytes of
-    their inputs read once and outputs written once (q, k, v, o, dO, dq, dk,
-    dv in bf16; lse and delta [B, N, Lq] fp32)."""
+def kernel_work(B, Lq, Lk, N, D, eb=2):
+    """(FLOP, bytes) of the four kernels: FLOP of their products, and bytes
+    of their inputs read once and outputs written once (q, k, v, o, dO, dq,
+    dk, dv in bf16; lse and delta [B, N, Lq] fp32)."""
     mm = B * N * Lq * Lk * D
     q_b, kv_b, vec_b = eb * B * Lq * N * D, eb * B * Lk * N * D, 4 * B * N * Lq
     return {
-        "flash_attention_fwd": bound(4 * mm, 2 * q_b + 2 * kv_b),
-        "flash_attention_fwd_lse": bound(4 * mm, 2 * q_b + 2 * kv_b + vec_b),
+        "flash_attention_fwd": (4 * mm, 2 * q_b + 2 * kv_b),
+        "flash_attention_fwd_lse": (4 * mm, 2 * q_b + 2 * kv_b + vec_b),
         # S, dP, dQ; reads q, k, v, dO, lse, delta, writes dq
-        "flash_attention_bwd_dq": bound(6 * mm, 3 * q_b + 2 * kv_b + 2 * vec_b),
+        "flash_attention_bwd_dq": (6 * mm, 3 * q_b + 2 * kv_b + 2 * vec_b),
         # S, dP, dV, dK; reads q, k, v, dO, lse, delta, writes dk, dv
-        "flash_attention_bwd_dkv": bound(8 * mm,
-                                         2 * q_b + 4 * kv_b + 2 * vec_b),
+        "flash_attention_bwd_dkv": (8 * mm, 2 * q_b + 4 * kv_b + 2 * vec_b),
     }
 
 
@@ -172,6 +179,15 @@ def pinned_teacache_plan(steps, rate, warmup=5):
     return plan
 
 
+def kernel_label(name):
+    """A short label for a mangled kernel name: kernel<type, D[, lse]>."""
+    kernel = next((k for k in OUR_KERNELS if k in name), name)
+    dim = re.search(r"Li(\d+)E", name)
+    return (f"{kernel}<{'bf16' if 'bfloat16' in name else 'fp16'}, "
+            f"D={dim.group(1) if dim else '?'}"
+            + (", lse" if "Lb1E" in name else "") + ">")
+
+
 def ptxas_report(log_text):
     """[(kernel, registers, spill stores, spill loads)] from nvcc -Xptxas -v."""
     rows, name, spills = [], None, (0, 0)
@@ -184,14 +200,31 @@ def ptxas_report(log_text):
             spills = (int(m.group(1)), int(m.group(2)))
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
-            kernel = next((k for k in OUR_KERNELS if k in name), name)
-            dim = re.search(r"Li(\d+)E", name)
-            short = (f"{kernel}<{'bf16' if 'bfloat16' in name else 'fp16'}, "
-                     f"D={dim.group(1) if dim else '?'}"
-                     + (", lse" if "Lb1E" in name else "") + ">")
-            rows.append((short, int(m.group(1)), *spills))
+            rows.append((kernel_label(name), int(m.group(1)), *spills))
             name, spills = None, (0, 0)
     return rows
+
+
+def sass_counts(lib_path, kernel):
+    """{label: {opcode: count}} of SASS_OPCODES over the functions named like
+    ``kernel`` in ``cuobjdump -sass`` of a built library."""
+    from videocof_torch.ops import _build
+    cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
+    res = subprocess.run([str(cuobjdump), "-sass", str(lib_path)],
+                         capture_output=True, text=True, timeout=300)
+    if res.returncode != 0:
+        fail(f"cuobjdump -sass {lib_path}: {res.stderr.strip()}")
+    counts, func = {}, None
+    for line in res.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            func = kernel_label(m.group(1)) if kernel in m.group(1) else None
+            if func:
+                counts[func] = dict.fromkeys(SASS_OPCODES, 0)
+        elif func:
+            for op in SASS_OPCODES:
+                counts[func][op] += len(re.findall(rf"\b{op}\b", line))
+    return counts
 
 
 def profile_kernels(fn):
@@ -277,11 +310,11 @@ def dit_step_flops(cfg, L, Lt):
     return cfg.num_layers * per_block + io
 
 
-def compare(name, got, want):
+def compare(name, got, want, quiet=False):
     """Gate ``got`` against ``want``: finite, max abs error <= TOL *
     max(1, max |want|) (a few bf16 ulps of the largest value: gradients can
     exceed 1) and relative L2 error <= REL_TOL; returns (max abs err,
-    relative L2 err)."""
+    relative L2 err). ``quiet`` logs only a failure."""
     import torch
     diff = got.float() - want.float()
     err = diff.abs().max().item()
@@ -289,9 +322,10 @@ def compare(name, got, want):
     top = want.float().abs().max().item()
     tol = TOL * max(1.0, top)
     ok = bool(torch.isfinite(got).all()) and err <= tol and rel <= REL_TOL
-    log(f"[kernel vs plain] {name}: max abs err {err:.3e} (tol {tol:.3g}), "
-        f"relative L2 err {rel:.3e} (tol {REL_TOL}), max |plain| "
-        f"{top:.3e}: {'ok' if ok else 'FAIL'}")
+    if not (quiet and ok):
+        log(f"[kernel vs plain] {name}: max abs err {err:.3e} (tol "
+            f"{tol:.3g}), relative L2 err {rel:.3e} (tol {REL_TOL}), max "
+            f"|plain| {top:.3e}: {'ok' if ok else 'FAIL'}")
     if not ok:
         fail(f"kernel disagrees with its plain version: {name}")
     return err, rel
@@ -351,9 +385,21 @@ def main() -> int:
         f"{src} {s:.2f} s" for src, s in build_s.items())
         + f" (wall {time.perf_counter() - t0:.2f} s)")
     for src in build_s:
-        for kernel, regs, st, ld in ptxas_report(_build.build_info[src]["log"]):
+        build_log = _build.build_info[src]["log"]
+        for kernel, regs, st, ld in ptxas_report(build_log):
             log(f"[build] {kernel}: {regs} registers, spill stores {st} B, "
                 f"spill loads {ld} B")
+        for line in build_log.splitlines():
+            if "warning" in line.lower():
+                log(f"[build] {src}: {line.strip()}")
+    sass = sass_counts(_build.library_path(fa.SOURCE), "flash_fwd_kernel")
+    for label, counts in sass.items():
+        log(f"[sass] {label}: " + ", ".join(
+            f"{op} {n}" for op, n in counts.items()))
+    # one instantiation per type, head dim and LSE flag
+    want = len(fa.DTYPES) * len(fa.HEAD_DIMS) * 2
+    if len(sass) != want or any(0 in c.values() for c in sass.values()):
+        fail(f"flash_fwd_kernel's SASS lacks wgmma or TMA loads: {sass}")
 
     # ----------------------------------------------------- 2. kernels vs plain
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -390,6 +436,40 @@ def main() -> int:
     def note(kernel, err_rel):
         errs[kernel] = [max(a, b) for a, b in zip(errs[kernel], err_rel)]
 
+    def check_forward(label, q, k, v, mask, quiet=False):
+        """B1 and B2 against their plain versions (out, LSE), and B1(q,
+        scale) equal bit for bit to B2(round(q * scale), scale 1): the
+        kernel scales q in the same two roundings. Returns (the scale-folded
+        q, B2's plain out and LSE)."""
+        Dh, dtype = q.shape[-1], q.dtype
+        out1 = fa.flash_attention(q, k, v, kv_mask=mask)
+        torch.cuda.synchronize()
+        ref = fa.flash_attention_reference(q, k, v, kv_mask=mask)
+        note("flash_attention_fwd",
+             compare(f"B1 {label}", out1, ref, quiet=quiet))
+        # B2, on the scale-folded q as the training forward runs it
+        qs = q * fa._rounded(Dh ** -0.5, dtype)
+        out, lse = fa.flash_fwd_lse(qs, k, v, kv_mask=mask)
+        torch.cuda.synchronize()
+        ref, ref_lse = fa.flash_fwd_lse_reference(qs, k, v, kv_mask=mask)
+        note("flash_attention_fwd_lse",
+             compare(f"B2 out {label}", out, ref, quiet=quiet))
+        lse_err = ((lse - ref_lse).abs() / ref_lse.abs().clamp(min=1.0)
+                   ).max().item()
+        lse_ok = bool(torch.isfinite(lse).all()) and lse_err <= LSE_TOL
+        same = torch.equal(out1, out)
+        if not (quiet and lse_ok and same):
+            log(f"[kernel vs plain] B2 lse {label}: max relative err "
+                f"{lse_err:.3e} (tol {LSE_TOL}), lse in "
+                f"[{ref_lse.min().item():.4g}, {ref_lse.max().item():.4g}]: "
+                f"{'ok' if lse_ok else 'FAIL'}; B1 == B2 on the scale-folded "
+                f"q bit for bit: {'ok' if same else 'FAIL'}")
+        if not lse_ok:
+            fail(f"B2's LSE disagrees with its plain version: {label}")
+        if not same:
+            fail(f"B1 and B2 differ on the scale-folded q: {label}")
+        return qs, ref, ref_lse
+
     for name, shape, masked, dtype in cases:
         B, Lq, Lk, Nh, Dh = shape
         label = f"{name} {shape} {str(dtype)[6:]}"
@@ -398,27 +478,7 @@ def main() -> int:
         if masked:
             mask = torch.rand(B, Lk, generator=gen, device=dev) > 0.3
             mask[-1] = False
-        # B1
-        out = fa.flash_attention(q, k, v, kv_mask=mask)
-        torch.cuda.synchronize()
-        ref = fa.flash_attention_reference(q, k, v, kv_mask=mask)
-        note("flash_attention_fwd", compare(f"B1 {label}", out, ref))
-        del out, ref
-        # B2, on the scale-folded q as the training forward runs it
-        qs = q * fa._rounded(Dh ** -0.5, dtype)
-        out, lse = fa.flash_fwd_lse(qs, k, v, kv_mask=mask)
-        torch.cuda.synchronize()
-        ref, ref_lse = fa.flash_fwd_lse_reference(qs, k, v, kv_mask=mask)
-        note("flash_attention_fwd_lse", compare(f"B2 out {label}", out, ref))
-        lse_err = ((lse - ref_lse).abs() / ref_lse.abs().clamp(min=1.0)
-                   ).max().item()
-        log(f"[kernel vs plain] B2 lse {label}: max relative err "
-            f"{lse_err:.3e} (tol {LSE_TOL}), lse in [{ref_lse.min().item():.4g}"
-            f", {ref_lse.max().item():.4g}]: "
-            f"{'ok' if lse_err <= LSE_TOL else 'FAIL'}")
-        if not (torch.isfinite(lse).all() and lse_err <= LSE_TOL):
-            fail(f"B2's LSE disagrees with its plain version: {label}")
-        del out
+        qs, ref, ref_lse = check_forward(label, q, k, v, mask)
         if masked:
             # B3 takes no mask (the masked path's backward is plain, as in
             # JAX): hold it at this case's shape without the mask
@@ -439,6 +499,18 @@ def main() -> int:
             note("flash_attention_bwd_dkv",
                  compare(f"B3b {part} {label}", got, want))
         del q, k, v, qs, do, ref, ref_lse, delta, dk, dv, ref_dk, ref_dv
+    # B1 and B2 at lengths on and beside their 128-row q tiles and 128-key
+    # K/V tiles (TMA's zero fill, the -inf of the ragged keys, rows never
+    # stored), at both head dims and both types; one line unless one fails
+    edges = [(Lq, Lk, Dh, dtype) for Lq in (1, 127, 129)
+             for Lk in (1, 127, 129, 512)
+             for Dh, dtype in ((D, bf16), (64, torch.float16))]
+    for Lq, Lk, Dh, dtype in edges:
+        check_forward(f"tile edge Lq={Lq} Lk={Lk} D={Dh} {str(dtype)[6:]}",
+                      *qkv(2, Lq, Lk, 3, Dh, dtype=dtype), None, quiet=True)
+    log(f"[kernel vs plain] B1, B2 at {len(edges)} tile-edge lengths (Lq "
+        f"1/127/129 x Lk 1/127/129/512, D {D} bf16 and D 64 fp16): ok; "
+        f"B1 == B2 bit for bit in each")
     torch.cuda.empty_cache()
 
     # B4: the pre-pass against its plain version on the same K mean, the
@@ -630,7 +702,7 @@ def main() -> int:
                 sdpa_out, (lq, lk, lv), dot, retain_graph=True),
         }
         library["flash_attention_bwd_dkv"] = library["flash_attention_bwd_dq"]
-        bounds = kernel_bounds(B, Lq, Lk, N, D)
+        work = kernel_work(B, Lq, Lk, N, D)
         shape = f"B={B} Lq={Lq} Lk={Lk} N={N} D={D} bf16"
         timing[shape_name] = {}
         for kname in names:
@@ -638,14 +710,16 @@ def main() -> int:
             ms = cuda_ms(kernel_fn, runs=10)
             plain_ms = cuda_ms(plain_fn, runs=plain_runs, warmup=1)
             library_ms = cuda_ms(library[kname], runs=10)
-            bound_ms, bound_by = bounds[kname]
+            bound_ms, bound_by = bound(*work[kname])
+            tflops = work[kname][0] / ms / 1e9
             timing[shape_name][kname] = dict(
                 shape=shape, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=library_ms)
+                bound_by=bound_by, library_ms=library_ms, tflops=tflops)
             log(f"[timing] {kname} {shape_name} {shape}: kernel_ms {ms:.4f} "
                 f"bound_ms {bound_ms:.4f} ({bound_by}) plain_ms "
                 f"{plain_ms:.4f} library_ms {library_ms:.4f} (share of bound "
-                f"{bound_ms / ms:.1%})")
+                f"{bound_ms / ms:.1%}; {tflops:.1f} TFLOP/s, library "
+                f"{work[kname][0] / library_ms / 1e9:.1f})")
         del q, k, v, qs, do, out, lse, delta, qt, kt, vt, dot, lq, lk, lv
         del sdpa_out, runs, library
         torch.cuda.empty_cache()
@@ -936,7 +1010,8 @@ def main() -> int:
                            else f"{TRAIN_STEPS} training steps",
             "max_abs_err": errs[kname][0],
             "max_rel_l2_err": errs[kname][1],
-            "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
+            "ms": main_shape["ms"], "tflops": main_shape["tflops"],
+            "plain_ms": main_shape["plain_ms"],
             "bound_ms": main_shape["bound_ms"],
             "bound_by": main_shape["bound_by"],
             "library_ms": main_shape["library_ms"],

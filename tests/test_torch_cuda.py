@@ -54,11 +54,18 @@ def _run(q, k, v, mask=None):
     torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
 
 
+# the forward's 128-row q tiles and 128-key K/V tiles: lengths on and beside
+# their edges, at both head dims and both types
+TILE_EDGES = [(Lq, Lk, D, dtype) for Lq in (1, 127, 129)
+              for Lk in (1, 127, 129, 512) for D in (64, 128)
+              for dtype in (torch.bfloat16, torch.float16)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("Lq,Lk,D,dtype", [
     (300, 300, 128, torch.bfloat16), (256, 130, 64, torch.bfloat16),
     (1000, 700, 128, torch.float16), (64, 1, 64, torch.bfloat16),
-])
+] + TILE_EDGES)
 def test_kernel_matches_plain(cuda, Lq, Lk, D, dtype):
     _run(*_qkv(cuda, 2, Lq, Lk, 3, D, dtype))
 
@@ -82,6 +89,16 @@ def test_kernel_reads_strided_inputs(cuda):
 
 
 @pytest.mark.cuda
+def test_kernel_reads_broadcast_inputs(cuda):
+    """k and v expanded over the batch or over the heads (stride 0): the TMA
+    tensor maps take a zero stride."""
+    q, k, v = _qkv(cuda, 2, 300, 200, 3, 128)
+    _run(q, k[:1].expand(2, -1, -1, -1), v[:1].expand(2, -1, -1, -1))
+    _run(q, k[:, :, :1].expand(-1, -1, 3, -1),
+         v[:, :, :1].expand(-1, -1, 3, -1))
+
+
+@pytest.mark.cuda
 def test_unsupported_inputs_raise(cuda):
     for shape, dtype in (((1, 64, 2, 96), torch.bfloat16),
                          ((1, 64, 2, 128), torch.float32)):
@@ -91,6 +108,52 @@ def test_unsupported_inputs_raise(cuda):
     x = torch.zeros(1, 64, 2, 128, dtype=torch.bfloat16, device=cuda)
     with pytest.raises(NotImplementedError):   # D not contiguous
         attention(x, x, x.transpose(1, 3).contiguous().transpose(1, 3))
+
+
+@pytest.mark.cuda
+def test_unaligned_rows_raise_before_any_tensor_map(cuda, monkeypatch):
+    """A row stride that is not a multiple of 16 bytes, or a base that is not
+    16-byte aligned, raises in the wrapper: the kernel's library (which
+    encodes the TMA tensor maps) is never reached."""
+    def no_library():
+        raise AssertionError("the kernel's library was reached")
+
+    monkeypatch.setattr(fa, "_library", no_library)
+    bf16 = torch.bfloat16
+    wide = torch.zeros(1, 64, 2, 132, dtype=bf16, device=cuda)[..., :128]
+    flat = torch.zeros(64 * 2 * 128 + 8, dtype=bf16, device=cuda)
+    shifted = flat[1:1 + 64 * 2 * 128].view(1, 64, 2, 128)
+    ok = torch.zeros(1, 64, 2, 128, dtype=bf16, device=cuda)
+    for bad in (wide, shifted):
+        for args in ((bad, ok, ok), (ok, bad, ok), (ok, ok, bad)):
+            with pytest.raises(NotImplementedError):
+                flash_attention(*args)
+            with pytest.raises(NotImplementedError):
+                fa.flash_fwd_lse(*args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,dtype", [(128, torch.bfloat16),
+                                     (64, torch.float16)])
+def test_forward_without_lse_equals_forward_with_lse_bitwise(cuda, D, dtype):
+    """B1(q, scale) and B2(round(q * scale), scale 1) scale q in the same two
+    roundings and share the kernel's arithmetic: equal bit for bit."""
+    q, k, v = _qkv(cuda, 2, 777, 555, 3, D, dtype)
+    scale = 0.3
+    out1 = flash_attention(q, k, v, scale=scale)
+    out2, _ = fa.flash_fwd_lse(q * fa._rounded(scale, dtype), k, v)
+    torch.cuda.synchronize()
+    assert torch.equal(out1, out2)
+
+
+@pytest.mark.cuda
+def test_forward_kernels_are_deterministic(cuda):
+    """No atomics: two launches give the same bits, out and LSE."""
+    q, k, v = _qkv(cuda, 1, 1000, 1000, 2, 128)
+    assert torch.equal(flash_attention(q, k, v), flash_attention(q, k, v))
+    a, b = fa.flash_fwd_lse(q, k, v), fa.flash_fwd_lse(q, k, v)
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
 
 
 @pytest.mark.cuda
@@ -177,7 +240,7 @@ def _check_fwd_bwd(q, k, v, do, mask=None):
     (300, 300, 128, torch.bfloat16), (256, 130, 64, torch.bfloat16),
     (1000, 700, 128, torch.float16), (64, 1, 64, torch.bfloat16),
     (77, 513, 128, torch.bfloat16), (1000, 700, 64, torch.float16),
-])
+] + TILE_EDGES)
 def test_lse_and_backward_kernels_match_plain(cuda, Lq, Lk, D, dtype):
     q, k, v = _qkv(cuda, 2, Lq, Lk, 3, D, dtype)
     g = torch.Generator(device=cuda).manual_seed(7)

@@ -10,9 +10,10 @@
 // bidirectional softmax attention in the exp2 domain, with q pre-scaled
 // exactly as the TPU wrapper does (q * scale rounded to the input type, then
 // * log2(e) rounded to the input type), fp32 logits, running max, running sum
-// and accumulator, keys with mask 0 set to -1e30 (so a fully masked row never
-// yields NaN). Keys past Lk (the ragged edge) are excluded outright, and q rows
-// past Lq are never stored.
+// and accumulator, P rounded to the input type before the PV product, keys
+// with mask 0 set to -1e30 (so a fully masked row never yields NaN). Keys past
+// Lk (the ragged edge) are excluded outright (-inf), and q rows past Lq are
+// never stored.
 //
 // The TPU wrapper pads Lk to its key block and gives the padded keys the same
 // -1e30 as masked ones; that matters only for a fully masked row, which it
@@ -22,246 +23,446 @@
 // The LSE is natural-domain, m * ln 2 + ln l, in fp32 [B, N, Lq]; a fully
 // masked row keeps an LSE near -1e30 * ln 2, finite.
 //
-// Inputs are read in their [B, L, N, D] layout through element strides: no
-// transpose and no padding copy. The key mask is [B, Lk] bytes, read per
-// batch row for every head.
+// Inputs are read in their [B, L, N, D] layout through TMA tensor maps that
+// the host encodes per launch over the strides it is given (dims {D, N, L,
+// B}): no transpose and no padding copy, and TMA fills rows past Lq and Lk
+// with zeros. The key mask is [B, Lk] bytes, read per batch row for every
+// head.
 //
-// Design: one CTA of 4 warps per (64-row q tile, head, batch). Each warp owns
-// 16 q rows, keeps its q fragments in registers, and walks 64-key K/V tiles
-// that the CTA stages in shared memory with cp.async, double-buffered. QK^T
-// and PV run on the tensor cores with mma.sync m16n8k16 (bf16 or fp16 in,
-// fp32 accumulate); the fp32 S fragment is converted in registers into the A
-// operand of the PV product. Shared-memory rows are XOR-swizzled in 16-byte
-// chunks so the ldmatrix reads are free of bank conflicts.
+// Design: one CTA of three warpgroups per (128-row q tile, head, batch),
+// warp-specialised.
+// - The producer warpgroup drops to 24 registers (setmaxnreg); one of its
+//   threads issues every TMA load: the q tile once, then 128-key K and V
+//   tiles into a ring of 2 stages at D = 128 (4 at D = 64), each stage with
+//   a full and an empty barrier for K and for V. It refills a stage as soon
+//   as both consumers have released it, so the next tiles are in flight
+//   while the consumers compute.
+// - Two consumer warpgroups (240 registers each) own 64 q rows each. Each
+//   scales its rows of Q in shared memory once (then fences the generic
+//   proxy's writes against wgmma's async-proxy reads). Per key tile it runs
+//   S = Q K^T as wgmma m64n128k16 with both operands in shared memory
+//   (128-byte swizzle, K-major), masks, runs the online softmax on the fp32
+//   fragment, packs P to the input type in registers, and runs O += P V as
+//   wgmma m64nDk16 with P from registers and V in shared memory (MN-major,
+//   the descriptor's transpose bit).
+// - Overlap: tile t's Q K^T is issued together with tile t-1's P V, and
+//   tile t's softmax runs while that P V is still in flight (so S, P and O
+//   are live at once: 64 + 32 + 64 registers at D = 128). The two consumers
+//   take turns to issue their products (ping-pong on two named barriers),
+//   so one's softmax runs under the other's products.
 //
 // Bound on this card: at the main-path self-attention shape (L = 29,640,
 // 12 heads, D = 128) the kernel does 4*L^2*D*N = 5.4e12 FLOP against 364 MB
 // of q/k/v/o traffic, so it is bound by tensor-core operations (>= 5.46 ms at
-// 989 TFLOP/s dense bf16). What this simple design leaves on the table:
-// mma.sync issues from every warp and waits on ldmatrix, where wgmma reads
-// B straight from shared memory asynchronously; loads are cp.async issued by
-// the same warps that compute, where TMA plus a producer warp would overlap
-// them fully; the softmax of one tile is not overlapped with the products of
-// the next; and CTAs are not persistent.
+// 989 TFLOP/s dense bf16). wgmma is the only way to that rate; TMA with a
+// producer warpgroup takes the loads off the computing warps; the 128-row q
+// tile halves the K/V traffic from L2 per q row against a 64-row tile; the
+// overlap keeps the tensor cores fed while the exponentials run. What it
+// leaves for a later PR: the CTAs are not persistent, so each CTA's
+// prologue (the q tile's load and scaling) and epilogue are exposed, which
+// is most of the time at Lk = 512; the output leaves by plain stores rather
+// than TMA; wider key tiles (176 keys, as FlashAttention-3 takes at D = 128)
+// spill registers in this arrangement.
+
+#include <cudaTypedefs.h>
 
 #include "flash_common.cuh"
+#include "hopper_common.cuh"
 
 namespace {
 
 using namespace flash;
+using namespace hopper;
 
-constexpr int kBlockM = 64;   // q rows per CTA
-constexpr int kBlockN = 64;   // keys per K/V tile
+constexpr int kBlockM = 128;          // q rows per CTA
+constexpr int kWgRows = 64;           // q rows per consumer warpgroup
+constexpr int kBlockN = 128;          // keys per K/V tile
+constexpr int kBoxCols = 64;          // 16-bit values in one 128-byte TMA box row
+constexpr int kThreadsWs = 384;       // producer + two consumer warpgroups
+constexpr int kConsumerThreads = 256;
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
+// an encode failure returns this plus the driver's CUresult
+constexpr int kTensorMapError = 1000;
+
+template <int D>
+struct Cfg {
+  static constexpr int kHalves = D / kBoxCols;     // TMA boxes across D
+  static constexpr int kStages = D == 128 ? 2 : 4;
+  static constexpr int kQElems = kBlockM * D;
+  static constexpr int kKVElems = kBlockN * D;
+  static constexpr uint32_t kQBytes = kQElems * 2;
+  static constexpr uint32_t kKVBytes = kKVElems * 2;
+  // Q, then K and V of each stage, then the barriers: q_full, k_full[S],
+  // v_full[S], k_empty[S], v_empty[S]; 1024 more to align the base to the
+  // swizzle period
+  static constexpr int kBarOffset = (kQElems + 2 * kStages * kKVElems) * 2;
+  static constexpr int kSmem = kBarOffset + (1 + 4 * kStages) * 8 + 1024;
+};
 
 struct Params {
-  const void* q;
-  const void* k;
-  const void* v;
   const uint8_t* mask;  // [B, Lk] bytes or null
   void* o;
   float* lse;           // [B, N, Lq] fp32, written when the LSE is asked for
   int Lq, Lk, n_pad;
-  long long q_sb, q_sl, q_sn;
-  long long k_sb, k_sl, k_sn;
-  long long v_sb, v_sl, v_sn;
   long long o_sb, o_sl, o_sn;
   float scale_q;   // softmax scale, already rounded to the input type
   float log2e_q;   // log2(e), already rounded to the input type
 };
 
-template <typename T, int D, bool kLse>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const Params p) {
-  using E = Elem<T>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* sQ = reinterpret_cast<T*>(smem);
-  T* sK = sQ + kBlockM * D;           // 2 stages
-  T* sV = sK + 2 * kBlockN * D;       // 2 stages
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int q0 = blockIdx.x * kBlockM;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const T* qb = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sn;
-  const T* kb = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sn;
-  const T* vb = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sn;
-  const uint8_t* mb = p.mask ? p.mask + (long long)b * p.Lk : nullptr;
-  const int n_tiles = (p.Lk + kBlockN - 1) / kBlockN;
-
-  load_tile<T, D, kBlockM>(sQ, qb, q0, p.Lq, p.q_sl, tid);
-  cp_async_commit();
-  load_tile<T, D, kBlockN>(sK, kb, 0, p.Lk, p.k_sl, tid);
-  load_tile<T, D, kBlockN>(sV, vb, 0, p.Lk, p.v_sl, tid);
-  cp_async_commit();
-
-  // q * scale, then * log2(e), each rounded to the input type as the TPU
-  // wrapper and kernel do.
-  cp_async_wait<1>();
-  __syncthreads();
-  for (int i = tid; i < kBlockM * D; i += kThreads) {
-    float x = E::to_float(E::from_float(E::to_float(sQ[i]) * p.scale_q));
-    sQ[i] = E::from_float(x * p.log2e_q);
+// S = Q K^T for the warpgroup's 64 rows x 128 keys, issued, not waited for.
+template <typename T, int D>
+__device__ __forceinline__ void issue_qk(float (&s)[kBlockN / 2], const T* q,
+                                         const T* k) {
+  fence_regs(s);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int qoff = (kk / 4) * kBlockM * kBoxCols + (kk % 4) * 16;
+    const int koff = (kk / 4) * kBlockN * kBoxCols + (kk % 4) * 16;
+    wgmma_ss_m64n128k16<T>(s, sw128_desc(q + qoff, 16, 1024),
+                           sw128_desc(k + koff, 16, 1024), kk > 0);
   }
-  __syncthreads();
+  wgmma_commit();
+}
 
-  // A fragments of this warp's 16 q rows, all of D.
-  uint32_t qf[D / 16][4];
-  {
-    const int mi = lane >> 3;
-    const int row = warp * 16 + (mi & 1) * 8 + (lane & 7);
+// acc += P V, P from registers, issued, not waited for.
+template <typename T, int D>
+__device__ __forceinline__ void issue_pv(float (&acc)[D / 2],
+                                         uint32_t (&pf)[kBlockN / 16][4],
+                                         const T* v) {
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      ldmatrix_x4(qf[kk], sQ + swz<D>(row, kk * 2 + (mi >> 1)));
-  }
-
-  float acc[D / 8][4];
+  for (int kk = 0; kk < kBlockN / 16; ++kk) fence_regs(pf[kk]);
+  fence_regs(acc);
+  wgmma_fence();
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j)
-    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  float row_max[2] = {kMaskedLogit, kMaskedLogit};
-  float row_sum[2] = {0.f, 0.f};   // this thread's partial sums
+  for (int kk = 0; kk < kBlockN / 16; ++kk)
+    wgmma_rs<T, D>(acc, pf[kk],
+                   sw128_desc(v + kk * 16 * kBoxCols, kBlockN * kBoxCols * 2,
+                              1024),
+                   1);
+  wgmma_commit();
+}
 
-  for (int t = 0; t < n_tiles; ++t) {
-    const int stage = t & 1;
-    if (t + 1 < n_tiles) {
-      load_tile<T, D, kBlockN>(sK + (stage ^ 1) * kBlockN * D, kb,
-                               (t + 1) * kBlockN, p.Lk, p.k_sl, tid);
-      load_tile<T, D, kBlockN>(sV + (stage ^ 1) * kBlockN * D, vb,
-                               (t + 1) * kBlockN, p.Lk, p.v_sl, tid);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+// Keys past Lk get -inf (no weight), keys with mask 0 the logit -1e30.
+__device__ __forceinline__ void mask_tile(float (&s)[kBlockN / 2], int k0,
+                                          int Lk, const uint8_t* mb,
+                                          int lane) {
+  if (mb == nullptr && k0 + kBlockN <= Lk) return;
+#pragma unroll
+  for (int j = 0; j < kBlockN / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int kidx = k0 + j * 8 + (lane & 3) * 2 + (e & 1);
+      if (kidx >= Lk)
+        s[4 * j + e] = __uint_as_float(0xff800000u);
+      else if (mb != nullptr && mb[kidx] == 0)
+        s[4 * j + e] = kMaskedLogit;
     }
-    __syncthreads();
-    const T* cK = sK + stage * kBlockN * D;
-    const T* cV = sV + stage * kBlockN * D;
-
-    // S = (q * log2 e) K^T for 16 rows x 64 keys, fp32.
-    float s[kBlockN / 8][4];
-#pragma unroll
-    for (int j = 0; j < kBlockN / 8; ++j)
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-      for (int jn = 0; jn < kBlockN / 8; jn += 2) {
-        uint32_t bf[4];
-        const int mi = lane >> 3;
-        const int key = (jn + (mi >> 1)) * 8 + (lane & 7);
-        ldmatrix_x4(bf, cK + swz<D>(key, kk * 2 + (mi & 1)));
-        E::mma(s[jn], qf[kk], bf);
-        E::mma(s[jn + 1], qf[kk], bf + 2);
-      }
-    }
-
-    const int k0 = t * kBlockN;
-    if (mb != nullptr || k0 + kBlockN > p.Lk) {
-#pragma unroll
-      for (int jn = 0; jn < kBlockN / 8; ++jn) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int kidx = k0 + jn * 8 + (lane & 3) * 2 + (e & 1);
-          if (kidx >= p.Lk)
-            s[jn][e] = __uint_as_float(0xff800000u);  // -inf: no weight
-          else if (mb != nullptr && mb[kidx] == 0)
-            s[jn][e] = kMaskedLogit;
-        }
-      }
-    }
-
-    // Online softmax; the thread holds rows lane/4 (r = 0) and lane/4 + 8
-    // (r = 1), and the four threads of a quad share a row.
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float mx = row_max[r];
-#pragma unroll
-      for (int jn = 0; jn < kBlockN / 8; ++jn)
-        mx = fmaxf(mx, fmaxf(s[jn][2 * r], s[jn][2 * r + 1]));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float alpha = fast_exp2(row_max[r] - mx);
-      row_max[r] = mx;
-      float sum = 0.f;
-#pragma unroll
-      for (int jn = 0; jn < kBlockN / 8; ++jn) {
-        s[jn][2 * r] = fast_exp2(s[jn][2 * r] - mx);
-        s[jn][2 * r + 1] = fast_exp2(s[jn][2 * r + 1] - mx);
-        sum += s[jn][2 * r] + s[jn][2 * r + 1];
-      }
-      row_sum[r] = row_sum[r] * alpha + sum;
-#pragma unroll
-      for (int jd = 0; jd < D / 8; ++jd) {
-        acc[jd][2 * r] *= alpha;
-        acc[jd][2 * r + 1] *= alpha;
-      }
-    }
-
-    // acc += P V, with P rounded to the input type.
-#pragma unroll
-    for (int kk = 0; kk < kBlockN / 16; ++kk) {
-      uint32_t a[4];
-      a[0] = E::pack(s[2 * kk][0], s[2 * kk][1]);
-      a[1] = E::pack(s[2 * kk][2], s[2 * kk][3]);
-      a[2] = E::pack(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      a[3] = E::pack(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int jd = 0; jd < D / 8; jd += 2) {
-        uint32_t bf[4];
-        const int mi = lane >> 3;
-        const int key = kk * 16 + (mi & 1) * 8 + (lane & 7);
-        ldmatrix_x4_trans(bf, cV + swz<D>(key, jd + (mi >> 1)));
-        E::mma(acc[jd], a, bf);
-        E::mma(acc[jd + 1], a, bf + 2);
-      }
-    }
-    __syncthreads();  // this stage is refilled two tiles on
-  }
-
-  T* ob = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sn;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    float l = row_sum[r];
-    l += __shfl_xor_sync(0xffffffffu, l, 1);
-    l += __shfl_xor_sync(0xffffffffu, l, 2);
-    // the TPU kernel's padded keys: 0 unless every real key was masked
-    l += p.n_pad * fast_exp2(kMaskedLogit - row_max[r]);
-    const int row = q0 + warp * 16 + (lane >> 2) + r * 8;
-    if (row >= p.Lq) continue;
-    T* orow = ob + (long long)row * p.o_sl;
-#pragma unroll
-    for (int jd = 0; jd < D / 8; ++jd) {
-      const int col = jd * 8 + (lane & 3) * 2;
-      *reinterpret_cast<uint32_t*>(orow + col) =
-          E::pack(acc[jd][2 * r] / l, acc[jd][2 * r + 1] / l);
-    }
-    if (kLse && (lane & 3) == 0)
-      p.lse[((long long)b * gridDim.y + h) * p.Lq + row] =
-          row_max[r] * kLn2 + logf(l);
   }
 }
 
+// Online softmax of one tile, in place: s becomes exp2(s - m); the running
+// max and sum move on, and alpha is the factor the accumulator takes before
+// this tile's P V. The thread holds rows lane/4 (r = 0) and lane/4 + 8
+// (r = 1) of its warp's 16; the four threads of a quad share a row.
+__device__ __forceinline__ void softmax_tile(float (&s)[kBlockN / 2],
+                                             float (&row_max)[2],
+                                             float (&row_sum)[2],
+                                             float (&alpha)[2]) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float mx = row_max[r];
+#pragma unroll
+    for (int j = 0; j < kBlockN / 8; ++j)
+      mx = fmaxf(mx, fmaxf(s[4 * j + 2 * r], s[4 * j + 2 * r + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    alpha[r] = fast_exp2(row_max[r] - mx);
+    row_max[r] = mx;
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < kBlockN / 8; ++j) {
+      s[4 * j + 2 * r] = fast_exp2(s[4 * j + 2 * r] - mx);
+      s[4 * j + 2 * r + 1] = fast_exp2(s[4 * j + 2 * r + 1] - mx);
+      sum += s[4 * j + 2 * r] + s[4 * j + 2 * r + 1];
+    }
+    row_sum[r] = row_sum[r] * alpha[r] + sum;
+  }
+}
+
+template <int D>
+__device__ __forceinline__ void rescale(float (&acc)[D / 2],
+                                        const float (&alpha)[2]) {
+#pragma unroll
+  for (int jd = 0; jd < D / 8; ++jd) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[4 * jd + e] *= alpha[e >> 1];
+  }
+}
+
+// P rounded to the input type, as P V's A operand: keys 16kk..16kk+15 are
+// the accumulator's 8-column tiles 2kk and 2kk + 1.
+template <typename T>
+__device__ __forceinline__ void pack_p(uint32_t (&pf)[kBlockN / 16][4],
+                                       const float (&s)[kBlockN / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < kBlockN / 16; ++kk) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      pf[kk][i] = Elem<T>::pack(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
+  }
+}
+
+// The two consumers take turns to issue their products (named barriers 3
+// and 4 over both warpgroups): one's softmax runs under the other's
+// products.
+__device__ __forceinline__ void turn_wait(int c) {
+  named_barrier_sync(3 + c, kConsumerThreads);
+}
+
+__device__ __forceinline__ void turn_pass(int c) {
+  named_barrier_arrive(3 + (c ^ 1), kConsumerThreads);
+}
+
 template <typename T, int D, bool kLse>
-cudaError_t launch(const Params& p, int B, int N, cudaStream_t stream) {
-  const int smem = (kBlockM + 4 * kBlockN) * D * static_cast<int>(sizeof(T));
+__global__ void __launch_bounds__(kThreadsWs, 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
+                 const __grid_constant__ CUtensorMap tm_k,
+                 const __grid_constant__ CUtensorMap tm_v, const Params p) {
+  using C = Cfg<D>;
+  using E = Elem<T>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  T* sQ = reinterpret_cast<T*>(smem);          // [halves][128 rows][64]
+  T* sK = sQ + C::kQElems;                     // [stages][halves][128][64]
+  T* sV = sK + C::kStages * C::kKVElems;       // the same
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + C::kBarOffset);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = k_full + C::kStages;
+  uint64_t* k_empty = v_full + C::kStages;
+  uint64_t* v_empty = k_empty + C::kStages;
+
+  const int q0 = blockIdx.x * kBlockM;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int n_tiles = (p.Lk + kBlockN - 1) / kBlockN;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+#pragma unroll
+    for (int s = 0; s < C::kStages; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&v_full[s], 1);
+      mbar_init(&k_empty[s], kConsumerThreads);
+      mbar_init(&v_empty[s], kConsumerThreads);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // ------------------------------------------------------------ producer
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      prefetch_tensormap(&tm_q);
+      prefetch_tensormap(&tm_k);
+      prefetch_tensormap(&tm_v);
+      mbar_arrive_expect_tx(q_full, C::kQBytes);
+#pragma unroll
+      for (int hf = 0; hf < C::kHalves; ++hf)
+        tma_load_4d(sQ + hf * kBlockM * kBoxCols, &tm_q, q_full,
+                    hf * kBoxCols, h, q0, b);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % C::kStages;
+        // both consumers are done with the stage's last use
+        const uint32_t freed = ((t / C::kStages) & 1) ^ 1;
+        if (t >= C::kStages) mbar_wait(&k_empty[s], freed);
+        mbar_arrive_expect_tx(&k_full[s], C::kKVBytes);
+#pragma unroll
+        for (int hf = 0; hf < C::kHalves; ++hf)
+          tma_load_4d(sK + s * C::kKVElems + hf * kBlockN * kBoxCols, &tm_k,
+                      &k_full[s], hf * kBoxCols, h, t * kBlockN, b);
+        if (t >= C::kStages) mbar_wait(&v_empty[s], freed);
+        mbar_arrive_expect_tx(&v_full[s], C::kKVBytes);
+#pragma unroll
+        for (int hf = 0; hf < C::kHalves; ++hf)
+          tma_load_4d(sV + s * C::kKVElems + hf * kBlockN * kBoxCols, &tm_v,
+                      &v_full[s], hf * kBoxCols, h, t * kBlockN, b);
+      }
+    }
+  } else {
+    // ----------------------------------------------------------- consumers
+    setmaxnreg_inc<kConsumerRegs>();
+    const int c = wg - 1;                       // which 64 rows of the tile
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    const uint8_t* mb = p.mask ? p.mask + (long long)b * p.Lk : nullptr;
+    if (c == 1) turn_pass(1);                   // consumer 0 goes first
+
+    // q * scale, then * log2(e), each rounded to the input type as the TPU
+    // wrapper and kernel do; elementwise, so the swizzle does not matter
+    mbar_wait(q_full, 0);
+#pragma unroll
+    for (int hf = 0; hf < C::kHalves; ++hf) {
+      uint4* rows = reinterpret_cast<uint4*>(sQ + hf * kBlockM * kBoxCols +
+                                             c * kWgRows * kBoxCols);
+#pragma unroll
+      for (int i = 0; i < kWgRows * kBoxCols / 8 / 128; ++i) {
+        uint4 x = rows[tid + i * 128];
+        T* e = reinterpret_cast<T*>(&x);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float y = E::to_float(E::from_float(E::to_float(e[j]) *
+                                                    p.scale_q));
+          e[j] = E::from_float(y * p.log2e_q);
+        }
+        rows[tid + i * 128] = x;
+      }
+    }
+    fence_proxy_async();                 // generic writes -> wgmma reads
+    named_barrier_sync(1 + c, 128);
+    const T* q_wg = sQ + c * kWgRows * kBoxCols;
+
+    float s[kBlockN / 2];                // S fragment, 64 x 128 keys
+    float acc[D / 2];                    // O fragment, 64 x D
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    float row_max[2] = {kMaskedLogit, kMaskedLogit};
+    float row_sum[2] = {0.f, 0.f};       // this thread's partial sums
+    float alpha[2];
+    uint32_t pf[kBlockN / 16][4];        // P of the tile before, packed
+
+    // Tile t's S = Q K^T is issued together with tile t-1's O += P V; the
+    // softmax of tile t runs while P V is still in flight.
+    mbar_wait(&k_full[0], 0);
+    turn_wait(c);
+    issue_qk<T, D>(s, q_wg, sK);
+    turn_pass(c);
+    wgmma_wait<0>();
+    fence_regs(s);
+    mbar_arrive(&k_empty[0]);
+    mask_tile(s, 0, p.Lk, mb, lane);
+    softmax_tile(s, row_max, row_sum, alpha);
+    pack_p<T>(pf, s);
+    for (int t = 1; t < n_tiles; ++t) {
+      const int st = t % C::kStages, sp = (t - 1) % C::kStages;
+      mbar_wait(&k_full[st], (t / C::kStages) & 1);
+      turn_wait(c);
+      issue_qk<T, D>(s, q_wg, sK + st * C::kKVElems);
+      rescale<D>(acc, alpha);
+      mbar_wait(&v_full[sp], ((t - 1) / C::kStages) & 1);
+      issue_pv<T, D>(acc, pf, sV + sp * C::kKVElems);
+      turn_pass(c);
+      wgmma_wait<1>();                   // S of tile t
+      fence_regs(s);
+      mbar_arrive(&k_empty[st]);
+      mask_tile(s, t * kBlockN, p.Lk, mb, lane);
+      softmax_tile(s, row_max, row_sum, alpha);
+      wgmma_wait<0>();                   // P V of tile t-1
+      fence_regs(acc);
+      mbar_arrive(&v_empty[sp]);
+      pack_p<T>(pf, s);
+    }
+    {
+      const int sp = (n_tiles - 1) % C::kStages;
+      rescale<D>(acc, alpha);
+      mbar_wait(&v_full[sp], ((n_tiles - 1) / C::kStages) & 1);
+      turn_wait(c);
+      issue_pv<T, D>(acc, pf, sV + sp * C::kKVElems);
+      if (c == 0) turn_pass(0);          // consumer 1 takes the last turn
+      wgmma_wait<0>();
+      fence_regs(acc);
+      mbar_arrive(&v_empty[sp]);
+    }
+
+    T* ob = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sn;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float l = row_sum[r];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      // the TPU kernel's padded keys: 0 unless every real key was masked
+      l += p.n_pad * fast_exp2(kMaskedLogit - row_max[r]);
+      const int row = q0 + c * kWgRows + warp * 16 + (lane >> 2) + r * 8;
+      if (row >= p.Lq) continue;
+      T* orow = ob + (long long)row * p.o_sl;
+#pragma unroll
+      for (int jd = 0; jd < D / 8; ++jd) {
+        const int col = jd * 8 + (lane & 3) * 2;
+        *reinterpret_cast<uint32_t*>(orow + col) =
+            E::pack(acc[4 * jd + 2 * r] / l, acc[4 * jd + 2 * r + 1] / l);
+      }
+      if (kLse && (lane & 3) == 0)
+        p.lse[((long long)b * gridDim.y + h) * p.Lq + row] =
+            row_max[r] * kLn2 + logf(l);
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled from the driver, through the runtime (which the
+// library already links), so the build needs no -lcuda.
+PFN_cuTensorMapEncodeTiled_v12000 encoder() {
+  static const PFN_cuTensorMapEncodeTiled_v12000 fn = [] {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr,
+                                         12000, cudaEnableDefault,
+                                         &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      ptr = nullptr;
+    return reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(ptr);
+  }();
+  return fn;
+}
+
+// A [B, L, N, D] tensor with element strides as dims {D, N, L, B}, read in
+// boxes of 64 x 1 x rows x 1 (one 128-byte swizzled row per position).
+CUresult encode(CUtensorMap* map, const void* base, bool fp16, int B, int L,
+                int N, int D, long long sb, long long sl, long long sn,
+                int rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)N, (cuuint64_t)L,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)sn * 2, (cuuint64_t)sl * 2,
+                                 (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {kBoxCols, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encoder()(map,
+                   fp16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                        : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                   4, const_cast<void*>(base), dims, strides, box, unit,
+                   CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+template <typename T, int D, bool kLse>
+cudaError_t launch(const CUtensorMap* maps, const Params& p, int B, int N,
+                   cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<T, D, kLse>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg<D>::kSmem);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.Lq + kBlockM - 1) / kBlockM, N, B);
-  flash_fwd_kernel<T, D, kLse><<<grid, kThreads, smem, stream>>>(p);
+  flash_fwd_kernel<T, D, kLse><<<grid, kThreadsWs, Cfg<D>::kSmem, stream>>>(
+      maps[0], maps[1], maps[2], p);
   return cudaGetLastError();
 }
 
 template <typename T, int D>
-cudaError_t launch_lse(const Params& p, int B, int N, cudaStream_t s) {
-  return p.lse ? launch<T, D, true>(p, B, N, s) : launch<T, D, false>(p, B, N, s);
+cudaError_t launch_lse(const CUtensorMap* maps, const Params& p, int B, int N,
+                       cudaStream_t s) {
+  return p.lse ? launch<T, D, true>(maps, p, B, N, s)
+               : launch<T, D, false>(maps, p, B, N, s);
 }
 
 }  // namespace
 
-// Returns a cudaError_t: 0 when the launch was accepted. Strides are in
-// elements; every row must start on a 16-byte boundary (the caller checks).
-// `lse` null runs B1 (no LSE), otherwise B2 writes the LSE [B, N, Lq] fp32.
+// Returns 0 when the launch was accepted, a cudaError_t when it was refused,
+// or 1000 + the driver's CUresult when a tensor map could not be encoded.
+// Strides are in elements; every stride but D's must be a multiple of 8
+// elements and every base 16-byte aligned (the caller checks). `lse` null
+// runs B1 (no LSE), otherwise B2 writes the LSE [B, N, Lq] fp32.
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, const void* kv_mask, void* o,
     float* lse, int B, int N, int Lq, int Lk, int D, int is_fp16, int n_pad,
@@ -271,26 +472,31 @@ extern "C" int flash_attention_fwd(
     long long o_sb, long long o_sl, long long o_sn,
     float scale_q, float log2e_q, void* stream) {
   if (B <= 0 || N <= 0 || Lq <= 0 || Lk <= 0 || n_pad < 0 || N > 65535 ||
-      B > 65535)
+      B > 65535 || (D != 64 && D != 128))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (encoder() == nullptr)
+    return kTensorMapError + static_cast<int>(CUDA_ERROR_NOT_FOUND);
+  const bool fp16 = is_fp16 != 0;
+  CUtensorMap maps[3];
+  const CUresult enc[3] = {
+      encode(&maps[0], q, fp16, B, Lq, N, D, q_sb, q_sl, q_sn, kBlockM),
+      encode(&maps[1], k, fp16, B, Lk, N, D, k_sb, k_sl, k_sn, kBlockN),
+      encode(&maps[2], v, fp16, B, Lk, N, D, v_sb, v_sl, v_sn, kBlockN)};
+  for (CUresult r : enc)
+    if (r != CUDA_SUCCESS) return kTensorMapError + static_cast<int>(r);
   Params p;
-  p.q = q; p.k = k; p.v = v; p.o = o; p.lse = lse;
   p.mask = static_cast<const uint8_t*>(kv_mask);
+  p.o = o; p.lse = lse;
   p.Lq = Lq; p.Lk = Lk; p.n_pad = n_pad;
-  p.q_sb = q_sb; p.q_sl = q_sl; p.q_sn = q_sn;
-  p.k_sb = k_sb; p.k_sl = k_sl; p.k_sn = k_sn;
-  p.v_sb = v_sb; p.v_sl = v_sl; p.v_sn = v_sn;
   p.o_sb = o_sb; p.o_sl = o_sl; p.o_sn = o_sn;
   p.scale_q = scale_q; p.log2e_q = log2e_q;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (D == 128)
-    err = is_fp16 ? launch_lse<__half, 128>(p, B, N, s)
-                  : launch_lse<__nv_bfloat16, 128>(p, B, N, s);
-  else if (D == 64)
-    err = is_fp16 ? launch_lse<__half, 64>(p, B, N, s)
-                  : launch_lse<__nv_bfloat16, 64>(p, B, N, s);
+    err = fp16 ? launch_lse<__half, 128>(maps, p, B, N, s)
+               : launch_lse<__nv_bfloat16, 128>(maps, p, B, N, s);
   else
-    err = cudaErrorInvalidValue;
+    err = fp16 ? launch_lse<__half, 64>(maps, p, B, N, s)
+               : launch_lse<__nv_bfloat16, 64>(maps, p, B, N, s);
   return static_cast<int>(err);
 }
