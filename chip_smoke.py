@@ -8,13 +8,14 @@ Phases, each of which fails the run (non-zero exit) on any fault:
      kernels from `videocof_torch/csrc/` with nvcc (sm_90a), one process per
      source, all at once; ptxas registers, spills and warnings of every
      kernel; the count of wgmma (HGMMA) and TMA load (UTMALDG) instructions
-     in each instantiation of the forward `flash_fwd_kernel` (cuobjdump
-     -sass), which fails the run if either is 0.
+     in each instantiation of the forward `flash_fwd_kernel`, and of int8
+     wgmma (IGMMA), HGMMA and UTMALDG in each of B4's `int8_attn_kernel`
+     (cuobjdump -sass), which fails the run if any is 0.
   2. kernels vs plain, on the card, at the main paths' shapes and at the
      edge cases (ragged length, key mask with a fully masked batch row,
-     D = 64 (flash) or 256 (int8), fp16, and for B1 and B2 the lengths on
-     and beside their 128-row q tiles and 128-key K/V tiles, Lq in {1, 127,
-     129} by Lk in {1, 127, 129, 512}): the forward B1 and the forward with
+     D = 64 (flash) or 256 (int8), fp16, and for B1, B2 and B4 the lengths
+     on and beside their 128-row q tiles and K/V tiles, Lq in {1, 127, 129}
+     by Lk in {1, 127, 129, 512}): the forward B1 and the forward with
      LSE B2 on the output
      (max abs error <= 3e-2 and relative L2 error <= 1e-2: at the main
      path's lengths the outputs are small, so the absolute bound alone would
@@ -40,7 +41,8 @@ Phases, each of which fails the run (non-zero exit) on any fault:
      and SDPA's backward: yardsticks the port never calls; for B4 SDPA's
      unquantized bf16 forward, not the same function); CUDA events, median
      of the runs after a warm-up; the achieved TFLOP/s of each flash
-     kernel.
+     kernel and B4's achieved TOP/s (int8 and bf16 operations together),
+     and B4 beside B1 at B4's batch-2 shapes (whether int8 QK^T pays).
   4. the edit: `WanPipeline` at full width (Wan2.1 1.3B DiT, Wan2.1 VAE,
      umT5-XXL, random bf16 weights from a seed) edits a 33-frame 480x832
      uint8 video with 4 reasoning frames in 4 Flow-UniPC steps; checks the
@@ -92,8 +94,9 @@ COS_TOL = 0.999                # B4 vs unquantized attention (JAX's test)
 PEAK_BF16_FLOPS = 989e12       # H100 SXM dense bf16 (data sheet)
 PEAK_INT8_OPS = 1979e12        # H100 SXM dense int8 (data sheet)
 PEAK_BYTES = 3.35e12           # H100 SXM HBM3
-# SASS of the forward's Hopper design: wgmma and TMA loads
+# SASS of the Hopper designs: bf16 wgmma and TMA loads, and B4's int8 wgmma
 SASS_OPCODES = ("HGMMA", "UTMALDG")
+SASS_OPCODES_INT8 = ("IGMMA", "HGMMA", "UTMALDG")
 SEED = 0
 TRAIN_STEPS = 3
 STD_STEPS = 50                 # the standard edit (the reference's inference.py)
@@ -205,26 +208,29 @@ def ptxas_report(log_text):
     return rows
 
 
-def sass_counts(lib_path, kernel):
-    """{label: {opcode: count}} of SASS_OPCODES over the functions named like
-    ``kernel`` in ``cuobjdump -sass`` of a built library."""
+def sass_counts(lib_path, kernel, opcodes):
+    """({label: {opcode: count}} of ``opcodes`` over the functions named like
+    ``kernel`` in ``cuobjdump -sass`` of a built library, {every *GMMA*
+    opcode seen there: count})."""
     from videocof_torch.ops import _build
     cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
     res = subprocess.run([str(cuobjdump), "-sass", str(lib_path)],
                          capture_output=True, text=True, timeout=300)
     if res.returncode != 0:
         fail(f"cuobjdump -sass {lib_path}: {res.stderr.strip()}")
-    counts, func = {}, None
+    counts, gmma, func = {}, {}, None
     for line in res.stdout.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
             func = kernel_label(m.group(1)) if kernel in m.group(1) else None
             if func:
-                counts[func] = dict.fromkeys(SASS_OPCODES, 0)
+                counts[func] = dict.fromkeys(opcodes, 0)
         elif func:
-            for op in SASS_OPCODES:
+            for op in opcodes:
                 counts[func][op] += len(re.findall(rf"\b{op}\b", line))
-    return counts
+            for op in re.findall(r"\b\w*GMMA[\w.]*", line):
+                gmma[op] = gmma.get(op, 0) + 1
+    return counts, gmma
 
 
 def profile_kernels(fn):
@@ -392,14 +398,19 @@ def main() -> int:
         for line in build_log.splitlines():
             if "warning" in line.lower():
                 log(f"[build] {src}: {line.strip()}")
-    sass = sass_counts(_build.library_path(fa.SOURCE), "flash_fwd_kernel")
-    for label, counts in sass.items():
-        log(f"[sass] {label}: " + ", ".join(
-            f"{op} {n}" for op, n in counts.items()))
-    # one instantiation per type, head dim and LSE flag
-    want = len(fa.DTYPES) * len(fa.HEAD_DIMS) * 2
-    if len(sass) != want or any(0 in c.values() for c in sass.values()):
-        fail(f"flash_fwd_kernel's SASS lacks wgmma or TMA loads: {sass}")
+    # one instantiation per type, head dim (and LSE flag for the forward)
+    for source, kernel, opcodes, want in (
+            (fa.SOURCE, "flash_fwd_kernel", SASS_OPCODES,
+             len(fa.DTYPES) * len(fa.HEAD_DIMS) * 2),
+            (i8.SOURCE, "int8_attn_kernel", SASS_OPCODES_INT8,
+             len(i8.DTYPES) * len(i8.HEAD_DIMS))):
+        sass, gmma = sass_counts(_build.library_path(source), kernel, opcodes)
+        for label, counts in sass.items():
+            log(f"[sass] {label}: " + ", ".join(
+                f"{op} {n}" for op, n in counts.items()))
+        log(f"[sass] {kernel}: wgmma opcodes seen: {gmma}")
+        if len(sass) != want or any(0 in c.values() for c in sass.values()):
+            fail(f"{kernel}'s SASS lacks one of {opcodes}: {sass}")
 
     # ----------------------------------------------------- 2. kernels vs plain
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -527,14 +538,11 @@ def main() -> int:
         ("head_dim 256", (1, 3000, 3000, 2, 256), None, bf16),
         ("fp16", (1, 1000, 700, 2, D), None, torch.float16),
     ]
-    for name, shape, masked, dtype in cases8:
-        B, Lq, Lk, Nh, Dh = shape
-        label = f"{name} {shape} {str(dtype)[6:]}"
-        q, k, v = qkv(*shape, dtype=dtype)
-        mask = None
-        if masked:
-            mask = torch.rand(B, Lk, generator=gen, device=dev) > 0.3
-            mask[-1] = False
+    def check_int8(label, q, k, v, mask, quiet=False):
+        """B4's pre-pass, its attention kernel and the whole of it against
+        their plain versions, and the whole against unquantized attention
+        (cosine); ``quiet`` logs only a failure."""
+        B = q.shape[0]
         mean = i8.k_mean(k)
         ki, sk = i8.int8_quantize_k(k, mean)
         torch.cuda.synchronize()
@@ -548,11 +556,12 @@ def main() -> int:
         deq_rel = ((deq - deq_ref).norm() / deq_ref.norm()).item()
         ok = (levels.max().item() <= 1 and flips <= QUANT_FLIP_TOL
               and sk_err <= 1e-6)
-        log(f"[kernel vs plain] B4 pre-pass {label}: int8 values off by "
-            f"<= {levels.max().item()} level in a share {flips:.3e} (tol 1 "
-            f"level, {QUANT_FLIP_TOL}), row scales max relative err "
-            f"{sk_err:.3e} (tol 1e-6), dequantized K max abs err "
-            f"{deq_err:.3e}: {'ok' if ok else 'FAIL'}")
+        if not (quiet and ok):
+            log(f"[kernel vs plain] B4 pre-pass {label}: int8 values off by "
+                f"<= {levels.max().item()} level in a share {flips:.3e} (tol "
+                f"1 level, {QUANT_FLIP_TOL}), row scales max relative err "
+                f"{sk_err:.3e} (tol 1e-6), dequantized K max abs err "
+                f"{deq_err:.3e}: {'ok' if ok else 'FAIL'}")
         if not ok:
             fail(f"B4's quantization pre-pass disagrees: {label}")
         note("int8_quantize_k", (deq_err, deq_rel))
@@ -560,26 +569,48 @@ def main() -> int:
         out = i8.int8_attention_fwd(q, ki, sk, v, kv_mask=mask)
         torch.cuda.synchronize()
         ref = i8.int8_attention_reference(q, ki, sk, v, kv_mask=mask)
-        note("int8_attention_fwd", compare(f"B4 attention {label}", out, ref))
+        note("int8_attention_fwd",
+             compare(f"B4 attention {label}", out, ref, quiet=quiet))
         del out, ref, ki, sk
         out = i8.int8_flash_attention(q, k, v, kv_mask=mask)
         torch.cuda.synchronize()
         ref = i8.int8_flash_attention_reference(q, k, v, kv_mask=mask)
-        note("int8_flash_attention", compare(f"B4 whole {label}", out, ref))
+        note("int8_flash_attention",
+             compare(f"B4 whole {label}", out, ref, quiet=quiet))
         # a fully masked row averages V over each wrapper's own padded
         # length (B1's key block is 1024, B4's 512): left out here
-        rows = slice(0, B - 1) if masked else slice(None)
+        rows = slice(0, B - 1) if mask is not None else slice(None)
         exact = fa.flash_attention_reference(q, k, v, kv_mask=mask)[rows]
         got, exact = out[rows].float(), exact.float()
         diff = got - exact
         rel = (diff.norm() / exact.norm()).item()
         cos = (got * exact).sum().item() / (got.norm() * exact.norm()).item()
-        log(f"[int8 vs unquantized] B4 {label}: relative L2 err {rel:.3e}, "
-            f"cosine similarity {cos:.6f} (tol > {COS_TOL}): "
-            f"{'ok' if cos > COS_TOL else 'FAIL'}")
+        if not (quiet and cos > COS_TOL):
+            log(f"[int8 vs unquantized] B4 {label}: relative L2 err "
+                f"{rel:.3e}, cosine similarity {cos:.6f} (tol > {COS_TOL}): "
+                f"{'ok' if cos > COS_TOL else 'FAIL'}")
         if not cos > COS_TOL:
             fail(f"B4 strays from unquantized attention: {label}")
-        del q, k, v, mean, out, ref, got, exact, diff
+
+    for name, shape, masked, dtype in cases8:
+        B, Lq, Lk, Nh, Dh = shape
+        q, k, v = qkv(*shape, dtype=dtype)
+        mask = None
+        if masked:
+            mask = torch.rand(B, Lk, generator=gen, device=dev) > 0.3
+            mask[-1] = False
+        check_int8(f"{name} {shape} {str(dtype)[6:]}", q, k, v, mask)
+        del q, k, v, mask
+    # B4 at lengths on and beside its 128-row q tiles and its K/V tiles (128
+    # keys at D = 128, 64 at D = 256); one line unless one fails
+    edges8 = [(Lq, Lk, Dh, dtype) for Lq in (1, 127, 129)
+              for Lk in (1, 127, 129, 512)
+              for Dh, dtype in ((D, bf16), (256, torch.float16))]
+    for Lq, Lk, Dh, dtype in edges8:
+        check_int8(f"tile edge Lq={Lq} Lk={Lk} D={Dh} {str(dtype)[6:]}",
+                   *qkv(2, Lq, Lk, 3, Dh, dtype=dtype), None, quiet=True)
+    log(f"[kernel vs plain] B4 at {len(edges8)} tile-edge lengths (Lq "
+        f"1/127/129 x Lk 1/127/129/512, D {D} bf16 and D 256 fp16): ok")
     torch.cuda.empty_cache()
 
     # the kernels inside a full-width DiT (2 blocks) on a small latent: the
@@ -727,7 +758,8 @@ def main() -> int:
     # B4 at the standard edit's shapes (batched CFG: batch 2): the whole of
     # it (K mean, pre-pass, attention) and each kernel; the yardstick is
     # SDPA's unquantized bf16 forward, which is not the same function (no
-    # PyTorch call computes int8 attention)
+    # PyTorch call computes int8 attention); B1 at the same shapes says
+    # whether the int8 QK^T pays
     timing8 = {}
     for shape_name, (B, Lq, Lk), plain_runs in (("self", (2, L, L), 3),
                                                 ("cross", (2, L, Lt), 10)):
@@ -747,6 +779,8 @@ def main() -> int:
         qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
         sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt),
                           runs=10)
+        b1_ms = cuda_ms(lambda: fa.flash_attention(q, k, v), runs=10)
+        ops = 4 * B * N * Lq * Lk * D    # int8 QK^T and bf16 PV together
         bounds = int8_bounds(B, Lq, Lk, N, D)
         shape = f"B={B} Lq={Lq} Lk={Lk} N={N} D={D} bf16"
         timing8[shape_name] = {}
@@ -757,12 +791,18 @@ def main() -> int:
             timing8[shape_name][kname] = dict(
                 shape=shape, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=None,
-                sdpa_unquantized_ms=sdpa_ms)
+                sdpa_unquantized_ms=sdpa_ms, b1_ms=b1_ms)
+            attention = kname != "int8_quantize_k"
+            if attention:
+                timing8[shape_name][kname]["tops"] = ops / ms / 1e9
             log(f"[timing] {kname} {shape_name} {shape}: kernel_ms {ms:.4f} "
                 f"bound_ms {bound_ms:.4f} ({bound_by}) plain_ms "
-                f"{plain_ms:.4f} (share of bound {bound_ms / ms:.1%}); SDPA "
-                f"bf16 forward, unquantized, not the same function: "
-                f"{sdpa_ms:.4f} ms")
+                f"{plain_ms:.4f} (share of bound {bound_ms / ms:.1%}"
+                + (f"; {ops / ms / 1e9:.1f} TOP/s, int8 and bf16 together; "
+                   f"B1 (bf16) at this shape {b1_ms:.4f} ms, {b1_ms / ms:.3f}x"
+                   f" this" if attention else "")
+                + f"); SDPA bf16 forward, unquantized, not the same "
+                f"function: {sdpa_ms:.4f} ms")
         del q, k, v, mean, ki, sk, runs, qt, kt, vt
         torch.cuda.empty_cache()
 
@@ -1035,7 +1075,8 @@ def main() -> int:
             "max_rel_l2_err": errs[kname][1],
             **{key: main_shape[key] for key in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                "sdpa_unquantized_ms", "shape")},
+                "sdpa_unquantized_ms", "b1_ms", "shape") + (
+                    ("tops",) if "tops" in main_shape else ())},
             "cross": timing8["cross"][kname],
             **({"b4_whole": dict(
                 timing8["self"]["int8_flash_attention"],

@@ -352,14 +352,65 @@ def _check_int8(q, k, v, mask=None):
     _close(got, i8.int8_flash_attention_reference(q, k, v, kv_mask=mask))
 
 
+# B4's 128-row q tiles and its K/V tiles (128 keys at D = 128, 64 at
+# D = 256): lengths on and beside their edges, at both head dims and types
+INT8_TILE_EDGES = [(Lq, Lk, D, dtype) for Lq in (1, 127, 129)
+                   for Lk in (1, 127, 129, 512) for D in (128, 256)
+                   for dtype in (torch.bfloat16, torch.float16)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("Lq,Lk,D,dtype", [
     (300, 300, 128, torch.bfloat16), (256, 130, 128, torch.bfloat16),
     (1000, 700, 128, torch.float16), (64, 1, 128, torch.bfloat16),
     (77, 513, 256, torch.bfloat16), (333, 200, 256, torch.float16),
-])
+] + INT8_TILE_EDGES)
 def test_int8_kernel_matches_plain(cuda, Lq, Lk, D, dtype):
     _check_int8(*_qkv(cuda, 2, Lq, Lk, 3, D, dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [128, 256])
+def test_int8_kernels_are_deterministic(cuda, D):
+    """No atomics: two launches of each B4 kernel give the same bits."""
+    q, k, v = _qkv(cuda, 2, 1000, 777, 2, D)
+    mean = i8.k_mean(k)
+    (ki, sk), (ki2, sk2) = i8.int8_quantize_k(k, mean), i8.int8_quantize_k(
+        k, mean)
+    a = i8.int8_attention_fwd(q, ki, sk, v)
+    b = i8.int8_attention_fwd(q, ki, sk, v)
+    torch.cuda.synchronize()
+    assert torch.equal(ki, ki2) and torch.equal(sk, sk2)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_int8_unaligned_rows_raise_before_any_tensor_map(cuda, monkeypatch):
+    """A row stride that is not a multiple of 16 bytes, or a base that is not
+    16-byte aligned, raises in the wrapper: the kernels' library (which
+    encodes the TMA tensor maps) is never reached."""
+    def no_library():
+        raise AssertionError("the kernels' library was reached")
+
+    monkeypatch.setattr(i8, "_library", no_library)
+    bf16 = torch.bfloat16
+    wide = torch.zeros(1, 64, 2, 132, dtype=bf16, device=cuda)[..., :128]
+    flat = torch.zeros(64 * 2 * 128 + 8, dtype=bf16, device=cuda)
+    shifted = flat[1:1 + 64 * 2 * 128].view(1, 64, 2, 128)
+    ok = torch.zeros(1, 64, 2, 128, dtype=bf16, device=cuda)
+    ki = torch.zeros(1, 2, 64, 128, dtype=torch.int8, device=cuda)
+    sk = torch.ones(1, 2, 64, device=cuda)
+    for bad in (wide, shifted):
+        for args in ((bad, ok, ok), (ok, bad, ok), (ok, ok, bad)):
+            with pytest.raises(NotImplementedError):
+                i8.int8_flash_attention(*args)
+        with pytest.raises(NotImplementedError):
+            i8.int8_attention_fwd(bad, ki, sk, ok)
+        with pytest.raises(NotImplementedError):
+            i8.int8_attention_fwd(ok, ki, sk, bad)
+    sk_flat = torch.ones(2 * 64 + 1, device=cuda)
+    with pytest.raises(NotImplementedError):   # sk off 16 bytes
+        i8.int8_attention_fwd(ok, ki, sk_flat[1:].view(1, 2, 64), ok)
 
 
 @pytest.mark.cuda

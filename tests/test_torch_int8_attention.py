@@ -78,6 +78,19 @@ def test_plain_matches_pallas_masked(Lq, Lk, full_row):
         np.testing.assert_allclose(got[-1:], want, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("Lk", [1, 129, 513])
+def test_plain_matches_pallas_at_tile_edges(Lk, masked):
+    """Key lengths on and beside the GPU kernel's 128-key tiles and the
+    wrapper's 512-key block (one key, one past a tile, one past a block),
+    129 queries (one past a 128-row q tile), with and without a key mask:
+    the plain version the kernel is held against on the card."""
+    q, k, v = _qkv(7 * Lk + masked, 2, 129, Lk, 2, 128)
+    mask = _mask(Lk, 2, Lk, False) if masked else None
+    np.testing.assert_allclose(_port(q, k, v, mask, torch.float32),
+                               _jax(q, k, v, mask, jnp.float32), **FP32_TOL)
+
+
 @pytest.mark.parametrize("L,D", [(200, 128), (130, 256)])
 def test_plain_matches_pallas_bf16(L, D):
     q, k, v = _qkv(3 * L + D, 2, L, L, 2, D)

@@ -64,10 +64,7 @@
 // than TMA; wider key tiles (176 keys, as FlashAttention-3 takes at D = 128)
 // spill registers in this arrangement.
 
-#include <cudaTypedefs.h>
-
-#include "flash_common.cuh"
-#include "hopper_common.cuh"
+#include "hopper_attention.cuh"
 
 namespace {
 
@@ -75,15 +72,7 @@ using namespace flash;
 using namespace hopper;
 
 constexpr int kBlockM = 128;          // q rows per CTA
-constexpr int kWgRows = 64;           // q rows per consumer warpgroup
 constexpr int kBlockN = 128;          // keys per K/V tile
-constexpr int kBoxCols = 64;          // 16-bit values in one 128-byte TMA box row
-constexpr int kThreadsWs = 384;       // producer + two consumer warpgroups
-constexpr int kConsumerThreads = 256;
-constexpr int kProducerRegs = 24;
-constexpr int kConsumerRegs = 240;
-// an encode failure returns this plus the driver's CUresult
-constexpr int kTensorMapError = 1000;
 
 template <int D>
 struct Cfg {
@@ -124,105 +113,6 @@ __device__ __forceinline__ void issue_qk(float (&s)[kBlockN / 2], const T* q,
                            sw128_desc(k + koff, 16, 1024), kk > 0);
   }
   wgmma_commit();
-}
-
-// acc += P V, P from registers, issued, not waited for.
-template <typename T, int D>
-__device__ __forceinline__ void issue_pv(float (&acc)[D / 2],
-                                         uint32_t (&pf)[kBlockN / 16][4],
-                                         const T* v) {
-#pragma unroll
-  for (int kk = 0; kk < kBlockN / 16; ++kk) fence_regs(pf[kk]);
-  fence_regs(acc);
-  wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < kBlockN / 16; ++kk)
-    wgmma_rs<T, D>(acc, pf[kk],
-                   sw128_desc(v + kk * 16 * kBoxCols, kBlockN * kBoxCols * 2,
-                              1024),
-                   1);
-  wgmma_commit();
-}
-
-// Keys past Lk get -inf (no weight), keys with mask 0 the logit -1e30.
-__device__ __forceinline__ void mask_tile(float (&s)[kBlockN / 2], int k0,
-                                          int Lk, const uint8_t* mb,
-                                          int lane) {
-  if (mb == nullptr && k0 + kBlockN <= Lk) return;
-#pragma unroll
-  for (int j = 0; j < kBlockN / 8; ++j) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int kidx = k0 + j * 8 + (lane & 3) * 2 + (e & 1);
-      if (kidx >= Lk)
-        s[4 * j + e] = __uint_as_float(0xff800000u);
-      else if (mb != nullptr && mb[kidx] == 0)
-        s[4 * j + e] = kMaskedLogit;
-    }
-  }
-}
-
-// Online softmax of one tile, in place: s becomes exp2(s - m); the running
-// max and sum move on, and alpha is the factor the accumulator takes before
-// this tile's P V. The thread holds rows lane/4 (r = 0) and lane/4 + 8
-// (r = 1) of its warp's 16; the four threads of a quad share a row.
-__device__ __forceinline__ void softmax_tile(float (&s)[kBlockN / 2],
-                                             float (&row_max)[2],
-                                             float (&row_sum)[2],
-                                             float (&alpha)[2]) {
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    float mx = row_max[r];
-#pragma unroll
-    for (int j = 0; j < kBlockN / 8; ++j)
-      mx = fmaxf(mx, fmaxf(s[4 * j + 2 * r], s[4 * j + 2 * r + 1]));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-    alpha[r] = fast_exp2(row_max[r] - mx);
-    row_max[r] = mx;
-    float sum = 0.f;
-#pragma unroll
-    for (int j = 0; j < kBlockN / 8; ++j) {
-      s[4 * j + 2 * r] = fast_exp2(s[4 * j + 2 * r] - mx);
-      s[4 * j + 2 * r + 1] = fast_exp2(s[4 * j + 2 * r + 1] - mx);
-      sum += s[4 * j + 2 * r] + s[4 * j + 2 * r + 1];
-    }
-    row_sum[r] = row_sum[r] * alpha[r] + sum;
-  }
-}
-
-template <int D>
-__device__ __forceinline__ void rescale(float (&acc)[D / 2],
-                                        const float (&alpha)[2]) {
-#pragma unroll
-  for (int jd = 0; jd < D / 8; ++jd) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[4 * jd + e] *= alpha[e >> 1];
-  }
-}
-
-// P rounded to the input type, as P V's A operand: keys 16kk..16kk+15 are
-// the accumulator's 8-column tiles 2kk and 2kk + 1.
-template <typename T>
-__device__ __forceinline__ void pack_p(uint32_t (&pf)[kBlockN / 16][4],
-                                       const float (&s)[kBlockN / 2]) {
-#pragma unroll
-  for (int kk = 0; kk < kBlockN / 16; ++kk) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      pf[kk][i] = Elem<T>::pack(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
-  }
-}
-
-// The two consumers take turns to issue their products (named barriers 3
-// and 4 over both warpgroups): one's softmax runs under the other's
-// products.
-__device__ __forceinline__ void turn_wait(int c) {
-  named_barrier_sync(3 + c, kConsumerThreads);
-}
-
-__device__ __forceinline__ void turn_pass(int c) {
-  named_barrier_arrive(3 + (c ^ 1), kConsumerThreads);
 }
 
 template <typename T, int D, bool kLse>
@@ -342,9 +232,9 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
     wgmma_wait<0>();
     fence_regs(s);
     mbar_arrive(&k_empty[0]);
-    mask_tile(s, 0, p.Lk, mb, lane);
-    softmax_tile(s, row_max, row_sum, alpha);
-    pack_p<T>(pf, s);
+    mask_tile<kBlockN>(s, 0, p.Lk, mb, lane);
+    softmax_tile<kBlockN>(s, row_max, row_sum, alpha);
+    pack_p<T, kBlockN>(pf, s);
     for (int t = 1; t < n_tiles; ++t) {
       const int st = t % C::kStages, sp = (t - 1) % C::kStages;
       mbar_wait(&k_full[st], (t / C::kStages) & 1);
@@ -352,24 +242,24 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
       issue_qk<T, D>(s, q_wg, sK + st * C::kKVElems);
       rescale<D>(acc, alpha);
       mbar_wait(&v_full[sp], ((t - 1) / C::kStages) & 1);
-      issue_pv<T, D>(acc, pf, sV + sp * C::kKVElems);
+      issue_pv<T, D, kBlockN>(acc, pf, sV + sp * C::kKVElems);
       turn_pass(c);
       wgmma_wait<1>();                   // S of tile t
       fence_regs(s);
       mbar_arrive(&k_empty[st]);
-      mask_tile(s, t * kBlockN, p.Lk, mb, lane);
-      softmax_tile(s, row_max, row_sum, alpha);
+      mask_tile<kBlockN>(s, t * kBlockN, p.Lk, mb, lane);
+      softmax_tile<kBlockN>(s, row_max, row_sum, alpha);
       wgmma_wait<0>();                   // P V of tile t-1
       fence_regs(acc);
       mbar_arrive(&v_empty[sp]);
-      pack_p<T>(pf, s);
+      pack_p<T, kBlockN>(pf, s);
     }
     {
       const int sp = (n_tiles - 1) % C::kStages;
       rescale<D>(acc, alpha);
       mbar_wait(&v_full[sp], ((n_tiles - 1) / C::kStages) & 1);
       turn_wait(c);
-      issue_pv<T, D>(acc, pf, sV + sp * C::kKVElems);
+      issue_pv<T, D, kBlockN>(acc, pf, sV + sp * C::kKVElems);
       if (c == 0) turn_pass(0);          // consumer 1 takes the last turn
       wgmma_wait<0>();
       fence_regs(acc);
@@ -398,42 +288,6 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
             row_max[r] * kLn2 + logf(l);
     }
   }
-}
-
-// cuTensorMapEncodeTiled from the driver, through the runtime (which the
-// library already links), so the build needs no -lcuda.
-PFN_cuTensorMapEncodeTiled_v12000 encoder() {
-  static const PFN_cuTensorMapEncodeTiled_v12000 fn = [] {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr,
-                                         12000, cudaEnableDefault,
-                                         &found) != cudaSuccess ||
-        found != cudaDriverEntryPointSuccess)
-      ptr = nullptr;
-    return reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(ptr);
-  }();
-  return fn;
-}
-
-// A [B, L, N, D] tensor with element strides as dims {D, N, L, B}, read in
-// boxes of 64 x 1 x rows x 1 (one 128-byte swizzled row per position).
-CUresult encode(CUtensorMap* map, const void* base, bool fp16, int B, int L,
-                int N, int D, long long sb, long long sl, long long sn,
-                int rows) {
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)N, (cuuint64_t)L,
-                              (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)sn * 2, (cuuint64_t)sl * 2,
-                                 (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {kBoxCols, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return encoder()(map,
-                   fp16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
-                        : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                   4, const_cast<void*>(base), dims, strides, box, unit,
-                   CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
 template <typename T, int D, bool kLse>
@@ -479,9 +333,9 @@ extern "C" int flash_attention_fwd(
   const bool fp16 = is_fp16 != 0;
   CUtensorMap maps[3];
   const CUresult enc[3] = {
-      encode(&maps[0], q, fp16, B, Lq, N, D, q_sb, q_sl, q_sn, kBlockM),
-      encode(&maps[1], k, fp16, B, Lk, N, D, k_sb, k_sl, k_sn, kBlockN),
-      encode(&maps[2], v, fp16, B, Lk, N, D, v_sb, v_sl, v_sn, kBlockN)};
+      encode_bld(&maps[0], q, fp16, B, Lq, N, D, q_sb, q_sl, q_sn, kBlockM),
+      encode_bld(&maps[1], k, fp16, B, Lk, N, D, k_sb, k_sl, k_sn, kBlockN),
+      encode_bld(&maps[2], v, fp16, B, Lk, N, D, v_sb, v_sl, v_sn, kBlockN)};
   for (CUresult r : enc)
     if (r != CUDA_SUCCESS) return kTensorMapError + static_cast<int>(r);
   Params p;

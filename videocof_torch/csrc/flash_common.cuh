@@ -1,7 +1,8 @@
 // Building blocks shared by the flash-attention kernels for Hopper (sm_90a):
 // the bf16/fp16 element traits with their mma.sync m16n8k16 product, ldmatrix
 // and cp.async wrappers, the XOR swizzle of shared-memory tiles, and the tile
-// loader. Included by `flash_attention_fwd.cu` and `flash_attention_bwd.cu`.
+// loader. Included by `flash_attention_bwd.cu` and, through
+// `hopper_attention.cuh`, by `flash_attention_fwd.cu` and `int8_attention.cu`.
 //
 // Fragment layout of mma.sync m16n8k16 used throughout (per warp, lane =
 // thread index in the warp): an fp32 accumulator tile of 16 rows x 8 columns

@@ -9,12 +9,15 @@ drops ``q . k_mean``, a constant per query row, to which the softmax is
 invariant. Two kernels, each with its launch count:
 
 * ``int8_quantize_k``: K centred on its per-(batch, head) fp32 mean and
-  quantized once, int8 [B, N, Lk, D] and fp32 row scales [B, N, Lk]. The TPU
+  quantized once, int8 [B, N, Lk, D] and fp32 row scales [B, N, Lk] (a view
+  of rows padded to 16 bytes, `sk_row_stride`, for TMA). The TPU
   kernel requantizes each K tile for every q block; the values are the same.
   The mean itself is a PyTorch reduction, as JAX computes it in XLA outside
   its kernel.
 * ``int8_attention_fwd``: the attention over q (quantized per q tile inside
-  the kernel) and the quantized K.
+  the kernel) and the quantized K, which the kernel reads through TMA tensor
+  maps encoded per launch (sm_90a: int8 and bf16/fp16 wgmma, a producer
+  warpgroup and two consumer warpgroups).
 
 ``int8_flash_attention`` runs the two, the function of JAX's
 `int8_flash_attention`.
@@ -57,6 +60,12 @@ def key_padding(Lk: int) -> int:
     they weigh only in a fully masked row."""
     rup = lambda x, m: -(-x // m) * m  # noqa: E731
     return rup(Lk, min(JAX_BLOCK_K, rup(Lk, 128))) - Lk
+
+
+def sk_row_stride(Lk: int) -> int:
+    """Elements between the rows of the pre-pass's row scales: Lk rounded up
+    to 4, so that each row starts on 16 bytes as TMA needs."""
+    return -(-Lk // 4) * 4
 
 
 def logit_scale(scale: float) -> float:
@@ -158,10 +167,10 @@ def int8_flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
 def _library() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
     lib.int8_quantize_k.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 3
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 4
         + [ctypes.c_void_p])
     lib.int8_attention_fwd.argtypes = (
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 9
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 10
         + [ctypes.c_float, ctypes.c_void_p])
     lib.int8_quantize_k.restype = ctypes.c_int
     lib.int8_attention_fwd.restype = ctypes.c_int
@@ -194,7 +203,8 @@ def _check_kernel_inputs(q, *others):
 def int8_quantize_k(k: torch.Tensor, mean: torch.Tensor
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """B4's pre-pass: ``k - mean`` quantized per row, (int8 [B, N, Lk, D],
-    fp32 [B, N, Lk]); ``mean`` is ``k_mean(k)``."""
+    fp32 [B, N, Lk]); ``mean`` is ``k_mean(k)``. On CUDA the scales are a
+    view of rows ``sk_row_stride(Lk)`` apart."""
     B, Lk, N, D = k.shape
     if k.device.type == "cpu":
         return quantize_k_reference(k, mean)
@@ -204,14 +214,15 @@ def int8_quantize_k(k: torch.Tensor, mean: torch.Tensor
         raise ValueError(f"mean must be a contiguous fp32 [B, N, D] = "
                          f"{(B, N, D)} tensor on {k.device}")
     ki = torch.empty((B, N, Lk, D), dtype=torch.int8, device=k.device)
-    sk = torch.empty((B, N, Lk), dtype=torch.float32, device=k.device)
+    sk = torch.empty((B, N, sk_row_stride(Lk)), dtype=torch.float32,
+                     device=k.device)[..., :Lk]
     if Lk == 0:
         return ki, sk
     with torch.cuda.device(k.device):   # the launch goes to the current device
         rc = _library().int8_quantize_k(
             k.data_ptr(), mean.data_ptr(), ki.data_ptr(), sk.data_ptr(),
-            B, N, Lk, D, int(k.dtype == torch.float16), *_bld(k),
-            torch.cuda.current_stream(k.device).cuda_stream)
+            B, N, Lk, D, int(k.dtype == torch.float16), sk.stride(1),
+            *_bld(k), torch.cuda.current_stream(k.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"int8_quantize_k launch failed: CUDA error {rc}")
     int8_quantize_k.launches += 1
@@ -231,11 +242,16 @@ def int8_attention_fwd(q: torch.Tensor, ki: torch.Tensor, sk: torch.Tensor,
         return int8_attention_reference(q, ki, sk, v, kv_mask=kv_mask,
                                         scale=scale)
     _check_kernel_inputs(q, v)
+    row = sk.stride(1)
     if (ki.dtype != torch.int8 or tuple(ki.shape) != (B, N, Lk, D)
-            or sk.dtype != torch.float32 or tuple(sk.shape) != (B, N, Lk)
-            or not (ki.is_contiguous() and sk.is_contiguous())):
+            or not ki.is_contiguous() or sk.dtype != torch.float32
+            or tuple(sk.shape) != (B, N, Lk)
+            or sk.stride() != (N * row, row, 1) or row < Lk or row % 4):
         raise ValueError("ki, sk must be int8_quantize_k's contiguous int8 "
-                         f"{(B, N, Lk, D)} and fp32 {(B, N, Lk)}")
+                         f"{(B, N, Lk, D)} and fp32 {(B, N, Lk)} with rows a "
+                         "multiple of 4 apart")
+    if ki.data_ptr() % 16 or sk.data_ptr() % 16:
+        raise NotImplementedError("ki and sk must start on 16 bytes (TMA)")
     out = torch.empty((B, Lq, N, D), dtype=v.dtype, device=q.device)
     if Lq == 0:
         return out
@@ -247,7 +263,7 @@ def int8_attention_fwd(q: torch.Tensor, ki: torch.Tensor, sk: torch.Tensor,
             q.data_ptr(), ki.data_ptr(), sk.data_ptr(), v.data_ptr(),
             None if mask is None else mask.data_ptr(), out.data_ptr(),
             B, N, Lq, Lk, D, int(q.dtype == torch.float16), key_padding(Lk),
-            *_bld(q), *_bld(v), *_bld(out), logit_scale(scale),
+            row, *_bld(q), *_bld(v), *_bld(out), logit_scale(scale),
             torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"int8_attention_fwd launch failed: CUDA error {rc}")
