@@ -133,7 +133,7 @@ def test_masked_grad_matches_jax():
 
 
 def test_plain_backward_pieces():
-    """The Function's CPU backward is delta, B3a's and B3b's plain versions,
+    """The Function's CPU backward is delta and `flash_bwd`'s plain versions,
     and its output is the no-grad forward's; no kernel launch is counted on
     the CPU."""
     q, k, v, g = (torch.from_numpy(a) for a in _arrays(
@@ -143,8 +143,8 @@ def test_plain_backward_pieces():
     qs = q * scale
     out, lse = fa.flash_fwd_lse(qs, k, v)
     delta = fa.flash_bwd_delta(out, g)
-    dq = fa.flash_bwd_dq(qs, k, v, g, lse, delta) * scale
-    dk, dv = fa.flash_bwd_dkv(qs, k, v, g, lse, delta)
+    dq, dk, dv = fa.flash_bwd(qs, k, v, g, lse, delta)
+    dq = dq * scale
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     tout = fa.flash_attention(*leaves)
     tout.backward(g)
@@ -154,3 +154,49 @@ def test_plain_backward_pieces():
     for want, leaf in zip((dq, dk, dv), leaves):
         torch.testing.assert_close(leaf.grad, want, rtol=1e-6, atol=1e-6)
     assert fa.launch_counts() == before
+
+
+def _rel_l2(got, want):
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+@pytest.mark.parametrize("Lq,Lk,D", [(200, 200, 128), (130, 77, 64)])
+def test_rounded_plain_backward_against_pallas_bf16(Lq, Lk, D):
+    """Kernel B3's arithmetic, P and dS rounded to bf16 before the dV, dK and
+    dQ products (the plain backward with ``rounded=True``), against JAX's
+    Pallas backward `_flash_bwd_bnld` in interpret mode, which keeps them in
+    fp32: the size of B3's one deviation from the reference. Both sides get
+    JAX's forward output and LSE. The fp32 plain backward meets JAX to the
+    final bf16 rounding (relative L2 <= 2e-4; 1e-5 to 3.4e-5 measured); the
+    rounded one moves away by the bf16 rounding of P and dS, 2^-9 of a
+    value at most (2.59e-3 to 2.65e-3 measured here, about 2.6e-3 for the
+    kernels on the card), bounded at 5e-3."""
+    B, N, bq, bk = 2, 2, 128, 128
+    q, k, v, g = _arrays(Lq + Lk + D, (B, Lq, N, D), (B, Lk, N, D),
+                         (B, Lk, N, D), (B, Lq, N, D))
+    q = q * D ** -0.5                       # the scale-folded q of the core
+    bnld = lambda a: jnp.asarray(           # noqa: E731
+        a.transpose(0, 2, 1, 3).reshape(B * N, a.shape[1], D), jnp.bfloat16)
+    jq, jk, jv, jg = (bnld(a) for a in (q, k, v, g))
+    o, lse = jfa._flash_bnld(jq, jk, jv, 1.0, bq, bk, interpret=True)
+    want = [np.asarray(x.astype(jnp.float32)).reshape(B, N, -1, D)
+            .transpose(0, 2, 1, 3) for x in jfa._flash_bwd_bnld(
+                jq, jk, jv, jg, o, lse, 1.0, bq, bk, interpret=True)]
+    tq, tk, tv, tg = (torch.from_numpy(a).to(torch.bfloat16)
+                      for a in (q, k, v, g))
+    tout = torch.from_numpy(np.asarray(o.astype(jnp.float32)).reshape(
+        B, N, Lq, D).transpose(0, 2, 1, 3).copy()).to(torch.bfloat16)
+    tlse = torch.from_numpy(np.array(lse[:, :Lq, 0]).reshape(B, N, Lq))
+    delta = fa.flash_bwd_delta(tout, tg)
+    errs = {}
+    for rounded in (False, True):
+        got = (fa.flash_bwd_dq_reference(tq, tk, tv, tg, tlse, delta,
+                                         rounded=rounded),
+               *fa.flash_bwd_dkv_reference(tq, tk, tv, tg, tlse, delta,
+                                           rounded=rounded))
+        errs[rounded] = [_rel_l2(t.float().numpy(), w)
+                         for t, w in zip(got, want)]
+    for name, exact, rounded in zip(("dq", "dk", "dv"), errs[False],
+                                    errs[True]):
+        assert exact <= 2e-4, (name, exact)
+        assert exact < rounded <= 5e-3, (name, exact, rounded)

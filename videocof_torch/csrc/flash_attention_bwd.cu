@@ -1,470 +1,491 @@
-// Flash-attention backward for Hopper (sm_90a): two kernels, bound to Python
-// through plain C entry points (ctypes).
+// Flash-attention backward for Hopper (sm_90a): one warp-specialised kernel,
+// bound to Python through a plain C entry point (ctypes).
 //
-// Replace the Pallas TPU kernels of `videocof_tpu/ops/flash_attention.py::
+// Replaces both Pallas TPU kernels of `videocof_tpu/ops/flash_attention.py::
 // _flash_bwd_bnld`: `_bwd_dq_kernel` (kernel B3a) and `_bwd_dkv_kernel`
-// (kernel B3b). Same function: with q already scaled (the training wrapper
-// folds the softmax scale into q and runs the core at scale 1), the logits are
-// recomputed in the natural domain, S = q K^T * scale, and the probabilities
-// against the forward's natural-domain LSE, P = exp(S - lse); then
-// dP = dO V^T, dS = P * (dP - delta) * scale with delta = rowsum(dO * O)
-// (computed by the caller, as the TPU wrapper computes it outside its
-// kernels), and
-//   dQ = dS K            (B3a)
-//   dV = P^T dO, dK = dS^T Q  (B3b).
-// Keys past Lk leave dQ (P = 0), and q rows past Lq leave dK and dV (P = 0).
-// No key mask: the masked path's backward recomputes through plain attention
-// (`_flash_core_masked_bwd` has no Pallas kernel either).
+// (kernel B3b), which recompute the logits twice, once per kernel. The same
+// function: with q already scaled (the training wrapper folds the softmax
+// scale into q and runs the core at scale 1), S = q K^T * scale in the
+// natural domain, P = exp(S - lse) against the forward's LSE, dP = dO V^T,
+// dS = P * (dP - delta) * scale with delta = rowsum(dO * O) (computed by the
+// caller, as the TPU wrapper computes it outside its kernels), and
+//   dQ = dS K,  dV = P^T dO,  dK = dS^T Q.
+// Keys past Lk and q rows past Lq contribute nothing. No key mask: the masked
+// path's backward recomputes through plain attention (`_flash_core_masked_bwd`
+// has no Pallas kernel either).
 //
-// The TPU kernels run the products in fp32 on fp32-upcast inputs. Here S and
-// dP come from the tensor cores on the bf16/fp16 inputs with fp32
-// accumulation, which is exact in the products as there; P and dS are
-// rounded to the input type to feed the tensor cores for dV, dK and dQ, as
-// FlashAttention-2 does. That rounding is the one difference from the TPU
-// arithmetic (about 3e-3 relative L2 expected on dq, dk, dv).
+// Rounding. The TPU kernels run all five products in fp32 on fp32-upcast
+// inputs. Here S and dP come from the tensor cores on the bf16/fp16 inputs
+// with fp32 accumulation, which is exact in the products as there; P and dS
+// are rounded to the input type to feed the tensor cores for dV, dK and dQ,
+// as FlashAttention does. That rounding is the one difference from the TPU
+// arithmetic (about 2.6e-3 relative L2 on dq, dk and dv in bf16, 3e-4 in
+// fp16); the plain backward's `rounded=True` repeats it exactly. fp32
+// products (split bf16 or TF32 operands for 3 of the 5 products) would cost
+// 1.6x the tensor-core time.
 //
-// Inputs are read in their [B, L, N, D] layout through element strides;
-// lse and delta are [B, N, Lq] fp32; dq, dk, dv are written in [B, L, N, D],
-// in the input type, as the TPU wrapper casts them.
+// Layouts. q, k, v and dO are read in their [B, L, N, D] layout through TMA
+// tensor maps over the strides they come with; lse and delta are [B, N, Lq]
+// fp32 with rows 16 bytes apart (the wrapper pads them when Lq % 4 != 0);
+// dk and dv are written in [B, Lk, N, D] in the input type; dQ is added into
+// an fp32 [B, Lq, N, D] accumulator that the caller zeroes and casts.
 //
-// Design. The TPU grid is sequential and carries dQ (or dK, dV) in VMEM
-// scratch over its inner axis; Hopper's CTAs run in parallel in no order, so
-// each CTA loops over the inner axis itself and owns its output tile: no
-// atomics, no second pass.
-//  - B3a: one CTA of 4 warps per (64-row q tile, head, batch); each warp owns
-//    16 q rows and walks 64-key K/V tiles staged with cp.async, double-
-//    buffered. dQ (16 x D fp32 per warp) stays in registers; the Q and dO
-//    fragments are re-read from shared memory for each K/V tile so that the
-//    registers hold dQ, S and dP only.
-//  - B3b: one CTA of 4 warps per (64-key tile, head, batch); each warp owns
-//    16 keys and walks q tiles (32 rows at D = 128, 64 at D = 64) with their
-//    dO, LSE and delta, double-buffered. The warp computes S^T and dP^T
-//    directly (K and V fragments as the A operand), so P^T and dS^T are the A
-//    operands of dV and dK without a transpose. dK and dV (2 x 16 x D fp32
-//    per warp) stay in registers; the short q tile at D = 128 keeps S^T and
-//    dP^T small enough that nothing spills.
+// Design: one CTA of three warpgroups per (128-key tile, head, batch): the
+// TPU grid's sequential q axis becomes a loop inside the CTA, so dK and dV
+// stay in registers over all q rows and are stored once, with no atomics.
+// - The producer warpgroup drops to 24 registers (setmaxnreg); one of its
+//   threads issues every TMA load: the CTA's K and V tiles once, then per
+//   64-row q tile the Q and dO tiles and that tile's lse and delta into a
+//   ring of 2 stages with a full and an empty barrier each.
+// - Two consumer warpgroups (240 registers) own 64 keys each. Per q tile
+//   each runs S^T = K Q^T and dP^T = V dO^T as wgmma SS m64n64k16 (K, Q, V
+//   and dO all K-major), forms P^T and dS^T on the fp32 fragments (lse and
+//   delta indexed by the fragment's columns), packs both to the input type
+//   in registers, and runs dV += P^T dO and dK += dS^T Q as wgmma RS with
+//   dO and Q MN-major (the transpose bit, as V in the forward's P V).
+// - dQ: each consumer writes its dS^T into a 128-byte-swizzled [128 keys]
+//   [64 q] tile (two buffers, alternating by q tile), fences it against
+//   wgmma's async-proxy reads and meets the other consumer at a named
+//   barrier; then dQ = dS K runs as wgmma SS with dS read MN-major (A's
+//   transpose bit) and K MN-major. At D = 128 the consumers split dQ's
+//   columns (each all 128 keys, one 64-column half of K); at D = 64 each
+//   takes its own 64 keys and all columns, so no barrier across them is
+//   needed there. The fp32 partial goes through a swizzled staging tile in
+//   shared memory, and one thread adds it into the accumulator with two TMA
+//   reduce-adds (`cp.reduce.async.bulk.tensor ... add.f32`), which cost the
+//   consumers no instructions per element.
+// - Determinism: dk and dv are bitwise reproducible; dq is not, since the
+//   key tiles' reduce-adds land in no fixed order: after the cast it stays
+//   within one ulp of its type where a value is not far below dq's largest,
+//   and smaller values carry the fp32 sums' order through the cast.
 //
-// Bound on this card at the main-path self-attention shape (L = 29,640,
-// 12 heads, D = 128): B3a does 6*L^2*D*N = 8.1e12 FLOP (S, dP, dQ) and B3b
-// 8*L^2*D*N = 1.08e13 FLOP (S, dP, dV, dK) against well under 1 GB of
-// traffic each, so both are bound by tensor-core operations (8.19 ms and
-// 10.9 ms at 989 TFLOP/s dense bf16). Left for later, as in the forward:
-// wgmma, TMA with a producer warp, and persistent CTAs. At the cross shape
-// (Lk = 512) B3b has only 8 key tiles per head: 96 CTAs for 132 SMs, each
-// walking all 29,640 q rows; splitting the q loop across CTAs needs a
-// reduction pass.
+// Bound on this card at the main-path self-attention shape (L = 29,640, 12
+// heads, D = 128): 5 products of L^2 * D per head, 10 * L^2 * D * N = 1.35e13
+// FLOP (13.64 ms at 989 TFLOP/s dense bf16) against well under 1 GB of
+// inputs and outputs: bound by tensor-core operations. Computing S and dP
+// once for all three gradients is what brings the work from B3a + B3b's 14
+// L^2 * D products to 10. Within a consumer a q tile's steps run one after
+// the other; two overlaps were tried and did not pay: P's exponentials under
+// dP^T's products measured the same, and S^T of the next tile issued before
+// dQ's staging left an accumulator in flight across the loop's back edge,
+// which makes ptxas serialize the wgmmas (its C7515 note) or spill. What it
+// leaves for later: the two consumers run in step (dS is shared each tile),
+// so neither's elementwise work hides under the other's products; the CTAs
+// are not persistent; at the cross shape (Lk = 512) there are only 4 key
+// tiles per head, 48 CTAs for 132 SMs, each walking all q rows (splitting
+// the q range over CTAs needs dK/dV reductions too).
 
-#include "flash_common.cuh"
+#include "hopper_attention.cuh"
 
 namespace {
 
 using namespace flash;
+using namespace hopper;
 
-constexpr int kBlockM = 64;   // B3a: q rows per CTA
-constexpr int kBlockN = 64;   // keys per K/V tile (B3a) and per CTA (B3b)
+constexpr int kBlockN = 128;    // keys per CTA, 64 per consumer
+constexpr int kBlockQ = 64;     // q rows per tile of the q loop
+constexpr int kStages = 2;      // Q/dO tiles in flight
+constexpr int kDqBoxCols = 32;  // fp32 columns of a dQ TMA box (128 bytes)
+// the leading byte offset of an MN-major operand 64 elements wide: the
+// instruction reads one 64-element block, so it is never applied
+constexpr uint32_t kMnLbo = kBlockN * kBoxCols * 2;
 
-// B3b's q tile: shorter at D = 128, where dK and dV take 128 registers.
-template <int D> struct DkvBlockQ { static constexpr int value = 64; };
-template <> struct DkvBlockQ<128> { static constexpr int value = 32; };
+template <int D>
+struct Cfg {
+  static constexpr int kHalves = D / kBoxCols;   // TMA boxes across D
+  static constexpr uint32_t kKVBytes = kBlockN * D * 2;
+  static constexpr uint32_t kQBytes = kBlockQ * D * 2;
+  static constexpr uint32_t kVecBytes = kBlockQ * 4;
+  static constexpr int kDsBytes = kBlockN * kBlockQ * 2;
+  static constexpr int kDqBytes = kBlockQ * kWgRows * 4;   // per consumer
+  // K, V, the Q and dO stages, two dS tiles, the consumers' dQ staging
+  // tiles, the lse and delta stages, then the barriers: kv_full,
+  // q_full[S], q_empty[S]; 1024 more to align the base to the swizzle
+  // period. Every tile starts on 1024 bytes.
+  static constexpr int kVOffset = kKVBytes;
+  static constexpr int kQOffset = 2 * kKVBytes;
+  static constexpr int kDoOffset = kQOffset + kStages * kQBytes;
+  static constexpr int kDsOffset = kDoOffset + kStages * kQBytes;
+  static constexpr int kDqOffset = kDsOffset + 2 * kDsBytes;
+  static constexpr int kLseOffset = kDqOffset + 2 * kDqBytes;
+  static constexpr int kDeltaOffset = kLseOffset + kStages * kVecBytes;
+  static constexpr int kBarOffset = kDeltaOffset + kStages * kVecBytes;
+  static constexpr int kSmem = kBarOffset + (1 + 2 * kStages) * 8 + 1024;
+};
 
-struct BwdParams {
-  const void* q;
-  const void* k;
-  const void* v;
-  const void* dout;
-  const float* lse;     // [B, N, Lq], natural domain
-  const float* delta;   // [B, N, Lq]
-  void* dq;
+struct Params {
   void* dk;
   void* dv;
   int Lq, Lk;
-  long long q_sb, q_sl, q_sn;
-  long long k_sb, k_sl, k_sn;
-  long long v_sb, v_sl, v_sn;
-  long long do_sb, do_sl, do_sn;
-  long long dq_sb, dq_sl, dq_sn;
   long long dk_sb, dk_sl, dk_sn;
   long long dv_sb, dv_sl, dv_sn;
   float scale;
 };
 
+// S^T = K Q^T and dP^T = V dO^T for the warpgroup's 64 keys x 64 q rows, all
+// four operands K-major ([halves][rows][64] tiles); one group, issued, not
+// waited for.
 template <typename T, int D>
-__device__ __forceinline__ void store_rows(T* base, long long row_stride,
-                                           int row0, int len,
-                                           const float (*acc)[4], int lane) {
-  using E = Elem<T>;
+__device__ __forceinline__ void issue_sdp(float (&s)[kBlockQ / 2],
+                                          float (&dp)[kBlockQ / 2],
+                                          const T* k, const T* v,
+                                          const T* q, const T* dout) {
+  fence_regs(s);
+  fence_regs(dp);
+  wgmma_fence();
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + (lane >> 2) + r * 8;
-    if (row >= len) continue;
-    T* out = base + (long long)row * row_stride;
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int koff = (kk / 4) * kBlockN * kBoxCols + (kk % 4) * 16;
+    const int qoff = (kk / 4) * kBlockQ * kBoxCols + (kk % 4) * 16;
+    wgmma_ss_m64n64k16<T, 0, 0>(s, sw128_desc(k + koff, 16, 1024),
+                                sw128_desc(q + qoff, 16, 1024), kk > 0);
+    wgmma_ss_m64n64k16<T, 0, 0>(dp, sw128_desc(v + koff, 16, 1024),
+                                sw128_desc(dout + qoff, 16, 1024), kk > 0);
+  }
+  wgmma_commit();
+}
+
+// P^T = exp2(S^T * scale * log2 e - lse * log2 e) into s and dS^T = P^T *
+// (dP^T - delta) * scale into dp, the arithmetic of the TPU kernels in the
+// exp2 domain; lse and delta of the q tile in shared memory, indexed by the
+// fragment's columns. kMasked zeroes the rows of keys past Lk: their K rows
+// are TMA's zeros, which give dQ nothing, but exp2(-lse) alone could
+// overflow.
+template <bool kMasked>
+__device__ __forceinline__ void form_p_ds(float (&s)[kBlockQ / 2],
+                                          float (&dp)[kBlockQ / 2],
+                                          const float* lse,
+                                          const float* delta, float scale,
+                                          const bool (&key_ok)[2], int lane) {
+  const float scale2 = scale * kLog2e;
 #pragma unroll
-    for (int jd = 0; jd < D / 8; ++jd) {
-      const int col = jd * 8 + (lane & 3) * 2;
-      *reinterpret_cast<uint32_t*>(out + col) =
-          E::pack(acc[jd][2 * r], acc[jd][2 * r + 1]);
+  for (int j = 0; j < kBlockQ / 8; ++j) {
+    const float2 l2 =
+        *reinterpret_cast<const float2*>(lse + 8 * j + 2 * (lane & 3));
+    const float2 d2 =
+        *reinterpret_cast<const float2*>(delta + 8 * j + 2 * (lane & 3));
+    const float lse2[2] = {l2.x * kLog2e, l2.y * kLog2e};
+    const float dl[2] = {d2.x, d2.y};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int i = 4 * j + 2 * r + e;
+        float pv = fast_exp2(s[i] * scale2 - lse2[e]);
+        if constexpr (kMasked) pv = key_ok[r] ? pv : 0.f;
+        s[i] = pv;
+        dp[i] = pv * (dp[i] - dl[e]) * scale;
+      }
     }
   }
 }
 
-// ------------------------------------------------------------------- B3a: dQ
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const BwdParams p) {
-  using E = Elem<T>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* sQ = reinterpret_cast<T*>(smem);
-  T* sdO = sQ + kBlockM * D;
-  T* sK = sdO + kBlockM * D;          // 2 stages
-  T* sV = sK + 2 * kBlockN * D;       // 2 stages
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int mi = lane >> 3;
-  const int q0 = blockIdx.x * kBlockM;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const T* qb = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sn;
-  const T* kb = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sn;
-  const T* vb = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sn;
-  const T* dob = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sn;
-  const long long vec0 = ((long long)b * gridDim.y + h) * p.Lq;
-  const int n_tiles = (p.Lk + kBlockN - 1) / kBlockN;
-
-  load_tile<T, D, kBlockM>(sQ, qb, q0, p.Lq, p.q_sl, tid);
-  load_tile<T, D, kBlockM>(sdO, dob, q0, p.Lq, p.do_sl, tid);
-  load_tile<T, D, kBlockN>(sK, kb, 0, p.Lk, p.k_sl, tid);
-  load_tile<T, D, kBlockN>(sV, vb, 0, p.Lk, p.v_sl, tid);
-  cp_async_commit();
-
-  // log2-domain LSE and delta of this thread's two rows
-  const float scale2 = p.scale * kLog2e;
-  float lse2[2], dlt[2];
+// The packed dS^T fragments of a warp's 16 keys (rows row0 and row0 + 8 of
+// this thread) into the [128 keys][64 q] tile, 128-byte swizzled as TMA
+// would write it (16-byte chunk c of row r at chunk c ^ r % 8).
+template <typename T>
+__device__ __forceinline__ void store_ds(T* ds,
+                                         const uint32_t (&f)[kBlockQ / 16][4],
+                                         int row0, int lane) {
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = q0 + warp * 16 + (lane >> 2) + r * 8;
-    const bool ok = row < p.Lq;
-    lse2[r] = ok ? p.lse[vec0 + row] * kLog2e : 0.f;
-    dlt[r] = ok ? p.delta[vec0 + row] : 0.f;
+  for (int kk = 0; kk < kBlockQ / 16; ++kk) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = row0 + (i & 1) * 8;
+      const int col = kk * 16 + (i >> 1) * 8 + (lane & 3) * 2;
+      *reinterpret_cast<uint32_t*>(
+          ds + row * kBoxCols + (((col >> 3) ^ (row & 7)) << 3) +
+          (col & 7)) = f[kk][i];
+    }
   }
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j)
-    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  const int arow = warp * 16 + (mi & 1) * 8 + (lane & 7);
-
-  for (int t = 0; t < n_tiles; ++t) {
-    const int stage = t & 1;
-    if (t + 1 < n_tiles) {
-      load_tile<T, D, kBlockN>(sK + (stage ^ 1) * kBlockN * D, kb,
-                               (t + 1) * kBlockN, p.Lk, p.k_sl, tid);
-      load_tile<T, D, kBlockN>(sV + (stage ^ 1) * kBlockN * D, vb,
-                               (t + 1) * kBlockN, p.Lk, p.v_sl, tid);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const T* cK = sK + stage * kBlockN * D;
-    const T* cV = sV + stage * kBlockN * D;
-
-    // S = Q K^T and dP = dO V^T for 16 rows x 64 keys, fp32.
-    float s[kBlockN / 8][4], dp[kBlockN / 8][4];
-#pragma unroll
-    for (int j = 0; j < kBlockN / 8; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-      dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
-    }
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t qa[4], da[4];
-      ldmatrix_x4(qa, sQ + swz<D>(arow, kk * 2 + (mi >> 1)));
-      ldmatrix_x4(da, sdO + swz<D>(arow, kk * 2 + (mi >> 1)));
-#pragma unroll
-      for (int jn = 0; jn < kBlockN / 8; jn += 2) {
-        const int key = (jn + (mi >> 1)) * 8 + (lane & 7);
-        uint32_t bf[4];
-        ldmatrix_x4(bf, cK + swz<D>(key, kk * 2 + (mi & 1)));
-        E::mma(s[jn], qa, bf);
-        E::mma(s[jn + 1], qa, bf + 2);
-        ldmatrix_x4(bf, cV + swz<D>(key, kk * 2 + (mi & 1)));
-        E::mma(dp[jn], da, bf);
-        E::mma(dp[jn + 1], da, bf + 2);
-      }
-    }
-
-    // P = exp(S * scale - lse), 0 past Lk; dS = P * (dP - delta) * scale,
-    // kept in dp.
-    const int k0 = t * kBlockN;
-#pragma unroll
-    for (int jn = 0; jn < kBlockN / 8; ++jn) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        const int kidx = k0 + jn * 8 + (lane & 3) * 2 + (e & 1);
-        const float pv =
-            kidx < p.Lk ? fast_exp2(s[jn][e] * scale2 - lse2[r]) : 0.f;
-        dp[jn][e] = pv * (dp[jn][e] - dlt[r]) * p.scale;
-      }
-    }
-
-    // dQ += dS K, with dS rounded to the input type.
-#pragma unroll
-    for (int kk = 0; kk < kBlockN / 16; ++kk) {
-      uint32_t a[4];
-      a[0] = E::pack(dp[2 * kk][0], dp[2 * kk][1]);
-      a[1] = E::pack(dp[2 * kk][2], dp[2 * kk][3]);
-      a[2] = E::pack(dp[2 * kk + 1][0], dp[2 * kk + 1][1]);
-      a[3] = E::pack(dp[2 * kk + 1][2], dp[2 * kk + 1][3]);
-#pragma unroll
-      for (int jd = 0; jd < D / 8; jd += 2) {
-        uint32_t bf[4];
-        const int key = kk * 16 + (mi & 1) * 8 + (lane & 7);
-        ldmatrix_x4_trans(bf, cK + swz<D>(key, jd + (mi >> 1)));
-        E::mma(acc[jd], a, bf);
-        E::mma(acc[jd + 1], a, bf + 2);
-      }
-    }
-    __syncthreads();  // this stage is refilled two tiles on
-  }
-
-  T* dqb = static_cast<T*>(p.dq) + b * p.dq_sb + h * p.dq_sn;
-  store_rows<T, D>(dqb, p.dq_sl, q0 + warp * 16, p.Lq, acc, lane);
 }
 
-// -------------------------------------------------------------- B3b: dK, dV
+// dQ (64 q rows x 64 columns, fp32) = dS K over the keys this warpgroup
+// takes: at D = 128 all 128 of the CTA's keys and column half c of K, at
+// D = 64 its own 64 keys and all of K's columns. dS is the [128 keys][64 q]
+// tile (q contiguous: A MN-major), K the [halves][128 keys][64] tile (D
+// contiguous: B MN-major); issued, not waited for.
+template <typename T, int D>
+__device__ __forceinline__ void issue_dq(float (&dq)[kWgRows / 2],
+                                         const T* ds, const T* k, int c) {
+  constexpr int kKeys = D == 128 ? kBlockN : kWgRows;
+  const T* a = ds + (D == 128 ? 0 : c * kWgRows * kBoxCols);
+  const T* bk = k + (D == 128 ? c * kBlockN : c * kWgRows) * kBoxCols;
+  fence_regs(dq);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kKeys / 16; ++kk)
+    wgmma_ss_m64n64k16<T, 1, 1>(
+        dq, sw128_desc(a + kk * 16 * kBoxCols, kMnLbo, 1024),
+        sw128_desc(bk + kk * 16 * kBoxCols, kMnLbo, 1024), kk > 0);
+  wgmma_commit();
+}
+
+// The dQ fragment (64 q rows x 64 columns) into two [64 rows][32 columns]
+// fp32 boxes, 128-byte swizzled as the dQ tensor map reads them.
+__device__ __forceinline__ void stage_dq(float* box,
+                                         const float (&dq)[kWgRows / 2],
+                                         int warp, int lane) {
+#pragma unroll
+  for (int j = 0; j < kWgRows / 8; ++j) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = warp * 16 + (lane >> 2) + r * 8;
+      const int col = (8 * j + 2 * (lane & 3)) % kDqBoxCols;
+      *reinterpret_cast<float2*>(
+          box + (j * 8 / kDqBoxCols) * kBlockQ * kDqBoxCols +
+          row * kDqBoxCols + (((col >> 2) ^ (row & 7)) << 2) + (col & 3)) =
+          make_float2(dq[4 * j + 2 * r], dq[4 * j + 2 * r + 1]);
+    }
+  }
+}
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const BwdParams p) {
+__global__ void __launch_bounds__(kThreadsWs, 1)
+flash_bwd_kernel(const __grid_constant__ CUtensorMap tm_q,
+                 const __grid_constant__ CUtensorMap tm_k,
+                 const __grid_constant__ CUtensorMap tm_v,
+                 const __grid_constant__ CUtensorMap tm_do,
+                 const __grid_constant__ CUtensorMap tm_lse,
+                 const __grid_constant__ CUtensorMap tm_delta,
+                 const __grid_constant__ CUtensorMap tm_dq, const Params p) {
+  using C = Cfg<D>;
   using E = Elem<T>;
-  constexpr int BQ = DkvBlockQ<D>::value;
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* sK = reinterpret_cast<T*>(smem);
-  T* sV = sK + kBlockN * D;
-  T* sQ = sV + kBlockN * D;           // 2 stages
-  T* sdO = sQ + 2 * BQ * D;           // 2 stages
-  float* sL = reinterpret_cast<float*>(sdO + 2 * BQ * D);   // 2 stages
-  float* sD = sL + 2 * BQ;                                  // 2 stages
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  T* sK = reinterpret_cast<T*>(smem);                  // [halves][128][64]
+  T* sV = reinterpret_cast<T*>(smem + C::kVOffset);    // the same
+  T* sQ = reinterpret_cast<T*>(smem + C::kQOffset);    // [S][halves][64][64]
+  T* sdO = reinterpret_cast<T*>(smem + C::kDoOffset);  // the same
+  T* sdS = reinterpret_cast<T*>(smem + C::kDsOffset);  // [2][128 keys][64]
+  float* sdQ = reinterpret_cast<float*>(smem + C::kDqOffset);  // [2][2][64][32]
+  float* sLse = reinterpret_cast<float*>(smem + C::kLseOffset);     // [S][64]
+  float* sDelta = reinterpret_cast<float*>(smem + C::kDeltaOffset); // [S][64]
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + C::kBarOffset);
+  uint64_t* q_full = kv_full + 1;
+  uint64_t* q_empty = q_full + kStages;
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int mi = lane >> 3;
   const int k0 = blockIdx.x * kBlockN;
   const int h = blockIdx.y, b = blockIdx.z;
-  const T* qb = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sn;
-  const T* kb = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sn;
-  const T* vb = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sn;
-  const T* dob = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sn;
-  const long long vec0 = ((long long)b * gridDim.y + h) * p.Lq;
-  const float* lb = p.lse + vec0;
-  const float* db = p.delta + vec0;
-  const int n_tiles = (p.Lq + BQ - 1) / BQ;
+  const int n_tiles = (p.Lq + kBlockQ - 1) / kBlockQ;
+  const int wg = threadIdx.x / 128;
 
-  load_tile<T, D, kBlockN>(sK, kb, k0, p.Lk, p.k_sl, tid);
-  load_tile<T, D, kBlockN>(sV, vb, k0, p.Lk, p.v_sl, tid);
-  load_tile<T, D, BQ>(sQ, qb, 0, p.Lq, p.q_sl, tid);
-  load_tile<T, D, BQ>(sdO, dob, 0, p.Lq, p.do_sl, tid);
-  load_vec<BQ>(sL, lb, 0, p.Lq, tid);
-  load_vec<BQ>(sD, db, 0, p.Lq, tid);
-  cp_async_commit();
-
-  const float scale2 = p.scale * kLog2e;
-  float dk[D / 8][4], dv[D / 8][4];
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    dk[j][0] = dk[j][1] = dk[j][2] = dk[j][3] = 0.f;
-    dv[j][0] = dv[j][1] = dv[j][2] = dv[j][3] = 0.f;
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&q_full[s], 1);
+      mbar_init(&q_empty[s], kConsumerThreads);
+    }
+    fence_barrier_init();
   }
-  const int arow = warp * 16 + (mi & 1) * 8 + (lane & 7);
+  __syncthreads();
 
-  for (int t = 0; t < n_tiles; ++t) {
-    const int stage = t & 1;
-    if (t + 1 < n_tiles) {
-      const int n0 = (t + 1) * BQ, ns = stage ^ 1;
-      load_tile<T, D, BQ>(sQ + ns * BQ * D, qb, n0, p.Lq, p.q_sl, tid);
-      load_tile<T, D, BQ>(sdO + ns * BQ * D, dob, n0, p.Lq, p.do_sl, tid);
-      load_vec<BQ>(sL + ns * BQ, lb, n0, p.Lq, tid);
-      load_vec<BQ>(sD + ns * BQ, db, n0, p.Lq, tid);
-      cp_async_commit();
-      cp_async_wait<1>();
+  if (wg == 0) {
+    // ------------------------------------------------------------ producer
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      const int bh = b * gridDim.y + h;
+      prefetch_tensormap(&tm_q);
+      prefetch_tensormap(&tm_k);
+      prefetch_tensormap(&tm_v);
+      prefetch_tensormap(&tm_do);
+      prefetch_tensormap(&tm_lse);
+      prefetch_tensormap(&tm_delta);
+      mbar_arrive_expect_tx(kv_full, 2 * C::kKVBytes);
+#pragma unroll
+      for (int hf = 0; hf < C::kHalves; ++hf) {
+        tma_load_4d(sK + hf * kBlockN * kBoxCols, &tm_k, kv_full,
+                    hf * kBoxCols, h, k0, b);
+        tma_load_4d(sV + hf * kBlockN * kBoxCols, &tm_v, kv_full,
+                    hf * kBoxCols, h, k0, b);
+      }
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % kStages;
+        // both consumers are done with the stage's last use
+        if (t >= kStages) mbar_wait(&q_empty[s], ((t / kStages) & 1) ^ 1);
+        mbar_arrive_expect_tx(&q_full[s], 2 * C::kQBytes + 2 * C::kVecBytes);
+#pragma unroll
+        for (int hf = 0; hf < C::kHalves; ++hf) {
+          const int off = s * kBlockQ * D + hf * kBlockQ * kBoxCols;
+          tma_load_4d(sQ + off, &tm_q, &q_full[s], hf * kBoxCols, h,
+                      t * kBlockQ, b);
+          tma_load_4d(sdO + off, &tm_do, &q_full[s], hf * kBoxCols, h,
+                      t * kBlockQ, b);
+        }
+        tma_load_2d(sLse + s * kBlockQ, &tm_lse, &q_full[s], t * kBlockQ, bh);
+        tma_load_2d(sDelta + s * kBlockQ, &tm_delta, &q_full[s],
+                    t * kBlockQ, bh);
+      }
+    }
+  } else {
+    // ----------------------------------------------------------- consumers
+    setmaxnreg_inc<kConsumerRegs>();
+    const int c = wg - 1;                       // which 64 keys of the tile
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    const int key0 = k0 + c * kWgRows + warp * 16 + (lane >> 2);
+    const bool key_ok[2] = {key0 < p.Lk, key0 + 8 < p.Lk};
+    const T* kc = sK + c * kWgRows * kBoxCols;  // this consumer's K rows
+    const T* vc = sV + c * kWgRows * kBoxCols;
+    float* dq_box = sdQ + c * kBlockQ * kWgRows;
+    const int dq_col0 = D == 128 ? c * kWgRows : 0;
+    const CUtensorMap* dq_map = &tm_dq;
+
+    float dk[D / 2], dv[D / 2];                 // 64 keys x D each
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+    mbar_wait(kv_full, 0);
+
+    auto tile = [&](int t, auto masked) {
+      const int st = t % kStages;
+      const T* q_t = sQ + st * kBlockQ * D;
+      const T* do_t = sdO + st * kBlockQ * D;
+      mbar_wait(&q_full[st], (t / kStages) & 1);
+      float s[kBlockQ / 2], dp[kBlockQ / 2];    // S^T, dP^T: 64 keys x 64 q
+      issue_sdp<T, D>(s, dp, kc, vc, q_t, do_t);
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(dp);
+      form_p_ds<decltype(masked)::value>(s, dp, sLse + st * kBlockQ,
+                                         sDelta + st * kBlockQ, p.scale,
+                                         key_ok, lane);
+      uint32_t pf[kBlockQ / 16][4], dsf[kBlockQ / 16][4];
+      pack_p<T, kBlockQ>(pf, s);
+      pack_p<T, kBlockQ>(dsf, dp);
+      issue_pv<T, D, kBlockQ>(dv, pf, do_t);    // dV += P^T dO
+      issue_pv<T, D, kBlockQ>(dk, dsf, q_t);    // dK += dS^T Q
+      // dS^T to shared memory for dQ; buffer t & 1 was last read by the
+      // dQ of tile t - 2, which both consumers finished before the barrier
+      // of tile t - 1
+      T* ds_t = sdS + (t & 1) * kBlockN * kBlockQ;
+      store_ds(ds_t, dsf, c * kWgRows + warp * 16 + (lane >> 2), lane);
+      fence_proxy_async();                      // generic writes -> wgmma
+      if (tid == 0) bulk_wait_read<0>();        // the dQ staging tile is free
+      if constexpr (D == 128)
+        named_barrier_sync(3, kConsumerThreads);
+      else
+        named_barrier_sync(1 + c, 128);
+      float dq[kWgRows / 2];
+      issue_dq<T, D>(dq, ds_t, sK, c);
+      wgmma_wait<0>();
+      fence_regs(dv);
+      fence_regs(dk);
+      fence_regs(dq);
+      mbar_arrive(&q_empty[st]);
+      stage_dq(dq_box, dq, warp, lane);
+      fence_proxy_async();                      // generic writes -> TMA
+      named_barrier_sync(1 + c, 128);
+      if (tid == 0) {
+        tma_reduce_add_4d(dq_map, dq_box, dq_col0, h, t * kBlockQ, b);
+        tma_reduce_add_4d(dq_map, dq_box + kBlockQ * kDqBoxCols,
+                          dq_col0 + kDqBoxCols, h, t * kBlockQ, b);
+        bulk_commit();
+      }
+    };
+    // only the CTA holding the ragged end of the keys masks
+    if (k0 + kBlockN > p.Lk) {
+      for (int t = 0; t < n_tiles; ++t) tile(t, std::true_type{});
     } else {
-      cp_async_wait<0>();
+      for (int t = 0; t < n_tiles; ++t) tile(t, std::false_type{});
     }
-    __syncthreads();
-    const T* cQ = sQ + stage * BQ * D;
-    const T* cdO = sdO + stage * BQ * D;
-    const float* cL = sL + stage * BQ;
-    const float* cD = sD + stage * BQ;
+    if (tid == 0) bulk_wait<0>();
 
-    // S^T = K Q^T and dP^T = V dO^T for 16 keys x BQ q rows, fp32.
-    float s[BQ / 8][4], dp[BQ / 8][4];
+    T* dkb = static_cast<T*>(p.dk) + b * p.dk_sb + h * p.dk_sn;
+    T* dvb = static_cast<T*>(p.dv) + b * p.dv_sb + h * p.dv_sn;
 #pragma unroll
-    for (int j = 0; j < BQ / 8; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-      dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
-    }
+    for (int r = 0; r < 2; ++r) {
+      if (!key_ok[r]) continue;
+      const long long row = key0 + r * 8;
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t ka[4], va[4];
-      ldmatrix_x4(ka, sK + swz<D>(arow, kk * 2 + (mi >> 1)));
-      ldmatrix_x4(va, sV + swz<D>(arow, kk * 2 + (mi >> 1)));
-#pragma unroll
-      for (int jn = 0; jn < BQ / 8; jn += 2) {
-        const int qrow = (jn + (mi >> 1)) * 8 + (lane & 7);
-        uint32_t bf[4];
-        ldmatrix_x4(bf, cQ + swz<D>(qrow, kk * 2 + (mi & 1)));
-        E::mma(s[jn], ka, bf);
-        E::mma(s[jn + 1], ka, bf + 2);
-        ldmatrix_x4(bf, cdO + swz<D>(qrow, kk * 2 + (mi & 1)));
-        E::mma(dp[jn], va, bf);
-        E::mma(dp[jn + 1], va, bf + 2);
+      for (int jd = 0; jd < D / 8; ++jd) {
+        const int col = jd * 8 + (lane & 3) * 2;
+        *reinterpret_cast<uint32_t*>(dkb + row * p.dk_sl + col) =
+            E::pack(dk[4 * jd + 2 * r], dk[4 * jd + 2 * r + 1]);
+        *reinterpret_cast<uint32_t*>(dvb + row * p.dv_sl + col) =
+            E::pack(dv[4 * jd + 2 * r], dv[4 * jd + 2 * r + 1]);
       }
     }
-
-    // P^T = exp(S^T * scale - lse), 0 for q rows past Lq (kept in s);
-    // dS^T = P^T * (dP^T - delta) * scale (kept in dp).
-    const int q0 = t * BQ;
-#pragma unroll
-    for (int jn = 0; jn < BQ / 8; ++jn) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = jn * 8 + (lane & 3) * 2 + (e & 1);
-        const float pv = q0 + col < p.Lq
-            ? fast_exp2(s[jn][e] * scale2 - cL[col] * kLog2e) : 0.f;
-        s[jn][e] = pv;
-        dp[jn][e] = pv * (dp[jn][e] - cD[col]) * p.scale;
-      }
-    }
-
-    // dV += P^T dO and dK += dS^T Q, with P and dS rounded to the input type.
-#pragma unroll
-    for (int kk = 0; kk < BQ / 16; ++kk) {
-      uint32_t pa[4], da[4];
-      pa[0] = E::pack(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = E::pack(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = E::pack(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = E::pack(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-      da[0] = E::pack(dp[2 * kk][0], dp[2 * kk][1]);
-      da[1] = E::pack(dp[2 * kk][2], dp[2 * kk][3]);
-      da[2] = E::pack(dp[2 * kk + 1][0], dp[2 * kk + 1][1]);
-      da[3] = E::pack(dp[2 * kk + 1][2], dp[2 * kk + 1][3]);
-#pragma unroll
-      for (int jd = 0; jd < D / 8; jd += 2) {
-        uint32_t bf[4];
-        const int qrow = kk * 16 + (mi & 1) * 8 + (lane & 7);
-        ldmatrix_x4_trans(bf, cdO + swz<D>(qrow, jd + (mi >> 1)));
-        E::mma(dv[jd], pa, bf);
-        E::mma(dv[jd + 1], pa, bf + 2);
-        ldmatrix_x4_trans(bf, cQ + swz<D>(qrow, jd + (mi >> 1)));
-        E::mma(dk[jd], da, bf);
-        E::mma(dk[jd + 1], da, bf + 2);
-      }
-    }
-    __syncthreads();  // this stage is refilled two tiles on
   }
-
-  T* dkb = static_cast<T*>(p.dk) + b * p.dk_sb + h * p.dk_sn;
-  T* dvb = static_cast<T*>(p.dv) + b * p.dv_sb + h * p.dv_sn;
-  store_rows<T, D>(dkb, p.dk_sl, k0 + warp * 16, p.Lk, dk, lane);
-  store_rows<T, D>(dvb, p.dv_sl, k0 + warp * 16, p.Lk, dv, lane);
 }
 
 template <typename T, int D>
-cudaError_t launch_dq(const BwdParams& p, int B, int N, cudaStream_t stream) {
-  const int smem = (2 * kBlockM + 4 * kBlockN) * D * static_cast<int>(sizeof(T));
+cudaError_t launch(const CUtensorMap* maps, const Params& p, int B, int N,
+                   cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((p.Lq + kBlockM - 1) / kBlockM, N, B);
-  flash_bwd_dq_kernel<T, D><<<grid, kThreads, smem, stream>>>(p);
-  return cudaGetLastError();
-}
-
-template <typename T, int D>
-cudaError_t launch_dkv(const BwdParams& p, int B, int N, cudaStream_t stream) {
-  constexpr int BQ = DkvBlockQ<D>::value;
-  const int smem = (2 * kBlockN + 4 * BQ) * D * static_cast<int>(sizeof(T))
-                   + 4 * BQ * static_cast<int>(sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      flash_bwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      Cfg<D>::kSmem);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.Lk + kBlockN - 1) / kBlockN, N, B);
-  flash_bwd_dkv_kernel<T, D><<<grid, kThreads, smem, stream>>>(p);
+  flash_bwd_kernel<T, D><<<grid, kThreadsWs, Cfg<D>::kSmem, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], maps[4], maps[5], maps[6], p);
   return cudaGetLastError();
 }
 
-BwdParams make_params(const void* q, const void* k, const void* v,
-                      const void* dout, const float* lse, const float* delta,
-                      int Lq, int Lk, const long long* st, float scale) {
-  BwdParams p;
-  p.q = q; p.k = k; p.v = v; p.dout = dout; p.lse = lse; p.delta = delta;
-  p.dq = p.dk = p.dv = nullptr;
-  p.Lq = Lq; p.Lk = Lk;
-  p.q_sb = st[0]; p.q_sl = st[1]; p.q_sn = st[2];
-  p.k_sb = st[3]; p.k_sl = st[4]; p.k_sn = st[5];
-  p.v_sb = st[6]; p.v_sl = st[7]; p.v_sn = st[8];
-  p.do_sb = st[9]; p.do_sl = st[10]; p.do_sn = st[11];
-  p.scale = scale;
-  return p;
-}
-
-bool bad_sizes(int B, int N, int Lq, int Lk) {
-  return B <= 0 || N <= 0 || Lq <= 0 || Lk <= 0 || N > 65535 || B > 65535;
+// The dQ accumulator: a contiguous [B, L, N, D] fp32 tensor as dims {D, N,
+// L, B}, written in 128-byte-swizzled boxes of 32 columns x 64 rows.
+CUresult encode_dq(CUtensorMap* map, float* dq, int B, int L, int N, int D) {
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)N, (cuuint64_t)L,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 4, (cuuint64_t)N * D * 4,
+                                 (cuuint64_t)L * N * D * 4};
+  const cuuint32_t box[4] = {kDqBoxCols, 1, kBlockQ, 1};
+  return encode_tiled(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, dq, dims,
+                      strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 }  // namespace
 
-// Both return a cudaError_t: 0 when the launch was accepted. `in_strides`
-// holds the (batch, row, head) element strides of q, k, v and dO, in that
-// order (12 values); every row must start on a 16-byte boundary and D must
-// be contiguous (the caller checks). lse and delta are [B, N, Lq] fp32.
-extern "C" int flash_attention_bwd_dq(
+// Returns 0 when the launch was accepted, a cudaError_t when it was refused,
+// or 1000 + the driver's CUresult when a tensor map could not be encoded.
+// `in_strides` holds the (batch, row, head) element strides of q, k, v and
+// dO, in that order (12 values); every stride but D's must be a multiple of
+// 8 elements and every base 16-byte aligned (the caller checks). lse and
+// delta are [B, N, Lq] fp32 with rows `vec_stride` (>= Lq, a multiple of 4)
+// apart; dq_acc is a zeroed contiguous [B, Lq, N, D] fp32 tensor that the
+// kernel adds dQ into; dk and dv are written in the input type.
+extern "C" int flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* dout,
-    const float* lse, const float* delta, void* dq,
-    int B, int N, int Lq, int Lk, int D, int is_fp16,
-    const long long* in_strides, long long dq_sb, long long dq_sl,
-    long long dq_sn, float scale, void* stream) {
-  if (bad_sizes(B, N, Lq, Lk)) return static_cast<int>(cudaErrorInvalidValue);
-  BwdParams p = make_params(q, k, v, dout, lse, delta, Lq, Lk, in_strides,
-                            scale);
-  p.dq = dq; p.dq_sb = dq_sb; p.dq_sl = dq_sl; p.dq_sn = dq_sn;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (D == 128)
-    err = is_fp16 ? launch_dq<__half, 128>(p, B, N, s)
-                  : launch_dq<__nv_bfloat16, 128>(p, B, N, s);
-  else if (D == 64)
-    err = is_fp16 ? launch_dq<__half, 64>(p, B, N, s)
-                  : launch_dq<__nv_bfloat16, 64>(p, B, N, s);
-  else
-    err = cudaErrorInvalidValue;
-  return static_cast<int>(err);
-}
-
-extern "C" int flash_attention_bwd_dkv(
-    const void* q, const void* k, const void* v, const void* dout,
-    const float* lse, const float* delta, void* dk, void* dv,
-    int B, int N, int Lq, int Lk, int D, int is_fp16,
+    const float* lse, const float* delta, float* dq_acc, void* dk, void* dv,
+    int B, int N, int Lq, int Lk, int D, int is_fp16, long long vec_stride,
     const long long* in_strides, long long dk_sb, long long dk_sl,
     long long dk_sn, long long dv_sb, long long dv_sl, long long dv_sn,
     float scale, void* stream) {
-  if (bad_sizes(B, N, Lq, Lk)) return static_cast<int>(cudaErrorInvalidValue);
-  BwdParams p = make_params(q, k, v, dout, lse, delta, Lq, Lk, in_strides,
-                            scale);
-  p.dk = dk; p.dk_sb = dk_sb; p.dk_sl = dk_sl; p.dk_sn = dk_sn;
-  p.dv = dv; p.dv_sb = dv_sb; p.dv_sl = dv_sl; p.dv_sn = dv_sn;
+  if (B <= 0 || N <= 0 || Lq <= 0 || Lk <= 0 || N > 65535 || B > 65535 ||
+      vec_stride < Lq || vec_stride % 4 || (D != 64 && D != 128))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (encoder() == nullptr)
+    return kTensorMapError + static_cast<int>(CUDA_ERROR_NOT_FOUND);
+  const bool fp16 = is_fp16 != 0;
+  const long long* st = in_strides;
+  CUtensorMap maps[7];
+  const CUresult enc[7] = {
+      encode_bld(&maps[0], q, fp16, B, Lq, N, D, st[0], st[1], st[2],
+                 kBlockQ),
+      encode_bld(&maps[1], k, fp16, B, Lk, N, D, st[3], st[4], st[5],
+                 kBlockN),
+      encode_bld(&maps[2], v, fp16, B, Lk, N, D, st[6], st[7], st[8],
+                 kBlockN),
+      encode_bld(&maps[3], dout, fp16, B, Lq, N, D, st[9], st[10], st[11],
+                 kBlockQ),
+      encode_rows(&maps[4], lse, B * N, Lq, vec_stride, kBlockQ),
+      encode_rows(&maps[5], delta, B * N, Lq, vec_stride, kBlockQ),
+      encode_dq(&maps[6], dq_acc, B, Lq, N, D)};
+  for (CUresult r : enc)
+    if (r != CUDA_SUCCESS) return kTensorMapError + static_cast<int>(r);
+  Params p;
+  p.dk = dk; p.dv = dv;
+  p.Lq = Lq; p.Lk = Lk;
+  p.dk_sb = dk_sb; p.dk_sl = dk_sl; p.dk_sn = dk_sn;
+  p.dv_sb = dv_sb; p.dv_sl = dv_sl; p.dv_sn = dv_sn;
+  p.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (D == 128)
-    err = is_fp16 ? launch_dkv<__half, 128>(p, B, N, s)
-                  : launch_dkv<__nv_bfloat16, 128>(p, B, N, s);
-  else if (D == 64)
-    err = is_fp16 ? launch_dkv<__half, 64>(p, B, N, s)
-                  : launch_dkv<__nv_bfloat16, 64>(p, B, N, s);
+    err = fp16 ? launch<__half, 128>(maps, p, B, N, s)
+               : launch<__nv_bfloat16, 128>(maps, p, B, N, s);
   else
-    err = cudaErrorInvalidValue;
+    err = fp16 ? launch<__half, 64>(maps, p, B, N, s)
+               : launch<__nv_bfloat16, 64>(maps, p, B, N, s);
   return static_cast<int>(err);
 }

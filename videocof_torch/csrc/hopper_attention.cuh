@@ -6,7 +6,9 @@
 // logits (the accumulator layout of hopper_common.cuh): mask it, run the
 // exp2 online softmax on it, rescale the O accumulator, pack P to 16 bits as
 // P V's A operand in registers, issue O += P V, and take turns with the other
-// consumer (ping-pong).
+// consumer (ping-pong). The backward (`flash_attention_bwd.cu`, B3) runs the
+// same three warpgroups and takes the constants, `pack_p` and `issue_pv`
+// (for dV += P^T dO and dK += dS^T Q).
 
 #pragma once
 

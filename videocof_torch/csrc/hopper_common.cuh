@@ -1,13 +1,17 @@
 // Building blocks for Hopper (sm_90a) kernels written with the Tensor Memory
 // Accelerator (TMA), mbarriers and warpgroup matrix products (wgmma):
 // mbarrier init / arrive / expect_tx / try_wait.parity, 4-D tiled TMA loads
-// (`cp.async.bulk.tensor`, 2-, 3- and 4-D), the shared-memory matrix
-// descriptor of a 128-byte-swizzled tile, wgmma wrappers (SS m64n128k16 for
-// S = Q K^T in bf16/fp16, SS m64n{64,128}k32 s8 x s8 -> s32 for the int8
-// S = Qi Ki^T, RS m64n{64,128,256}k16 with A from registers for O += P V),
-// setmaxnreg, the generic-to-async proxy fence, named barriers, and on the
-// host the encoding of TMA tensor maps. Included by `flash_attention_fwd.cu`
-// and `int8_attention.cu` (through `hopper_attention.cuh`).
+// (`cp.async.bulk.tensor`, 2-, 3- and 4-D), the fp32 TMA reduce-add of a box
+// into global memory (`cp.reduce.async.bulk.tensor`) with its bulk groups,
+// the shared-memory matrix descriptor of a 128-byte-swizzled tile, wgmma
+// wrappers (SS m64n128k16 for S = Q K^T in bf16/fp16, SS m64n64k16 with
+// either operand K- or MN-major for the backward's products, SS
+// m64n{64,128}k32 s8 x s8 -> s32 for the int8 S = Qi Ki^T, RS
+// m64n{64,128,256}k16 with A from registers for O += P V), setmaxnreg, the
+// generic-to-async proxy fence, named barriers, and on the host the encoding
+// of TMA tensor maps. Included by `flash_attention_fwd.cu`,
+// `flash_attention_bwd.cu` and `int8_attention.cu` (through
+// `hopper_attention.cuh`).
 //
 // Layouts. A TMA box of 64 16-bit elements (128 bytes) by R rows, loaded with
 // CU_TENSOR_MAP_SWIZZLE_128B, lands as R rows of 128 bytes with the 16-byte
@@ -24,7 +28,8 @@
 //   leading byte offset = the byte stride between 64-element halves along
 //   N, stride byte offset = 1024 (8 key rows); the k16 slice kk (16 keys)
 //   starts kk * 16 rows * 128 bytes in. The instruction's transpose bit for
-//   B is set (16-bit types allow it).
+//   B is set (16-bit types allow it). An A operand stored with M contiguous
+//   (a [K rows][64] tile) is read the same way with A's transpose bit.
 // The fp32 accumulator of m64nNk16 (and the s32 one of m64nNk32): thread t of the warpgroup (warp w, lane
 // l) holds d[4j + 2r + e] = D(16w + l/4 + 8r, 8j + 2(l%4) + e), the layout of
 // mma.sync m16n8 tiles stacked along N; the RS A operand of m64n*k16 is the
@@ -125,6 +130,37 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
          "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// Adds the fp32 4-D box at `src` in shared memory into `map` at coordinates
+// (c0, c1, c2, c3), innermost first (elements outside the tensor are
+// dropped); tracked by the issuing thread's bulk groups.
+__device__ __forceinline__ void tma_reduce_add_4d(const CUtensorMap* map,
+                                                  const void* src, int c0,
+                                                  int c1, int c2, int c3) {
+  asm volatile(
+      "cp.reduce.async.bulk.tensor.4d.global.shared::cta.add.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)),
+         "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of this thread's bulk groups still read shared
+// memory (the source may then be overwritten).
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" :: "n"(N) : "memory");
+}
+
+// Waits until at most N of this thread's bulk groups are incomplete.
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
 __device__ __forceinline__ void prefetch_tensormap(const CUtensorMap* map) {
@@ -233,6 +269,19 @@ __device__ __forceinline__ void fence_regs(uint32_t (&d)[R]) {
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]) \
       : "l"(desc_a), "l"(desc_b), "r"(scale_d))
+
+#define HOPPER_WGMMA_SS_N64(TY) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " " \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"  \
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, " \
+      "%32, %33, p, 1, 1, %35, %36;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]) \
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TA), "n"(TB))
 
 #define HOPPER_WGMMA_RS_N128(TY) \
   asm volatile( \
@@ -344,6 +393,21 @@ __device__ __forceinline__ void wgmma_ss_m64n128k16(float (&d)[64],
   }
 }
 
+// d (+)= A B for a 64 x 64 x 16 product, A and B in shared memory
+// (descriptors); TA / TB 1 reads A / B MN-major (the transpose bits), 0
+// K-major; scale_d 0 overwrites d.
+template <typename T, int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32],
+                                                   uint64_t desc_a,
+                                                   uint64_t desc_b,
+                                                   int scale_d) {
+  if constexpr (std::is_same<T, __half>::value) {
+    HOPPER_WGMMA_SS_N64("f16");
+  } else {
+    HOPPER_WGMMA_SS_N64("bf16");
+  }
+}
+
 // d (+)= A B for a 64 x N x 32 int8 product accumulated in s32, A and B
 // K-major in shared memory (descriptors); scale_d 0 overwrites d. The
 // integer instruction has no scale or transpose immediates.
@@ -390,6 +454,7 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
 }
 
 #undef HOPPER_WGMMA_SS_N128
+#undef HOPPER_WGMMA_SS_N64
 #undef HOPPER_WGMMA_RS_N128
 #undef HOPPER_WGMMA_RS_N64
 #undef HOPPER_WGMMA_SS_S8_N128
@@ -446,6 +511,18 @@ inline CUresult encode_bld(CUtensorMap* map, const void* base, bool fp16,
                       fp16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
                            : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
                       4, base, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// A [heads, L] fp32 tensor whose rows start `stride` values apart (a
+// multiple of 4: TMA's 16-byte strides), read in boxes of `rows` values of
+// one row; positions past L read as zeros.
+inline CUresult encode_rows(CUtensorMap* map, const float* base, int heads,
+                            int L, long long stride, int rows) {
+  const cuuint64_t dims[2] = {(cuuint64_t)L, (cuuint64_t)heads};
+  const cuuint64_t strides[1] = {(cuuint64_t)stride * 4};
+  const cuuint32_t box[2] = {(cuuint32_t)rows, 1};
+  return encode_tiled(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, base, dims,
+                      strides, box, CU_TENSOR_MAP_SWIZZLE_NONE);
 }
 
 }  // namespace hopper

@@ -78,8 +78,10 @@ namespace {
 using namespace flash;
 using namespace hopper;
 
+constexpr int kQuantWarps = 4;       // warps of a quant_k_kernel CTA
+constexpr int kQuantThreads = kQuantWarps * 32;
 constexpr int kQuantRowsPerWarp = 8; // K rows each warp of quant_k_kernel does
-constexpr int kQuantRows = kWarps * kQuantRowsPerWarp;
+constexpr int kQuantRows = kQuantWarps * kQuantRowsPerWarp;
 constexpr float kQuantEps = 1e-6f;
 constexpr float kRecip127 = 1.0f / 127.0f;   // rounded to fp32 once
 
@@ -153,7 +155,7 @@ struct QuantParams {
 };
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kQuantThreads)
 quant_k_kernel(const QuantParams p) {
   constexpr int kPer = D / 32;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -467,7 +469,7 @@ template <typename T, int D>
 cudaError_t launch_quant(const QuantParams& p, int B, int N,
                          cudaStream_t stream) {
   const dim3 grid((p.Lk + kQuantRows - 1) / kQuantRows, N, B);
-  quant_k_kernel<T, D><<<grid, kThreads, 0, stream>>>(p);
+  quant_k_kernel<T, D><<<grid, kQuantThreads, 0, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -484,9 +486,8 @@ cudaError_t launch_attn(const CUtensorMap* maps, const AttnParams& p, int B,
   return cudaGetLastError();
 }
 
-// The tensor maps of the quantized K ({D, Lk, B*N} int8, 128-byte swizzled
-// boxes of 128 columns by `rows` keys) and of its row scales ({Lk, B*N}
-// fp32 with rows `stride` apart, boxes of `rows` keys).
+// The tensor map of the quantized K ({D, Lk, B*N} int8, 128-byte swizzled
+// boxes of 128 columns by `rows` keys); its row scales take `encode_rows`.
 CUresult encode_ki(CUtensorMap* map, const void* ki, int heads, int Lk,
                    int D, int rows) {
   const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)Lk,
@@ -495,15 +496,6 @@ CUresult encode_ki(CUtensorMap* map, const void* ki, int heads, int Lk,
   const cuuint32_t box[3] = {kBoxBytes, (cuuint32_t)rows, 1};
   return encode_tiled(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, ki, dims,
                       strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
-}
-
-CUresult encode_sk(CUtensorMap* map, const float* sk, int heads, int Lk,
-                   long long stride, int rows) {
-  const cuuint64_t dims[2] = {(cuuint64_t)Lk, (cuuint64_t)heads};
-  const cuuint64_t strides[1] = {(cuuint64_t)stride * 4};
-  const cuuint32_t box[2] = {(cuuint32_t)rows, 1};
-  return encode_tiled(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, sk, dims,
-                      strides, box, CU_TENSOR_MAP_SWIZZLE_NONE);
 }
 
 }  // namespace
@@ -562,7 +554,7 @@ extern "C" int int8_attention_fwd(
   const CUresult enc[4] = {
       encode_bld(&maps[0], q, fp16, B, Lq, N, D, q_sb, q_sl, q_sn, kBlockM),
       encode_ki(&maps[1], ki, B * N, Lk, D, BN),
-      encode_sk(&maps[2], sk, B * N, Lk, sk_stride, BN),
+      encode_rows(&maps[2], sk, B * N, Lk, sk_stride, BN),
       encode_bld(&maps[3], v, fp16, B, Lk, N, D, v_sb, v_sl, v_sn, BN)};
   for (CUresult r : enc)
     if (r != CUDA_SUCCESS) return kTensorMapError + static_cast<int>(r);

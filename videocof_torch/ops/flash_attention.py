@@ -2,8 +2,8 @@
 plain PyTorch versions, and the autograd Function that makes
 ``flash_attention`` differentiable.
 
-Counterpart of `videocof_tpu/ops/flash_attention.py`. Four kernels, each
-replacing one Pallas kernel (or one path of it):
+Counterpart of `videocof_tpu/ops/flash_attention.py`. Three kernels, each
+replacing one Pallas kernel, one path of one, or two:
 
 * B1 ``flash_attention_fwd.cu`` without the LSE: the inference forward
   (`_flash_kernel` via `_flash_bnld(need_lse=False)`), counted in
@@ -11,10 +11,12 @@ replacing one Pallas kernel (or one path of it):
 * B2 the same kernel with the LSE (`_flash_bnld(need_lse=True)`): the
   forward of every attention that needs a gradient, and
   ``flash_attention_with_lse``; counted in ``flash_fwd_lse.launches``.
-* B3a ``flash_attention_bwd.cu``'s dQ kernel (`_bwd_dq_kernel`), counted in
-  ``flash_bwd_dq.launches``.
-* B3b its dK/dV kernel (`_bwd_dkv_kernel`), counted in
-  ``flash_bwd_dkv.launches``.
+* B3 ``flash_attention_bwd.cu``: one kernel for the whole backward (dQ,
+  dK and dV from one recompute of the logits), replacing both
+  `_bwd_dq_kernel` and `_bwd_dkv_kernel`; counted in
+  ``flash_bwd.launches``. It rounds P and dS to the input type before the
+  dV, dK and dQ products, where JAX keeps them in fp32: the plain backward
+  repeats that with ``rounded=True``.
 
 Each wrapper launches its kernel for a CUDA tensor and raises for what the
 kernel does not take; for a CPU tensor it computes the plain version beside
@@ -135,36 +137,48 @@ def flash_bwd_delta(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
     return (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
 
 
-def _bwd_chunk(q, k, v, do, lse, delta, scale, r0, r1):
+def _bwd_chunk(q, k, v, do, lse, delta, scale, r0, r1, rounded):
     """P and dS of q rows [r0, r1) in fp32, as `_bwd_dq_kernel` and
     `_bwd_dkv_kernel` recompute them: S in the natural domain from the
-    scale-folded q, P = exp(S - lse)."""
+    scale-folded q, P = exp(S - lse). ``rounded`` rounds both to q's dtype,
+    as kernel B3 feeds them to the tensor cores."""
     s = torch.einsum("bqnd,bknd->bnqk", q[:, r0:r1].float(), k.float()) * scale
     p = torch.exp(s - lse[:, :, r0:r1, None])
     dp = torch.einsum("bqnd,bknd->bnqk", do[:, r0:r1].float(), v.float())
-    return p, p * (dp - delta[:, :, r0:r1, None]) * scale
+    ds = p * (dp - delta[:, :, r0:r1, None]) * scale
+    if rounded:
+        return p.to(q.dtype).float(), ds.to(q.dtype).float()
+    return p, ds
 
 
-def flash_bwd_dq_reference(q, k, v, do, lse, delta, *, scale=1.0):
-    """Plain version of kernel B3a: dQ = dS K in fp32, cast to q's dtype."""
+def flash_bwd_dq_reference(q, k, v, do, lse, delta, *, scale=1.0,
+                           rounded=False):
+    """Plain version of dQ (JAX's `_bwd_dq_kernel`): dQ = dS K in fp32, cast
+    to q's dtype. ``rounded`` rounds dS to q's dtype first: the arithmetic of
+    kernel B3, its one stated deviation from JAX; the default keeps JAX's
+    fp32."""
     B, Lq, N, _ = q.shape
     rows = _row_chunk(B, N, k.shape[1])
     out = []
     for r0 in range(0, Lq, rows):
-        _, ds = _bwd_chunk(q, k, v, do, lse, delta, scale, r0, r0 + rows)
+        _, ds = _bwd_chunk(q, k, v, do, lse, delta, scale, r0, r0 + rows,
+                           rounded)
         out.append(torch.einsum("bnqk,bknd->bqnd", ds, k.float()).to(q.dtype))
     return torch.cat(out, dim=1)
 
 
-def flash_bwd_dkv_reference(q, k, v, do, lse, delta, *, scale=1.0):
-    """Plain version of kernel B3b: dV = P^T dO and dK = dS^T Q in fp32,
-    summed over q rows, cast to k's and v's dtypes."""
+def flash_bwd_dkv_reference(q, k, v, do, lse, delta, *, scale=1.0,
+                            rounded=False):
+    """Plain version of dK and dV (JAX's `_bwd_dkv_kernel`): dV = P^T dO and
+    dK = dS^T Q in fp32, summed over q rows, cast to k's and v's dtypes.
+    ``rounded`` rounds P and dS to q's dtype first, as kernel B3 does."""
     B, Lq, N, _ = q.shape
     dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
     dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
     rows = _row_chunk(B, N, k.shape[1])
     for r0 in range(0, Lq, rows):
-        p, ds = _bwd_chunk(q, k, v, do, lse, delta, scale, r0, r0 + rows)
+        p, ds = _bwd_chunk(q, k, v, do, lse, delta, scale, r0, r0 + rows,
+                           rounded)
         dv += torch.einsum("bnqk,bqnd->bknd", p, do[:, r0:r0 + rows].float())
         dk += torch.einsum("bnqk,bqnd->bknd", ds, q[:, r0:r0 + rows].float())
     return dk.to(k.dtype), dv.to(v.dtype)
@@ -196,17 +210,11 @@ def _library() -> ctypes.CDLL:
 @functools.lru_cache(maxsize=None)
 def _bwd_library() -> ctypes.CDLL:
     lib = _build.load(BWD_SOURCE)
-    strides = ctypes.POINTER(ctypes.c_longlong)
-    head = [ctypes.c_void_p] * 7
-    sizes = [ctypes.c_int] * 6
-    lib.flash_attention_bwd_dq.argtypes = (
-        head + sizes + [strides] + [ctypes.c_longlong] * 3
-        + [ctypes.c_float, ctypes.c_void_p])
-    lib.flash_attention_bwd_dkv.argtypes = (
-        head + [ctypes.c_void_p] + sizes + [strides] + [ctypes.c_longlong] * 6
-        + [ctypes.c_float, ctypes.c_void_p])
-    lib.flash_attention_bwd_dq.restype = ctypes.c_int
-    lib.flash_attention_bwd_dkv.restype = ctypes.c_int
+    fn = lib.flash_attention_bwd
+    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
+                   + [ctypes.c_longlong, ctypes.POINTER(ctypes.c_longlong)]
+                   + [ctypes.c_longlong] * 6 + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
     return lib
 
 
@@ -316,42 +324,32 @@ def flash_fwd_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out_lse
 
 
-def flash_bwd_dq(q, k, v, do, lse, delta, *, scale: float = 1.0
-                 ) -> torch.Tensor:
-    """Kernel B3a: dQ [B, Lq, N, D] in q's dtype, from the scale-folded q,
-    the forward's LSE and delta (`flash_bwd_delta`)."""
-    _check_shapes(q, k, v, None)
-    if q.device.type == "cpu":
-        return flash_bwd_dq_reference(q, k, v, do, lse, delta, scale=scale)
-    _check_kernel_inputs(q, k, v, do)
-    _check_rowvec("lse", lse, q)
-    _check_rowvec("delta", delta, q)
-    B, Lq, N, D = q.shape
-    dq = torch.empty((B, Lq, N, D), dtype=q.dtype, device=q.device)
-    if Lq == 0 or k.shape[1] == 0:
-        return dq.zero_()
-    strides = (ctypes.c_longlong * 12)(*_bld(q), *_bld(k), *_bld(v), *_bld(do))
-    with torch.cuda.device(q.device):
-        rc = _bwd_library().flash_attention_bwd_dq(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            B, N, Lq, k.shape[1], D, int(q.dtype == torch.float16),
-            strides, *_bld(dq), float(scale),
-            torch.cuda.current_stream(q.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"flash_attention_bwd_dq launch failed: CUDA error "
-                           f"{rc}")
-    flash_bwd_dq.launches += 1
-    return dq
+def _rows16(t: torch.Tensor) -> Tuple[torch.Tensor, int]:
+    """A [B, N, L] fp32 row vector whose rows start on 16 bytes (TMA's
+    strides), and its row stride: ``t`` itself when L % 4 == 0 and its base
+    is aligned, else a copy into rows padded to 4 values."""
+    B, N, L = t.shape
+    if L % 4 == 0 and t.data_ptr() % 16 == 0:
+        return t, L
+    row = -(-L // 4) * 4
+    out = t.new_zeros((B, N, row))
+    out[..., :L] = t
+    return out, row
 
 
-def flash_bwd_dkv(q, k, v, do, lse, delta, *, scale: float = 1.0
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Kernel B3b: (dK, dV) [B, Lk, N, D] in k's dtype, from the
-    scale-folded q, the forward's LSE and delta (`flash_bwd_delta`)."""
+def flash_bwd(q, k, v, do, lse, delta, *, scale: float = 1.0
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Kernel B3: (dQ [B, Lq, N, D], dK, dV [B, Lk, N, D]) in the inputs'
+    dtype, from the scale-folded q, the forward's LSE and delta
+    (`flash_bwd_delta`). The kernel adds dQ into a zeroed fp32 accumulator
+    in no fixed order, cast here: dk and dv are reproducible bit for bit,
+    dq to one ulp of its dtype but for values far below its largest. On a
+    CPU tensor: the plain versions, in JAX's fp32 arithmetic."""
     _check_shapes(q, k, v, None)
     if q.device.type == "cpu":
-        return flash_bwd_dkv_reference(q, k, v, do, lse, delta, scale=scale)
+        return (flash_bwd_dq_reference(q, k, v, do, lse, delta, scale=scale),
+                *flash_bwd_dkv_reference(q, k, v, do, lse, delta,
+                                         scale=scale))
     _check_kernel_inputs(q, k, v, do)
     _check_rowvec("lse", lse, q)
     _check_rowvec("delta", delta, q)
@@ -360,27 +358,30 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, *, scale: float = 1.0
     dk = torch.empty((B, Lk, N, D), dtype=k.dtype, device=q.device)
     dv = torch.empty((B, Lk, N, D), dtype=v.dtype, device=q.device)
     if Lq == 0 or Lk == 0:
-        return dk.zero_(), dv.zero_()
+        return torch.zeros_like(q), dk.zero_(), dv.zero_()
+    dq_acc = torch.zeros((B, Lq, N, D), dtype=torch.float32, device=q.device)
+    (lse, stride), (delta, _) = _rows16(lse), _rows16(delta)
     strides = (ctypes.c_longlong * 12)(*_bld(q), *_bld(k), *_bld(v), *_bld(do))
     with torch.cuda.device(q.device):
-        rc = _bwd_library().flash_attention_bwd_dkv(
+        rc = _bwd_library().flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            B, N, Lq, Lk, D, int(q.dtype == torch.float16),
+            lse.data_ptr(), delta.data_ptr(), dq_acc.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(),
+            B, N, Lq, Lk, D, int(q.dtype == torch.float16), stride,
             strides, *_bld(dk), *_bld(dv), float(scale),
             torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"flash_attention_bwd_dkv launch failed: CUDA "
-                           f"error {rc}")
-    flash_bwd_dkv.launches += 1
-    return dk, dv
+        raise RuntimeError(f"flash_attention_bwd launch failed: CUDA error "
+                           f"{rc}")
+    flash_bwd.launches += 1
+    return dq_acc.to(q.dtype), dk, dv
 
 
 # -------------------------------------------------------------------- autograd
 
 class _FlashAttention(torch.autograd.Function):
     """`_flash_core` with its custom VJP, at scale 1: the forward is B2 and
-    saves (q, k, v, out, lse); the backward is delta, B3a and B3b."""
+    saves (q, k, v, out, lse); the backward is delta and B3."""
 
     @staticmethod
     def forward(ctx, q, k, v):
@@ -393,10 +394,7 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         if dout.device.type == "cuda" and not _layout_ok(dout):
             dout = dout.contiguous()
-        delta = flash_bwd_delta(out, dout)
-        dq = flash_bwd_dq(q, k, v, dout, lse, delta)
-        dk, dv = flash_bwd_dkv(q, k, v, dout, lse, delta)
-        return dq, dk, dv
+        return flash_bwd(q, k, v, dout, lse, flash_bwd_delta(out, dout))
 
 
 class _FlashAttentionMasked(torch.autograd.Function):
@@ -427,8 +425,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     ``kv_mask`` [B, Lk] bool: keys with False are excluded from the softmax.
     Without a gradient to carry this is kernel B1; with one (grad mode on
-    and an input requiring grad) the forward is B2 and the backward B3a and
-    B3b, or, with a key mask, B1 and a plain recompute. The kernels take
+    and an input requiring grad) the forward is B2 and the backward B3,
+    or, with a key mask, B1 and a plain recompute. The kernels take
     bf16 or fp16, head_dim 64 or 128, a unit stride on D and 16-byte aligned
     rows, and raise otherwise. A CPU tensor goes through the plain
     versions."""
@@ -459,15 +457,13 @@ def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor,
 
 flash_attention.launches = 0
 flash_fwd_lse.launches = 0
-flash_bwd_dq.launches = 0
-flash_bwd_dkv.launches = 0
+flash_bwd.launches = 0
 
 # kernel name -> its wrapper (which carries the launch count)
 KERNEL_WRAPPERS = {
     "flash_attention_fwd": flash_attention,
     "flash_attention_fwd_lse": flash_fwd_lse,
-    "flash_attention_bwd_dq": flash_bwd_dq,
-    "flash_attention_bwd_dkv": flash_bwd_dkv,
+    "flash_attention_bwd": flash_bwd,
 }
 
 
