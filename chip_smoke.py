@@ -4,7 +4,8 @@
     python3 chip_smoke.py          # from the repository root
 
 Phases, each of which fails the run (non-zero exit) on any fault:
-  1. device: the card's name and power limit; TF32 off; build the CUDA
+  1. device: the card's name and power limit; the modules, ffmpeg, libav
+     headers and free disk the entry's I/O could use; TF32 off; build the CUDA
      kernels from `videocof_torch/csrc/` with nvcc (sm_90a), one process per
      source, all at once; ptxas registers, spills and warnings of every
      kernel; the count of wgmma (HGMMA) and TMA load (UTMALDG) instructions
@@ -70,7 +71,31 @@ Phases, each of which fails the run (non-zero exit) on any fault:
      (per step: B2 in every attention's forward and again in its remat
      recompute, B3 once per attention, no B1); then one step under
      torch.profiler.
-  7. a `kernels` JSON line and, last, the device JSON line.
+  7. the entry at 1.3B: the phase-4 DiT written to the published layout
+     (two safetensors shards, their index and a config.json) by the port's
+     own writer and read back by its own reader (no safetensors package),
+     every tensor equal bit for bit, the config equal to Wan2.1 T2V 1.3B's,
+     the read's GB/s; then `videocof_torch.cli.fast_infer.main()` in this
+     process (--random_init --repeat_rope, 480x832, 33 + 4 frames) on a
+     synthetic clip written with cv2, merging two rank-32 bf16 LoRA files
+     written by the port's writer (a kohya "FusionX" file as the
+     acceleration LoRA, a PEFT "VideoCoF" file as --videocof_path); its
+     output and files are checked, B1 must run exactly 240 times, the CLI
+     must hand the factory both files and exactly the weights they name
+     must differ from an unmerged draw. Where
+     cv2 is not importable, a printed branch drives the per-item body
+     (`cli._common.edit_frames`) with a uint8 array instead.
+  8. the 14B edit: `factory.load_pipeline("", random_init=True,
+     dit_cfg=WAN21_T2V_14B, lora_paths=[the two LoRA files at 14B
+     shapes])` at full width and depth (40 blocks of 5120, 40 heads of
+     128); the merged weights differ from a second draw of the unmerged
+     ones in exactly the modules the LoRA files name; the 4-step 480x832
+     33 + 4-frame edit (output, exactly 320 B1 launches and no other
+     kernel, stage walls, peak memory); one DiT step under torch.profiler.
+  9. a `kernels` JSON line and, last, the device JSON line.
+
+B1 is also held against its plain version (phase 2) and timed (phase 3) at
+the 14B's 40 heads, at the self and cross shapes.
 
 It exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
@@ -78,13 +103,20 @@ checkout of the repository.
 
 from __future__ import annotations
 
+import gc
 import json
 import re
+import shutil
 import statistics
 import subprocess
 import sys
 import time
 from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+# files the entry phases write (checkpoints, LoRA files, clips, outputs);
+# removed when each phase ends
+SCRATCH = ROOT / "chiprun_out" / "chip_smoke"
 
 # the port's kernel functions, as their names appear in ptxas and the profiler
 OUR_KERNELS = ("flash_fwd_kernel", "flash_bwd_kernel", "int8_attn_kernel",
@@ -112,6 +144,9 @@ SEED = 0
 TRAIN_STEPS = 3
 STD_STEPS = 50                 # the standard edit (the reference's inference.py)
 TEACACHE_PIN = 0.4             # pinned TeaCache skip rate (bench.py's)
+LORA_RANK = 32                 # the entry phases' synthetic LoRA files
+LORA_ALPHA = 16.0              # ... the kohya file's alpha (scale 0.5)
+CLIP_FRAMES = 40               # frames of the entry phase's synthetic clip
 
 
 def log(*args):
@@ -327,6 +362,95 @@ def dit_step_flops(cfg, L, Lt):
     return cfg.num_layers * per_block + io
 
 
+def fingerprint(t):
+    """Two int64 sums over a tensor's bits (plain and position-weighted):
+    any change of its values changes them but by a vanishing chance."""
+    import torch
+    bits = t.detach().reshape(-1).view(
+        {2: torch.int16, 4: torch.int32}[t.element_size()]).long()
+    pos = torch.arange(bits.numel(), device=t.device) % 65521 + 1
+    return bits.sum().item(), (bits * pos).sum().item()
+
+
+def draw_unmerged(cfg, dev):
+    """The DiT that `factory.load_pipeline(random_init=True, seed=SEED)`
+    draws before it merges any LoRA file (the DiT first, in bf16, from a
+    generator seeded with the seed)."""
+    import torch
+    from videocof_torch.models.wan_dit import init_wan_dit
+    return init_wan_dit(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                        torch.bfloat16, dev)
+
+
+def changed_weights(dit, prints):
+    """Names of ``dit``'s tensors whose fingerprints differ from
+    ``prints``."""
+    return {k for k, v in dit.state_dict().items()
+            if fingerprint(v) != prints[k]}
+
+
+def environment():
+    """What the machine offers the entry's file and video I/O: the versions
+    of the modules it could import (None: absent), ffmpeg on PATH, the libav
+    headers, and the free disk beside the checkout."""
+    import importlib
+    import torch
+    mods = {}
+    for name in ("safetensors", "cv2", "PIL", "transformers",
+                 "sentencepiece", "tokenizers", "imageio", "av", "decord"):
+        try:
+            mods[name] = getattr(importlib.import_module(name), "__version__",
+                                 "?")
+        except ImportError:
+            mods[name] = None
+    return {"python": sys.version.split()[0], "torch": torch.__version__,
+            "cuda": torch.version.cuda, "modules": mods,
+            "ffmpeg": shutil.which("ffmpeg"),
+            "libav_headers": any(Path(d, "libavformat").is_dir() for d in (
+                "/usr/include", "/usr/local/include",
+                "/usr/include/x86_64-linux-gnu")),
+            "disk_free_gb": shutil.disk_usage(ROOT).free / 1e9}
+
+
+def write_lora_files(cfg, gen, out_dir):
+    """Two rank-32 bf16 LoRA files over all ten linears of every block of
+    ``cfg``, written by the port's writer: a kohya-format "FusionX" file
+    (``lora_unet_*``, alpha 16) and a PEFT-format "VideoCoF" file (bare
+    ``lora_A``/``lora_B``, no alpha). Returns their paths and the port's
+    names of the modules they touch."""
+    import torch
+    from videocof_torch.models.weights import DIT_BLOCK_NAMES
+    from videocof_torch.utils.checkpoint import write_safetensors
+    d, f = cfg.dim, cfg.ffn_dim
+    dims = {"ffn.0": (d, f), "ffn.2": (f, d)}
+    kohya, peft = {}, {}
+    for i in range(cfg.num_layers):
+        for src in DIT_BLOCK_NAMES:
+            din, dout = dims.get(src, (d, d))
+            for sd, down, up in ((kohya, "lora_down", "lora_up"),
+                                 (peft, "lora_A", "lora_B")):
+                a = torch.randn(LORA_RANK, din, generator=gen,
+                                device=gen.device) / din ** 0.5
+                b = 0.02 * torch.randn(dout, LORA_RANK, generator=gen,
+                                       device=gen.device)
+                if sd is kohya:
+                    base = "lora_unet_" + f"blocks.{i}.{src}".replace(".", "_")
+                    sd[f"{base}.{down}.weight"] = a.to(torch.bfloat16)
+                    sd[f"{base}.{up}.weight"] = b.to(torch.bfloat16)
+                    sd[f"{base}.alpha"] = torch.tensor(LORA_ALPHA)
+                else:
+                    sd[f"blocks.{i}.{src}.{down}.weight"] = a.to(torch.bfloat16)
+                    sd[f"blocks.{i}.{src}.{up}.weight"] = b.to(torch.bfloat16)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    paths = (str(out_dir / "fusionx_lora.safetensors"),
+             str(out_dir / "videocof_lora.safetensors"))
+    for path, sd in zip(paths, (kohya, peft)):
+        write_safetensors(path, sd)
+    names = {f"blocks.{i}.{dst}" for i in range(cfg.num_layers)
+             for dst in DIT_BLOCK_NAMES.values()}
+    return paths, names
+
+
 def compare(name, got, want, quiet=False, rel_tol=REL_TOL):
     """Gate ``got`` against ``want``: finite, max abs error <= TOL *
     max(1, max |want|) (a few bf16 ulps of the largest value: gradients can
@@ -349,6 +473,305 @@ def compare(name, got, want, quiet=False, rel_tol=REL_TOL):
     return err, rel
 
 
+def round_trip_phase(dit):
+    """Write ``dit`` to the published layout (two shards, their index, a
+    config.json) with the port's writer, read it back to its device with
+    the port's reader and converter, and fail unless every tensor and the
+    config come back equal. Returns the read's GB/s."""
+    import torch
+    from videocof_torch.models import weights
+    from videocof_torch.utils import checkpoint
+    cfg = dit.cfg
+    dev = next(dit.parameters()).device
+    dtype = dit.patch_embed.weight.dtype
+    ckpt = SCRATCH / "dit_checkpoint"
+    t0 = time.perf_counter()
+    nbytes = checkpoint.save_dit_checkpoint_dir(str(ckpt), dit, cfg,
+                                                num_shards=2)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    read_cfg = weights.dit_config_from_checkpoint(str(ckpt))
+    read = {k: v.to(dev) for k, v in weights.convert_dit_state_dict(
+        weights.load_state_dict(str(ckpt)), read_cfg, dtype).items()}
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    read_s = time.perf_counter() - t0
+    want = dit.state_dict()
+    shards = sorted(p.name for p in ckpt.glob("*.safetensors"))
+    same = (set(read) == set(want) and all(
+        read[k].dtype == v.dtype and torch.equal(read[k], v)
+        for k, v in want.items()))
+    log(f"[entry] the DiT to the published layout: {shards}, "
+        f"{nbytes / 1e9:.3f} GB written in {write_s:.2f} s; read back to the "
+        f"device (mapped files, from the page cache) in {read_s:.2f} s, "
+        f"{nbytes / read_s / 1e9:.2f} GB/s; config == the DiT's: "
+        f"{read_cfg == cfg}; {len(read)} tensors bit for bit: "
+        f"{'ok' if same else 'FAIL'}")
+    if read_cfg != cfg:
+        fail(f"dit_config_from_checkpoint gave {read_cfg}")
+    if not same:
+        fail("the DiT read back from the published layout differs")
+    shutil.rmtree(ckpt)
+    return nbytes / read_s / 1e9
+
+
+def entry_phase(card, dcfg, geo, gen, video, prompt, want_shape,
+                want_launches, counters):
+    """`fast_infer.main()` in this process with random weights (the
+    factory's default, ``dcfg``) and two LoRA files merged, on a clip
+    written with cv2; where cv2 is not importable, the per-item body
+    `edit_frames` on the uint8 ``video``, said so on a line of its own.
+    Fails unless the output, its files, the launches (``counters``: read,
+    reset) and the merge are right: the CLI hands the factory both LoRA
+    files, in order, and exactly the weights they name differ from an
+    unmerged draw. Returns the phase's record."""
+    import numpy as np
+    import torch
+    from videocof_torch.cli import _common, fast_infer
+    from videocof_torch.utils import video_io
+    from videocof_torch import factory
+    launch_counts, reset_launch_counts = counters
+    (fusionx, videocof), names = write_lora_files(dcfg, gen, SCRATCH)
+    base = draw_unmerged(dcfg, gen.device)
+    prints = {k: fingerprint(v) for k, v in base.state_dict().items()}
+    del base
+    # the pipelines the CLI builds, with the LoRA files it hands the factory
+    built = []
+    real_load = factory.load_pipeline
+
+    def load_recorded(*a, **kw):
+        pipe = real_load(*a, **kw)
+        built.append(([p for p, _ in kw.get("lora_paths") or ()], pipe))
+        return pipe
+    out_dir = SCRATCH / "out"
+    argv = ["--prompt", prompt, "--output_dir", str(out_dir), "--random_init",
+            "--repeat_rope", "--height", str(geo.height), "--width",
+            str(geo.width), "--source_frames", str(geo.source_frames),
+            "--reasoning_frames", str(geo.reasoning_frames),
+            "--num_inference_steps", str(geo.num_inference_steps), "--seed",
+            str(SEED), "--enable_acceleration_lora",
+            "--acceleration_lora_path", fusionx, "--videocof_path", videocof]
+    try:
+        import cv2
+    except ImportError:
+        cv2 = None
+    clip = SCRATCH / "clip.mp4"
+    if cv2 is not None:
+        writer = cv2.VideoWriter(str(clip), cv2.VideoWriter_fourcc(*"mp4v"),
+                                 16, (geo.width, geo.height))
+        frames = np.random.default_rng(SEED).integers(
+            0, 256, (CLIP_FRAMES, geo.height, geo.width, 3), dtype=np.uint8)
+        for fr in frames:
+            writer.write(fr)
+        writer.release()
+    codec = cv2 is not None and clip.exists()
+    cuda = torch.cuda.is_available()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    factory.load_pipeline = load_recorded
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        if codec:
+            log(f"[entry] cv2 {cv2.__version__}: fast_infer.main() on a "
+                f"{CLIP_FRAMES}-frame {geo.height}x{geo.width} mp4v clip")
+            arrays = fast_infer.main(["--video_path", str(clip)] + argv).get(
+                clip.name)
+        else:
+            log("[entry] no video codec (cv2 not importable or no mp4v "
+                "writer): driving the per-item body cli._common.edit_frames "
+                "with a uint8 array instead of fast_infer.main()")
+            args = fast_infer.parse_args(["--video_path", "none.mp4"] + argv)
+            args.acceleration_lora = args.acceleration_lora_path
+            pipe = _common.build_pipeline_from_args(args)
+            arrays = _common.edit_frames(
+                pipe, args, video, _common.item_prompt(
+                    {"edit_instruction": prompt})[0], 0,
+                num_inference_steps=args.num_inference_steps,
+                guidance_scale=args.guidance_scale,
+                negative_prompt=fast_infer.NEGATIVE_PROMPT)
+            del pipe
+        entry_s = time.perf_counter() - t0
+    finally:
+        factory.load_pipeline = real_load
+    launches = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 if cuda else None
+    if arrays is None:
+        fail("fast_infer.main() edited no item")
+    if len(built) != 1:
+        fail(f"the entry built {len(built)} pipelines, expected 1")
+    lora_paths, pipe = built.pop()
+    changed = changed_weights(pipe.dit, prints)
+    want_changed = {f"{n}.weight" for n in names}
+    del pipe, prints
+    log(f"[entry] LoRA files handed to the factory: {lora_paths}; weights "
+        f"changed from the unmerged draw: {len(changed)}, the files name "
+        f"{len(want_changed)}: {changed == want_changed}")
+    if lora_paths != [fusionx, videocof]:
+        fail(f"the entry merged {lora_paths}, expected {[fusionx, videocof]}")
+    if changed != want_changed:
+        fail(f"the entry's merge changed {sorted(changed ^ want_changed)[:5]}")
+    vid = arrays["reason_edit"]
+    log(f"[entry] output {vid.shape} min {vid.min():.4f} max {vid.max():.4f};"
+        f" {entry_s:.3f} s (weights drawn, 2 LoRA files merged, decode, "
+        f"edit, encode); peak {peak_gb} GB; launches {launches}")
+    if vid.shape != want_shape or arrays["edit"].shape[2] != geo.source_frames:
+        fail(f"entry output {vid.shape} != {want_shape}")
+    if not (np.isfinite(vid).all() and vid.min() >= 0.0 and vid.max() <= 1.0):
+        fail("entry output frames not finite or outside [0, 1]")
+    if launches != want_launches:
+        fail(f"the entry launched {launches}, expected {want_launches}")
+    files = sorted(p.name for p in out_dir.glob("*"))
+    if codec:
+        want_files = [f"gen_{clip.stem}{s}" for s in (
+            ".mp4", "_compare.mp4", "_info.txt", "_reason_edit.mp4")]
+        info = video_io.video_info(str(out_dir / f"gen_{clip.stem}.mp4"))
+        log(f"[entry] files {files}; gen_{clip.stem}.mp4: {info[0]} frames "
+            f"of {info[1]}x{info[2]}")
+        if files != want_files or info[:3] != (geo.source_frames, geo.height,
+                                               geo.width):
+            fail(f"entry files {files}, {info}")
+        if fast_infer.main(["--video_path", str(clip)] + argv):
+            fail("the resumed entry edited an item again")
+    shutil.rmtree(SCRATCH, ignore_errors=True)
+    return {"card": card, "seconds": entry_s, "codec": codec,
+            "peak_memory_gb": peak_gb, "launches": launches, "files": files}
+
+
+def edit_14b_phase(card, cfg14, geo, gen, video, prompt, want_shape,
+                   want_launches, counters):
+    """The 14B edit: `factory.load_pipeline("", random_init=True,
+    dit_cfg=cfg14)` with two LoRA files at ``cfg14``'s shapes; the merged
+    weights against fingerprints of a second, unmerged draw (and the two
+    merges recomputed on two modules); the 4-step edit of ``video``
+    (output, launches: 2 x layers x steps of B1 and nothing else, stage
+    walls, peak memory); one DiT step under torch.profiler. Returns the
+    edit's launches."""
+    import numpy as np
+    import torch
+    from videocof_torch import factory
+    from videocof_torch.configs import WanVAEConfig
+    from videocof_torch.models import weights
+    from videocof_torch.models.wan_dit import make_rope_for_geometry
+    from videocof_torch.pipeline import latent_frame_count
+    launch_counts, reset_launch_counts = counters
+    dev, bf16 = gen.device, torch.bfloat16
+    cuda = dev.type == "cuda"
+    (fusionx, videocof), names = write_lora_files(cfg14, gen, SCRATCH)
+    # the unmerged weights, drawn as the factory draws them (the DiT first,
+    # from a generator seeded with the seed), kept as fingerprints
+    t0 = time.perf_counter()
+    base = draw_unmerged(cfg14, dev)
+    prints = {k: fingerprint(v) for k, v in base.state_dict().items()}
+    spot = ("blocks.0.self_attn.q.weight",
+            f"blocks.{cfg14.num_layers - 1}.ffn.fc2.weight")
+    kept = {k: base.state_dict()[k].clone() for k in spot}
+    del base
+    if cuda:
+        torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    pipe = factory.load_pipeline("", random_init=True, dit_cfg=cfg14,
+                                 seed=SEED, lora_paths=[(fusionx, 1.0),
+                                                        (videocof, 1.0)])
+    if cuda:
+        torch.cuda.synchronize()
+    build_s = time.perf_counter() - t1
+    sd = pipe.dit.state_dict()
+    changed = changed_weights(pipe.dit, prints)
+    want_changed = {f"{n}.weight" for n in names}
+    # the two merges in order, recomputed on the kept modules
+    files = [weights.load_state_dict(p) for p in (fusionx, videocof)]
+    exact = True
+    for k in spot:
+        mod = k[:-len(".weight")]
+        i = int(mod.split(".")[1])
+        src = next(a for a, b in weights.DIT_BLOCK_NAMES.items()
+                   if mod.endswith("." + b))
+        w = kept[k]
+        for lora_sd, key, (down, up), scale in (
+                (files[0], f"lora_unet_blocks_{i}_{src.replace('.', '_')}",
+                 ("lora_down", "lora_up"), LORA_ALPHA / LORA_RANK),
+                (files[1], f"blocks.{i}.{src}", ("lora_A", "lora_B"), 1.0)):
+            a = lora_sd[f"{key}.{down}.weight"].to(dev).float()
+            b = lora_sd[f"{key}.{up}.weight"].to(dev).float()
+            w = (w.float() + 1.0 * scale * (b @ a)).to(w.dtype)
+        exact = exact and torch.equal(w, sd[k])
+    log(f"[edit 14B] LoRA files (rank {LORA_RANK}, bf16, {len(names)} modules "
+        f"each) merged while building the pipeline in {build_s:.1f} s "
+        f"(unmerged draw and fingerprints {t1 - t0:.1f} s); weights changed: "
+        f"{len(changed)}, the files name {len(want_changed)}: "
+        f"{changed == want_changed}; the two merges recomputed on {spot}: "
+        f"{'ok' if exact else 'FAIL'}")
+    if changed != want_changed:
+        fail(f"the merge changed {sorted(changed ^ want_changed)[:5]}")
+    if not exact:
+        fail("the merged weights differ from the recomputed merges")
+    del sd, kept, files, prints
+    shutil.rmtree(SCRATCH, ignore_errors=True)
+
+    timings = {}
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = pipe(video, prompt, source_frames=geo.source_frames,
+               reasoning_frames=geo.reasoning_frames,
+               num_inference_steps=geo.num_inference_steps,
+               guidance_scale=geo.guidance_scale, shift=geo.shift,
+               sampler=geo.sampler, repeat_rope=geo.repeat_rope, cot=geo.cot,
+               seed=geo.seed, timings=timings)
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 if cuda else None
+    want = dict(want_launches, flash_attention_fwd=(
+        2 * cfg14.num_layers * geo.num_inference_steps))
+    vid = out.videos
+    log(f"[edit 14B] output {vid.shape} min {vid.min():.4f} max "
+        f"{vid.max():.4f}")
+    if vid.shape != want_shape:
+        fail(f"14B output shape {vid.shape} != {want_shape}")
+    if not (np.isfinite(vid).all() and vid.min() >= 0.0 and vid.max() <= 1.0):
+        fail("14B output frames not finite or outside [0, 1]")
+    if launches != want:
+        fail(f"the 14B edit launched {launches}, expected {want}")
+    vcfg = WanVAEConfig()
+    tc, sc = vcfg.temporal_compression_ratio, vcfg.spatial_compression_ratio
+    cond = latent_frame_count(geo.source_frames, tc)
+    ground = latent_frame_count(geo.reasoning_frames, tc)
+    _, ph, pw = cfg14.patch_size
+    grid = (2 * cond + ground, geo.height // sc // ph, geo.width // sc // pw)
+    L, Lt = grid[0] * grid[1] * grid[2], cfg14.text_len
+    flops = dit_step_flops(cfg14, L, Lt)
+    steps = [timings[f"step{i}"] for i in range(geo.num_inference_steps)]
+    log("[edit 14B] stage walls (s): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in timings.items()))
+    log(f"[edit 14B] seconds per edit {wall:.3f}; peak device memory "
+        f"{peak_gb} GB; launches {launches}; DiT {flops:.3e} FLOP/step, "
+        f"{flops / statistics.median(steps) / 1e12:.1f} TFLOP/s (median "
+        f"step)")
+    del out, vid
+    # one DiT step of the edit's geometry under torch.profiler
+    x = torch.randn(1, cfg14.in_dim, grid[0], geo.height // sc,
+                    geo.width // sc, generator=gen, device=dev).to(bf16)
+    ctx = torch.randn(1, Lt, cfg14.text_dim, generator=gen, device=dev
+                      ).to(bf16)
+    cos, sin = (torch.as_tensor(arr, device=dev) for arr in
+                make_rope_for_geometry(cfg14, grid, f_src=cond,
+                                       f_ground=ground))
+    t = torch.full((1,), 937.0, device=dev)
+    prof = None
+    if cuda:
+        with torch.no_grad():
+            prof = profile_kernels(lambda: pipe.dit(x, t, ctx, cos, sin))
+        report_profile(f"one 14B DiT step at {L} tokens", *prof)
+    log("[edit 14B] " + json.dumps({
+        "card": card, "seconds_per_edit": wall, "stages_s": timings,
+        "peak_memory_gb": peak_gb, "dit_flop_per_step": flops,
+        "launches": launches, "build_s": build_s,
+        "profiled_step": prof and {"wall_ms": prof[0], "busy_ms": prof[1]}}))
+    return launches
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -357,9 +780,10 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs on the GPU",
               file=sys.stderr)
         return 2
-    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    sys.path.insert(0, str(ROOT))
     from videocof_torch.configs import (GenerationConfig, T5Config,
-                                        WAN21_T2V_1_3B, WanVAEConfig)
+                                        WAN21_T2V_14B, WAN21_T2V_1_3B,
+                                        WanVAEConfig)
     from videocof_torch.models.lora import ADAPTER_TARGETS, init_lora_adapters
     from videocof_torch.models.t5_encoder import init_t5_encoder
     from videocof_torch.models.teacache import (get_teacache_coefficients,
@@ -395,6 +819,7 @@ def main() -> int:
         fail(f"nvidia-smi: {smi.stderr.strip()}")
     card = smi.stdout.strip().splitlines()[0]
     log(card)
+    log("[env] " + json.dumps(environment()))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
@@ -563,6 +988,20 @@ def main() -> int:
     log(f"[kernel vs plain] B1, B2 at {len(edges)} tile-edge lengths (Lq "
         f"1/127/129 x Lk 1/127/129/512, D {D} bf16 and D 64 fp16): ok; "
         f"B1 == B2 bit for bit in each")
+    # B1 at the 14B's 40 heads of 128, at the self and cross shapes of its
+    # edit (the plain version chunks its rows: its logits stay near 1 GiB)
+    N14 = WAN21_T2V_14B.num_heads
+    err14 = {}
+    for shape_name, (B, Lq, Lk) in (("self", (1, L, L)), ("cross", (1, L, Lt))):
+        q, k, v = qkv(B, Lq, Lk, N14, D)
+        out = fa.flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        err14[shape_name] = compare(
+            f"B1 {shape_name}-attention at the 14B's {N14} heads "
+            f"{(B, Lq, Lk, N14, D)} bfloat16", out,
+            fa.flash_attention_reference(q, k, v))
+        note("flash_attention_fwd", err14[shape_name])
+        del q, k, v, out
     # B3 at lengths on and beside its 64-row q tiles and 128-key tiles (TMA's
     # zero rows, the masked keys of the ragged key tile, dQ rows past Lq
     # dropped by the reduce-add, lse and delta rows padded to 16 bytes)
@@ -810,6 +1249,35 @@ def main() -> int:
                 f"{work[kname][0] / library_ms / 1e9:.1f})")
         del q, k, v, qs, do, out, lse, delta, qt, kt, vt, dot, lq, lk, lv
         del sdpa_out, runs, library
+        torch.cuda.empty_cache()
+
+    # B1 at the 14B's 40 heads: kernel, plain version, SDPA and the bound
+    timing14 = {}
+    for shape_name, (B, Lq, Lk), plain_runs in (("self", (1, L, L), 3),
+                                                ("cross", (1, L, Lt), 10)):
+        q, k, v = qkv(B, Lq, Lk, N14, D)
+        qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+        work = kernel_work(B, Lq, Lk, N14, D)["flash_attention_fwd"]
+        ms = cuda_ms(lambda: fa.flash_attention(q, k, v), runs=10)
+        plain_ms = cuda_ms(lambda: fa.flash_attention_reference(q, k, v),
+                           runs=plain_runs, warmup=1)
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt), runs=10)
+        bound_ms, bound_by = bound(*work)
+        shape = f"B={B} Lq={Lq} Lk={Lk} N={N14} D={D} bf16"
+        timing14[shape_name] = dict(
+            shape=shape, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by=bound_by, library_ms=library_ms,
+            tflops=work[0] / ms / 1e9,
+            max_abs_err=err14[shape_name][0],
+            max_rel_l2_err=err14[shape_name][1])
+        log(f"[timing] flash_attention_fwd {shape_name} at the 14B's heads "
+            f"{shape}: kernel_ms {ms:.4f} bound_ms {bound_ms:.4f} "
+            f"({bound_by}) plain_ms {plain_ms:.4f} library_ms "
+            f"{library_ms:.4f} (share of bound {bound_ms / ms:.1%}; "
+            f"{work[0] / ms / 1e9:.1f} TFLOP/s, library "
+            f"{work[0] / library_ms / 1e9:.1f})")
+        del q, k, v, qt, kt, vt
         torch.cuda.empty_cache()
 
     # B4 at the standard edit's shapes (batched CFG: batch 2): the whole of
@@ -1080,7 +1548,22 @@ def main() -> int:
     report_profile("one LoRA training step", *profile_kernels(
         lambda: trainer.train(samples, total_steps=1)))
 
-    # ------------------------------------------------------------ 7. report
+    # ------------------------------------------------ 7. the entry at 1.3B
+    shutil.rmtree(SCRATCH, ignore_errors=True)
+    read_gbps = round_trip_phase(dit)
+    del trainer, dit, vae, t5, samples
+    gc.collect()
+    torch.cuda.empty_cache()
+    counters = (launch_counts, reset_launch_counts)
+    entry = entry_phase(card, dcfg, geo, gen, video, prompt, want_shape,
+                        want_launches, counters)
+    log("[entry] " + json.dumps(dict(entry, dit_read_gb_per_s=read_gbps)))
+
+    # ------------------------------------------------------ 8. the 14B edit
+    launches14 = edit_14b_phase(card, WAN21_T2V_14B, geo, gen, video, prompt,
+                                want_shape, want_launches, counters)
+
+    # ------------------------------------------------------------ 9. report
     sources = {"flash_attention_fwd": "flash_attention_fwd.cu",
                "flash_attention_fwd_lse": "flash_attention_fwd.cu",
                "flash_attention_bwd": "flash_attention_bwd.cu"}
@@ -1091,6 +1574,8 @@ def main() -> int:
                                         "_bwd_dq_kernel and _bwd_dkv_kernel")}
     launches = {n: (edit_launches if n == "flash_attention_fwd"
                     else train_launches)[n] for n in names}
+    b1_14b = {"launches_14b": launches14["flash_attention_fwd"],
+              "launches_14b_on": "14B edit", "heads_40": timing14}
     rows = []
     for kname in names:
         main_shape = timing["self"][kname]
@@ -1114,6 +1599,7 @@ def main() -> int:
             "library_ms": main_shape["library_ms"],
             "shape": main_shape["shape"],
             "cross": timing["cross"][kname],
+            **(b1_14b if kname == "flash_attention_fwd" else {}),
         })
     # B4: its two kernels, with the whole of it (K mean, pre-pass,
     # attention) beside the attention kernel's row

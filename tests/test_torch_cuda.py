@@ -540,3 +540,89 @@ def test_int8_cfg_edit_runs_the_kernel(cuda):
     assert np.isfinite(a.latents).all()
     rel = np.linalg.norm(a.latents - b.latents) / np.linalg.norm(b.latents)
     assert rel <= 5e-2
+
+
+# B1 at the head count of Wan2.1 T2V 14B (40 heads of 128), at small and
+# ragged lengths: its grid and tensor maps over [B, L, N, D] strides
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Lq,Lk", [(1, 1000, 1000), (1, 129, 512),
+                                     (2, 255, 130), (1, 3001, 1),
+                                     (2, 1, 700)])
+def test_kernel_matches_plain_at_40_heads(cuda, B, Lq, Lk):
+    _run(*_qkv(cuda, B, Lq, Lk, 40, 128))
+
+
+@pytest.mark.cuda
+def test_safetensors_reader_loads_onto_the_card(cuda, tmp_path):
+    """The port's reader (no safetensors package) and writer carry bf16,
+    fp32 and int tensors to and from the card bit for bit."""
+    from videocof_torch.models.weights import read_safetensors
+    from videocof_torch.utils.checkpoint import write_safetensors
+    g = torch.Generator(device=cuda).manual_seed(3)
+    want = {"w": torch.randn(300, 129, generator=g, device=cuda
+                             ).to(torch.bfloat16),
+            "b": torch.randn(129, generator=g, device=cuda),
+            "i": torch.arange(7, device=cuda)}
+    path = str(tmp_path / "t.safetensors")
+    write_safetensors(path, want)
+    for k, v in read_safetensors(path).items():
+        got = v.to(cuda)
+        assert got.dtype == want[k].dtype and torch.equal(got, want[k]), k
+
+
+@pytest.mark.cuda
+def test_factory_loads_a_checkpoint_directory_onto_the_card(cuda, tmp_path):
+    """`load_pipeline` on a tiny published-layout directory with a LoRA
+    file: it defaults to the card, holds the files' weights merged as on
+    the CPU, and its edit runs through B1."""
+    from _published_layouts import t5_published_name, vae_published_name
+    from videocof_torch import factory
+    from videocof_torch.models import lora
+    from videocof_torch.models.t5_encoder import T5Encoder
+    from videocof_torch.models.wan_dit import WanDiT
+    from videocof_torch.models.wan_vae import WanVAE
+    from videocof_torch.utils.checkpoint import (save_dit_checkpoint_dir,
+                                                 write_safetensors)
+    dcfg = WAN_TINY.replace(dim=256, ffn_dim=512, num_heads=2,
+                            in_dim=VAE_TINY.z_dim, out_dim=VAE_TINY.z_dim,
+                            text_dim=T5_TINY.dim)
+    g = torch.Generator().manual_seed(4)
+    fill = lambda sd: {k: 0.05 * torch.randn(v.shape, generator=g)  # noqa
+                       for k, v in sd.items()}
+    root = str(tmp_path / "ckpt")
+    dit = WanDiT(dcfg, dtype=torch.bfloat16)
+    dit.load_state_dict(fill(dit.state_dict()))
+    save_dit_checkpoint_dir(root, dit, dcfg)
+    torch.save({vae_published_name(k, VAE_TINY): v for k, v in
+                fill(WanVAE(VAE_TINY).state_dict()).items()},
+               f"{root}/{factory.VAE_SUBPATH}")
+    torch.save({t5_published_name(k): v for k, v in
+                fill(T5Encoder(T5_TINY).state_dict()).items()},
+               f"{root}/{factory.T5_SUBPATH}")
+    lora_sd = {f"blocks.{i}.{m}.lora_{p}.weight": 0.1 * torch.randn(
+        (4, 256) if p == "A" else (256, 4), generator=g)
+        for i in range(dcfg.num_layers) for m in ("self_attn.q", "cross_attn.o")
+        for p in "AB"}
+    lora_path = str(tmp_path / "lora.safetensors")
+    write_safetensors(lora_path, lora_sd)
+    pipe = factory.load_pipeline(root, vae_cfg=VAE_TINY, t5_cfg=T5_TINY,
+                                 require_real_tokenizer=False,
+                                 lora_paths=[(lora_path, 1.0)])
+    assert pipe.device.type == "cuda"
+    merged = set(lora.merge_lora(dit, lora_path))
+    for k, v in dit.state_dict().items():
+        got = pipe.dit.state_dict()[k]
+        assert got.device.type == "cuda"
+        if k.rsplit(".", 1)[0] in merged:
+            # the fp32 product on the card and on the host: one bf16 ulp
+            torch.testing.assert_close(got.cpu().float(), v.float(),
+                                       rtol=2 ** -7, atol=0)
+        else:
+            assert torch.equal(got.cpu(), v), k
+    video = np.random.default_rng(0).integers(0, 256, (1, 3, 9, 32, 32),
+                                              dtype=np.uint8)
+    before = flash_attention.launches
+    out = pipe(video, "remove the ball", source_frames=9, reasoning_frames=4,
+               num_inference_steps=2)
+    assert flash_attention.launches - before == 2 * dcfg.num_layers * 2
+    assert out.videos.shape == (1, 3, 10, 32, 32)

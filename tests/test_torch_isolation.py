@@ -39,7 +39,15 @@ def test_new_modules_are_covered():
             "videocof_torch/ops/int8_attention.py",
             "videocof_torch/models/teacache.py",
             "videocof_torch/schedulers/flow_euler.py",
-            "videocof_torch/schedulers/flow_dpm.py"} <= names
+            "videocof_torch/schedulers/flow_dpm.py",
+            "videocof_torch/models/weights.py",
+            "videocof_torch/utils/checkpoint.py",
+            "videocof_torch/utils/colorspace.py",
+            "videocof_torch/utils/video_io.py",
+            "videocof_torch/data/instructions.py",
+            "videocof_torch/factory.py",
+            "videocof_torch/cli/_common.py",
+            "videocof_torch/cli/fast_infer.py"} <= names
 
 
 def test_pipeline_imports_without_jax():
@@ -52,7 +60,13 @@ def test_pipeline_imports_without_jax():
             "import videocof_torch.ops.int8_attention\n"
             "import videocof_torch.models.teacache\n"
             "import videocof_torch.schedulers.flow_euler\n"
-            "import videocof_torch.schedulers.flow_dpm\n")
+            "import videocof_torch.schedulers.flow_dpm\n"
+            "import videocof_torch.models.weights\n"
+            "import videocof_torch.utils.checkpoint\n"
+            "import videocof_torch.utils.video_io\n"
+            "import videocof_torch.data.instructions\n"
+            "import videocof_torch.factory\n"
+            "import videocof_torch.cli.fast_infer\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr

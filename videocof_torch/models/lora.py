@@ -1,10 +1,14 @@
-"""LoRA adapters of the Wan DiT blocks, for training.
+"""LoRA of the Wan DiT: published LoRA files merged into the weights, and
+the adapters of the blocks for training.
 
-Counterpart of the adapter half of `videocof_tpu/models/lora.py`
-(`init_lora_adapters`, `fuse_block_adapters`, `apply_lora_adapters`,
-`lora_adapters_to_state_dict`). The tensors keep the torch orientation,
-``down`` [r, din] and ``up`` [dout, r], so the kohya export round-trips
-through the JAX package's `merge_lora` and the reference's `lora_utils`.
+Counterpart of `videocof_tpu/models/lora.py`: `parse_lora_state_dict` and
+`merge_lora` (the reference's load-time fusion, `lora_utils.py:371-500`:
+``W += multiplier * (alpha / rank) * up @ down``, in place on the module),
+and the adapter half (`init_lora_adapters`, `fuse_block_adapters`,
+`apply_lora_adapters`, `lora_adapters_to_state_dict`). The tensors keep the
+torch orientation, ``down`` [r, din] and ``up`` [dout, r], so the kohya
+export round-trips through `merge_lora` here, in the JAX package and in the
+reference's `lora_utils`.
 
 The adapters are fused into one block's weights inside that block's call
 (`WanDiT.forward(lora=...)`): ``W_eff = W + scale * up @ down`` in fp32, cast
@@ -13,13 +17,15 @@ to W's dtype, so only one block's fused weights exist at a time.
 
 from __future__ import annotations
 
-from typing import Dict
+import re
+from typing import Dict, List, Mapping, Optional, Union
 
 import numpy as np
 import torch
 from torch import nn
 
 from ..configs import WanDiTConfig
+from .weights import DIT_BLOCK_NAMES, DIT_TOP_NAMES, load_state_dict
 
 # module -> adapted linears of a Wan block (`_ADAPTER_TARGETS`)
 ADAPTER_TARGETS = {
@@ -137,3 +143,88 @@ def lora_adapters_to_state_dict(adapters: LoRAAdapters
                 sd[base + ".lora_up.weight"] = _to_numpy(lin.up)
                 sd[base + ".alpha"] = np.array(adapters.alpha, np.float32)
     return sd
+
+
+# ------------------------------------------------------------ LoRA files
+
+# published module name -> the port's module name (JAX's `_TOP_PATHS`; the
+# block names, under "blocks.<i>.", are `DIT_BLOCK_NAMES`)
+_TOP_PATHS = {**DIT_TOP_NAMES, "patch_embedding": "patch_embed"}
+
+
+def _known_module_names(num_layers: int) -> Dict[str, str]:
+    out = dict(_TOP_PATHS)
+    for i in range(num_layers):
+        for src, dst in DIT_BLOCK_NAMES.items():
+            out[f"blocks.{i}.{src}"] = f"blocks.{i}.{dst}"
+    return out
+
+
+def parse_lora_state_dict(sd: Mapping[str, object], num_layers: int
+                          ) -> Dict[str, Dict[str, object]]:
+    """A LoRA state dict in any of the three key formats -> {published
+    module name: {down, up[, alpha]}}: kohya ``lora_unet_blocks_0_self_attn_q
+    .lora_down/lora_up.weight`` with ``.alpha``, Comfy ``diffusion_model.
+    blocks.0.self_attn.q.lora_down/up.weight``, and PEFT ``blocks.0.self_attn
+    .q.lora_A/lora_B(.default).weight`` (bare, or under ``diffusion_model.``
+    or ``transformer.``). Modules the DiT does not have are skipped."""
+    known = _known_module_names(num_layers)
+    underscore_to_dotted = {k.replace(".", "_"): k for k in known}
+    mods: Dict[str, Dict[str, object]] = {}
+
+    def canon(raw: str) -> Optional[str]:
+        return raw if raw in known else underscore_to_dotted.get(raw)
+
+    for key, val in sd.items():
+        # kohya underscore names first (the dotted pattern below would also
+        # match them, and then fail to name a module)
+        m = re.match(r"^lora_unet_(.+?)\.(lora_A|lora_B|lora_down|lora_up)"
+                     r"(?:\.default)?\.weight$", key)
+        if not m:
+            m = re.match(r"^(?:diffusion_model\.|transformer\.)?(.+?)\."
+                         r"(lora_A|lora_B|lora_down|lora_up)(?:\.default)?"
+                         r"\.weight$", key)
+        if not m:
+            m = re.match(r"^(?:lora_unet_|diffusion_model\.|transformer\.)?"
+                         r"(.+?)\.alpha$", key)
+            name = canon(m.group(1)) if m else None
+            if name:
+                mods.setdefault(name, {})["alpha"] = float(
+                    torch.as_tensor(val).reshape(()))
+            continue
+        name = canon(m.group(1))
+        if name is None:
+            continue
+        slot = "down" if m.group(2) in ("lora_A", "lora_down") else "up"
+        mods.setdefault(name, {})[slot] = torch.as_tensor(val)
+    return {k: v for k, v in mods.items() if "down" in v and "up" in v}
+
+
+@torch.no_grad()
+def merge_lora(dit: nn.Module,
+               lora: Union[str, Mapping[str, object]],
+               multiplier: float = 1.0) -> List[str]:
+    """Fuse a LoRA file (a path or a state dict) into ``dit``'s weights in
+    place: ``W <- (W.float() + multiplier * (alpha / rank) * up @ down)
+    .to(W.dtype)``, the product in fp32 on W's device; ``alpha`` defaults to
+    the rank, and a conv LoRA on the patch embedding is flattened as its
+    base weight is. Returns the port's names of the merged modules."""
+    if isinstance(lora, str):
+        lora = load_state_dict(lora)
+    known = _known_module_names(dit.cfg.num_layers)
+    merged = []
+    for name, entry in parse_lora_state_dict(lora, dit.cfg.num_layers).items():
+        down, up = entry["down"], entry["up"]
+        rank = down.shape[0]
+        scale = entry.get("alpha", float(rank)) / rank
+        down = down.reshape(rank, -1)
+        up = up.reshape(up.shape[0], -1)
+        w = dit.get_submodule(known[name]).weight
+        delta = multiplier * scale * (up.to(w.device).float()
+                                      @ down.to(w.device).float())
+        if delta.shape != w.shape:
+            raise ValueError(f"LoRA {name}: up @ down is {tuple(delta.shape)}"
+                             f", the weight {tuple(w.shape)}")
+        w.copy_((w.float() + delta).to(w.dtype))
+        merged.append(known[name])
+    return merged

@@ -34,6 +34,7 @@ from ..models.t5_encoder import T5Encoder
 from ..models.wan_dit import WanDiT
 from ..models.wan_vae import WanVAE
 from ..schedulers import get_scheduler
+from ..utils import colorspace
 
 
 @dataclasses.dataclass
@@ -92,10 +93,14 @@ class WanPipeline:
 
     # ---------------------------------------------------------------- latents
     def _prepare_video(self, video) -> torch.Tensor:
-        """uint8 [0, 255] or float [-1, 1] [B, 3, T, H, W] -> self.dtype in
+        """uint8 [0, 255] or float [-1, 1] [B, 3, T, H, W], or uint8 I420
+        planes [B, T, H*3//2, W] (codec-native 4:2:0, half the bytes of
+        uint8 RGB; the chroma is upsampled on the device) -> self.dtype in
         [-1, 1] on the device."""
         video = torch.as_tensor(video).to(self.device)
         if video.dtype == torch.uint8:
+            if video.dim() == 4:
+                return colorspace.i420_to_rgbm11(video).to(self.dtype)
             return video.to(self.dtype) * (2.0 / 255.0) - 1.0
         return video.to(self.dtype)
 
@@ -179,8 +184,9 @@ class WanPipeline:
                  solver_order: Optional[int] = None,
                  timings: Optional[Dict[str, float]] = None
                  ) -> WanPipelineOutput:
-        """Edit ``video`` ([B, 3, T, H, W], uint8 or float in [-1, 1]) per
-        ``prompt``, with the JAX pipeline's defaults and semantics.
+        """Edit ``video`` ([B, 3, T, H, W], uint8 or float in [-1, 1], or
+        uint8 I420 planes [B, T, H*3//2, W]) per ``prompt``, with the JAX
+        pipeline's defaults and semantics.
 
         ``guidance_scale > 1`` turns on CFG against ``negative_prompt`` (or
         ``negative_prompt_embeds``); ``cfg_skip_ratio`` runs the last
