@@ -82,9 +82,8 @@ Phases, each of which fails the run (non-zero exit) on any fault:
      acceleration LoRA, a PEFT "VideoCoF" file as --videocof_path); its
      output and files are checked, B1 must run exactly 240 times, the CLI
      must hand the factory both files and exactly the weights they name
-     must differ from an unmerged draw. Where
-     cv2 is not importable, a printed branch drives the per-item body
-     (`cli._common.edit_frames`) with a uint8 array instead.
+     must differ from an unmerged draw. The phase fails where cv2, which
+     the port's video I/O reads with, is not importable.
   8. the 14B edit: `factory.load_pipeline("", random_init=True,
      dit_cfg=WAN21_T2V_14B, lora_paths=[the two LoRA files at 14B
      shapes])` at full width and depth (40 blocks of 5120, 40 heads of
@@ -92,10 +91,47 @@ Phases, each of which fails the run (non-zero exit) on any fault:
      ones in exactly the modules the LoRA files name; the 4-step 480x832
      33 + 4-frame edit (output, exactly 320 B1 launches and no other
      kernel, stage walls, peak memory); one DiT step under torch.profiler.
-  9. a `kernels` JSON line and, last, the device JSON line.
+  9. the 4x length-extrapolation edit at 1.3B (random weights drawn by
+     `factory.load_pipeline("", random_init=True)`, full width and depth):
+     a uint8 clip of 133 frames (4x the 33-frame clip, 34 latent frames)
+     with 4 reasoning frames, 4 Flow-UniPC steps, repeat RoPE and RIFLEx
+     (k 6, the default L_test), the VAE streamed: 34 + 1 + 34 latent
+     frames, 107,640 DiT tokens; the output [1, 3, 134, 480, 832], exactly
+     240 B1 launches (120 self at 107,640 keys, 120 cross) and no other
+     kernel, stage walls, peak memory; one DiT step under torch.profiler.
+     The whole-sequence VAE is not run at this length.
+  10. the ragged batch: `batch_edit` over the 33-frame clip and the 4x
+     clip's first 65 frames (29,640 and 54,600 tokens) as one batch of 2:
+     exactly 240 B1 launches at batch 2, the 120 self-attention ones with
+     the batch's key mask (valid keys 29,640 and 54,600), nothing else;
+     each item's final latents against its own `pipe()` run with the same
+     seed (relative L2 <= 2e-2, the DiT gate's: cuBLAS picks kernels by M,
+     so bit equality is not expected).
+  11. the paired edit (`cot=False`) of the 33-frame clip, 4 steps (18
+     latent frames, 28,080 tokens): the output and 240 B1 launches.
+  12. the streaming VAE against the whole-sequence VAE at 33 frames (the
+     encode of the clip, the decode of item 0's 9-frame edit segment to
+     uint8) in bf16: seconds, peak memory, mu's relative L2 and the uint8
+     frames' difference. Against the whole-sequence VAE in fp32: the
+     streamed VAE in fp32 within 1e-4 relative L2 (mu and decoded frames),
+     and the streamed one in bf16 no further from it than 1.5x the whole
+     one in bf16.
+  13. the standard CLI: `videocof_torch.cli.infer.main()` in this process
+     (--random_init --repeat_rope, its defaults: 50 steps, CFG 5 against
+     the default negative prompt, TeaCache with Wan2.1 T2V 14B's
+     coefficients) on a 40-frame clip written with cv2 (it fails without
+     cv2); the TeaCache plan
+     these random weights give, the files, and B1 launches equal to 2 x
+     30 x the computed steps, each at batch 2.
+  14. a `kernels` JSON line and, last, the device JSON line.
 
 B1 is also held against its plain version (phase 2) and timed (phase 3) at
-the 14B's 40 heads, at the self and cross shapes.
+the 14B's 40 heads, at the self and cross shapes, and at the shapes of
+phases 9 and 10: 4x self (107,640 tokens), 4x cross, and the ragged self
+shape (batch 2 of 54,600 tokens, row 0's keys masked past 29,640), with
+the bound of the work its rows need and of the padded work it does. The
+VAE streams every clip longer than 2 frames (the JAX package's threshold),
+in the edits of phases 4, 5, 7 and 8 too.
 
 It exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
@@ -103,6 +139,7 @@ checkout of the repository.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import re
@@ -147,6 +184,16 @@ TEACACHE_PIN = 0.4             # pinned TeaCache skip rate (bench.py's)
 LORA_RANK = 32                 # the entry phases' synthetic LoRA files
 LORA_ALPHA = 16.0              # ... the kohya file's alpha (scale 0.5)
 CLIP_FRAMES = 40               # frames of the entry phase's synthetic clip
+EXTRAP_FRAMES = 133            # the 4x edit: 1 + 4 x 33 frames, 34 latent
+RAGGED_FRAMES = 65             # the ragged batch's long item (item 0: 33)
+RIFLEX_K = 6                   # the 4x edit's RIFLEx frequency
+RAGGED_REL_TOL = 2e-2          # a ragged item vs its own run (the DiT gate's)
+TEXT_TOKENS = 512              # umT5 tokens of a prompt (max_sequence_length)
+# against the whole-sequence VAE in fp32: the streamed VAE in fp32 (mu and
+# decoded frames, relative L2; cuDNN picks algorithms per chunk shape), and
+# the streamed one in bf16, at most this many times the whole one's distance
+VAE_FP32_REL_TOL = 1e-4
+VAE_STREAM_FACTOR = 1.5
 
 
 def log(*args):
@@ -515,85 +562,41 @@ def round_trip_phase(dit):
     return nbytes / read_s / 1e9
 
 
-def entry_phase(card, dcfg, geo, gen, video, prompt, want_shape,
-                want_launches, counters):
+def entry_phase(card, dcfg, geo, gen, prompt, want_shape, want_launches,
+                counters):
     """`fast_infer.main()` in this process with random weights (the
     factory's default, ``dcfg``) and two LoRA files merged, on a clip
-    written with cv2; where cv2 is not importable, the per-item body
-    `edit_frames` on the uint8 ``video``, said so on a line of its own.
-    Fails unless the output, its files, the launches (``counters``: read,
-    reset) and the merge are right: the CLI hands the factory both LoRA
-    files, in order, and exactly the weights they name differ from an
-    unmerged draw. Returns the phase's record."""
+    written with cv2. Fails unless the output, its files, the launches
+    (``counters``: read, reset) and the merge are right: the CLI hands the
+    factory both LoRA files, in order, and exactly the weights they name
+    differ from an unmerged draw. Returns the phase's record."""
     import numpy as np
     import torch
-    from videocof_torch.cli import _common, fast_infer
+    from videocof_torch.cli import fast_infer
     from videocof_torch.utils import video_io
-    from videocof_torch import factory
     launch_counts, reset_launch_counts = counters
     (fusionx, videocof), names = write_lora_files(dcfg, gen, SCRATCH)
     base = draw_unmerged(dcfg, gen.device)
     prints = {k: fingerprint(v) for k, v in base.state_dict().items()}
     del base
-    # the pipelines the CLI builds, with the LoRA files it hands the factory
-    built = []
-    real_load = factory.load_pipeline
-
-    def load_recorded(*a, **kw):
-        pipe = real_load(*a, **kw)
-        built.append(([p for p, _ in kw.get("lora_paths") or ()], pipe))
-        return pipe
     out_dir = SCRATCH / "out"
-    argv = ["--prompt", prompt, "--output_dir", str(out_dir), "--random_init",
-            "--repeat_rope", "--height", str(geo.height), "--width",
-            str(geo.width), "--source_frames", str(geo.source_frames),
-            "--reasoning_frames", str(geo.reasoning_frames),
-            "--num_inference_steps", str(geo.num_inference_steps), "--seed",
-            str(SEED), "--enable_acceleration_lora",
-            "--acceleration_lora_path", fusionx, "--videocof_path", videocof]
-    try:
-        import cv2
-    except ImportError:
-        cv2 = None
-    clip = SCRATCH / "clip.mp4"
-    if cv2 is not None:
-        writer = cv2.VideoWriter(str(clip), cv2.VideoWriter_fourcc(*"mp4v"),
-                                 16, (geo.width, geo.height))
-        frames = np.random.default_rng(SEED).integers(
-            0, 256, (CLIP_FRAMES, geo.height, geo.width, 3), dtype=np.uint8)
-        for fr in frames:
-            writer.write(fr)
-        writer.release()
-    codec = cv2 is not None and clip.exists()
+    clip = write_clip("entry", geo)
+    argv = ["--video_path", str(clip), "--prompt", prompt, "--output_dir",
+            str(out_dir), "--random_init", "--repeat_rope", "--height",
+            str(geo.height), "--width", str(geo.width), "--source_frames",
+            str(geo.source_frames), "--reasoning_frames",
+            str(geo.reasoning_frames), "--num_inference_steps",
+            str(geo.num_inference_steps), "--seed", str(SEED),
+            "--enable_acceleration_lora", "--acceleration_lora_path", fusionx,
+            "--videocof_path", videocof]
     cuda = torch.cuda.is_available()
     if cuda:
         torch.cuda.reset_peak_memory_stats()
-    factory.load_pipeline = load_recorded
     reset_launch_counts()
     t0 = time.perf_counter()
-    try:
-        if codec:
-            log(f"[entry] cv2 {cv2.__version__}: fast_infer.main() on a "
-                f"{CLIP_FRAMES}-frame {geo.height}x{geo.width} mp4v clip")
-            arrays = fast_infer.main(["--video_path", str(clip)] + argv).get(
-                clip.name)
-        else:
-            log("[entry] no video codec (cv2 not importable or no mp4v "
-                "writer): driving the per-item body cli._common.edit_frames "
-                "with a uint8 array instead of fast_infer.main()")
-            args = fast_infer.parse_args(["--video_path", "none.mp4"] + argv)
-            args.acceleration_lora = args.acceleration_lora_path
-            pipe = _common.build_pipeline_from_args(args)
-            arrays = _common.edit_frames(
-                pipe, args, video, _common.item_prompt(
-                    {"edit_instruction": prompt})[0], 0,
-                num_inference_steps=args.num_inference_steps,
-                guidance_scale=args.guidance_scale,
-                negative_prompt=fast_infer.NEGATIVE_PROMPT)
-            del pipe
-        entry_s = time.perf_counter() - t0
-    finally:
-        factory.load_pipeline = real_load
+    with recorded_loads() as built:
+        arrays = fast_infer.main(argv).get(clip.name)
+    entry_s = time.perf_counter() - t0
     launches = launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9 if cuda else None
     if arrays is None:
@@ -622,20 +625,19 @@ def entry_phase(card, dcfg, geo, gen, video, prompt, want_shape,
     if launches != want_launches:
         fail(f"the entry launched {launches}, expected {want_launches}")
     files = sorted(p.name for p in out_dir.glob("*"))
-    if codec:
-        want_files = [f"gen_{clip.stem}{s}" for s in (
-            ".mp4", "_compare.mp4", "_info.txt", "_reason_edit.mp4")]
-        info = video_io.video_info(str(out_dir / f"gen_{clip.stem}.mp4"))
-        log(f"[entry] files {files}; gen_{clip.stem}.mp4: {info[0]} frames "
-            f"of {info[1]}x{info[2]}")
-        if files != want_files or info[:3] != (geo.source_frames, geo.height,
-                                               geo.width):
-            fail(f"entry files {files}, {info}")
-        if fast_infer.main(["--video_path", str(clip)] + argv):
-            fail("the resumed entry edited an item again")
+    want_files = [f"gen_{clip.stem}{s}" for s in (
+        ".mp4", "_compare.mp4", "_info.txt", "_reason_edit.mp4")]
+    info = video_io.video_info(str(out_dir / f"gen_{clip.stem}.mp4"))
+    log(f"[entry] files {files}; gen_{clip.stem}.mp4: {info[0]} frames "
+        f"of {info[1]}x{info[2]}")
+    if files != want_files or info[:3] != (geo.source_frames, geo.height,
+                                           geo.width):
+        fail(f"entry files {files}, {info}")
+    if fast_infer.main(argv):
+        fail("the resumed entry edited an item again")
     shutil.rmtree(SCRATCH, ignore_errors=True)
-    return {"card": card, "seconds": entry_s, "codec": codec,
-            "peak_memory_gb": peak_gb, "launches": launches, "files": files}
+    return {"card": card, "seconds": entry_s, "peak_memory_gb": peak_gb,
+            "launches": launches, "files": files}
 
 
 def edit_14b_phase(card, cfg14, geo, gen, video, prompt, want_shape,
@@ -772,6 +774,490 @@ def edit_14b_phase(card, cfg14, geo, gen, video, prompt, want_shape,
     return launches
 
 
+def write_clip(tag, geo):
+    """Write CLIP_FRAMES random uint8 frames (seed SEED) at the geometry's
+    size as an mp4v clip with cv2, the codec the port's video I/O reads
+    with; fails unless cv2 is importable and writes it. Returns its path."""
+    import numpy as np
+    try:
+        import cv2
+    except ImportError:
+        fail(f"{tag}: cv2 is not importable; the port's video I/O needs it")
+    SCRATCH.mkdir(parents=True, exist_ok=True)
+    clip = SCRATCH / "clip.mp4"
+    writer = cv2.VideoWriter(str(clip), cv2.VideoWriter_fourcc(*"mp4v"), 16,
+                             (geo.width, geo.height))
+    frames = np.random.default_rng(SEED).integers(
+        0, 256, (CLIP_FRAMES, geo.height, geo.width, 3), dtype=np.uint8)
+    for fr in frames:
+        writer.write(fr)
+    writer.release()
+    if not clip.exists():
+        fail(f"{tag}: cv2 {cv2.__version__} wrote no mp4v clip")
+    log(f"[{tag}] cv2 {cv2.__version__}: a {CLIP_FRAMES}-frame "
+        f"{geo.height}x{geo.width} mp4v clip")
+    return clip
+
+
+@contextlib.contextmanager
+def recorded_loads():
+    """Record (the LoRA paths it was handed, the pipeline) of every
+    `factory.load_pipeline` call while the block runs."""
+    from videocof_torch import factory
+    real, built = factory.load_pipeline, []
+
+    def load_recorded(*a, **kw):
+        pipe = real(*a, **kw)
+        built.append(([p for p, _ in kw.get("lora_paths") or ()], pipe))
+        return pipe
+    factory.load_pipeline = load_recorded
+    try:
+        yield built
+    finally:
+        factory.load_pipeline = real
+
+
+@contextlib.contextmanager
+def b1_calls():
+    """Record (batch, Lq, Lk, the key mask or None) of every call of B1's
+    wrapper body (`flash_attention._forward_b1`, which launches the kernel on
+    a CUDA tensor) while the block runs; the masks are read afterwards, so
+    the run is not synchronized per call."""
+    from videocof_torch.ops import flash_attention as fa
+    real, seen = fa._forward_b1, []
+
+    def spy(q, k, v, kv_mask, scale):
+        seen.append((q.shape[0], q.shape[1], k.shape[1], kv_mask))
+        return real(q, k, v, kv_mask, scale)
+    fa._forward_b1 = spy
+    try:
+        yield seen
+    finally:
+        fa._forward_b1 = real
+
+
+def b1_shapes(seen):
+    """{(batch, Lq, Lk, valid keys of each row or None): calls} of a
+    `b1_calls` record."""
+    shapes = {}
+    for B, Lq, Lk, mask in seen:
+        key = (B, Lq, Lk, None if mask is None
+               else tuple(mask.sum(dim=1).tolist()))
+        shapes[key] = shapes.get(key, 0) + 1
+    return shapes
+
+
+def check_video(tag, vid, want_shape):
+    """Fail unless ``vid`` has ``want_shape`` and finite values in [0, 1]."""
+    import numpy as np
+    log(f"[{tag}] output {vid.shape} min {vid.min():.4f} max {vid.max():.4f}")
+    if vid.shape != want_shape:
+        fail(f"{tag} output shape {vid.shape} != {want_shape}")
+    if not (np.isfinite(vid).all() and vid.min() >= 0.0 and vid.max() <= 1.0):
+        fail(f"{tag} output frames not finite or outside [0, 1]")
+
+
+def check_launches(tag, launches, want):
+    if launches != want:
+        fail(f"the {tag} launched {launches}, expected {want}")
+
+
+def extrapolation_phase(card, pipe, geo, gen, prompt, counters,
+                        want_launches):
+    """The 4x length-extrapolation edit: a uint8 clip of EXTRAP_FRAMES
+    frames (4x the 33-frame clip: 34 latent frames) with 4 reasoning frames,
+    4 Flow-UniPC steps, repeat RoPE and RIFLEx (k 6, the default L_test), the
+    VAE streamed; the output, the launches (2 x layers x steps of B1 and
+    nothing else), stage walls and peak memory; then one DiT step of its
+    geometry under torch.profiler. Returns (the clip, the phase's
+    record)."""
+    import numpy as np
+    import torch
+    from videocof_torch.models.rope import riflex_angle_table
+    from videocof_torch.models.wan_dit import make_rope_for_geometry
+    from videocof_torch.pipeline import latent_frame_count
+    launch_counts, reset_launch_counts = counters
+    dcfg, dev = pipe.dit.cfg, pipe.device
+    cuda = dev.type == "cuda"
+    tc = pipe.vae.cfg.temporal_compression_ratio
+    sc = pipe.vae.cfg.spatial_compression_ratio
+    video = np.random.default_rng(SEED).integers(
+        0, 256, (1, 3, EXTRAP_FRAMES, geo.height, geo.width), dtype=np.uint8)
+    cond = latent_frame_count(EXTRAP_FRAMES, tc)
+    ground = latent_frame_count(geo.reasoning_frames, tc)
+    _, ph, pw = dcfg.patch_size
+    grid = (2 * cond + ground, geo.height // sc // ph, geo.width // sc // pw)
+    L = grid[0] * grid[1] * grid[2]
+    log(f"[4x edit] {EXTRAP_FRAMES} source frames: {grid[0]} latent frames "
+        f"({cond} + {ground} + {cond}), {L} DiT tokens; RIFLEx k "
+        f"{RIFLEX_K}, L_test 66 (the default)")
+    timings = {}
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with b1_calls() as seen:
+        out = pipe(video, prompt, source_frames=EXTRAP_FRAMES,
+                   reasoning_frames=geo.reasoning_frames,
+                   num_inference_steps=geo.num_inference_steps,
+                   shift=geo.shift, sampler=geo.sampler, repeat_rope=True,
+                   seed=geo.seed, riflex_k=RIFLEX_K, timings=timings)
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 if cuda else None
+    shapes = b1_shapes(seen)
+    per_layer = dcfg.num_layers * geo.num_inference_steps
+    check_video("4x edit", out.videos, (1, 3, 1 + (ground - 1) * tc
+                                         + EXTRAP_FRAMES, geo.height,
+                                         geo.width))
+    check_launches("4x edit", launches, want_launches)
+    want_shapes = {(1, L, L, None): per_layer,
+                   (1, L, TEXT_TOKENS, None): per_layer}
+    if shapes != want_shapes:
+        fail(f"the 4x edit's B1 calls {shapes} != {want_shapes}")
+    flops = dit_step_flops(dcfg, L, TEXT_TOKENS)
+    steps = [timings[f"step{i}"] for i in range(geo.num_inference_steps)]
+    log("[4x edit] stage walls (s): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in timings.items()))
+    log(f"[4x edit] seconds per edit {wall:.3f}; peak device memory "
+        f"{peak_gb} GB; launches {launches}; DiT {flops:.3e} FLOP/step, "
+        f"{flops / statistics.median(steps) / 1e12:.1f} TFLOP/s (median "
+        f"step)")
+    del out
+    x = torch.randn(1, dcfg.in_dim, grid[0], geo.height // sc,
+                    geo.width // sc, generator=gen, device=dev).to(pipe.dtype)
+    ctx = torch.randn(1, TEXT_TOKENS, dcfg.text_dim, generator=gen,
+                      device=dev).to(pipe.dtype)
+    table = riflex_angle_table(dcfg.head_dim, RIFLEX_K, 66,
+                               max_pos=dcfg.rope_max_pos,
+                               theta=dcfg.rope_theta)
+    cos, sin = (torch.as_tensor(a, device=dev) for a in make_rope_for_geometry(
+        dcfg, grid, f_src=cond, f_ground=ground, temporal_table=table))
+    t = torch.full((1,), 937.0, device=dev)
+    prof = None
+    if cuda:
+        with torch.no_grad():
+            prof = profile_kernels(lambda: pipe.dit(x, t, ctx, cos, sin))
+        report_profile(f"one DiT step of the 4x edit at {L} tokens", *prof)
+    record = {"card": card, "tokens": L, "seconds_per_edit": wall,
+              "stages_s": timings, "peak_memory_gb": peak_gb,
+              "dit_flop_per_step": flops, "launches": launches,
+              "b1_calls": {str(k): n for k, n in shapes.items()},
+              "b1_launches": {"4x self": shapes.get((1, L, L, None), 0),
+                              "4x cross": shapes.get(
+                                  (1, L, TEXT_TOKENS, None), 0)},
+              "profiled_step": prof and {"wall_ms": prof[0],
+                                         "busy_ms": prof[1]}}
+    log("[4x edit] " + json.dumps(record))
+    return video, record
+
+
+def ragged_phase(card, pipe, geo, prompt, items, counters, want_launches):
+    """The ragged batch: `batch_edit` over two items of different lengths
+    (``items``: uint8 clips [1, 3, T_i, H, W]) as one batch of 2, seeds 0
+    and 1; the launches (2 x layers x steps of B1 at batch 2, the
+    self-attention ones with the batch's key mask, and nothing else),
+    seconds and peak memory; each item's final latents against its own
+    `pipe()` run with the same seed, so the same noise (relative L2 <=
+    RAGGED_REL_TOL). Returns (the phase's record, item 0's own final
+    latents)."""
+    import numpy as np
+    import torch
+    from videocof_torch.pipeline import batch_edit, latent_frame_count
+    launch_counts, reset_launch_counts = counters
+    dcfg, dev = pipe.dit.cfg, pipe.device
+    cuda = dev.type == "cuda"
+    tc = pipe.vae.cfg.temporal_compression_ratio
+    sc = pipe.vae.cfg.spatial_compression_ratio
+    ground = latent_frame_count(geo.reasoning_frames, tc)
+    _, ph, pw = dcfg.patch_size
+    frames = [v.shape[2] for v in items]
+    tokens = [(2 * latent_frame_count(f, tc) + ground) * (geo.height // sc
+              // ph) * (geo.width // sc // pw) for f in frames]
+    embeds = pipe.encode_prompt([prompt])
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with b1_calls() as seen:
+        outs = batch_edit(pipe, [v[0] for v in items], frames,
+                          [embeds] * len(items),
+                          reasoning_frames=geo.reasoning_frames,
+                          num_inference_steps=geo.num_inference_steps,
+                          shift=geo.shift, sampler=geo.sampler, seeds=[0, 1],
+                          output_latents=True)
+        if cuda:
+            torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 if cuda else None
+    shapes = b1_shapes(seen)
+    L = max(tokens)
+    per_layer = dcfg.num_layers * geo.num_inference_steps
+    want_shapes = {(2, L, L, tuple(tokens)): per_layer,
+                   (2, L, TEXT_TOKENS, None): per_layer}
+    log(f"[ragged] batch_edit of {frames} source frames ({tokens} tokens) as "
+        f"one batch of 2: {wall:.3f} s, peak device memory {peak_gb} GB; "
+        f"launches {launches}; B1 calls by (batch, Lq, Lk, valid keys per "
+        f"row): {shapes}")
+    for i, out in enumerate(outs):
+        check_video(f"ragged item {i}", out.videos, (
+            1, 3, 1 + (ground - 1) * tc + frames[i], geo.height, geo.width))
+    check_launches("ragged batch", launches, want_launches)
+    if shapes != want_shapes:
+        fail(f"the ragged batch's B1 calls {shapes} != {want_shapes}")
+    rels, item_s, refs = [], [], []
+    for i, out in enumerate(outs):
+        t0 = time.perf_counter()
+        refs.append(pipe(items[i], prompt, source_frames=frames[i],
+                         reasoning_frames=geo.reasoning_frames,
+                         num_inference_steps=geo.num_inference_steps,
+                         shift=geo.shift, sampler=geo.sampler, seed=i,
+                         output_latents=True).latents)
+        item_s.append(time.perf_counter() - t0)
+        ref = refs[-1]
+        rel = float(np.linalg.norm(out.latents - ref) / np.linalg.norm(ref))
+        rels.append(rel)
+        log(f"[ragged] item {i} ({frames[i]} frames): final latents against "
+            f"its own run, relative L2 {rel:.3e} (tol {RAGGED_REL_TOL}): "
+            f"{'ok' if rel <= RAGGED_REL_TOL else 'FAIL'}")
+        if not rel <= RAGGED_REL_TOL:
+            fail(f"ragged item {i} strays from its own run")
+    record = {"card": card, "frames": frames, "tokens": tokens,
+              "seconds": wall, "peak_memory_gb": peak_gb,
+              "launches": launches,
+              "b1_calls": {str(k): n for k, n in shapes.items()},
+              "b1_launches": {"ragged self": shapes.get(
+                  (2, L, L, tuple(tokens)), 0)},
+              "rel_l2_vs_own_run": rels,
+              "own_run_s": item_s}
+    log("[ragged] " + json.dumps(record))
+    return record, refs[0]
+
+
+def paired_phase(card, pipe, geo, video, prompt, counters, want_launches):
+    """The paired edit (``cot=False``): [source | target] latents, no
+    reasoning frames, 4 steps; the output and the launches (2 x layers x
+    steps of B1, nothing else). Returns the phase's record."""
+    import torch
+    launch_counts, reset_launch_counts = counters
+    cuda = pipe.device.type == "cuda"
+    timings = {}
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = pipe(video, prompt, source_frames=geo.source_frames,
+               num_inference_steps=geo.num_inference_steps, shift=geo.shift,
+               sampler=geo.sampler, repeat_rope=geo.repeat_rope, cot=False,
+               seed=geo.seed, timings=timings)
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 if cuda else None
+    check_video("paired edit", out.videos, (1, 3, geo.source_frames,
+                                            geo.height, geo.width))
+    if out.ground_videos is not None:
+        fail("the paired edit returned reasoning frames")
+    check_launches("paired edit", launches, want_launches)
+    record = {"card": card, "seconds_per_edit": wall, "stages_s": timings,
+              "peak_memory_gb": peak_gb, "launches": launches}
+    log("[paired edit] " + json.dumps(record))
+    return record
+
+
+def vae_phase(card, pipe, video, latents, n_edit):
+    """The streaming VAE against the whole-sequence VAE on the 4-step
+    edit's clip (encode) and final latents (the decode of the edit segment,
+    the last ``n_edit`` latent frames). In the pipeline's dtype: seconds
+    (the second of two runs each), peak memory above what was allocated
+    before, and the uint8 frames of each. The reference is the
+    whole-sequence VAE in fp32 (TF32 is off). Fails unless the streamed VAE
+    in fp32 equals it (relative L2 of mu and of the decoded frames <=
+    VAE_FP32_REL_TOL), and unless the streamed one in the pipeline's dtype
+    strays from it by at most VAE_STREAM_FACTOR times the whole-sequence
+    one. Returns the phase's record."""
+    import copy
+    import torch
+    from videocof_torch.models import wan_vae_streaming as stream
+    cuda = pipe.device.type == "cuda"
+    vae, dtype = pipe.vae, pipe.dtype
+    x = pipe._prepare_video(video)
+    x32 = torch.as_tensor(video, device=pipe.device).float() * (2 / 255) - 1
+    z = torch.as_tensor(latents[:, :, -n_edit:], device=pipe.device)
+
+    def run(fn, runs=2):
+        """(result, seconds of the last run, its peak GB above the
+        start)."""
+        for _ in range(runs):
+            if cuda:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                res = fn()
+            if cuda:
+                torch.cuda.synchronize()
+            s = time.perf_counter() - t0
+        peak = ((torch.cuda.max_memory_allocated() - base) / 1e9 if cuda
+                else None)
+        return res, s, peak
+
+    def to_u8(y):
+        return torch.round(y.float() * 127.5 + 127.5).to(torch.uint8)
+
+    def rel(a, b):
+        return ((a.float() - b).norm() / b.norm()).item()
+
+    def levels(a, b):
+        d = (a.int() - b.int()).abs()
+        return {"mean": d.float().mean().item(), "max": d.max().item(),
+                "share_differing": (d > 0).float().mean().item()}
+
+    enc, dec = pipe.vae_encode_chunk, pipe.vae_decode_chunk
+    rows = {
+        "encode whole": run(lambda: vae.encode(x)[0]),
+        "encode streaming": run(lambda: stream.encode_streaming(
+            vae, x, chunk_latent=enc)[0]),
+        "decode whole": run(lambda: to_u8(vae.decode(z.to(dtype)))),
+        "decode streaming": run(lambda: stream.decode_streaming_u8(
+            vae, z, chunk_latent=dec, compute_dtype=dtype)),
+    }
+    ref_vae = copy.deepcopy(vae).float()
+    ref = {  # one run each
+        "encode whole": run(lambda: ref_vae.encode(x32)[0], 1),
+        "encode streaming": run(lambda: stream.encode_streaming(
+            ref_vae, x32, chunk_latent=enc)[0], 1),
+        "decode whole": run(lambda: ref_vae.decode(z.float()), 1),
+        "decode streaming": run(lambda: stream.decode_streaming(
+            ref_vae, z.float(), chunk_latent=dec), 1),
+    }
+    del ref_vae
+    mu32, y32 = ref["encode whole"][0], ref["decode whole"][0]
+    u8_32 = to_u8(y32)
+    fp32 = {"mu_rel_l2": rel(ref["encode streaming"][0], mu32),
+            "frames_rel_l2": rel(ref["decode streaming"][0], y32),
+            "u8": levels(to_u8(ref["decode streaming"][0]), u8_32)}
+    err = {way: {"mu_rel_l2_vs_fp32": rel(rows[f"encode {way}"][0], mu32),
+                 "u8_vs_fp32": levels(rows[f"decode {way}"][0], u8_32)}
+           for way in ("whole", "streaming")}
+    record = {"card": card, "frames": video.shape[2],
+              "latent_frames_decoded": z.shape[2], "dtype": str(dtype),
+              "mu_rel_l2_streaming_vs_whole": rel(
+                  rows["encode streaming"][0], rows["encode whole"][0]),
+              "u8_streaming_vs_whole": levels(rows["decode streaming"][0],
+                                              rows["decode whole"][0]),
+              "fp32_streaming_vs_whole": fp32,
+              "vs_fp32_whole": err,
+              **{k: {"seconds": s, "peak_gb_above_start": p}
+                 for k, (_, s, p) in rows.items()},
+              **{f"{k} fp32": {"seconds": s, "peak_gb_above_start": p}
+                 for k, (_, s, p) in ref.items()}}
+    for k, (_, s, p) in list(rows.items()) + [(f"{k} fp32", v) for k, v in
+                                              ref.items()]:
+        log(f"[vae] {k}: {s:.3f} s, peak {p} GB above what was allocated")
+    log(f"[vae] streaming against whole ({dtype}): mu relative L2 "
+        f"{record['mu_rel_l2_streaming_vs_whole']:.3e}; uint8 frames "
+        f"{record['u8_streaming_vs_whole']}")
+    ok = True
+    for key in ("mu_rel_l2", "frames_rel_l2"):
+        good = fp32[key] <= VAE_FP32_REL_TOL
+        ok = ok and good
+        log(f"[vae] fp32 streaming against fp32 whole, {key} {fp32[key]:.3e}"
+            f" (tol {VAE_FP32_REL_TOL}): {'ok' if good else 'FAIL'}")
+    log(f"[vae] fp32 streaming against fp32 whole, uint8 frames {fp32['u8']}")
+    for key, name in (("mu_rel_l2_vs_fp32", "mu relative L2"),
+                      ("u8_vs_fp32", "uint8 mean |levels|")):
+        w, st = err["whole"][key], err["streaming"][key]
+        if isinstance(w, dict):
+            w, st = w["mean"], st["mean"]
+        good = st <= VAE_STREAM_FACTOR * w
+        ok = ok and good
+        log(f"[vae] {dtype} against the whole-sequence VAE in fp32, {name}: "
+            f"whole {w:.3e}, streaming {st:.3e} (tol {VAE_STREAM_FACTOR} x "
+            f"whole): {'ok' if good else 'FAIL'}")
+    if not ok:
+        fail("the streaming VAE strays from the whole-sequence VAE in fp32")
+    log("[vae] " + json.dumps(record))
+    return record
+
+
+def infer_phase(card, geo, prompt, counters):
+    """`videocof_torch.cli.infer.main()` in this process with its defaults
+    (50 Flow-UniPC steps, guidance 5 against the default negative prompt,
+    TeaCache with Wan2.1 T2V 14B's coefficients) on random 1.3B weights
+    (the factory's default) and a clip written with cv2; the TeaCache plan
+    these weights give, the output and its files, and the launches: 2 x
+    layers x computed steps of B1, each at batch 2 (CFG), nothing else.
+    Returns the phase's record."""
+    import torch
+    from videocof_torch.cli import infer
+    from videocof_torch.models.teacache import plan_teacache_skips
+    from videocof_torch.schedulers import get_scheduler
+    launch_counts, reset_launch_counts = counters
+    clip, out_dir = write_clip("infer", geo), SCRATCH / "infer_out"
+    argv = ["--video_path", str(clip), "--prompt", prompt, "--output_dir",
+            str(out_dir), "--random_init", "--repeat_rope", "--height",
+            str(geo.height), "--width", str(geo.width), "--seed", str(SEED)]
+    cuda = torch.cuda.is_available()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with recorded_loads() as built, b1_calls() as seen:
+        arrays = infer.main(argv).get(clip.name)
+        if cuda:
+            torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 if cuda else None
+    if arrays is None or len(built) != 1:
+        fail(f"infer.main() edited {arrays is not None} item(s) with "
+             f"{len(built)} pipelines")
+    pipe = built.pop()[1]
+    args = infer.parse_args(argv)
+    sched = get_scheduler(args.sampler)
+    sched.set_timesteps(args.num_inference_steps, shift=args.shift)
+    plan = plan_teacache_skips(pipe.dit, sched.timesteps,
+                               infer.generation_kwargs(args)[
+                                   "teacache_coefficients"],
+                               args.teacache_threshold,
+                               args.num_skip_start_steps)
+    computed = plan.count(False)
+    nl = pipe.dit.cfg.num_layers
+    del pipe
+    shapes = b1_shapes(seen)
+    log(f"[infer] TeaCache plan of these random weights (threshold "
+        f"{args.teacache_threshold}, {args.num_skip_start_steps} warm-up "
+        f"steps, Wan2.1 T2V 14B's coefficients): {sum(plan)} of "
+        f"{len(plan)} steps skipped, "
+        + "".join("s" if s else "c" for s in plan)
+        + f"; {computed} computed")
+    want = dict(dict.fromkeys(launches, 0),
+                flash_attention_fwd=2 * nl * computed)
+    vid = arrays["reason_edit"]
+    check_video("infer", vid, (1, 3, 1 + geo.source_frames, geo.height,
+                               geo.width))
+    log(f"[infer] {wall:.3f} s (weights drawn, decode, 50-step CFG edit, "
+        f"encode); peak {peak_gb} GB; launches {launches}; B1 calls by "
+        f"(batch, Lq, Lk, mask): {shapes}")
+    check_launches("infer CLI", launches, want)
+    if {k[0] for k in shapes} != {2}:
+        fail(f"the infer CLI's B1 calls are not all at batch 2: {shapes}")
+    files = sorted(p.name for p in out_dir.glob("*"))
+    want_files = [f"gen_{clip.stem}{s}" for s in (
+        ".mp4", "_compare.mp4", "_info.txt", "_reason_edit.mp4")]
+    if files != want_files:
+        fail(f"infer files {files}")
+    shutil.rmtree(SCRATCH, ignore_errors=True)
+    record = {"card": card, "seconds": wall, "peak_memory_gb": peak_gb,
+              "launches": launches,
+              "teacache_plan": "".join("s" if s else "c" for s in plan),
+              "computed_steps": computed, "files": files}
+    log("[infer] " + json.dumps(record))
+    return record
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -869,9 +1355,29 @@ def main() -> int:
     latent_frames = 2 * cond + ground
     _, ph, pw = dcfg.patch_size
     L = latent_frames * (geo.height // sc // ph) * (geo.width // sc // pw)
-    N, D, Lt = dcfg.num_heads, dcfg.head_dim, 512
+    N, D, Lt = dcfg.num_heads, dcfg.head_dim, TEXT_TOKENS
     log(f"[geometry] {latent_frames} latent frames, {L} DiT tokens, "
         f"{N} heads of {D}")
+    # the 4x edit's tokens, and the ragged batch's two rows (the 4-step
+    # edit's clip and a RAGGED_FRAMES one)
+    per_frame = (geo.height // sc // ph) * (geo.width // sc // pw)
+    L4 = (2 * latent_frame_count(EXTRAP_FRAMES, tc) + ground) * per_frame
+    ragged = (L, (2 * latent_frame_count(RAGGED_FRAMES, tc) + ground)
+              * per_frame)
+    log(f"[geometry] 4x edit ({EXTRAP_FRAMES} frames): {L4} DiT tokens; "
+        f"ragged batch ({geo.source_frames} and {RAGGED_FRAMES} frames): "
+        f"{ragged} tokens")
+    # B1's shapes on the 4x edit and the ragged batch: (batch, Lq, Lk),
+    # the valid keys of each row (None: no mask)
+    new_b1 = {"4x self": ((1, L4, L4), None),
+              "4x cross": ((1, L4, Lt), None),
+              "ragged self": ((2, ragged[1], ragged[1]), ragged)}
+
+    def ragged_mask(lengths, Lk):
+        if lengths is None:
+            return None
+        return (torch.arange(Lk, device=dev)[None]
+                < torch.tensor(lengths, device=dev)[:, None])
 
     cases = [
         ("self-attention, 2 of 12 heads", (1, L, L, 2, D), None, bf16),
@@ -1002,6 +1508,22 @@ def main() -> int:
             fa.flash_attention_reference(q, k, v))
         note("flash_attention_fwd", err14[shape_name])
         del q, k, v, out
+    # B1 at the 4x edit's and the ragged batch's shapes (the plain version
+    # takes its q rows in chunks, so it holds the kernel against all keys
+    # at 107,640 tokens too)
+    err_new = {}
+    for label, ((B, Lq, Lk), lengths) in new_b1.items():
+        q, k, v = qkv(B, Lq, Lk, N, D)
+        mask = ragged_mask(lengths, Lk)
+        out = fa.flash_attention(q, k, v, kv_mask=mask)
+        torch.cuda.synchronize()
+        err_new[label] = compare(
+            f"B1 {label} {(B, Lq, Lk, N, D)} bfloat16"
+            + (f", row keys {lengths}" if lengths else ""), out,
+            fa.flash_attention_reference(q, k, v, kv_mask=mask))
+        note("flash_attention_fwd", err_new[label])
+        del q, k, v, out, mask
+        torch.cuda.empty_cache()
     # B3 at lengths on and beside its 64-row q tiles and 128-key tiles (TMA's
     # zero rows, the masked keys of the ragged key tile, dQ rows past Lq
     # dropped by the reduce-add, lse and delta rows padded to 16 bytes)
@@ -1280,6 +1802,55 @@ def main() -> int:
         del q, k, v, qt, kt, vt
         torch.cuda.empty_cache()
 
+    # B1 at the 4x edit's and the ragged batch's shapes; the ragged shape's
+    # bound twice: the work the kernel does (both rows at full length) and
+    # the work the rows need (each at its own length: what packing would
+    # do); SDPA's memory-efficient backend takes the key mask
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    timing_new = {}
+    for label, ((B, Lq, Lk), lengths) in new_b1.items():
+        q, k, v = qkv(B, Lq, Lk, N, D)
+        mask = ragged_mask(lengths, Lk)
+        qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+        ms = cuda_ms(lambda: fa.flash_attention(q, k, v, kv_mask=mask),
+                     runs=10)
+        plain_ms = cuda_ms(lambda: fa.flash_attention_reference(
+            q, k, v, kv_mask=mask), runs=1 if Lk > 1000 else 5, warmup=0)
+        if mask is None:
+            library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt), runs=10)
+        else:
+            bias = mask[:, None, None, :]
+            with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+                library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=bias), runs=10)
+        flops, nbytes = kernel_work(B, Lq, Lk, N, D)["flash_attention_fwd"]
+        mask_bytes = 0 if mask is None else mask.numel()
+        row = dict(shape=f"B={B} Lq={Lq} Lk={Lk} N={N} D={D} bf16"
+                   + (f" row keys {list(lengths)}" if lengths else ""),
+                   ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                   max_abs_err=err_new[label][0],
+                   max_rel_l2_err=err_new[label][1])
+        padded_ms, _ = bound(flops, nbytes + mask_bytes)
+        if lengths:   # the rows' own work is what this data needs
+            works = [kernel_work(1, n, n, N, D)["flash_attention_fwd"]
+                     for n in lengths]
+            flops = sum(w[0] for w in works)
+            nbytes = sum(w[1] for w in works)
+            row["bound_ms_padded"] = padded_ms
+        row["bound_ms"], row["bound_by"] = bound(flops, nbytes + mask_bytes)
+        timing_new[label] = row
+        log(f"[timing] flash_attention_fwd {label} {row['shape']}: kernel_ms "
+            f"{ms:.4f} bound_ms {row['bound_ms']:.4f} ({row['bound_by']})"
+            + (f", bound of the padded work {padded_ms:.4f}" if lengths
+               else "")
+            + f" plain_ms {plain_ms:.4f} library_ms {library_ms:.4f} (share "
+            f"of bound {row['bound_ms'] / ms:.1%}; {flops / ms / 1e9:.1f} "
+            f"TFLOP/s of the rows' work, library "
+            f"{flops / library_ms / 1e9:.1f})")
+        del q, k, v, qt, kt, vt, mask
+        torch.cuda.empty_cache()
+
     # B4 at the standard edit's shapes (batched CFG: batch 2): the whole of
     # it (K mean, pre-pass, attention) and each kernel; the yardstick is
     # SDPA's unquantized bf16 forward, which is not the same function (no
@@ -1555,15 +2126,41 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     counters = (launch_counts, reset_launch_counts)
-    entry = entry_phase(card, dcfg, geo, gen, video, prompt, want_shape,
+    entry = entry_phase(card, dcfg, geo, gen, prompt, want_shape,
                         want_launches, counters)
     log("[entry] " + json.dumps(dict(entry, dit_read_gb_per_s=read_gbps)))
 
     # ------------------------------------------------------ 8. the 14B edit
     launches14 = edit_14b_phase(card, WAN21_T2V_14B, geo, gen, video, prompt,
                                 want_shape, want_launches, counters)
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    # ------------------------------------------------------------ 9. report
+    # ------------------------------------- 9-12. the long and ragged paths
+    # on random 1.3B weights drawn by the factory from the seed
+    from videocof_torch import factory
+    t0 = time.perf_counter()
+    pipe = factory.load_pipeline("", random_init=True, seed=SEED)
+    torch.cuda.synchronize()
+    log(f"[1.3B] factory.load_pipeline(random_init=True): "
+        f"{time.perf_counter() - t0:.1f} s")
+    video4, rec_4x = extrapolation_phase(card, pipe, geo, gen, prompt,
+                                         counters, want_launches)
+    rec_ragged, latents0 = ragged_phase(
+        card, pipe, geo, prompt, [video, video4[:, :, :RAGGED_FRAMES]],
+        counters, want_launches)
+    del video4
+    rec_paired = paired_phase(card, pipe, geo, video, prompt, counters,
+                              want_launches)
+    rec_vae = vae_phase(card, pipe, video, latents0, cond)
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------- 13. the standard CLI
+    rec_infer = infer_phase(card, geo, prompt, counters)
+
+    # ----------------------------------------------------------- 14. report
     sources = {"flash_attention_fwd": "flash_attention_fwd.cu",
                "flash_attention_fwd_lse": "flash_attention_fwd.cu",
                "flash_attention_bwd": "flash_attention_bwd.cu"}
@@ -1628,6 +2225,19 @@ def main() -> int:
                 cross=timing8["cross"]["int8_flash_attention"])}
                if kname == "int8_attention_fwd" else {}),
         })
+    # B1 at the 4x edit's and the ragged batch's shapes, with the launches
+    # at each shape counted on its path (phases 9 and 10)
+    for label, (on, rec) in (("4x self", ("4x edit", rec_4x)),
+                             ("4x cross", ("4x edit", rec_4x)),
+                             ("ragged self", ("ragged batch", rec_ragged))):
+        rows.append({
+            "name": "flash_attention_fwd", "route": "cuda",
+            "source": f"videocof_torch/csrc/{sources['flash_attention_fwd']}",
+            "replaces": "videocof_tpu/ops/flash_attention.py:41",
+            "tpu_kernel": replaces["flash_attention_fwd"][1],
+            "launches": rec["b1_launches"][label], "launches_on": on,
+            "shape_label": label,
+            **timing_new[label]})
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

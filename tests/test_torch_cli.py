@@ -1,7 +1,9 @@
-"""The port's `fast_infer` entry against the JAX package's: both CLIs on the
-same synthetic ``mp4v`` clip with tiny pipelines of the same weights and the
-same noise (outputs captured before encoding, latents within 2e-4, frames
-within one uint8 level, the same files, a resume that writes nothing), the
+"""The port's `fast_infer` and `infer` entries against the JAX package's:
+each pair of CLIs on the same synthetic ``mp4v`` clip with tiny pipelines of
+the same weights and the same noise (outputs captured before encoding,
+latents within 2e-4, frames within one uint8 level, the same files; for
+`fast_infer` a resume that writes nothing; `infer` with its defaults,
+TeaCache on and CFG 5, and its flags), the
 CoT prompt of the reference's four task kinds, frame loading (uint8,
 float32, I420), the I420 input of the pipeline, and the factory on random
 weights and on a tiny checkpoint directory.
@@ -21,6 +23,7 @@ import torch
 
 import videocof_tpu.cli._common as jcommon
 import videocof_tpu.cli.fast_infer as jcli
+import videocof_tpu.cli.infer as jinfer
 import videocof_tpu.runtime as jruntime
 from videocof_tpu.configs import T5_TINY as J_T5, VAE_TINY as J_VAE
 from videocof_tpu.configs import WAN_TINY as J_WAN
@@ -32,9 +35,11 @@ from videocof_tpu.utils import video_io as jvideo_io
 from videocof_torch import convert, factory
 from videocof_torch.cli import _common as common
 from videocof_torch.cli import fast_infer as cli
+from videocof_torch.cli import infer
 from videocof_torch.configs import T5Config, WanDiTConfig, WanVAEConfig
 from videocof_torch.data import instructions
 from videocof_torch.models import lora
+from videocof_torch.models.teacache import get_teacache_coefficients
 from videocof_torch.models.t5_encoder import T5Encoder
 from videocof_torch.models.wan_dit import WanDiT, init_wan_dit
 from videocof_torch.models.wan_vae import WanVAE
@@ -99,19 +104,22 @@ class _Capturing:
 
     def __init__(self, pipe, noise, **extra):
         self.pipe, self.noise, self.extra = pipe, noise, extra
-        self.videos, self.outputs = [], []
+        self.videos, self.outputs, self.kwargs = [], [], []
 
     def __call__(self, *args, **kw):
         self.videos.append(args[0])
+        self.kwargs.append(kw)
         out = self.pipe(*args, noise=self.noise, output_latents=True,
                         **self.extra, **kw)
         self.outputs.append(out)
         return out
 
 
-def _drive(module, cli_module, pipe, out_dir, clip, monkeypatch):
-    """Run ``cli_module.main()`` with ``pipe``; returns {file: the array
-    saved} (captured before encoding)."""
+def _drive(module, cli_module, pipe, out_dir, clip, monkeypatch,
+           steps=("--num_inference_steps", "2")):
+    """Run ``cli_module.main()`` with ``pipe`` (``steps``: the step flags;
+    none for the CLI's default); returns {file: the array saved} (captured
+    before encoding)."""
     saved = {}
     real = module.save_results
 
@@ -127,8 +135,7 @@ def _drive(module, cli_module, pipe, out_dir, clip, monkeypatch):
         "fast_infer", "--video_path", clip, "--prompt",
         "remove the red ball from the table", "--output_dir", out_dir,
         "--source_frames", str(FRAMES), "--reasoning_frames", "4",
-        "--repeat_rope", "--random_init", "--num_inference_steps", "2",
-        "--seed", "3"])
+        "--repeat_rope", "--random_init", *steps, "--seed", "3"])
     cli_module.main()
     return saved
 
@@ -172,6 +179,53 @@ def test_fast_infer_matches_jax(pipelines, clip, tmp_path, monkeypatch,
     assert len(cap.outputs) == 1
     assert stamps == {f: os.stat(os.path.join(tdir, f)).st_mtime_ns
                       for f in os.listdir(tdir)}
+
+
+def test_infer_matches_jax(pipelines, clip, tmp_path, monkeypatch):
+    """The standard CLI with its defaults: 50 steps, CFG 5 against the
+    default negative prompt, TeaCache on with Wan2.1 T2V 14B's
+    coefficients."""
+    jpipe, pipe = pipelines
+    cond = latent_frame_count(FRAMES)
+    noise = np.random.default_rng(4).standard_normal(
+        (1, J_VAE.z_dim, cond + 1, 4, 4)).astype(np.float32)
+    jcap = _Capturing(jpipe, noise, fused_sampling=False)
+    cap = _Capturing(pipe, noise)
+    jdir, tdir = str(tmp_path / "jax"), str(tmp_path / "port")
+    want = _drive(jcommon, jinfer, jcap, jdir, clip, monkeypatch, steps=())
+    got = _drive(common, infer, cap, tdir, clip, monkeypatch, steps=())
+
+    kw = cap.kwargs[0]
+    assert kw["num_inference_steps"] == 50 and kw["guidance_scale"] == 5.0
+    assert kw["negative_prompt"] == jinfer.NEGATIVE_PROMPT
+    assert kw["enable_teacache"] and kw["teacache_skip_start_steps"] == 5
+    assert kw["teacache_coefficients"] == get_teacache_coefficients(
+        "wan2.1-t2v-14b")
+    for key in ("num_inference_steps", "guidance_scale", "negative_prompt",
+                "enable_teacache", "teacache_threshold",
+                "teacache_skip_start_steps", "teacache_coefficients"):
+        assert np.all(np.asarray(kw[key]) == np.asarray(jcap.kwargs[0][key]))
+    assert sorted(os.listdir(tdir)) == sorted(os.listdir(jdir))
+    np.testing.assert_allclose(cap.outputs[0].latents,
+                               jcap.outputs[0].latents, rtol=2e-4, atol=2e-4)
+    assert set(got) == set(want) == {"gen_in.mp4", "gen_in_reason_edit.mp4"}
+    for name in want:
+        assert got[name].shape == want[name].shape
+        assert np.abs(got[name] - want[name]).max() * 255 <= 1.0 + 1e-3
+
+
+def test_infer_flags_match_jax(tmp_path, monkeypatch):
+    argv = ["--prompt", "x", "--video_path", "v.mp4", "--output_dir",
+            str(tmp_path), "--disable_teacache", "--cfg_skip_ratio", "0.2",
+            "--teacache_threshold", "0.2", "--num_skip_start_steps", "3"]
+    monkeypatch.setattr(sys, "argv", ["infer"] + argv)
+    want = vars(jinfer.parse_args())
+    got = vars(infer.parse_args(argv))
+    assert got == want
+    assert infer.generation_kwargs(infer.parse_args(argv)) == {
+        "cfg_skip_ratio": 0.2}
+    with pytest.raises(SystemExit, match="--quantize"):
+        infer.main(argv + ["--quantize", "fp8"])
 
 
 def test_cot_prompt_matches_jax_on_the_reference_tasks():

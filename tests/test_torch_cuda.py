@@ -626,3 +626,110 @@ def test_factory_loads_a_checkpoint_directory_onto_the_card(cuda, tmp_path):
                num_inference_steps=2)
     assert flash_attention.launches - before == 2 * dcfg.num_layers * 2
     assert out.videos.shape == (1, 3, 10, 32, 32)
+
+
+# B1 with a key mask of per-row ragged lengths at batch 2 (a ragged batch's
+# self-attention: row 0's keys valid up to its own length, row 1's all), the
+# lengths on and beside the kernel's 128-key tile
+@pytest.mark.cuda
+@pytest.mark.parametrize("Lk,len0", [(256, 127), (256, 128), (256, 129),
+                                     (300, 129), (129, 1), (513, 384),
+                                     (1000, 640)])
+def test_kernel_matches_plain_with_ragged_key_lengths(cuda, Lk, len0):
+    q, k, v = _qkv(cuda, 2, Lk, Lk, 3, 128)
+    mask = torch.arange(Lk, device=cuda)[None] < torch.tensor(
+        [len0, Lk], device=cuda)[:, None]
+    _run(q, k, v, mask)
+    # row 0 equals its own unmasked attention over its valid keys
+    alone = flash_attention(q[:1], k[:1, :len0], v[:1, :len0])
+    got = flash_attention(q, k, v, kv_mask=mask)[:1]
+    torch.testing.assert_close(got.float(), alone.float(), **BF16_TOL)
+
+
+@pytest.mark.cuda
+def test_streaming_vae_matches_whole_in_bf16(cuda):
+    """The streaming VAE against the whole-sequence VAE on the card in bf16
+    (cuDNN may pick another convolution algorithm per chunk shape, so the
+    two agree to bf16 rounding, not bit for bit): relative L2 <= 2e-2, and
+    uint8 frames at most 2 levels apart on average."""
+    from videocof_torch.models import wan_vae_streaming as stream
+    g = torch.Generator(device=cuda).manual_seed(0)
+    vae = init_wan_vae(VAE_TINY, g, torch.bfloat16)
+    x = torch.rand(1, 3, 13, 32, 32, generator=g, device=cuda) * 2 - 1
+    x = x.to(torch.bfloat16)
+    rel = lambda a, b: ((a.float() - b.float()).norm()  # noqa: E731
+                        / b.float().norm()).item()
+    with torch.no_grad():
+        mu, _ = vae.encode(x)
+        for chunk in (1, 3, 4):
+            assert rel(stream.encode_streaming(vae, x, chunk)[0], mu) <= 2e-2
+        z = torch.randn(1, VAE_TINY.z_dim, 6, 4, 4, generator=g, device=cuda)
+        whole = vae.decode(z.to(torch.bfloat16))
+        for chunk in (2, 3):
+            assert rel(stream.decode_streaming(
+                vae, z.to(torch.bfloat16), chunk), whole) <= 2e-2
+            u8 = stream.decode_streaming_u8(vae, z, chunk,
+                                            compute_dtype=torch.bfloat16)
+            want = torch.round(whole.float() * 127.5 + 127.5)
+            assert u8.dtype == torch.uint8 and u8.shape == want.shape
+            assert (u8.float() - want).abs().mean().item() <= 2.0
+
+
+@pytest.mark.cuda
+def test_apply_rope_with_per_sample_tables(cuda):
+    """[B, L, D/2] tables on the card: each row as its own [L, D/2] table
+    rotates it, bit for bit, and as the CPU's fp32 rotation."""
+    from videocof_torch.models import rope
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn(2, 40, 3, 128, generator=g, device=cuda).to(torch.bfloat16)
+    tables = [rope.build_rope_cos_sin((f, 2, 5), 128, f_src=f // 2,
+                                      f_ground=1) for f in (4, 7)]
+    cos, sin = (torch.stack([torch.from_numpy(t[j][:40]) for t in tables])
+                .to(cuda) for j in (0, 1))
+    got = rope.apply_rope(x, cos, sin)
+    for b in range(2):
+        assert torch.equal(got[b:b + 1],
+                           rope.apply_rope(x[b:b + 1], cos[b], sin[b]))
+    want = rope.apply_rope(x.cpu().float(), cos.cpu(), sin.cpu())
+    torch.testing.assert_close(got.cpu().float(), want, rtol=2 ** -7,
+                               atol=2 ** -7)
+
+
+@pytest.mark.cuda
+def test_ragged_batch_runs_the_kernel_with_key_masks(cuda, monkeypatch):
+    """batch_edit on the card: every self-attention launch of B1 carries
+    the batch's [2, L] key mask; each item agrees with its own run."""
+    from videocof_torch.pipeline import batch_edit
+    dcfg = WAN_TINY.replace(dim=256, ffn_dim=512, num_heads=2,
+                            in_dim=VAE_TINY.z_dim, out_dim=VAE_TINY.z_dim,
+                            text_dim=T5_TINY.dim)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    bf16 = torch.bfloat16
+    pipe = WanPipeline(init_wan_dit(dcfg, g, bf16),
+                       init_wan_vae(VAE_TINY, g, bf16),
+                       init_t5_encoder(T5_TINY, g, bf16), dtype=bf16)
+    rng = np.random.default_rng(0)
+    videos = [rng.integers(0, 256, (3, f, 32, 32), dtype=np.uint8)
+              for f in (9, 17)]
+    embeds = [rng.standard_normal((dcfg.text_len, dcfg.text_dim))
+              .astype(np.float32) for _ in videos]
+    calls = []
+    real = fa._forward_b1
+    monkeypatch.setattr(fa, "_forward_b1", lambda q, k, v, m, *a: (
+        calls.append((q.shape[0], k.shape[1], None if m is None
+                      else m.sum(dim=1).tolist())), real(q, k, v, m, *a))[1])
+    before = flash_attention.launches
+    outs = batch_edit(pipe, videos, [9, 17], embeds, num_inference_steps=2,
+                      output_latents=True)
+    # 11 latent frames x 2 x 2 tokens; item 0's 7 x 2 x 2
+    assert flash_attention.launches - before == len(calls) == (
+        2 * dcfg.num_layers * 2)
+    assert [c for c in calls if c[2] is not None] == [(2, 44, [28, 44])] * (
+        dcfg.num_layers * 2)
+    for i, v in enumerate(videos):
+        one = pipe(v[None], "p", source_frames=v.shape[1],
+                   prompt_embeds=embeds[i][None], num_inference_steps=2,
+                   seed=i, output_latents=True)
+        rel = (np.linalg.norm(outs[i].latents - one.latents)
+               / np.linalg.norm(one.latents))
+        assert rel <= 2e-2

@@ -47,7 +47,10 @@ def test_new_modules_are_covered():
             "videocof_torch/data/instructions.py",
             "videocof_torch/factory.py",
             "videocof_torch/cli/_common.py",
-            "videocof_torch/cli/fast_infer.py"} <= names
+            "videocof_torch/cli/fast_infer.py",
+            "videocof_torch/cli/infer.py",
+            "videocof_torch/models/wan_vae_streaming.py",
+            "videocof_torch/pipeline/varlen.py"} <= names
 
 
 def test_pipeline_imports_without_jax():
@@ -66,7 +69,10 @@ def test_pipeline_imports_without_jax():
             "import videocof_torch.utils.video_io\n"
             "import videocof_torch.data.instructions\n"
             "import videocof_torch.factory\n"
-            "import videocof_torch.cli.fast_infer\n")
+            "import videocof_torch.cli.fast_infer\n"
+            "import videocof_torch.cli.infer\n"
+            "import videocof_torch.models.wan_vae_streaming\n"
+            "from videocof_torch.pipeline import batch_edit\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr

@@ -16,7 +16,7 @@ import argparse
 import json
 import os
 import sys
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -157,9 +157,11 @@ def item_prompt(item: Dict) -> Tuple[str, str]:
 
 def edit_frames(pipe, args, video: np.ndarray, prompt: str, rank: int, *,
                 num_inference_steps: int, guidance_scale: float,
-                negative_prompt: str) -> Dict[str, np.ndarray]:
+                negative_prompt: str, gen_kwargs: Optional[Dict] = None
+                ) -> Dict[str, np.ndarray]:
     """One item's edit from its decoded frames (uint8 [1, 3, T, H, W] or
-    I420 planes [1, T, H*3//2, W]) -> the arrays the item's files hold:
+    I420 planes [1, T, H*3//2, W]), with ``gen_kwargs`` passed on to the
+    pipeline (TeaCache, cfg-skip) -> the arrays the item's files hold:
     ``reason_edit`` (ground and edit frames), ``edit`` (the last
     ``source_frames``) and ``source`` (the input in [0, 1], for the
     side-by-side), each [1, 3, T, H, W] float in [0, 1]."""
@@ -170,7 +172,7 @@ def edit_frames(pipe, args, video: np.ndarray, prompt: str, rank: int, *,
                guidance_scale=guidance_scale, shift=args.shift,
                sampler=args.sampler, solver_order=args.solver_order,
                repeat_rope=args.repeat_rope, cot=True,
-               seed=args.seed + rank)
+               seed=args.seed + rank, **(gen_kwargs or {}))
     if video.ndim == 4:          # I420 planes -> RGB for the comparison
         from ..utils.colorspace import i420_to_rgb01
         video = i420_to_rgb01(video)
@@ -197,7 +199,8 @@ def save_item(output_dir: str, base: str, arrays: Dict[str, np.ndarray],
 
 
 def run_items(pipe, args, subset, rank: int, *, num_inference_steps: int,
-              guidance_scale: float, negative_prompt: str
+              guidance_scale: float, negative_prompt: str,
+              gen_kwargs: Optional[Dict] = None
               ) -> Dict[str, Dict[str, np.ndarray]]:
     """Edit and write every item of ``subset``; returns {file name: the
     arrays written}. ``VIDEOCOF_UPLOAD_YUV420=1`` uploads I420 planes (half
@@ -221,7 +224,8 @@ def run_items(pipe, args, subset, rank: int, *, num_inference_steps: int,
         arrays = edit_frames(pipe, args, video, prompt, rank,
                              num_inference_steps=num_inference_steps,
                              guidance_scale=guidance_scale,
-                             negative_prompt=negative_prompt)
+                             negative_prompt=negative_prompt,
+                             gen_kwargs=gen_kwargs)
         out_path = save_item(args.output_dir, base, arrays, prompt, args.fps)
         results[fname] = arrays
         print(f"[proc {rank}] wrote {out_path}", file=sys.stderr)

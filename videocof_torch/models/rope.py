@@ -41,6 +41,23 @@ def rope_angle_tables(head_dim: int, max_pos: int = 1024,
     return tuple(np.outer(pos, _inv_freqs(c, theta)) for c in (ct, ch, cw))
 
 
+def riflex_angle_table(head_dim: int, k: int, L_test: int,
+                       L_test_scale: Optional[float] = None,
+                       max_pos: int = 1024, theta: float = 10000.0
+                       ) -> np.ndarray:
+    """RIFLEx temporal angle table (pos x temporal section), float64: the
+    intrinsic frequency k is shrunk so that an extrapolated length stays
+    within one period, ``freq[k-1] = 0.9 * 2 pi / L_test``, optionally
+    divided by ``L_test_scale``."""
+    ct, _, _ = rope_section_dims(head_dim)
+    inv = _inv_freqs(ct, theta).copy()
+    inv[k - 1] = 0.9 * 2.0 * np.pi / L_test
+    if L_test_scale is not None:
+        inv[k - 1] = inv[k - 1] / L_test_scale
+    pos = np.arange(max_pos, dtype=np.float64)
+    return np.outer(pos, inv)
+
+
 def cof_temporal_positions(f: int, f_src: Optional[int] = None,
                            f_ground: int = 0) -> np.ndarray:
     """Temporal RoPE position of each latent frame:
@@ -68,12 +85,16 @@ def cof_temporal_positions(f: int, f_src: Optional[int] = None,
 
 def build_rope_cos_sin(grid: Tuple[int, int, int], head_dim: int,
                        f_src: Optional[int] = None, f_ground: int = 0,
-                       max_pos: int = 1024, theta: float = 10000.0
+                       max_pos: int = 1024, theta: float = 10000.0,
+                       temporal_table: Optional[np.ndarray] = None
                        ) -> Tuple[np.ndarray, np.ndarray]:
     """Dense per-token cos/sin tables [f*h*w, head_dim//2], float32 numpy,
-    computed from float64 angles."""
+    computed from float64 angles. ``temporal_table`` replaces the temporal
+    angle table (RIFLEx)."""
     f, h, w = grid
     tab_t, tab_h, tab_w = rope_angle_tables(head_dim, max_pos, theta)
+    if temporal_table is not None:
+        tab_t = temporal_table
     ang_t = tab_t[cof_temporal_positions(f, f_src, f_ground)]
     ang_h, ang_w = tab_h[:h], tab_w[:w]
     ct, ch, cw = ang_t.shape[1], ang_h.shape[1], ang_w.shape[1]
@@ -88,14 +109,17 @@ def build_rope_cos_sin(grid: Tuple[int, int, int], head_dim: int,
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
                compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Rotate consecutive channel pairs of ``x`` [B, L, N, D] by per-token
-    angles (cos/sin [L, D//2]). The rotation runs in ``compute_dtype``
-    (default fp32); the result is in x's dtype."""
+    angles: cos/sin [L, D//2], or [B, L, D//2] for per-sample tables (the
+    ragged batch, where each sample carries its own geometry's table). The
+    rotation runs in ``compute_dtype`` (default fp32); the result is in x's
+    dtype."""
     cd = torch.float32 if compute_dtype is None else compute_dtype
     L, D = x.shape[-3], x.shape[-1]
     xf = x.to(cd).unflatten(-1, (D // 2, 2))
     a, b = xf[..., 0], xf[..., 1]
-    c = cos.reshape(L, 1, D // 2).to(cd)
-    s = sin.reshape(L, 1, D // 2).to(cd)
+    lead = cos.shape[:-2]     # () or (B,)
+    c = cos.reshape(*lead, L, 1, D // 2).to(cd)
+    s = sin.reshape(*lead, L, 1, D // 2).to(cd)
     ra = (a * c - b * s).to(x.dtype)
     rb = (a * s + b * c).to(x.dtype)
     return torch.stack([ra, rb], dim=-1).flatten(-2)

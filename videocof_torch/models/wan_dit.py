@@ -238,37 +238,46 @@ class WanDiT(nn.Module):
     def forward(self, x: torch.Tensor, t: torch.Tensor, context: torch.Tensor,
                 rope_cos: torch.Tensor, rope_sin: torch.Tensor,
                 attn_backend: Optional[str] = None, lora=None,
-                remat_blocks: bool = False) -> torch.Tensor:
+                remat_blocks: bool = False,
+                seq_lens: Optional[torch.Tensor] = None) -> torch.Tensor:
         """``lora`` = (`LoRAAdapters`, scale) fuses each block's adapters into
         its weights inside that block's call, as the JAX scan does, so only
         one block's fused weights exist at a time. ``remat_blocks`` wraps each
         block in activation checkpointing (JAX's full remat): the backward
-        recomputes the block from its input stream."""
+        recomputes the block from its input stream.
+
+        The RoPE tables are [L, head_dim//2], or [B, L, head_dim//2] per
+        sample. ``seq_lens`` [B] (a ragged batch) gives each sample's valid
+        token count: keys past it leave that sample's self-attention, and
+        the caller keeps each sample's valid region of the output."""
         return self._run(x, t, context, rope_cos, rope_sin, attn_backend,
-                         lora=lora, remat_blocks=remat_blocks)[0]
+                         lora=lora, remat_blocks=remat_blocks,
+                         seq_lens=seq_lens)[0]
 
     def forward_with_residual(self, x: torch.Tensor, t: torch.Tensor,
                               context: torch.Tensor, rope_cos: torch.Tensor,
                               rope_sin: torch.Tensor,
                               attn_backend: Optional[str] = None,
                               residual: Optional[torch.Tensor] = None,
-                              skip_blocks: bool = False
+                              skip_blocks: bool = False,
+                              seq_lens: Optional[torch.Tensor] = None
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
         """The forward that exposes TeaCache's token-stream residual
         (`wan_dit_forward_with_residual` with a Python-bool skip): returns
         (velocity, residual). Computing, the residual is the block stack's
         output stream minus its input; with ``skip_blocks`` the stack is
         bypassed, ``residual`` (of an earlier computed step) is added to the
-        embedded stream and returned as it is, and the head still runs."""
+        embedded stream and returned as it is, and the head still runs.
+        ``seq_lens`` as in `forward`."""
         if skip_blocks and residual is None:
             raise ValueError("skip_blocks needs a cached residual")
         return self._run(x, t, context, rope_cos, rope_sin, attn_backend,
                          residual=residual, skip_blocks=skip_blocks,
-                         want_residual=True)
+                         want_residual=True, seq_lens=seq_lens)
 
     def _run(self, x, t, context, rope_cos, rope_sin, attn_backend, lora=None,
              remat_blocks=False, residual=None, skip_blocks=False,
-             want_residual=False):
+             want_residual=False, seq_lens=None):
         cfg = self.cfg
         compute_dtype = self.patch_embed.weight.dtype
         tokens, grid = patchify(x.to(compute_dtype), cfg.patch_size)
@@ -283,7 +292,9 @@ class WanDiT(nn.Module):
         ctx = _linear(context.to(compute_dtype), self.text_mlp.fc1)
         ctx = _linear(_gelu_tanh(ctx), self.text_mlp.fc2)          # [B, Lt, D]
 
-        # pad tokens to the kernel tile; padded keys leave self-attention
+        # pad tokens to the kernel tile (the tables, [L, D/2] or per sample
+        # [B, L, D/2], with the identity rotation); padded keys leave
+        # self-attention
         L_real = hseq.shape[1]
         seq_mask = None
         pad_to = cfg.token_pad_multiple
@@ -295,6 +306,11 @@ class WanDiT(nn.Module):
             rope_sin = F.pad(rope_sin, (0, 0, 0, pad))
             seq_mask = (torch.arange(Lp, device=hseq.device) < L_real
                         )[None].expand(hseq.shape[0], Lp)
+        if seq_lens is not None:
+            # a ragged batch: each sample's own valid length supersedes the
+            # pad mask (the reference's per-sample varlen k_lens)
+            seq_mask = (torch.arange(Lp, device=hseq.device)[None]
+                        < torch.as_tensor(seq_lens, device=hseq.device)[:, None])
 
         stream0 = hseq.to(getattr(torch, cfg.stream_dtype))
         stream = stream0
@@ -324,13 +340,16 @@ class WanDiT(nn.Module):
 
 
 def make_rope_for_geometry(cfg: WanDiTConfig, grid,
-                           f_src: Optional[int] = None, f_ground: int = 0
+                           f_src: Optional[int] = None, f_ground: int = 0,
+                           temporal_table: Optional[np.ndarray] = None
                            ) -> Tuple[np.ndarray, np.ndarray]:
-    """Host-side cos/sin tables for a latent grid (see rope.py)."""
+    """Host-side cos/sin tables for a latent grid (see rope.py);
+    ``temporal_table`` replaces the temporal angles (RIFLEx)."""
     return rope_lib.build_rope_cos_sin(grid, cfg.head_dim, f_src=f_src,
                                        f_ground=f_ground,
                                        max_pos=cfg.rope_max_pos,
-                                       theta=cfg.rope_theta)
+                                       theta=cfg.rope_theta,
+                                       temporal_table=temporal_table)
 
 
 # ------------------------------------------------------------------------ init

@@ -1,3 +1,5 @@
 from .wan_pipeline import WanPipeline, WanPipelineOutput, latent_frame_count
+from .varlen import batch_edit
 
-__all__ = ["WanPipeline", "WanPipelineOutput", "latent_frame_count"]
+__all__ = ["WanPipeline", "WanPipelineOutput", "latent_frame_count",
+           "batch_edit"]

@@ -1,13 +1,16 @@
 """Chain-of-frames editing pipeline, PyTorch (the stepwise path).
 
 Counterpart of `videocof_tpu/pipeline/wan_pipeline.py` (`WanPipeline.__call__`
-with ``cot=True`` on its stepwise loop, ``VIDEOCOF_STEPWISE=1``, and the uint8
-RGB output of ``VIDEOCOF_FETCH_YUV420=0``): umT5 prompt encoding with
-zero-padded embeddings and no cross-attention mask; CoT latents ``[mu |
-noise(ground + target)]``; CoF repeat-RoPE as per-token tables; the sampler's
-steps (Flow-UniPC, Euler or DPM++), each one DiT forward followed by the
-source freeze ``v[:, :, :condition_count] = 0``; separate decodes of the
-ground and edit segments, quantized to uint8.
+on its stepwise loop, ``VIDEOCOF_STEPWISE=1``, and the uint8 RGB output of
+``VIDEOCOF_FETCH_YUV420=0``): umT5 prompt encoding with zero-padded
+embeddings and no cross-attention mask; CoT latents ``[mu | noise(ground +
+target)]`` (``cot=False``: the paired ``[mu | noise(target)]``); CoF
+repeat-RoPE as per-token tables, with RIFLEx's temporal table on request;
+the sampler's steps (Flow-UniPC, Euler or DPM++), each one DiT forward
+followed by the source freeze ``v[:, :, :condition_count] = 0``; separate
+decodes of the ground and edit segments, quantized to uint8. The VAE
+streams every clip longer than ``vae_streaming_threshold_frames``
+(`models/wan_vae_streaming.py`), as JAX's does, and runs whole below it.
 
 Classifier-free guidance (``guidance_scale > 1``) encodes the negative
 prompt and runs the uncond and cond rows as one batch (uncond first), or as
@@ -29,7 +32,8 @@ import numpy as np
 import torch
 
 from ..data.tokenizer import WanTokenizer
-from ..models import teacache, wan_dit
+from ..models import teacache, wan_dit, wan_vae_streaming
+from ..models.rope import riflex_angle_table
 from ..models.t5_encoder import T5Encoder
 from ..models.wan_dit import WanDiT
 from ..models.wan_vae import WanVAE
@@ -78,6 +82,11 @@ class WanPipeline:
         # CFG as two batch-B DiT forwards instead of one batch-2B forward:
         # half the activations, the same result
         self.cfg_sequential = False
+        # the VAE streams clips longer than this (bounded activations: one
+        # chunk's), in chunks of these many latent frames (JAX's defaults)
+        self.vae_streaming_threshold_frames = 2
+        self.vae_decode_chunk = 3
+        self.vae_encode_chunk = 4
 
     # ------------------------------------------------------------------ text
     @torch.no_grad()
@@ -104,30 +113,69 @@ class WanPipeline:
             return video.to(self.dtype) * (2.0 / 255.0) - 1.0
         return video.to(self.dtype)
 
+    # -------------------------------------------------------------------- VAE
+    @torch.no_grad()
+    def vae_encode(self, video: torch.Tensor) -> torch.Tensor:
+        """[B, 3, T, H, W] in [-1, 1] -> mu in self.dtype, streamed when
+        T > vae_streaming_threshold_frames."""
+        video = video.to(self.dtype)
+        if video.shape[2] > self.vae_streaming_threshold_frames:
+            mu, _ = wan_vae_streaming.encode_streaming(
+                self.vae, video, chunk_latent=self.vae_encode_chunk)
+        else:
+            mu, _ = self.vae.encode(video)
+        return mu
+
+    @torch.no_grad()
+    def vae_decode(self, z: torch.Tensor) -> torch.Tensor:
+        """Latents -> frames in [-1, 1], streamed above the threshold."""
+        z = z.to(self.dtype)
+        if z.shape[2] > self.vae_streaming_threshold_frames:
+            return wan_vae_streaming.decode_streaming(
+                self.vae, z, chunk_latent=self.vae_decode_chunk)
+        return self.vae.decode(z)
+
+    @torch.no_grad()
+    def decode_to_u8(self, z: torch.Tensor) -> torch.Tensor:
+        """Latents -> device uint8 frames: clip(round(x * 127.5 + 127.5)),
+        streamed chunk by chunk above the threshold."""
+        if z.shape[2] > self.vae_streaming_threshold_frames:
+            return wan_vae_streaming.decode_streaming_u8(
+                self.vae, z, chunk_latent=self.vae_decode_chunk,
+                compute_dtype=self.dtype)
+        x = self.vae.decode(z.to(self.dtype)).float()
+        return torch.round(x * 127.5 + 127.5).clamp(0, 255).to(torch.uint8)
+
+    def _noise(self, shape, generator, noise) -> torch.Tensor:
+        if noise is None:
+            return torch.randn(shape, generator=generator,
+                               device=self.device, dtype=torch.float32)
+        noise = torch.as_tensor(noise, dtype=torch.float32, device=self.device)
+        if tuple(noise.shape) != tuple(shape):
+            raise ValueError(f"noise {tuple(noise.shape)} != {tuple(shape)}")
+        return noise
+
     @torch.no_grad()
     def prepare_cot_latents(self, video: torch.Tensor, ground_latent_count: int,
                             generator: Optional[torch.Generator] = None,
                             noise=None) -> torch.Tensor:
         """[mu(src) | noise(ground + tgt)], fp32. ``noise`` overrides the
         draw from ``generator``."""
-        mu, _ = self.vae.encode(video.to(self.dtype))
+        mu = self.vae_encode(video)
         B, C, Tl, H, W = mu.shape
-        shape = (B, C, Tl + ground_latent_count, H, W)
-        if noise is None:
-            noise = torch.randn(shape, generator=generator,
-                                device=self.device, dtype=torch.float32)
-        else:
-            noise = torch.as_tensor(noise, dtype=torch.float32,
-                                    device=self.device)
-            if tuple(noise.shape) != shape:
-                raise ValueError(f"noise {tuple(noise.shape)} != {shape}")
+        noise = self._noise((B, C, Tl + ground_latent_count, H, W), generator,
+                            noise)
         return torch.cat([mu.float(), noise], dim=2)
 
     @torch.no_grad()
-    def decode_to_u8(self, z: torch.Tensor) -> torch.Tensor:
-        """Latents -> device uint8 frames: clip(round(x * 127.5 + 127.5))."""
-        x = self.vae.decode(z.to(self.dtype)).float()
-        return torch.round(x * 127.5 + 127.5).clamp(0, 255).to(torch.uint8)
+    def prepare_paired_latents(self, video: torch.Tensor,
+                               generator: Optional[torch.Generator] = None,
+                               noise=None) -> torch.Tensor:
+        """[mu(src) | noise(tgt)], fp32, the target as long as the source
+        (``cot=False``)."""
+        mu = self.vae_encode(video)
+        return torch.cat([mu.float(), self._noise(mu.shape, generator, noise)],
+                         dim=2)
 
     # ------------------------------------------------------------------ step
     def _dit(self, x, t_i, context, cos, sin, residual, skip):
@@ -180,6 +228,9 @@ class WanPipeline:
                  teacache_coefficients: Optional[Sequence[float]] = None,
                  teacache_forced_plan: Optional[Sequence[bool]] = None,
                  cfg_skip_ratio: float = 0.0,
+                 riflex_k: Optional[int] = None,
+                 riflex_L_test: Optional[int] = None,
+                 riflex_L_test_scale: Optional[float] = None,
                  noise=None, latents=None, output_latents: bool = False,
                  solver_order: Optional[int] = None,
                  timings: Optional[Dict[str, float]] = None
@@ -194,16 +245,18 @@ class WanPipeline:
         (``enable_teacache``) plans its skips from ``teacache_coefficients``
         (default: Wan2.1 T2V 14B's), ``teacache_threshold`` and
         ``teacache_skip_start_steps``; ``teacache_forced_plan`` pins the
-        plan instead (step 0 is always computed). ``solver_order`` reaches
-        UniPC and DPM++ only. ``noise`` replaces the latent noise draw;
+        plan instead (step 0 is always computed). ``riflex_k`` replaces the
+        temporal RoPE's intrinsic frequency k by RIFLEx's (for
+        ``riflex_L_test`` latent frames, default 66, optionally divided by
+        ``riflex_L_test_scale``). ``cot=False`` edits paired latents [src |
+        tgt] with no reasoning frames. ``solver_order`` reaches UniPC and
+        DPM++ only. ``noise`` replaces the latent noise draw;
         ``latents`` skips latent preparation; ``prompt_embeds`` skips the
         text encoder; ``output_latents`` attaches the final latents. A dict
         passed as ``timings`` receives the wall seconds of each stage, one
         entry a step (``stepI``, or ``stepI skipped`` where TeaCache replayed
         the residual); the device is synchronized at each stage boundary
         only then."""
-        if not cot:
-            raise NotImplementedError("only the chain-of-frames path is ported")
         t0 = time.perf_counter()
 
         def tick(label):
@@ -222,7 +275,8 @@ class WanPipeline:
                              f"{video.shape[0]}")
         tc = self.vae.cfg.temporal_compression_ratio
         condition_count = latent_frame_count(source_frames, tc)
-        ground_latent_count = latent_frame_count(reasoning_frames, tc)
+        ground_latent_count = (latent_frame_count(reasoning_frames, tc)
+                               if cot else 0)
 
         do_cfg = guidance_scale > 1.0
         if prompt_embeds is not None:
@@ -245,17 +299,27 @@ class WanPipeline:
                                       device=self.device)
         else:
             gen = torch.Generator(device=self.device).manual_seed(seed)
-            latents = self.prepare_cot_latents(video, ground_latent_count,
-                                               gen, noise=noise)
+            if cot:
+                latents = self.prepare_cot_latents(video, ground_latent_count,
+                                                   gen, noise=noise)
+            else:
+                latents = self.prepare_paired_latents(video, gen, noise=noise)
         _, _, Tl, Hl, Wl = latents.shape
         tick("encode+latents")
 
         ph, pw = self.dit.cfg.patch_size[1:]
         f_src = condition_count if repeat_rope else None
         f_ground = ground_latent_count if repeat_rope else 0
+        temporal_table = None
+        if riflex_k is not None:
+            dcfg = self.dit.cfg
+            temporal_table = riflex_angle_table(
+                dcfg.head_dim, riflex_k, riflex_L_test or 66,
+                riflex_L_test_scale, max_pos=dcfg.rope_max_pos,
+                theta=dcfg.rope_theta)
         cos, sin = wan_dit.make_rope_for_geometry(
             self.dit.cfg, (Tl, Hl // ph, Wl // pw), f_src=f_src,
-            f_ground=f_ground)
+            f_ground=f_ground, temporal_table=temporal_table)
         cos = torch.as_tensor(cos, device=self.device)
         sin = torch.as_tensor(sin, device=self.device)
 
@@ -302,15 +366,26 @@ class WanPipeline:
             latents, state = sched.step(v, i, latents, state)
             tick(f"step{i} skipped" if skips[i] else f"step{i}")
 
+        out = self._decode_outputs(latents, condition_count,
+                                   ground_latent_count)
+        tick("decode")
+        if output_latents:
+            out.latents = latents.cpu().numpy()
+        return out
+
+    def _decode_outputs(self, latents: torch.Tensor, condition_count: int,
+                        ground_latent_count: int) -> WanPipelineOutput:
+        """Decode the ground segment (if any) and the edit segment
+        separately to uint8, and hand them to the host as one array in
+        [0, 1]."""
         g0, g1 = condition_count, condition_count + ground_latent_count
         parts = []
         if g1 > g0:
             parts.append(self.decode_to_u8(latents[:, :, g0:g1]))
         parts.append(self.decode_to_u8(latents[:, :, g1:]))
         host = torch.cat(parts, dim=2).cpu().numpy().astype(np.float32) / 255.0
-        tick("decode")
+        tc = self.vae.cfg.temporal_compression_ratio
         gf = 1 + (g1 - g0 - 1) * tc if g1 > g0 else 0   # ground pixel frames
         return WanPipelineOutput(
             videos=host, ground_videos=host[:, :, :gf] if gf else None,
-            edit_videos=host[:, :, gf:],
-            latents=latents.cpu().numpy() if output_latents else None)
+            edit_videos=host[:, :, gf:])

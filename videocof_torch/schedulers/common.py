@@ -47,7 +47,9 @@ def get_scheduler(name: str, **kwargs):
     key = name.lower()
     key = aliases.get(key, key)
     if key == "ddim":
-        raise NotImplementedError(f"scheduler {name!r} (DDIM) is not ported")
+        raise NotImplementedError(f"scheduler {name!r} (DDIM, CogVideoX's "
+                                  f"sampler) is not ported (ROADMAP.md "
+                                  f"§A.10, with CogVideoX)")
     if key not in SCHEDULERS:
         raise ValueError(f"unknown scheduler {name!r}; have "
                          f"{sorted(SCHEDULERS)}")
