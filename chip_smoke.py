@@ -123,15 +123,58 @@ Phases, each of which fails the run (non-zero exit) on any fault:
      cv2); the TeaCache plan
      these random weights give, the files, and B1 launches equal to 2 x
      30 x the computed steps, each at batch 2.
-  14. a `kernels` JSON line and, last, the device JSON line.
+  14. fp8 weights and runtime LoRA on the Wan2.1 14B: the unmerged draw of
+     phase 8's factory call quantized on the card (`quantize_dit_fp8`;
+     the DiT's bytes before and after; a block's fp8 weights and scale
+     equal bit for bit to the CPU's quantization, its dequantized weights
+     to (q.float() * scale).to(bf16)); one DiT forward in fp8 against bf16
+     within JAX's bound (mean |err| < 0.05 mean |bf16| + 0.05); phase 8's
+     two LoRA files attached as runtime adapters (`load_runtime_lora`,
+     rank concatenation); the 4-step edit (output, 320 B1 launches and
+     nothing else, stage walls, peak), its final latents against phase
+     8's merged bf16 edit (relative L2, printed); the dequantization's and
+     the adapters' fusion's milliseconds beside a step's.
+  15. the Wan2.2 A14B dual-expert edit: umT5-XXL, the Wan2.1 VAE and two
+     WAN22_T2V_A14B experts from two seeds, each quantized to fp8 as it is
+     drawn (at most one bf16 expert resident); the 480x832 33 + 4-frame
+     edit in 4 Flow-UniPC steps at shift 5, guidance 1: split_idx (0 <
+     split < 4), each expert's forwards (hooks), exactly 160 self and 160
+     cross B1 calls at 40 heads and nothing else, stage walls, a peak
+     below the card's memory, and one fp8 expert step under
+     torch.profiler.
+  16. A14B text-to-video (`Wan22Pipeline.text_to_video`) at 480x832 with
+     81 frames (32,760 tokens), 4 steps, guidance 4 and 3 on the
+     high-noise steps, batched CFG: output, 320 B1 calls at batch 2,
+     seconds, peak.
+  17. the TI2V-5B with the Wan2.2 VAE (`factory.load_pipeline(
+     random_init=True, dit_cfg=WAN22_TI2V_5B, vae_cfg=Wan22VAEConfig())`,
+     bf16): the 33 + 4-frame edit at 704x1280 (16,720 tokens) in 4 steps:
+     output, 120 + 120 B1 calls at 24 heads and nothing else, stage walls,
+     peak, one DiT step under torch.profiler; the streaming Wan2.2 VAE
+     against the whole-sequence one in bf16 on the source clip and the
+     edit's last 9 latent frames (seconds, peaks, mu's relative L2, uint8
+     levels), and on the first 9 frames against the whole-sequence VAE in
+     fp32 with phase 12's gates.
+  18. the entries on Wan2.2: a published-layout A14B directory (two
+     experts at full width and 2 layers each, the Wan2.1 VAE, umT5-XXL)
+     written by `save_wan_checkpoint_dir`, then `fast_infer.main([...,
+     "--quantize", "fp8"])` (the 4-step edit of a cv2 clip) and
+     `infer.main([..., "--t2v", "--quantize", "fp8", "--guidance_scale_2",
+     "3.0"])` (its 50 steps, CFG 5, 65 frames) on it: a `Wan22Pipeline`
+     with fp8 experts, the files, the launches, the seconds (the
+     directory has no tokenizer: the factory gets
+     ``require_real_tokenizer=False``).
+  19. a `kernels` JSON line and, last, the device JSON line.
 
 B1 is also held against its plain version (phase 2) and timed (phase 3) at
 the 14B's 40 heads, at the self and cross shapes, and at the shapes of
 phases 9 and 10: 4x self (107,640 tokens), 4x cross, and the ragged self
 shape (batch 2 of 54,600 tokens, row 0's keys masked past 29,640), with
-the bound of the work its rows need and of the padded work it does. The
-VAE streams every clip longer than 2 frames (the JAX package's threshold),
-in the edits of phases 4, 5, 7 and 8 too.
+the bound of the work its rows need and of the padded work it does; and at
+the Wan2.2 shapes of phases 16 and 17: the TI2V-5B's self (16,720 tokens,
+24 heads) and cross, and text-to-video's self (batch 2 of 32,760 tokens,
+40 heads) and cross. The VAE streams every clip longer than 2 frames (the
+JAX package's threshold), in the edits of phases 4, 5, 7 and 8 too.
 
 It exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
@@ -142,6 +185,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import os
 import re
 import shutil
 import statistics
@@ -154,6 +198,8 @@ ROOT = Path(__file__).resolve().parent
 # files the entry phases write (checkpoints, LoRA files, clips, outputs);
 # removed when each phase ends
 SCRATCH = ROOT / "chiprun_out" / "chip_smoke"
+# the 14B's two LoRA files, kept from the 14B edit to the fp8 phase
+LORA_DIR = ROOT / "chiprun_out" / "chip_smoke_lora"
 
 # the port's kernel functions, as their names appear in ptxas and the profiler
 OUR_KERNELS = ("flash_fwd_kernel", "flash_bwd_kernel", "int8_attn_kernel",
@@ -194,6 +240,19 @@ TEXT_TOKENS = 512              # umT5 tokens of a prompt (max_sequence_length)
 # the streamed one in bf16, at most this many times the whole one's distance
 VAE_FP32_REL_TOL = 1e-4
 VAE_STREAM_FACTOR = 1.5
+# the Wan2.2 phases: Flow-UniPC steps and Wan2.2's sample shift (at 4 steps
+# the timesteps are 999, 937, 833, 624: two high-noise steps of four)
+A14B_STEPS = 4
+A14B_SHIFT = 5.0
+T2V_FRAMES = 81                # text-to-video frames (JAX's default)
+T2V_GUIDANCE = 4.0             # ... its guidance, and the high-noise one's
+T2V_GUIDANCE_2 = 3.0
+TI2V_HW = (704, 1280)          # the TI2V-5B's published size
+ENTRY22_LAYERS = 2             # layers per expert of the entries' checkpoint
+# fp8 weights against bf16, one DiT forward (JAX's tests/test_fp8.py bound):
+# mean |err| < FP8_ERR_REL * mean |bf16| + FP8_ERR_ABS
+FP8_ERR_REL = 0.05
+FP8_ERR_ABS = 0.05
 
 
 def log(*args):
@@ -643,12 +702,13 @@ def entry_phase(card, dcfg, geo, gen, prompt, want_shape, want_launches,
 def edit_14b_phase(card, cfg14, geo, gen, video, prompt, want_shape,
                    want_launches, counters):
     """The 14B edit: `factory.load_pipeline("", random_init=True,
-    dit_cfg=cfg14)` with two LoRA files at ``cfg14``'s shapes; the merged
-    weights against fingerprints of a second, unmerged draw (and the two
-    merges recomputed on two modules); the 4-step edit of ``video``
-    (output, launches: 2 x layers x steps of B1 and nothing else, stage
-    walls, peak memory); one DiT step under torch.profiler. Returns the
-    edit's launches."""
+    dit_cfg=cfg14)` with two LoRA files at ``cfg14``'s shapes (written to
+    LORA_DIR, kept for the fp8 phase); the merged weights against
+    fingerprints of a second, unmerged draw (and the two merges recomputed
+    on two modules); the 4-step edit of ``video`` (output, launches: 2 x
+    layers x steps of B1 and nothing else, stage walls, peak memory); one
+    DiT step under torch.profiler. Returns (the edit's launches, its final
+    latents on the host, the two LoRA files' paths)."""
     import numpy as np
     import torch
     from videocof_torch import factory
@@ -659,7 +719,7 @@ def edit_14b_phase(card, cfg14, geo, gen, video, prompt, want_shape,
     launch_counts, reset_launch_counts = counters
     dev, bf16 = gen.device, torch.bfloat16
     cuda = dev.type == "cuda"
-    (fusionx, videocof), names = write_lora_files(cfg14, gen, SCRATCH)
+    (fusionx, videocof), names = write_lora_files(cfg14, gen, LORA_DIR)
     # the unmerged weights, drawn as the factory draws them (the DiT first,
     # from a generator seeded with the seed), kept as fingerprints
     t0 = time.perf_counter()
@@ -709,7 +769,6 @@ def edit_14b_phase(card, cfg14, geo, gen, video, prompt, want_shape,
     if not exact:
         fail("the merged weights differ from the recomputed merges")
     del sd, kept, files, prints
-    shutil.rmtree(SCRATCH, ignore_errors=True)
 
     timings = {}
     if cuda:
@@ -721,7 +780,7 @@ def edit_14b_phase(card, cfg14, geo, gen, video, prompt, want_shape,
                num_inference_steps=geo.num_inference_steps,
                guidance_scale=geo.guidance_scale, shift=geo.shift,
                sampler=geo.sampler, repeat_rope=geo.repeat_rope, cot=geo.cot,
-               seed=geo.seed, timings=timings)
+               seed=geo.seed, timings=timings, output_latents=True)
     wall = time.perf_counter() - t0
     launches = launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9 if cuda else None
@@ -751,6 +810,7 @@ def edit_14b_phase(card, cfg14, geo, gen, video, prompt, want_shape,
         f"{peak_gb} GB; launches {launches}; DiT {flops:.3e} FLOP/step, "
         f"{flops / statistics.median(steps) / 1e12:.1f} TFLOP/s (median "
         f"step)")
+    latents = out.latents
     del out, vid
     # one DiT step of the edit's geometry under torch.profiler
     x = torch.randn(1, cfg14.in_dim, grid[0], geo.height // sc,
@@ -771,7 +831,7 @@ def edit_14b_phase(card, cfg14, geo, gen, video, prompt, want_shape,
         "peak_memory_gb": peak_gb, "dit_flop_per_step": flops,
         "launches": launches, "build_s": build_s,
         "profiled_step": prof and {"wall_ms": prof[0], "busy_ms": prof[1]}}))
-    return launches
+    return launches, latents, (fusionx, videocof)
 
 
 def write_clip(tag, geo):
@@ -800,14 +860,15 @@ def write_clip(tag, geo):
 
 
 @contextlib.contextmanager
-def recorded_loads():
+def recorded_loads(**override):
     """Record (the LoRA paths it was handed, the pipeline) of every
-    `factory.load_pipeline` call while the block runs."""
+    `factory.load_pipeline` call while the block runs; ``override``
+    replaces arguments of each call."""
     from videocof_torch import factory
     real, built = factory.load_pipeline, []
 
     def load_recorded(*a, **kw):
-        pipe = real(*a, **kw)
+        pipe = real(*a, **{**kw, **override})
         built.append(([p for p, _ in kw.get("lora_paths") or ()], pipe))
         return pipe
     factory.load_pipeline = load_recorded
@@ -1258,6 +1319,656 @@ def infer_phase(card, geo, prompt, counters):
     return record
 
 
+def profile_dit_step(label, dit, grid, cond, ground, seed):
+    """One DiT forward at ``grid`` (the chain-of-frames RoPE of ``cond``
+    source and ``ground`` reasoning latent frames) on random bf16 inputs
+    under torch.profiler; prints the breakdown and returns (wall ms, busy
+    ms)."""
+    import torch
+    from videocof_torch.models.wan_dit import make_rope_for_geometry
+    cfg, dev = dit.cfg, next(dit.parameters()).device
+    _, ph, pw = cfg.patch_size
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(1, cfg.in_dim, grid[0], grid[1] * ph, grid[2] * pw,
+                    generator=g, device=dev).to(torch.bfloat16)
+    ctx = torch.randn(1, TEXT_TOKENS, cfg.text_dim, generator=g,
+                      device=dev).to(torch.bfloat16)
+    cos, sin = (torch.as_tensor(a, device=dev) for a in make_rope_for_geometry(
+        cfg, grid, f_src=cond, f_ground=ground))
+    t = torch.full((1,), 937.0, device=dev)
+    with torch.no_grad():
+        prof = profile_kernels(lambda: dit(x, t, ctx, cos, sin))
+    report_profile(f"{label} at {grid[0] * grid[1] * grid[2]} tokens", *prof)
+    return {"wall_ms": prof[0], "busy_ms": prof[1]}
+
+
+def quantized_linears(dit):
+    """The linears of ``dit`` that store fp8 weights."""
+    import torch
+    from videocof_torch.utils.fp8 import is_fp8
+    return [m for m in dit.modules()
+            if isinstance(m, torch.nn.Linear) and is_fp8(m)]
+
+
+def fp8_14b_phase(card, cfg14, geo, gen, video, prompt, want_shape,
+                  counters, lora_paths, latents_bf16):
+    """fp8 weights and runtime LoRA on the Wan2.1 14B: the unmerged draw of
+    `factory.load_pipeline("", random_init=True, dit_cfg=cfg14)`, one DiT
+    forward on a small latent in bf16, then `quantize_dit_fp8` on the card
+    (the DiT's bytes before and after; a block's fp8 weights and scales
+    equal bit for bit to the CPU's quantization of its bf16 weights, and
+    its dequantized weights to the plain formula); the same forward in fp8
+    within JAX's bound (mean |err| < FP8_ERR_REL x mean |base| +
+    FP8_ERR_ABS); the edit's two LoRA files attached as runtime adapters
+    (`load_runtime_lora`, no leftover); the 4-step edit of ``video``
+    (output, 2 x layers x steps of B1 and nothing else, stage walls, peak),
+    its final latents against the bf16 merged edit's (``latents_bf16``,
+    relative L2, printed); and the dequantization's and the adapters'
+    fusion's share of a DiT step (CUDA events). Returns the phase's
+    record."""
+    import numpy as np
+    import torch
+    from videocof_torch import factory
+    from videocof_torch.models import lora
+    from videocof_torch.models.wan_dit import make_rope_for_geometry
+    from videocof_torch.utils import fp8
+    launch_counts, reset_launch_counts = counters
+    dev, bf16 = gen.device, torch.bfloat16
+    t0 = time.perf_counter()
+    pipe = factory.load_pipeline("", random_init=True, dit_cfg=cfg14,
+                                 seed=SEED)
+    dit = pipe.dit
+    before = fp8.fp8_bytes(dit)
+    lin = dit.blocks[0].self_attn.q
+    w_cpu = lin.weight.detach().cpu()
+    # one forward on a small latent (3 x 8 x 8 tokens) in bf16 and in fp8
+    grid = (3, 8, 8)
+    _, ph, pw = cfg14.patch_size
+    g = torch.Generator(device=dev).manual_seed(SEED + 14)
+    x = torch.randn(1, cfg14.in_dim, grid[0], grid[1] * ph, grid[2] * pw,
+                    generator=g, device=dev).to(bf16)
+    ctx = torch.randn(1, TEXT_TOKENS, cfg14.text_dim, generator=g,
+                      device=dev).to(bf16)
+    cos, sin = (torch.as_tensor(a, device=dev)
+                for a in make_rope_for_geometry(cfg14, grid))
+    t = torch.full((1,), 937.0, device=dev)
+    with torch.no_grad():
+        base = dit(x, t, ctx, cos, sin).float()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    fp8.quantize_dit_fp8(dit)
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t1
+    after = fp8.fp8_bytes(dit)
+    q_cpu, s_cpu = fp8.quantize_weight(w_cpu)
+    same_q = (torch.equal(lin.weight.view(torch.uint8).cpu(),
+                          q_cpu.view(torch.uint8))
+              and torch.equal(lin.weight_scale.cpu(), s_cpu))
+    same_deq = torch.equal(fp8.dequantize(lin).cpu(),
+                           (q_cpu.float() * s_cpu).to(bf16))
+    with torch.no_grad():
+        out = dit(x, t, ctx, cos, sin).float()
+    err = (out - base).abs().mean().item()
+    base_mean = base.abs().mean().item()
+    bound = FP8_ERR_REL * base_mean + FP8_ERR_ABS
+    fwd_ok = bool(torch.isfinite(out).all()) and err < bound
+    n_q = len(quantized_linears(dit))
+    log(f"[fp8 14B] built in {t1 - t0:.1f} s, quantized {n_q} linears on the "
+        f"card in {quant_s:.2f} s: DiT {before / 1e9:.3f} GB -> "
+        f"{after / 1e9:.3f} GB ({after / before:.3f}x); block 0's q weight "
+        f"and scale equal to the CPU's quantization bit for bit: "
+        f"{'ok' if same_q else 'FAIL'}; dequantized equal to (q.float() * "
+        f"scale).to(bf16) bit for bit: {'ok' if same_deq else 'FAIL'}")
+    log(f"[fp8 14B] one DiT forward ({grid[0] * grid[1] * grid[2]} tokens), "
+        f"fp8 against bf16: mean |err| {err:.4e}, mean |bf16| "
+        f"{base_mean:.4e}, bound {bound:.4e} (JAX's test): "
+        f"{'ok' if fwd_ok else 'FAIL'}")
+    if not (same_q and same_deq):
+        fail("fp8 quantization on the card differs from the CPU's")
+    if not fwd_ok:
+        fail("the fp8 DiT's forward strays from the bf16 one")
+    del base, out, x, ctx, cos, sin
+    runtime, leftover = lora.load_runtime_lora(
+        [(p, 1.0) for p in lora_paths], cfg14)
+    if runtime is None or leftover:
+        fail(f"the LoRA files gave runtime {runtime is not None}, leftover "
+             f"{sorted(leftover)}")
+    pipe.set_runtime_lora(runtime)
+    ranks = {r.down.shape[0] for b in runtime[0].blocks for m in b.values()
+             for r in m.values()}
+    log(f"[fp8 14B] runtime adapters from {len(lora_paths)} files: ranks "
+        f"{sorted(ranks)} (concatenated), scale {runtime[1]}")
+    timings = {}
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res = pipe(video, prompt, source_frames=geo.source_frames,
+               reasoning_frames=geo.reasoning_frames,
+               num_inference_steps=geo.num_inference_steps,
+               guidance_scale=geo.guidance_scale, shift=geo.shift,
+               sampler=geo.sampler, repeat_rope=geo.repeat_rope, cot=geo.cot,
+               seed=geo.seed, timings=timings, output_latents=True)
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check_video("fp8 14B", res.videos, want_shape)
+    want = dict(dict.fromkeys(launches, 0), flash_attention_fwd=(
+        2 * cfg14.num_layers * geo.num_inference_steps))
+    check_launches("fp8 14B edit", launches, want)
+    rel = float(np.linalg.norm(res.latents - latents_bf16)
+                / np.linalg.norm(latents_bf16))
+    log("[fp8 14B] stage walls (s): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in timings.items()))
+    log(f"[fp8 14B] seconds per edit {wall:.3f}; peak device memory "
+        f"{peak_gb} GB; launches {launches}; final latents against the bf16 "
+        f"merged edit's (phase 8): relative L2 {rel:.4e}")
+    # the dequantization's and the adapters' fusion's share of a step (each
+    # result dropped at once, as a step drops it)
+    lins, ad = quantized_linears(dit), runtime[0]
+
+    def dequantize_all():
+        for m in lins:
+            fp8.dequantize(m)
+
+    def fuse_all():
+        for b, a in zip(dit.blocks, ad.blocks):
+            lora.fuse_block_adapters(b, a, 1.0)
+    deq_ms = cuda_ms(dequantize_all, runs=3)
+    fuse_ms = cuda_ms(fuse_all, runs=3)
+    step_ms = 1e3 * statistics.median(
+        timings[f"step{i}"] for i in range(geo.num_inference_steps))
+    log(f"[fp8 14B] dequantizing every fp8 weight once: {deq_ms:.2f} ms "
+        f"({deq_ms / step_ms:.1%} of a {step_ms:.1f} ms step); the blocks' "
+        f"adapters fused over fp8 (dequantization included, what a step "
+        f"runs): {fuse_ms:.2f} ms ({fuse_ms / step_ms:.1%})")
+    record = {"card": card, "dit_bytes_bf16": before, "dit_bytes_fp8": after,
+              "quantize_s": quant_s, "forward_mean_abs_err": err,
+              "forward_bound": bound, "seconds_per_edit": wall,
+              "stages_s": timings, "peak_memory_gb": peak_gb,
+              "launches": launches, "rel_l2_vs_bf16_merged": rel,
+              "dequant_ms": deq_ms, "fuse_ms": fuse_ms, "step_ms": step_ms}
+    log("[fp8 14B] " + json.dumps(record))
+    del pipe, dit, runtime, ad, lins, res
+    shutil.rmtree(LORA_DIR, ignore_errors=True)
+    return record
+
+
+def a14b_pipeline(gen):
+    """The Wan2.2 A14B on the card at full width and depth: umT5-XXL and
+    the Wan2.1 VAE from ``gen``, then the two WAN22_T2V_A14B experts from
+    seeds SEED + 1 (base) and SEED + 2 (high noise), each quantized to fp8
+    as soon as it is drawn, so at most one bf16 expert is ever resident.
+    Returns (the `Wan22Pipeline`, build seconds, the build's peak GB)."""
+    import torch
+    from videocof_torch.configs import (T5Config, WAN22_T2V_A14B,
+                                        WanVAEConfig)
+    from videocof_torch.models.t5_encoder import init_t5_encoder
+    from videocof_torch.models.wan_dit import init_wan_dit
+    from videocof_torch.models.wan_vae import init_wan_vae
+    from videocof_torch.pipeline import Wan22Pipeline
+    from videocof_torch.utils.fp8 import quantize_dit_fp8
+    dev, bf16 = gen.device, torch.bfloat16
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    t5 = init_t5_encoder(T5Config(), gen, bf16, dev)
+    vae = init_wan_vae(WanVAEConfig(), gen, bf16, dev)
+    experts = []
+    for seed in (SEED + 1, SEED + 2):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        experts.append(quantize_dit_fp8(init_wan_dit(WAN22_T2V_A14B, g, bf16,
+                                                     dev)))
+        torch.cuda.empty_cache()
+    pipe = Wan22Pipeline(experts[0], vae, t5, dtype=bf16, dit_2=experts[1])
+    torch.cuda.synchronize()
+    return (pipe, time.perf_counter() - t0,
+            torch.cuda.max_memory_allocated() / 1e9)
+
+
+def a14b_tokens(pipe, geo, frames, reasoning_frames=None):
+    """DiT tokens of ``frames`` source frames (with ``reasoning_frames``:
+    the chain-of-frames latents, source twice and the reasoning frames) at
+    the geometry's size."""
+    from videocof_torch.pipeline import latent_frame_count
+    tc = pipe.vae.cfg.temporal_compression_ratio
+    sc = pipe.vae.cfg.spatial_compression_ratio
+    _, ph, pw = pipe.dit.cfg.patch_size
+    n = latent_frame_count(frames, tc)
+    if reasoning_frames is not None:
+        n = 2 * n + latent_frame_count(reasoning_frames, tc)
+    return n * (geo.height // sc // ph) * (geo.width // sc // pw)
+
+
+@contextlib.contextmanager
+def expert_forwards(pipe):
+    """Count each expert's DiT forwards (a pre-hook on its first block)."""
+    calls = {"dit": 0, "dit_2": 0}
+    hooks = [getattr(pipe, n).blocks[0].register_forward_pre_hook(
+        lambda *_, n=n: calls.__setitem__(n, calls[n] + 1)) for n in calls]
+    try:
+        yield calls
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def a14b_edit_phase(card, geo, gen, video, prompt, want_shape, counters):
+    """The Wan2.2 A14B dual-expert chain-of-frames edit (`a14b_pipeline`):
+    the 480x832 33 + 4-frame edit of ``video`` in A14B_STEPS Flow-UniPC
+    steps at shift A14B_SHIFT, guidance 1; ``split_idx`` (the leading
+    high-noise steps, 0 < split < steps), each expert's forwards, exactly
+    2 x layers x steps B1 calls (self and cross at the 40 heads) and
+    nothing else, stage walls, and the peak below the card's memory.
+    Returns (the pipeline, the phase's record)."""
+    import torch
+    from videocof_torch.pipeline import latent_frame_count
+    from videocof_torch.schedulers import get_scheduler
+    launch_counts, reset_launch_counts = counters
+    pipe, build_s, build_peak = a14b_pipeline(gen)
+    dcfg = pipe.dit.cfg
+    total_gb = torch.cuda.get_device_properties(0).total_memory / 1e9
+    sched = get_scheduler(geo.sampler)
+    sched.set_timesteps(A14B_STEPS, shift=A14B_SHIFT)
+    split = pipe._split_idx(sched)
+    log(f"[A14B edit] two fp8 experts, umT5-XXL and the VAE built in "
+        f"{build_s:.1f} s, peak {build_peak:.2f} GB while building; "
+        f"timesteps {[round(float(t), 1) for t in sched.timesteps]} at shift "
+        f"{A14B_SHIFT}, boundary {pipe.boundary * pipe.num_train_timesteps}: "
+        f"split_idx {split}")
+    if not 0 < split < A14B_STEPS:
+        fail(f"split_idx {split}: the edit would run one expert only")
+    timings = {}
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with b1_calls() as seen, expert_forwards(pipe) as calls:
+        out = pipe(video, prompt, source_frames=geo.source_frames,
+                   reasoning_frames=geo.reasoning_frames,
+                   num_inference_steps=A14B_STEPS, guidance_scale=1.0,
+                   shift=A14B_SHIFT, sampler=geo.sampler,
+                   repeat_rope=geo.repeat_rope, seed=geo.seed,
+                   timings=timings)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    shapes = b1_shapes(seen)
+    check_video("A14B edit", out.videos, want_shape)
+    per = dcfg.num_layers * A14B_STEPS
+    check_launches("A14B edit", launches, dict(
+        dict.fromkeys(launches, 0), flash_attention_fwd=2 * per))
+    L = a14b_tokens(pipe, geo, geo.source_frames, geo.reasoning_frames)
+    want_shapes = {(1, L, L, None): per, (1, L, TEXT_TOKENS, None): per}
+    log("[A14B edit] stage walls (s): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in timings.items()))
+    log(f"[A14B edit] seconds per edit {wall:.3f}; peak device memory "
+        f"{peak_gb:.2f} GB of {total_gb:.2f} GB; DiT forwards: base expert "
+        f"{calls['dit']}, high-noise expert {calls['dit_2']}; B1 calls by "
+        f"(batch, Lq, Lk, mask): {shapes}")
+    if calls != {"dit": A14B_STEPS - split, "dit_2": split}:
+        fail(f"the experts ran {calls}, expected {split} high-noise and "
+             f"{A14B_STEPS - split} base forwards")
+    if shapes != want_shapes:
+        fail(f"the A14B edit's B1 calls {shapes} != {want_shapes}")
+    if not peak_gb < total_gb:
+        fail(f"the A14B edit peaked at {peak_gb} GB")
+    tc = pipe.vae.cfg.temporal_compression_ratio
+    sc = pipe.vae.cfg.spatial_compression_ratio
+    _, ph, pw = dcfg.patch_size
+    cond = latent_frame_count(geo.source_frames, tc)
+    ground = latent_frame_count(geo.reasoning_frames, tc)
+    prof = profile_dit_step(
+        "one fp8 A14B expert step", pipe.dit,
+        (2 * cond + ground, geo.height // sc // ph, geo.width // sc // pw),
+        cond, ground, SEED + 15)
+    record = {"card": card, "split_idx": split, "forwards": calls,
+              "build_s": build_s, "build_peak_gb": build_peak,
+              "seconds_per_edit": wall, "stages_s": timings,
+              "peak_memory_gb": peak_gb, "launches": launches,
+              "b1_calls": {str(k): n for k, n in shapes.items()},
+              "profiled_step": prof}
+    log("[A14B edit] " + json.dumps(record))
+    return pipe, record
+
+
+def a14b_t2v_phase(card, pipe, geo, prompt, counters):
+    """A14B text-to-video (`Wan22Pipeline.text_to_video`) at 480x832 with
+    T2V_FRAMES frames (JAX's default: 21 latent frames, 32,760 tokens) in
+    A14B_STEPS steps, guidance T2V_GUIDANCE against the default negative
+    prompt and T2V_GUIDANCE_2 on the high-noise steps, batched CFG (batch
+    2): the output, each expert's forwards, exactly 2 x layers x steps B1
+    calls at batch 2 and nothing else, stage walls and peak. Returns the
+    phase's record."""
+    import torch
+    launch_counts, reset_launch_counts = counters
+    dcfg = pipe.dit.cfg
+    timings = {}
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with b1_calls() as seen, expert_forwards(pipe) as calls:
+        out = pipe.text_to_video(
+            prompt, negative_prompt=geo.negative_prompt, height=geo.height,
+            width=geo.width, num_frames=T2V_FRAMES,
+            num_inference_steps=A14B_STEPS, guidance_scale=T2V_GUIDANCE,
+            guidance_scale_2=T2V_GUIDANCE_2, shift=A14B_SHIFT, seed=geo.seed,
+            timings=timings)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    shapes = b1_shapes(seen)
+    check_video("A14B t2v", out.videos, (1, 3, T2V_FRAMES, geo.height,
+                                         geo.width))
+    per = dcfg.num_layers * A14B_STEPS
+    check_launches("A14B t2v", launches, dict(
+        dict.fromkeys(launches, 0), flash_attention_fwd=2 * per))
+    L = a14b_tokens(pipe, geo, T2V_FRAMES)
+    want_shapes = {(2, L, L, None): per, (2, L, TEXT_TOKENS, None): per}
+    log("[A14B t2v] stage walls (s): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in timings.items()))
+    log(f"[A14B t2v] {T2V_FRAMES} frames, {L} tokens: {wall:.3f} s; peak "
+        f"device memory {peak_gb:.2f} GB; forwards {calls}; B1 calls by "
+        f"(batch, Lq, Lk, mask): {shapes}")
+    if shapes != want_shapes:
+        fail(f"the A14B t2v's B1 calls {shapes} != {want_shapes}")
+    record = {"card": card, "tokens": L, "seconds": wall,
+              "stages_s": timings, "peak_memory_gb": peak_gb,
+              "launches": launches, "forwards": calls,
+              "b1_calls": {str(k): n for k, n in shapes.items()},
+              "b1_launches": {"A14B t2v self": shapes.get((2, L, L, None), 0),
+                              "A14B t2v cross": shapes.get(
+                                  (2, L, TEXT_TOKENS, None), 0)}}
+    log("[A14B t2v] " + json.dumps(record))
+    return record
+
+
+def ti2v_phase(card, geo, prompt, counters):
+    """The TI2V-5B with the Wan2.2 VAE: `factory.load_pipeline("",
+    random_init=True, dit_cfg=WAN22_TI2V_5B, vae_cfg=Wan22VAEConfig())` in
+    bf16 edits a 33 + 4-frame clip at TI2V_HW (19 latent frames of 44 x 80,
+    16,720 tokens) in 4 steps at shift A14B_SHIFT: output, 2 x layers x
+    steps B1 calls at the 24 heads and nothing else, stage walls, peak. Then
+    the streaming Wan2.2 VAE against the whole-sequence one, with the DiT
+    and umT5 freed: in bf16 on the source clip (encode) and the edit's last
+    9 latent frames (decode to uint8): seconds, peak above the start, mu's
+    relative L2 and the uint8 difference; and, as for Wan2.1 (phase 12),
+    against the whole-sequence VAE in fp32 (TF32 off) on the clip's first
+    9 frames (3 latent frames: the 33-frame fp32 decode would not fit
+    beside its activations): the streamed VAE in fp32 within
+    VAE_FP32_REL_TOL relative L2 (mu, frames), the streamed one in bf16 no
+    further than VAE_STREAM_FACTOR x the whole one. Returns (the phase's
+    record)."""
+    import copy
+    import numpy as np
+    import torch
+    from videocof_torch import factory
+    from videocof_torch.configs import WAN22_TI2V_5B, Wan22VAEConfig
+    from videocof_torch.models import wan_vae22_streaming as stream
+    from videocof_torch.pipeline import latent_frame_count
+    launch_counts, reset_launch_counts = counters
+    height, width = TI2V_HW
+    t0 = time.perf_counter()
+    pipe = factory.load_pipeline("", random_init=True, dit_cfg=WAN22_TI2V_5B,
+                                 vae_cfg=Wan22VAEConfig(), seed=SEED)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    vcfg, dcfg = pipe.vae.cfg, pipe.dit.cfg
+    tc, sc = vcfg.temporal_compression_ratio, vcfg.spatial_compression_ratio
+    video = np.random.default_rng(SEED).integers(
+        0, 256, (1, 3, geo.source_frames, height, width), dtype=np.uint8)
+    cond = latent_frame_count(geo.source_frames, tc)
+    ground = latent_frame_count(geo.reasoning_frames, tc)
+    _, ph, pw = dcfg.patch_size
+    L = (2 * cond + ground) * (height // sc // ph) * (width // sc // pw)
+    timings = {}
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with b1_calls() as seen:
+        out = pipe(video, prompt, source_frames=geo.source_frames,
+                   reasoning_frames=geo.reasoning_frames,
+                   num_inference_steps=geo.num_inference_steps,
+                   shift=A14B_SHIFT, sampler=geo.sampler,
+                   repeat_rope=geo.repeat_rope, seed=geo.seed,
+                   timings=timings, output_latents=True)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    shapes = b1_shapes(seen)
+    check_video("TI2V-5B edit", out.videos, (
+        1, 3, 1 + (ground - 1) * tc + geo.source_frames, height, width))
+    per = dcfg.num_layers * geo.num_inference_steps
+    check_launches("TI2V-5B edit", launches, dict(
+        dict.fromkeys(launches, 0), flash_attention_fwd=2 * per))
+    want_shapes = {(1, L, L, None): per, (1, L, TEXT_TOKENS, None): per}
+    log(f"[TI2V-5B] built in {build_s:.1f} s; {2 * cond + ground} latent "
+        f"frames of {height // sc} x {width // sc}, {L} tokens, "
+        f"{dcfg.num_heads} heads of {dcfg.head_dim}")
+    log("[TI2V-5B] stage walls (s): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in timings.items()))
+    log(f"[TI2V-5B] seconds per edit {wall:.3f}; peak device memory "
+        f"{peak_gb:.2f} GB; launches {launches}; B1 calls by (batch, Lq, Lk, "
+        f"mask): {shapes}")
+    if shapes != want_shapes:
+        fail(f"the TI2V-5B edit's B1 calls {shapes} != {want_shapes}")
+    prof = profile_dit_step(
+        "one TI2V-5B step", pipe.dit,
+        (2 * cond + ground, height // sc // ph, width // sc // pw), cond,
+        ground, SEED + 17)
+    record = {"card": card, "tokens": L, "build_s": build_s,
+              "seconds_per_edit": wall, "stages_s": timings,
+              "peak_memory_gb": peak_gb, "launches": launches,
+              "b1_calls": {str(k): n for k, n in shapes.items()},
+              "b1_launches": {"5B self": shapes.get((1, L, L, None), 0),
+                              "5B cross": shapes.get(
+                                  (1, L, TEXT_TOKENS, None), 0)},
+              "profiled_step": prof}
+    # the VAE alone: the DiT and umT5 leave the card
+    vae, dtype, dev = pipe.vae, pipe.dtype, pipe.device
+    enc, dec = pipe.vae_encode_chunk, pipe.vae_decode_chunk
+    x = pipe._prepare_video(video)
+    z = torch.as_tensor(out.latents[:, :, -cond:], device=dev)
+    del pipe, out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def run(fn, runs=2):
+        for _ in range(runs):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            start = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                res = fn()
+            torch.cuda.synchronize()
+            s = time.perf_counter() - t0
+        return res, s, (torch.cuda.max_memory_allocated() - start) / 1e9
+
+    def to_u8(y):
+        return torch.round(y.float() * 127.5 + 127.5).to(torch.uint8)
+
+    def rel(a, b):
+        return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+    def levels(a, b):
+        d = (a.int() - b.int()).abs()
+        return {"mean": d.float().mean().item(), "max": d.max().item(),
+                "share_differing": (d > 0).float().mean().item()}
+
+    rows = {
+        "encode whole": run(lambda: vae.encode(x)[0]),
+        "encode streaming": run(lambda: stream.encode_streaming(
+            vae, x, chunk_latent=enc)[0]),
+        "decode whole": run(lambda: to_u8(vae.decode(z.to(dtype)))),
+        "decode streaming": run(lambda: stream.decode_streaming_u8(
+            vae, z, chunk_latent=dec, compute_dtype=dtype)),
+    }
+    mu_rel = rel(rows["encode streaming"][0], rows["encode whole"][0])
+    u8 = levels(rows["decode streaming"][0], rows["decode whole"][0])
+    for k, (_, s, p) in rows.items():
+        log(f"[TI2V-5B vae] {k} ({geo.source_frames} frames, {dtype}): "
+            f"{s:.3f} s, peak {p:.2f} GB above what was allocated")
+    log(f"[TI2V-5B vae] streaming against whole ({dtype}): mu relative L2 "
+        f"{mu_rel:.3e}; uint8 frames {u8}")
+    walls = {k: {"seconds": s, "peak_gb_above_start": p}
+             for k, (_, s, p) in rows.items()}
+    del rows
+    torch.cuda.empty_cache()
+    # against the whole-sequence VAE in fp32 on the clip's first 9 frames
+    x9, z3 = x[:, :, :9], z[:, :, :3]
+    x9_32 = torch.as_tensor(video[:, :, :9], device=dev).float() * (2 / 255) - 1
+    small = {
+        "encode whole": run(lambda: vae.encode(x9)[0], 1),
+        "encode streaming": run(lambda: stream.encode_streaming(
+            vae, x9, chunk_latent=enc)[0], 1),
+        "decode whole": run(lambda: to_u8(vae.decode(z3.to(dtype))), 1),
+        "decode streaming": run(lambda: stream.decode_streaming_u8(
+            vae, z3, chunk_latent=dec, compute_dtype=dtype), 1)}
+    ref_vae = copy.deepcopy(vae).float()
+    ref = {"encode whole": run(lambda: ref_vae.encode(x9_32)[0], 1),
+           "encode streaming": run(lambda: stream.encode_streaming(
+               ref_vae, x9_32, chunk_latent=enc)[0], 1),
+           "decode whole": run(lambda: ref_vae.decode(z3.float()), 1),
+           "decode streaming": run(lambda: stream.decode_streaming(
+               ref_vae, z3.float(), chunk_latent=dec), 1)}
+    del ref_vae
+    mu32, y32 = ref["encode whole"][0], ref["decode whole"][0]
+    fp32 = {"mu_rel_l2": rel(ref["encode streaming"][0], mu32),
+            "frames_rel_l2": rel(ref["decode streaming"][0], y32)}
+    err = {way: {"mu_rel_l2_vs_fp32": rel(small[f"encode {way}"][0], mu32),
+                 "u8_vs_fp32": levels(small[f"decode {way}"][0],
+                                      to_u8(y32))["mean"]}
+           for way in ("whole", "streaming")}
+    ok = True
+    for key, v in fp32.items():
+        good = v <= VAE_FP32_REL_TOL
+        ok = ok and good
+        log(f"[TI2V-5B vae] fp32 streaming against fp32 whole (9 frames), "
+            f"{key} {v:.3e} (tol {VAE_FP32_REL_TOL}): "
+            f"{'ok' if good else 'FAIL'}")
+    for key in ("mu_rel_l2_vs_fp32", "u8_vs_fp32"):
+        w, st = err["whole"][key], err["streaming"][key]
+        good = st <= VAE_STREAM_FACTOR * w
+        ok = ok and good
+        log(f"[TI2V-5B vae] {dtype} against the whole-sequence VAE in fp32 "
+            f"(9 frames), {key}: whole {w:.3e}, streaming {st:.3e} (tol "
+            f"{VAE_STREAM_FACTOR} x whole): {'ok' if good else 'FAIL'}")
+    if not ok:
+        fail("the streaming Wan2.2 VAE strays from the whole-sequence VAE")
+    record["vae"] = {"mu_rel_l2_streaming_vs_whole": mu_rel,
+                     "u8_streaming_vs_whole": u8, "fp32_9_frames": fp32,
+                     "vs_fp32_whole_9_frames": err, **walls}
+    log("[TI2V-5B] " + json.dumps(record))
+    return record
+
+
+def wan22_entries_phase(card, geo, gen, prompt, counters):
+    """The entries on a Wan2.2 checkpoint directory: a published-layout
+    A14B MoE directory (`save_wan_checkpoint_dir`: two WAN22_T2V_A14B
+    experts at full width and ENTRY22_LAYERS layers each, the Wan2.1 VAE,
+    umT5-XXL) read back by `fast_infer.main([... "--quantize", "fp8"])`
+    (the 4-step edit of a cv2 clip at shift A14B_SHIFT) and by
+    `infer.main([... "--t2v", "--quantize", "fp8", "--guidance_scale_2",
+    ...])` (its defaults: 50 steps, CFG 5; 65 frames); each must build a
+    `Wan22Pipeline` whose experts hold fp8 weights, write its files and
+    launch B1 2 x layers x steps times (batch 2 under CFG) and nothing
+    else. The directory has no tokenizer files, so the factory is handed
+    ``require_real_tokenizer=False`` (the hash tokenizer). Returns the
+    phase's record."""
+    import torch
+    from videocof_torch.cli import fast_infer, infer
+    from videocof_torch.configs import T5Config, WAN22_T2V_A14B, WanVAEConfig
+    from videocof_torch.models.t5_encoder import init_t5_encoder
+    from videocof_torch.models.wan_dit import init_wan_dit
+    from videocof_torch.models.wan_vae import init_wan_vae
+    from videocof_torch.pipeline import Wan22Pipeline
+    from videocof_torch.utils import checkpoint, video_io
+    from videocof_torch.utils.fp8 import is_fp8
+    launch_counts, reset_launch_counts = counters
+    dev, bf16 = gen.device, torch.bfloat16
+    # the directory has no tokenizer files: look for none anywhere else
+    os.environ["HF_HUB_OFFLINE"] = "1"
+    cfg = WAN22_T2V_A14B.replace(num_layers=ENTRY22_LAYERS)
+    root = SCRATCH / "wan22_a14b"
+    t0 = time.perf_counter()
+    t5 = init_t5_encoder(T5Config(), gen, bf16, dev)
+    vae = init_wan_vae(WanVAEConfig(), gen, bf16, dev)
+    d1, d2 = (init_wan_dit(cfg, torch.Generator(device=dev).manual_seed(s),
+                           bf16, dev) for s in (SEED + 3, SEED + 4))
+    nbytes = checkpoint.save_wan_checkpoint_dir(str(root), d1, vae, t5,
+                                                dit_2=d2)
+    write_s = time.perf_counter() - t0
+    del t5, vae, d1, d2
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[entry 2.2] a Wan2.2 A14B directory ({ENTRY22_LAYERS} layers per "
+        f"expert, full width) written in {write_s:.1f} s, {nbytes / 1e9:.2f} "
+        f"GB: {sorted(p.name for p in root.iterdir())}")
+    clip = write_clip("entry 2.2", geo)
+    records = {}
+    runs = {
+        "fast_infer": (fast_infer, [
+            "--video_path", str(clip), "--prompt", prompt,
+            "--source_frames", str(geo.source_frames), "--reasoning_frames",
+            str(geo.reasoning_frames), "--num_inference_steps",
+            str(geo.num_inference_steps), "--repeat_rope"],
+            2 * ENTRY22_LAYERS * geo.num_inference_steps, 1),
+        "infer": (infer, ["--t2v", "--prompt", prompt, "--guidance_scale_2",
+                          str(T2V_GUIDANCE_2)],
+                  2 * ENTRY22_LAYERS * 50, 2),
+    }
+    for name, (cli, extra, want_b1, batch) in runs.items():
+        out_dir = SCRATCH / f"{name}_out"
+        argv = ["--model_name", str(root), "--output_dir", str(out_dir),
+                "--quantize", "fp8", "--shift", str(A14B_SHIFT), "--height",
+                str(geo.height), "--width", str(geo.width), "--seed",
+                str(SEED)] + extra
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with recorded_loads(require_real_tokenizer=False) as built, \
+                b1_calls() as seen:
+            arrays = cli.main(argv)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        if len(built) != 1 or len(arrays) != 1:
+            fail(f"{name} built {len(built)} pipelines and wrote "
+                 f"{len(arrays)} items")
+        pipe = built.pop()[1]
+        fp8_ok = isinstance(pipe, Wan22Pipeline) and all(
+            is_fp8(d.blocks[0].self_attn.q) and is_fp8(d.blocks[-1].ffn.fc2)
+            for d in (pipe.dit, pipe.dit_2))
+        del pipe
+        files = sorted(p.name for p in out_dir.glob("*"))
+        shapes = b1_shapes(seen)
+        # the item's own video (not the reason+edit or side-by-side ones)
+        mp4 = out_dir / next(f for f in files if f.endswith(".mp4") and not
+                             f.endswith(("_compare.mp4", "_reason_edit.mp4")))
+        info = video_io.video_info(str(mp4))
+        log(f"[entry 2.2] {name}.main({' '.join(argv[4:])}): {wall:.3f} s, "
+            f"peak {peak_gb:.2f} GB; a Wan22Pipeline with fp8 experts: "
+            f"{'ok' if fp8_ok else 'FAIL'}; files {files}; {mp4.name}: "
+            f"{info[0]} frames of {info[1]}x{info[2]}; launches {launches}; "
+            f"B1 calls by (batch, Lq, Lk, mask): {shapes}")
+        if not fp8_ok:
+            fail(f"{name} did not build a Wan22Pipeline with fp8 experts")
+        check_launches(f"{name} on Wan2.2", launches, dict(
+            dict.fromkeys(launches, 0), flash_attention_fwd=want_b1))
+        if {k[0] for k in shapes} != {batch}:
+            fail(f"{name}'s B1 calls are not all at batch {batch}: {shapes}")
+        if not files or info[1:3] != (geo.height, geo.width):
+            fail(f"{name} wrote {files}, {info}")
+        records[name] = {"seconds": wall, "peak_memory_gb": peak_gb,
+                         "launches": launches, "files": files}
+    shutil.rmtree(SCRATCH, ignore_errors=True)
+    record = {"card": card, "write_s": write_s, "bytes": nbytes, **records}
+    log("[entry 2.2] " + json.dumps(record))
+    return record
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1266,10 +1977,12 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs on the GPU",
               file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     sys.path.insert(0, str(ROOT))
     from videocof_torch.configs import (GenerationConfig, T5Config,
                                         WAN21_T2V_14B, WAN21_T2V_1_3B,
-                                        WanVAEConfig)
+                                        WAN22_T2V_A14B, WAN22_TI2V_5B,
+                                        Wan22VAEConfig, WanVAEConfig)
     from videocof_torch.models.lora import ADAPTER_TARGETS, init_lora_adapters
     from videocof_torch.models.t5_encoder import init_t5_encoder
     from videocof_torch.models.teacache import (get_teacache_coefficients,
@@ -1372,6 +2085,18 @@ def main() -> int:
     new_b1 = {"4x self": ((1, L4, L4), None),
               "4x cross": ((1, L4, Lt), None),
               "ragged self": ((2, ragged[1], ragged[1]), ragged)}
+    # B1's shapes on the Wan2.2 paths: (batch, Lq, Lk), heads
+    v22 = Wan22VAEConfig()
+    L5 = ((2 * latent_frame_count(geo.source_frames, tc) + ground)
+          * (TI2V_HW[0] // v22.spatial_compression_ratio // ph)
+          * (TI2V_HW[1] // v22.spatial_compression_ratio // pw))
+    Lt2v = latent_frame_count(T2V_FRAMES, tc) * per_frame
+    b1_22 = {"5B self": ((1, L5, L5), WAN22_TI2V_5B.num_heads),
+             "5B cross": ((1, L5, Lt), WAN22_TI2V_5B.num_heads),
+             "A14B t2v self": ((2, Lt2v, Lt2v), WAN22_T2V_A14B.num_heads),
+             "A14B t2v cross": ((2, Lt2v, Lt), WAN22_T2V_A14B.num_heads)}
+    log(f"[geometry] TI2V-5B edit at {TI2V_HW[0]}x{TI2V_HW[1]}: {L5} DiT "
+        f"tokens; A14B text-to-video, {T2V_FRAMES} frames: {Lt2v} tokens")
 
     def ragged_mask(lengths, Lk):
         if lengths is None:
@@ -1523,6 +2248,19 @@ def main() -> int:
             fa.flash_attention_reference(q, k, v, kv_mask=mask))
         note("flash_attention_fwd", err_new[label])
         del q, k, v, out, mask
+        torch.cuda.empty_cache()
+    # B1 at the Wan2.2 paths' shapes: the TI2V-5B's 24 heads at its 704x1280
+    # edit (16,720 tokens), the A14B's 40 heads at text-to-video's 81
+    # frames under batched CFG (batch 2, 32,760 tokens)
+    err22 = {}
+    for label, ((B, Lq, Lk), Nh) in b1_22.items():
+        q, k, v = qkv(B, Lq, Lk, Nh, D)
+        out = fa.flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        err22[label] = compare(f"B1 {label} {(B, Lq, Lk, Nh, D)} bfloat16",
+                               out, fa.flash_attention_reference(q, k, v))
+        note("flash_attention_fwd", err22[label])
+        del q, k, v, out
         torch.cuda.empty_cache()
     # B3 at lengths on and beside its 64-row q tiles and 128-key tiles (TMA's
     # zero rows, the masked keys of the ragged key tile, dQ rows past Lq
@@ -1851,6 +2589,32 @@ def main() -> int:
         del q, k, v, qt, kt, vt, mask
         torch.cuda.empty_cache()
 
+    # B1 at the Wan2.2 paths' shapes: kernel, plain version, SDPA, bound
+    timing22 = {}
+    for label, ((B, Lq, Lk), Nh) in b1_22.items():
+        q, k, v = qkv(B, Lq, Lk, Nh, D)
+        qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+        work = kernel_work(B, Lq, Lk, Nh, D)["flash_attention_fwd"]
+        ms = cuda_ms(lambda: fa.flash_attention(q, k, v), runs=10)
+        plain_ms = cuda_ms(lambda: fa.flash_attention_reference(q, k, v),
+                           runs=1 if Lk > 1000 else 5, warmup=1)
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt), runs=10)
+        bound_ms, bound_by = bound(*work)
+        timing22[label] = dict(
+            shape=f"B={B} Lq={Lq} Lk={Lk} N={Nh} D={D} bf16", ms=ms,
+            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=library_ms, tflops=work[0] / ms / 1e9,
+            max_abs_err=err22[label][0], max_rel_l2_err=err22[label][1])
+        log(f"[timing] flash_attention_fwd {label} "
+            f"{timing22[label]['shape']}: kernel_ms {ms:.4f} bound_ms "
+            f"{bound_ms:.4f} ({bound_by}) plain_ms {plain_ms:.4f} "
+            f"library_ms {library_ms:.4f} (share of bound {bound_ms / ms:.1%}"
+            f"; {work[0] / ms / 1e9:.1f} TFLOP/s, library "
+            f"{work[0] / library_ms / 1e9:.1f})")
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
+
     # B4 at the standard edit's shapes (batched CFG: batch 2): the whole of
     # it (K mean, pre-pass, attention) and each kernel; the yardstick is
     # SDPA's unquantized bf16 forward, which is not the same function (no
@@ -2131,8 +2895,9 @@ def main() -> int:
     log("[entry] " + json.dumps(dict(entry, dit_read_gb_per_s=read_gbps)))
 
     # ------------------------------------------------------ 8. the 14B edit
-    launches14 = edit_14b_phase(card, WAN21_T2V_14B, geo, gen, video, prompt,
-                                want_shape, want_launches, counters)
+    launches14, latents14, lora14 = edit_14b_phase(
+        card, WAN21_T2V_14B, geo, gen, video, prompt, want_shape,
+        want_launches, counters)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2160,7 +2925,29 @@ def main() -> int:
     # ------------------------------------------------- 13. the standard CLI
     rec_infer = infer_phase(card, geo, prompt, counters)
 
-    # ----------------------------------------------------------- 14. report
+    # ------------------------------- 14. fp8 and runtime LoRA on the 14B
+    rec_fp8 = fp8_14b_phase(card, WAN21_T2V_14B, geo, gen, video, prompt,
+                            want_shape, counters, lora14, latents14)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ------------------------------------- 15-16. the Wan2.2 A14B, edit, t2v
+    pipe, rec_a14b = a14b_edit_phase(card, geo, gen, video, prompt,
+                                     want_shape, counters)
+    rec_t2v = a14b_t2v_phase(card, pipe, geo, prompt, counters)
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ------------------------------ 17. the TI2V-5B with the Wan2.2 VAE
+    rec_5b = ti2v_phase(card, geo, prompt, counters)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------- 18. the entries on Wan2.2
+    rec_entry22 = wan22_entries_phase(card, geo, gen, prompt, counters)
+
+    # ----------------------------------------------------------- 19. report
     sources = {"flash_attention_fwd": "flash_attention_fwd.cu",
                "flash_attention_fwd_lse": "flash_attention_fwd.cu",
                "flash_attention_bwd": "flash_attention_bwd.cu"}
@@ -2172,7 +2959,11 @@ def main() -> int:
     launches = {n: (edit_launches if n == "flash_attention_fwd"
                     else train_launches)[n] for n in names}
     b1_14b = {"launches_14b": launches14["flash_attention_fwd"],
-              "launches_14b_on": "14B edit", "heads_40": timing14}
+              "launches_14b_on": "14B edit",
+              "launches_14b_fp8": rec_fp8["launches"]["flash_attention_fwd"],
+              "launches_a14b_edit": rec_a14b["launches"][
+                  "flash_attention_fwd"],
+              "heads_40": timing14}
     rows = []
     for kname in names:
         main_shape = timing["self"][kname]
@@ -2238,6 +3029,23 @@ def main() -> int:
             "launches": rec["b1_launches"][label], "launches_on": on,
             "shape_label": label,
             **timing_new[label]})
+    # B1 at the Wan2.2 paths' shapes, with the launches counted on them
+    # (phases 16 and 17)
+    for label, (on, rec) in (("5B self", ("TI2V-5B edit", rec_5b)),
+                             ("5B cross", ("TI2V-5B edit", rec_5b)),
+                             ("A14B t2v self", ("A14B t2v", rec_t2v)),
+                             ("A14B t2v cross", ("A14B t2v", rec_t2v))):
+        rows.append({
+            "name": "flash_attention_fwd", "route": "cuda",
+            "source": f"videocof_torch/csrc/{sources['flash_attention_fwd']}",
+            "replaces": "videocof_tpu/ops/flash_attention.py:41",
+            "tpu_kernel": replaces["flash_attention_fwd"][1],
+            "launches": rec["b1_launches"][label], "launches_on": on,
+            "shape_label": label, **timing22[label]})
+    log("[wan2.2] " + json.dumps({"fp8_14b": rec_fp8, "a14b_edit": rec_a14b,
+                                  "a14b_t2v": rec_t2v, "ti2v_5b": rec_5b,
+                                  "entries": rec_entry22}))
+    log(f"[smoke] phases 1-18 in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -48,3 +48,27 @@ def t5_published_name(name):
         return "token_embedding.weight"
     return (name.replace("pos_emb", "pos_embedding.embedding.weight")
             .replace("ffn.gate.weight", "ffn.gate.0.weight"))
+
+
+def vae22_published_name(name, cfg):
+    """The port's Wan2.2 VAE key -> the published ``Wan2.2_VAE.pth`` key
+    (each stage a residual block holding its own Sequential)."""
+    res = {"norm1.gamma": "residual.0.gamma", "conv1": "residual.2",
+           "norm2.gamma": "residual.3.gamma", "conv2": "residual.6",
+           "shortcut": "shortcut"}
+    parts = name.split(".")
+    if parts[0] in ("quant_conv", "post_quant_conv") or parts[1] in (
+            "conv1", "mid_rb1", "mid_rb2", "mid_attn", "head_norm",
+            "head_conv"):
+        return vae_published_name(name, cfg)
+    part, stage, rest = parts[0], int(parts[2]), parts[3:]
+    seq = "downsamples" if part == "encoder" else "upsamples"
+    per = cfg.num_res_blocks + (0 if part == "encoder" else 1)
+    pre = f"{part}.{seq}.{stage}.{seq}"
+    if rest[0] == "res":
+        leaf = ".".join(rest[2:])
+        for k, v in res.items():
+            if leaf.startswith(k):
+                return f"{pre}.{rest[1]}.{v}{leaf[len(k):]}"
+    sub = "resample.1" if rest[1] == "conv" else "time_conv"
+    return f"{pre}.{per}.{sub}.{rest[2]}"

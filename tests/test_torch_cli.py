@@ -224,8 +224,11 @@ def test_infer_flags_match_jax(tmp_path, monkeypatch):
     assert got == want
     assert infer.generation_kwargs(infer.parse_args(argv)) == {
         "cfg_skip_ratio": 0.2}
-    with pytest.raises(SystemExit, match="--quantize"):
-        infer.main(argv + ["--quantize", "fp8"])
+    # --quantize fp8 passes the port's check and parses as JAX's does
+    monkeypatch.setattr(sys, "argv", ["infer"] + argv + ["--quantize", "fp8"])
+    args = infer.parse_args(argv + ["--quantize", "fp8"])
+    common.check_ported(args)
+    assert args.quantize == jinfer.parse_args().quantize == "fp8"
 
 
 def test_cot_prompt_matches_jax_on_the_reference_tasks():
@@ -321,17 +324,15 @@ def test_factory_random_init_draws_from_the_seed_and_merges(tmp_path):
                                   vae_cfg=TVCFG, t5_cfg=TT5CFG)
 
 
-@pytest.mark.parametrize("kw", [dict(quantize="fp8"), dict(offload_t5=True),
-                                dict(high_noise_model="x"),
-                                dict(precompile={})])
+@pytest.mark.parametrize("kw", [dict(offload_t5=True), dict(precompile={})])
 def test_factory_unported_options_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         factory.load_pipeline("", random_init=True, device="cpu", **kw)
 
 
-@pytest.mark.parametrize("argv", [["--t2v"], ["--start_image", "a.png"],
+@pytest.mark.parametrize("argv", [["--start_image", "a.png"],
                                   ["--control_video", "c.mp4"],
-                                  ["--quantize", "fp8"], ["--offload_t5"],
+                                  ["--offload_t5"],
                                   ["--precompile_hw", "480", "832"],
                                   ["--attention", "xla"]])
 def test_cli_unported_modes_stop(tmp_path, argv):

@@ -1,7 +1,8 @@
 """The port on a CUDA device: the hand-written flash-attention kernels (the
 forward B1, the forward with LSE B2, the backward B3) and the int8
-attention kernel B4 against their plain versions, their shape checks, and the
-pipeline's and the trainer's default device.
+attention kernel B4 against their plain versions, their shape checks, the
+pipeline's and the trainer's default device, and fp8 weights, runtime LoRA,
+the Wan2.2 pipeline and the Wan2.2 VAE on the card.
 
 These tests need an NVIDIA GPU and nvcc, and skip without them. The module
 imports neither JAX nor the JAX package, so that on a GPU machine without
@@ -733,3 +734,139 @@ def test_ragged_batch_runs_the_kernel_with_key_masks(cuda, monkeypatch):
         rel = (np.linalg.norm(outs[i].latents - one.latents)
                / np.linalg.norm(one.latents))
         assert rel <= 2e-2
+
+
+@pytest.mark.cuda
+def test_fp8_dequantization_on_the_card_equals_the_cpu(cuda):
+    """Quantization on the card, and the dequantized bf16 weights, bit for
+    bit those of the CPU."""
+    from videocof_torch.utils import fp8
+    g = torch.Generator(device=cuda).manual_seed(3)
+    w = torch.randn(512, 384, generator=g, device=cuda).to(torch.bfloat16)
+    q, scale = fp8.quantize_weight(w)
+    qc, sc = fp8.quantize_weight(w.cpu())
+    assert torch.equal(q.view(torch.uint8).cpu(), qc.view(torch.uint8))
+    assert torch.equal(scale.cpu(), sc)
+    lin = torch.nn.Linear(384, 512, bias=False, device=cuda,
+                          dtype=torch.bfloat16)
+    lin.weight.data.copy_(w)
+    fp8.quantize_dit_fp8(torch.nn.ModuleDict({"fc": lin}))
+    assert fp8.is_fp8(lin)
+    want = (qc.float() * sc).to(torch.bfloat16)
+    assert torch.equal(fp8.dequantize(lin).cpu(), want)
+
+
+@pytest.mark.cuda
+def test_fp8_dit_with_runtime_lora_through_the_kernel(cuda):
+    """A 2-block DiT with fp8 weights and runtime LoRA adapters through B1
+    against the naive backend on the same weights."""
+    from videocof_torch.models import lora
+    from videocof_torch.models.wan_dit import make_rope_for_geometry
+    from videocof_torch.utils import fp8
+    dcfg = WAN_TINY.replace(dim=256, ffn_dim=512, num_heads=2)
+    g = torch.Generator(device=cuda).manual_seed(4)
+    dit = fp8.quantize_dit_fp8(init_wan_dit(dcfg, g, torch.bfloat16))
+    ad = lora.init_lora_adapters(dcfg, g, rank=8)
+    for block in ad.blocks:
+        for mod in block.values():
+            for lin in mod.values():
+                lin.up.data.normal_(0.0, 0.2, generator=g)
+    dit.runtime_lora = (ad, 1.0)
+    grid = (3, 4, 4)
+    x = torch.randn(1, dcfg.in_dim, 3, 8, 8, generator=g, device=cuda)
+    ctx = torch.randn(1, 16, dcfg.text_dim, generator=g, device=cuda)
+    cos, sin = (torch.as_tensor(a, device=cuda)
+                for a in make_rope_for_geometry(dcfg, grid))
+    t = torch.tensor([700.0], device=cuda)
+    before = flash_attention.launches
+    with torch.no_grad():
+        got = dit(x.to(torch.bfloat16), t, ctx.to(torch.bfloat16), cos, sin,
+                  attn_backend="flash")
+        want = dit(x.to(torch.bfloat16), t, ctx.to(torch.bfloat16), cos, sin,
+                   attn_backend="naive")
+        plain = dit(x.to(torch.bfloat16), t, ctx.to(torch.bfloat16), cos,
+                    sin, attn_backend="naive", lora=(ad, 0.0))
+    torch.cuda.synchronize()
+    assert flash_attention.launches - before == 2 * dcfg.num_layers
+    rel = lambda a, b: ((a - b).norm() / b.norm()).item()  # noqa: E731
+    assert torch.isfinite(got).all() and rel(got, want) <= 2e-2
+    assert rel(plain, want) > 0.1      # the adapters did act
+
+
+def _tiny_wan22(cuda, vae_cfg=None):
+    from videocof_torch.configs import WAN22_VAE_TINY
+    from videocof_torch.models.wan_vae22 import init_wan22_vae
+    from videocof_torch.pipeline import Wan22Pipeline
+    vae_cfg = vae_cfg or VAE_TINY
+    dcfg = WAN_TINY.replace(dim=256, ffn_dim=512, num_heads=2,
+                            in_dim=vae_cfg.z_dim, out_dim=vae_cfg.z_dim,
+                            text_dim=T5_TINY.dim)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    bf16 = torch.bfloat16
+    init_vae = (init_wan22_vae if vae_cfg is WAN22_VAE_TINY
+                else init_wan_vae)
+    return dcfg, Wan22Pipeline(
+        init_wan_dit(dcfg, g, bf16), init_vae(vae_cfg, g, bf16),
+        init_t5_encoder(T5_TINY, g, bf16), dtype=bf16,
+        dit_2=init_wan_dit(dcfg, g, bf16))
+
+
+@pytest.mark.cuda
+def test_wan22_edit_and_t2v_on_the_card(cuda):
+    """The dual-expert edit (fp8 experts, 4 steps at shift 5: two steps on
+    each expert) and text-to-video on the card: B1 in every attention."""
+    from videocof_torch.utils import fp8
+    dcfg, pipe = _tiny_wan22(cuda)
+    for d in (pipe.dit, pipe.dit_2):
+        fp8.quantize_dit_fp8(d)
+    calls = {"dit": 0, "dit_2": 0}
+    hooks = [getattr(pipe, n).blocks[0].register_forward_pre_hook(
+        lambda *_, n=n: calls.__setitem__(n, calls[n] + 1)) for n in calls]
+    video = np.random.default_rng(0).integers(0, 256, (1, 3, 9, 32, 32),
+                                              dtype=np.uint8)
+    before = flash_attention.launches
+    out = pipe(video, "p", source_frames=9, num_inference_steps=4,
+               guidance_scale=1.0)
+    assert calls == {"dit": 2, "dit_2": 2}
+    assert flash_attention.launches - before == 2 * dcfg.num_layers * 4
+    assert out.videos.shape == (1, 3, 10, 32, 32)
+    assert np.isfinite(out.videos).all()
+    before = flash_attention.launches
+    t2v = pipe.text_to_video("p", height=32, width=32, num_frames=9,
+                             num_inference_steps=4, guidance_scale=3.0,
+                             guidance_scale_2=2.0)
+    for h in hooks:
+        h.remove()
+    assert flash_attention.launches - before == 2 * dcfg.num_layers * 4
+    assert t2v.videos.shape == (1, 3, 9, 32, 32)
+    assert 0.0 <= t2v.videos.min() and t2v.videos.max() <= 1.0
+
+
+@pytest.mark.cuda
+def test_wan22_streaming_vae_matches_whole_in_bf16(cuda):
+    """The Wan2.2 VAE on the card in bf16: the streamed encode and decode
+    within bf16 rounding of the whole-sequence ones."""
+    from videocof_torch.configs import WAN22_VAE_TINY
+    from videocof_torch.models import wan_vae22_streaming as stream
+    from videocof_torch.models.wan_vae22 import init_wan22_vae
+    g = torch.Generator(device=cuda).manual_seed(6)
+    vae = init_wan22_vae(WAN22_VAE_TINY, g, torch.bfloat16)
+    x = (torch.rand(1, 3, 13, 64, 64, generator=g, device=cuda) * 2 - 1
+         ).to(torch.bfloat16)
+    rel = lambda a, b: ((a.float() - b.float()).norm()  # noqa: E731
+                        / b.float().norm()).item()
+    with torch.no_grad():
+        mu, _ = vae.encode(x)
+        for chunk in (1, 2, 4):
+            assert rel(stream.encode_streaming(vae, x, chunk)[0], mu) <= 2e-2
+        z = torch.randn(1, WAN22_VAE_TINY.z_dim, 5, 4, 4, generator=g,
+                        device=cuda)
+        whole = vae.decode(z.to(torch.bfloat16))
+        for chunk in (1, 2):
+            assert rel(stream.decode_streaming(
+                vae, z.to(torch.bfloat16), chunk), whole) <= 2e-2
+            u8 = stream.decode_streaming_u8(vae, z, chunk,
+                                            compute_dtype=torch.bfloat16)
+            want = torch.round(whole.float() * 127.5 + 127.5)
+            assert u8.dtype == torch.uint8 and u8.shape == want.shape
+            assert (u8.float() - want).abs().mean().item() <= 2.0

@@ -50,7 +50,11 @@ def test_new_modules_are_covered():
             "videocof_torch/cli/fast_infer.py",
             "videocof_torch/cli/infer.py",
             "videocof_torch/models/wan_vae_streaming.py",
-            "videocof_torch/pipeline/varlen.py"} <= names
+            "videocof_torch/pipeline/varlen.py",
+            "videocof_torch/utils/fp8.py",
+            "videocof_torch/models/wan_vae22.py",
+            "videocof_torch/models/wan_vae22_streaming.py",
+            "videocof_torch/pipeline/wan22_pipeline.py"} <= names
 
 
 def test_pipeline_imports_without_jax():
@@ -72,7 +76,10 @@ def test_pipeline_imports_without_jax():
             "import videocof_torch.cli.fast_infer\n"
             "import videocof_torch.cli.infer\n"
             "import videocof_torch.models.wan_vae_streaming\n"
-            "from videocof_torch.pipeline import batch_edit\n")
+            "from videocof_torch.pipeline import batch_edit\n"
+            "import videocof_torch.utils.fp8\n"
+            "import videocof_torch.models.wan_vae22_streaming\n"
+            "from videocof_torch.pipeline import Wan22Pipeline\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr

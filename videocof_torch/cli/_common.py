@@ -4,10 +4,13 @@ Counterpart of `videocof_tpu/cli/_common.py` for the chain-of-frames edit
 (the reference's `fast_infer.py:214-456`): task-JSON or single-video mode,
 resume by skipping finished outputs, items strided over processes
 (``pending[rank::world]``), the CoT prompt, and the reason+edit, edit-only
-and side-by-side outputs with an ``_info.txt`` prompt record. Every flag of
-the JAX CLI parses, so the reference's scripts do; the modes the port does
-not carry (image-to-video, text-to-video, VACE control, fp8, T5 offload,
-ahead-of-time compilation) stop with an error naming their ROADMAP.md item.
+and side-by-side outputs with an ``_info.txt`` prompt record; ``--t2v``
+items (text-to-video, with ``--guidance_scale_2`` on a Wan2.2 MoE) write
+the video and its prompt record. ``--quantize fp8`` reaches the factory,
+which also finds Wan2.2 MoE and Wan2.2-VAE directories. Every flag of the
+JAX CLI parses, so the reference's scripts do; the modes the port does not
+carry (image-to-video, VACE control, T5 offload, ahead-of-time compilation)
+stop with an error naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -28,9 +31,7 @@ from ..utils.video_io import (load_video_frames, save_results,
 # flag -> why it stops (value: the ROADMAP.md item)
 _UNPORTED_FLAGS = {
     "start_image": "image-to-video (ROADMAP.md §A.10)",
-    "t2v": "text-to-video (ROADMAP.md §A.7)",
     "control_video": "VACE control-to-video (ROADMAP.md §A.10)",
-    "quantize": "fp8 weight storage (ROADMAP.md §A.5)",
     "offload_t5": "umT5 offload (ROADMAP.md, what the entry slice left)",
     "precompile_hw": "the JAX package's ahead-of-time fused sampler (not "
                      "ported on purpose: the port runs the sampler stepwise)",
@@ -68,7 +69,7 @@ def add_common_args(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--end_image", type=str, default=None,
                         help="last-frame pin of --start_image (not ported)")
     parser.add_argument("--t2v", action="store_true",
-                        help="text-to-video (not ported)")
+                        help="text-to-video from --prompt")
     parser.add_argument("--control_video", type=str, default=None,
                         help="VACE control-to-video (not ported)")
     parser.add_argument("--control_mask", type=str, default=None,
@@ -81,8 +82,8 @@ def add_common_args(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--height", type=int, default=480)
     parser.add_argument("--width", type=int, default=832)
     parser.add_argument("--guidance_scale_2", type=float, default=None,
-                        help="high-noise-expert guidance of Wan2.2 MoE "
-                             "(not ported)")
+                        help="high-noise-expert guidance of a Wan2.2 MoE "
+                             "(--t2v)")
     parser.add_argument("--fps", type=int, default=10)
     parser.add_argument("--random_init", action="store_true",
                         help="Random weights (weight-free runs)")
@@ -93,7 +94,8 @@ def add_common_args(parser: argparse.ArgumentParser) -> None:
                              "too), int8 or naive; 'xla' stops: the port "
                              "has no library attention backend")
     parser.add_argument("--quantize", type=str, default=None,
-                        choices=[None, "fp8"], help="fp8 (not ported)")
+                        choices=[None, "fp8"],
+                        help="fp8 weight storage of the DiT(s)")
     parser.add_argument("--offload_t5", action="store_true",
                         help="host-resident umT5 (not ported)")
     parser.add_argument("--precompile_hw", type=int, nargs=2, default=None,
@@ -128,7 +130,13 @@ def collect_items(args) -> List[Tuple[str, Dict]]:
         return [(os.path.basename(args.video_path),
                  {"source_video_path": args.video_path,
                   "edit_instruction": args.prompt})]
-    raise SystemExit("provide --test_json, or --video_path plus --prompt")
+    if getattr(args, "t2v", False) and args.prompt:
+        slug = "".join(c if c.isalnum() else "_"
+                       for c in args.prompt.lower())[:48] or "t2v"
+        return [(f"{slug}.mp4", {"t2v": True,
+                                 "edit_instruction": args.prompt})]
+    raise SystemExit("provide --test_json, or --video_path plus --prompt, "
+                     "or --t2v --prompt")
 
 
 def process_rank() -> Tuple[int, int]:
@@ -181,6 +189,26 @@ def edit_frames(pipe, args, video: np.ndarray, prompt: str, rank: int, *,
             "source": video}
 
 
+def t2v_frames(pipe, args, prompt: str, rank: int, *,
+               num_inference_steps: int, guidance_scale: float,
+               negative_prompt: str) -> Dict[str, np.ndarray]:
+    """One ``--t2v`` item: the pipeline's `text_to_video` at the flags'
+    size and frame count (``--guidance_scale_2`` on a Wan2.2 MoE) -> its
+    ``video`` [1, 3, T, H, W] float in [0, 1]."""
+    kw = {}
+    if (args.guidance_scale_2 is not None
+            and getattr(pipe, "dit_2", None) is not None):
+        kw["guidance_scale_2"] = args.guidance_scale_2
+    out = pipe.text_to_video(
+        prompt, height=args.height, width=args.width,
+        num_frames=args.num_frames, negative_prompt=negative_prompt,
+        num_inference_steps=num_inference_steps,
+        guidance_scale=guidance_scale, shift=args.shift,
+        sampler=args.sampler, solver_order=args.solver_order,
+        seed=args.seed + rank, **kw)
+    return {"video": out.videos}
+
+
 def save_item(output_dir: str, base: str, arrays: Dict[str, np.ndarray],
               prompt: str, fps: int) -> str:
     """Write an item's ``gen_<base>_reason_edit``, ``gen_<base>``,
@@ -210,12 +238,27 @@ def run_items(pipe, args, subset, rank: int, *, num_inference_steps: int,
     use_i420 = os.environ.get("VIDEOCOF_UPLOAD_YUV420") == "1"
     results = {}
     for fname, item in subset:
+        base = os.path.splitext(fname)[0]
+        if item.get("t2v"):
+            prompt = item.get("edit_instruction", "")
+            print(f"[proc {rank}] t2v {fname}: {prompt}", file=sys.stderr)
+            arrays = t2v_frames(pipe, args, prompt, rank,
+                                num_inference_steps=num_inference_steps,
+                                guidance_scale=guidance_scale,
+                                negative_prompt=negative_prompt)
+            out_path = os.path.join(args.output_dir, f"gen_{base}.mp4")
+            save_results(arrays["video"], out_path, args.fps)
+            with open(os.path.join(args.output_dir, f"gen_{base}_info.txt"),
+                      "w", encoding="utf-8") as f:
+                f.write(prompt)
+            results[fname] = arrays
+            print(f"[proc {rank}] wrote {out_path}", file=sys.stderr)
+            continue
         if "source_video_path" not in item:
             raise NotImplementedError(
                 f"{fname}: only the chain-of-frames edit of a source video "
-                f"is ported (image-to-video, text-to-video and VACE items: "
-                f"ROADMAP.md §A.7, §A.10)")
-        base = os.path.splitext(fname)[0]
+                f"and text-to-video are ported (image-to-video and VACE "
+                f"items: ROADMAP.md §A.10)")
         prompt, _ = item_prompt(item)
         print(f"[proc {rank}] {fname}: {prompt}", file=sys.stderr)
         video, _, _ = load_video_frames(
@@ -234,7 +277,8 @@ def run_items(pipe, args, subset, rank: int, *, num_inference_steps: int,
 
 def build_pipeline_from_args(args):
     """The pipeline the flags ask for, on the CUDA device (the factory
-    raises without one)."""
+    raises without one): a `Wan22Pipeline` for a Wan2.2 MoE directory,
+    fp8 weights with ``--quantize fp8``."""
     from ..factory import load_pipeline
 
     check_ported(args)
@@ -248,9 +292,11 @@ def build_pipeline_from_args(args):
                 loras.append((path, mult))
             else:
                 print(f"warning: LoRA not found: {path}", file=sys.stderr)
+    # the factory merges the LoRA files before it quantizes
     pipe = load_pipeline(args.model_name or "", random_init=args.random_init,
                          attn_backend=ATTENTION_BACKENDS[args.attention],
-                         seed=args.seed, lora_paths=loras)
+                         seed=args.seed, quantize=args.quantize,
+                         lora_paths=loras)
     for path, _ in loras:
         print(f"merged LoRA: {path}", file=sys.stderr)
     if args.cfg_sequential:

@@ -1,8 +1,9 @@
 """Typed configuration layer of the PyTorch/CUDA port.
 
 The same frozen dataclasses and published geometries as
-`videocof_tpu/configs.py`, minus the fields whose behaviour the port does not
-carry yet (i2v, fp8, remat, FFN chunking).
+`videocof_tpu/configs.py` (and the Wan2.2 VAE's config of
+`videocof_tpu/models/wan_vae22.py`), minus the fields whose behaviour the
+port does not carry yet (i2v, remat, FFN chunking).
 """
 
 from __future__ import annotations
@@ -49,6 +50,13 @@ class WanDiTConfig:
 
 WAN21_T2V_1_3B = WanDiTConfig(dim=1536, ffn_dim=8960, num_heads=12, num_layers=30)
 WAN21_T2V_14B = WanDiTConfig(dim=5120, ffn_dim=13824, num_heads=40, num_layers=40)
+# Wan2.2 transformers are the t2v DiT with plain cross-attention; the A14B
+# MoE runs two of these experts, the TI2V-5B one DiT over the Wan2.2 VAE's
+# 48 latent channels.
+WAN22_T2V_A14B = WanDiTConfig(dim=5120, ffn_dim=13824, num_heads=40,
+                              num_layers=40)
+WAN22_TI2V_5B = WanDiTConfig(dim=3072, ffn_dim=14336, num_heads=24,
+                             num_layers=30, in_dim=48, out_dim=48)
 # Tiny config for tests.
 WAN_TINY = WanDiTConfig(dim=96, ffn_dim=256, num_heads=4, num_layers=2,
                         text_dim=64, text_len=16, freq_dim=32)
@@ -82,6 +90,51 @@ class WanVAEConfig:
 
 VAE_TINY = WanVAEConfig(dim=8, z_dim=4, dim_mult=(1, 2, 2, 2), num_res_blocks=1,
                         latent_mean=(0.0,) * 4, latent_std=(1.0,) * 4)
+
+# the Wan2.2 VAE's 48-channel latent normalization
+WAN22_LATENT_MEAN = (
+    -0.2289, -0.0052, -0.1323, -0.2339, -0.2799, 0.0174, 0.1838, 0.1557,
+    -0.1382, 0.0542, 0.2813, 0.0891, 0.1570, -0.0098, 0.0375, -0.1825,
+    -0.2246, -0.1207, -0.0698, 0.5109, 0.2665, -0.2108, -0.2158, 0.2502,
+    -0.2055, -0.0322, 0.1109, 0.1567, -0.0729, 0.0899, -0.2799, -0.1230,
+    -0.0313, -0.1649, 0.0117, 0.0723, -0.2839, -0.2083, -0.0520, 0.3748,
+    0.0152, 0.1957, 0.1433, -0.2944, 0.3573, -0.0548, -0.1681, -0.0667,
+)
+WAN22_LATENT_STD = (
+    0.4765, 1.0364, 0.4514, 1.1677, 0.5313, 0.4990, 0.4818, 0.5013,
+    0.8158, 1.0344, 0.5894, 1.0901, 0.6885, 0.6165, 0.8454, 0.4978,
+    0.5759, 0.3523, 0.7135, 0.6804, 0.5833, 1.4146, 0.8986, 0.5659,
+    0.7069, 0.5338, 0.4889, 0.4917, 0.4069, 0.4999, 0.6866, 0.4093,
+    0.5709, 0.6065, 0.6415, 0.4944, 0.5726, 1.2042, 0.5458, 1.6887,
+    0.3971, 1.0600, 0.3943, 0.5537, 0.5444, 0.4089, 0.7468, 0.7744,
+)
+
+
+@dataclass(frozen=True)
+class Wan22VAEConfig:
+    """The Wan2.2 VAE of the TI2V-5B: a 2x2 pixel patchify in front of the
+    encoder, 16x spatial / 4x temporal compression, 48 latent channels,
+    encoder dim 160, decoder dim 256."""
+
+    dim: int = 160
+    dec_dim: int = 256
+    z_dim: int = 48
+    dim_mult: Tuple[int, ...] = (1, 2, 4, 4)
+    num_res_blocks: int = 2
+    temporal_downsample: Tuple[bool, ...] = (False, True, True)
+    patch_size: int = 2
+    temporal_compression_ratio: int = 4
+    spatial_compression_ratio: int = 16
+    latent_mean: Tuple[float, ...] = WAN22_LATENT_MEAN
+    latent_std: Tuple[float, ...] = WAN22_LATENT_STD
+
+    def replace(self, **kw) -> "Wan22VAEConfig":
+        return dataclasses.replace(self, **kw)
+
+
+WAN22_VAE_TINY = Wan22VAEConfig(dim=8, dec_dim=8, z_dim=4,
+                                dim_mult=(1, 2, 2, 2), num_res_blocks=1,
+                                latent_mean=(0.0,) * 4, latent_std=(1.0,) * 4)
 
 
 @dataclass(frozen=True)

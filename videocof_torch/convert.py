@@ -56,6 +56,19 @@ def _linear_tree(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     return out
 
 
+def jax_param_path(name: str) -> str:
+    """The JAX tree path of the port's linear weight ``name``, the inverse
+    of `_linear_tree`'s map: ``blocks.3.self_attn.q.weight`` ->
+    ``blocks/self_attn/q/kernel`` (block weights are one stacked leaf
+    there)."""
+    parts = name.split(".")
+    if parts[0] == "blocks":
+        del parts[1]
+    if parts[-1] == "weight":
+        parts[-1] = "kernel"
+    return "/".join(parts)
+
+
 def dit_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """`videocof_tpu.models.wan_dit` params -> `WanDiT` state dict."""
     return _linear_tree(params)

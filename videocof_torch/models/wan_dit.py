@@ -8,7 +8,11 @@ parameter dtype. Patch embedding is patchify + linear (identical to the
 stride == kernel Conv3d). RoPE arrives as per-token cos/sin tables.
 
 Parameter names follow the JAX tree (`convert.dit_from_jax` maps one onto
-the other); linear weights are [out, in] as in ``nn.Linear``.
+the other); linear weights are [out, in] as in ``nn.Linear``. A linear may
+store its weight in fp8 (`utils/fp8.py`): it is dequantized to bf16 at its
+use and computes in bf16, as JAX's `_kernel` does. Runtime LoRA adapters
+attached as ``runtime_lora`` (`WanPipeline.set_runtime_lora`) are fused into
+each block's weights inside that block's call when ``lora=`` is not given.
 """
 
 from __future__ import annotations
@@ -26,6 +30,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs import WanDiTConfig
 from ..ops import attention
+from ..utils.fp8 import compute_dtype as _kernel_dtype
+from ..utils.fp8 import dequantize
 from . import rope as rope_lib
 from .lora import fuse_block_adapters
 
@@ -55,9 +61,11 @@ def _rms_norm(x, weight, eps):
 
 
 def _linear(x, lin: nn.Linear, dtype=None):
-    dtype = dtype or lin.weight.dtype
-    bias = None if lin.bias is None else lin.bias.to(dtype)
-    return F.linear(x.to(dtype), lin.weight.to(dtype), bias)
+    """x @ W^T + b in ``dtype`` (default: the weight's compute dtype, bf16
+    for fp8 storage, which is dequantized here)."""
+    w = dequantize(lin, dtype)
+    bias = None if lin.bias is None else lin.bias.to(w.dtype)
+    return F.linear(x.to(w.dtype), w, bias)
 
 
 def _gelu_tanh(x):
@@ -234,6 +242,8 @@ class WanDiT(nn.Module):
         self.head = _Head(d, pt * ph * pw * cfg.out_dim, dtype, device)
         self.blocks = nn.ModuleList(WanBlock(cfg, dtype, device)
                                     for _ in range(cfg.num_layers))
+        # (LoRAAdapters, scale) fused per block when forward's lora is None
+        self.runtime_lora = None
 
     def forward(self, x: torch.Tensor, t: torch.Tensor, context: torch.Tensor,
                 rope_cos: torch.Tensor, rope_sin: torch.Tensor,
@@ -242,7 +252,8 @@ class WanDiT(nn.Module):
                 seq_lens: Optional[torch.Tensor] = None) -> torch.Tensor:
         """``lora`` = (`LoRAAdapters`, scale) fuses each block's adapters into
         its weights inside that block's call, as the JAX scan does, so only
-        one block's fused weights exist at a time. ``remat_blocks`` wraps each
+        one block's fused weights exist at a time; without it the attached
+        ``runtime_lora`` is fused so. ``remat_blocks`` wraps each
         block in activation checkpointing (JAX's full remat): the backward
         recomputes the block from its input stream.
 
@@ -279,7 +290,9 @@ class WanDiT(nn.Module):
              remat_blocks=False, residual=None, skip_blocks=False,
              want_residual=False, seq_lens=None):
         cfg = self.cfg
-        compute_dtype = self.patch_embed.weight.dtype
+        if lora is None:
+            lora = self.runtime_lora
+        compute_dtype = _kernel_dtype(self.patch_embed)
         tokens, grid = patchify(x.to(compute_dtype), cfg.patch_size)
         hseq = _linear(tokens, self.patch_embed)
 

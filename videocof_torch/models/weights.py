@@ -1,9 +1,12 @@
-"""Checkpoint files: published Wan2.1 state dicts -> the port's modules.
+"""Checkpoint files: published Wan2.1 and Wan2.2 state dicts -> the port's
+modules.
 
 Counterpart of `videocof_tpu/models/weights.py`. The published layouts are
 those the reference loads: the DiT as sharded safetensors with a
-``config.json`` (`wan_transformer3d.py:1157-1299`), the single-file VAE
-``Wan2.1_VAE.pth`` (`wan_vae.py:684-706`) and the single-file umT5 encoder
+``config.json`` (`wan_transformer3d.py:1157-1299`; each Wan2.2 A14B expert
+is one such directory), the single-file VAE ``Wan2.1_VAE.pth``
+(`wan_vae.py:684-706`) or ``Wan2.2_VAE.pth`` (the TI2V-5B's, read through
+`wan_vae22.convert_wan22_vae_state_dict`) and the single-file umT5 encoder
 (`wan_text_encoder.py:306-395`).
 
 Safetensors files are read here without the ``safetensors`` package: an
@@ -136,13 +139,14 @@ def read_checkpoint_config(model_dir: str) -> Dict[str, Any]:
 
 def dit_config_from_checkpoint(model_dir: str) -> WanDiTConfig:
     """The port's `WanDiTConfig` of a checkpoint directory. Only the t2v
-    model with q/k RMSNorm is ported: another ``model_type`` or
-    ``qk_norm: false`` raises (ROADMAP.md §A.10)."""
+    DiT with q/k RMSNorm is ported (Wan2.1 t2v, either Wan2.2 A14B expert,
+    the TI2V-5B, whose ``model_type`` is ``ti2v``): another ``model_type``
+    or ``qk_norm: false`` raises (ROADMAP.md §A.10)."""
     raw = read_checkpoint_config(model_dir)
-    if raw.get("model_type", "t2v") != "t2v":
+    if raw.get("model_type", "t2v") not in ("t2v", "ti2v"):
         raise NotImplementedError(
-            f"{model_dir}: model_type {raw['model_type']!r}; only the Wan2.1 "
-            f"t2v DiT is ported (ROADMAP.md §A.10)")
+            f"{model_dir}: model_type {raw['model_type']!r}; only the t2v "
+            f"DiT is ported (ROADMAP.md §A.10)")
     if not raw.get("qk_norm", True):
         raise NotImplementedError(
             f"{model_dir}: qk_norm false; the port's DiT always normalizes "
@@ -216,13 +220,21 @@ def convert_dit_state_dict(sd: StateDict, cfg: WanDiTConfig,
 
 # -------------------------------------------------------------- VAE conversion
 
-def _vae_res_names(src: str, dst: str, sd: StateDict) -> Dict[str, str]:
+class AnyKey:
+    """A key set that holds every key: a name map built over it has every
+    optional key (shortcuts, time convs), for writing a published file."""
+
+    def __contains__(self, key) -> bool:
+        return True
+
+
+def _vae_res_names(src: str, dst: str, keys) -> Dict[str, str]:
     # ResidualBlock.residual = Sequential(RMS, SiLU, Conv, RMS, SiLU,
     # Dropout, Conv) (`wan_vae.py:198-204`)
     names = {f"{src}.residual.0.gamma": f"{dst}.norm1.gamma",
              f"{src}.residual.3.gamma": f"{dst}.norm2.gamma"}
     convs = {"residual.2": "conv1", "residual.6": "conv2"}
-    if f"{src}.shortcut.weight" in sd:
+    if f"{src}.shortcut.weight" in keys:
         convs["shortcut"] = "shortcut"
     for a, b in convs.items():
         for p in ("weight", "bias"):
@@ -242,8 +254,7 @@ def _vae_conv(src: str, dst: str) -> Dict[str, str]:
     return {f"{src}.{p}": f"{dst}.{p}" for p in ("weight", "bias")}
 
 
-def _vae_stages(sd: StateDict, cfg: WanVAEConfig, part: str
-                ) -> Dict[str, str]:
+def _vae_stages(keys, cfg: WanVAEConfig, part: str) -> Dict[str, str]:
     """The flat ``downsamples`` / ``upsamples`` Sequential of the encoder /
     decoder -> the port's ``down.<stage>`` / ``up.<stage>`` modules."""
     seq_name, stage_name = (("downsamples", "down") if part == "encoder"
@@ -255,15 +266,35 @@ def _vae_stages(sd: StateDict, cfg: WanVAEConfig, part: str
     for i in range(n_stages):
         for j in range(per_stage):
             names.update(_vae_res_names(f"{part}.{seq_name}.{seq}",
-                                        f"{part}.{stage_name}.{i}.res.{j}", sd))
+                                        f"{part}.{stage_name}.{i}.res.{j}",
+                                        keys))
             seq += 1
         if i != n_stages - 1:
             pre = f"{part}.{seq_name}.{seq}"
             dst = f"{part}.{stage_name}.{i}.resample"
             names.update(_vae_conv(pre + ".resample.1", dst + ".conv"))
-            if pre + ".time_conv.weight" in sd:
+            if pre + ".time_conv.weight" in keys:
                 names.update(_vae_conv(pre + ".time_conv", dst + ".time_conv"))
             seq += 1
+    return names
+
+
+def vae_key_map(cfg: WanVAEConfig, keys) -> Dict[str, str]:
+    """{published ``Wan2.1_VAE.pth`` key: the port's key}; ``keys`` (the
+    file's, or `AnyKey`) says which optional keys exist."""
+    names: Dict[str, str] = {}
+    for part in ("encoder", "decoder"):
+        names.update(_vae_conv(f"{part}.conv1", f"{part}.conv1"))
+        names.update(_vae_res_names(f"{part}.middle.0", f"{part}.mid_rb1",
+                                    keys))
+        names.update(_vae_attn_names(f"{part}.middle.1", f"{part}.mid_attn"))
+        names.update(_vae_res_names(f"{part}.middle.2", f"{part}.mid_rb2",
+                                    keys))
+        names[f"{part}.head.0.gamma"] = f"{part}.head_norm.gamma"
+        names.update(_vae_conv(f"{part}.head.2", f"{part}.head_conv"))
+        names.update(_vae_stages(keys, cfg, part))
+    names.update(_vae_conv("conv1", "quant_conv"))
+    names.update(_vae_conv("conv2", "post_quant_conv"))
     return names
 
 
@@ -274,40 +305,49 @@ def convert_vae_state_dict(sd: StateDict, cfg: WanVAEConfig,
     wrapper, `wan_vae.py:699-702`); both are taken."""
     if not any(k.startswith("encoder.") for k in sd):
         sd = {k.removeprefix("model."): v for k, v in sd.items()}
-    names: Dict[str, str] = {}
-    for part in ("encoder", "decoder"):
-        names.update(_vae_conv(f"{part}.conv1", f"{part}.conv1"))
-        names.update(_vae_res_names(f"{part}.middle.0", f"{part}.mid_rb1", sd))
-        names.update(_vae_attn_names(f"{part}.middle.1", f"{part}.mid_attn"))
-        names.update(_vae_res_names(f"{part}.middle.2", f"{part}.mid_rb2", sd))
-        names[f"{part}.head.0.gamma"] = f"{part}.head_norm.gamma"
-        names.update(_vae_conv(f"{part}.head.2", f"{part}.head_conv"))
-        names.update(_vae_stages(sd, cfg, part))
-    names.update(_vae_conv("conv1", "quant_conv"))
-    names.update(_vae_conv("conv2", "post_quant_conv"))
-    return {dst: sd[src].to(dtype) for src, dst in names.items()}
+    return {dst: sd[src].to(dtype)
+            for src, dst in vae_key_map(cfg, sd).items()}
+
+
+def load_vae_state_dict(path: str, cfg, dtype: torch.dtype = torch.float32
+                        ) -> StateDict:
+    """A published VAE file -> the port's state dict: ``Wan2.2_VAE.pth``
+    through `wan_vae22.convert_wan22_vae_state_dict` for a
+    `Wan22VAEConfig`, ``Wan2.1_VAE.pth`` through `convert_vae_state_dict`
+    for a `WanVAEConfig`."""
+    from .wan_vae22 import Wan22VAEConfig, convert_wan22_vae_state_dict
+    sd = load_state_dict(path)
+    if isinstance(cfg, Wan22VAEConfig):
+        return convert_wan22_vae_state_dict(sd, cfg, dtype)
+    return convert_vae_state_dict(sd, cfg, dtype)
 
 
 # --------------------------------------------------------------- T5 conversion
+
+def t5_key_map(cfg: T5Config) -> Dict[str, str]:
+    """{published umT5 key: the port's key} (`wan_text_encoder.py`'s module
+    tree)."""
+    names = {"token_embedding.weight": "token_embedding",
+             "norm.weight": "norm.weight"}
+    for i in range(cfg.num_layers):
+        b = f"blocks.{i}."
+        for src, dst in (("norm1.weight", "norm1.weight"),
+                         ("norm2.weight", "norm2.weight"),
+                         ("ffn.gate.0.weight", "ffn.gate.weight"),
+                         ("ffn.fc1.weight", "ffn.fc1.weight"),
+                         ("ffn.fc2.weight", "ffn.fc2.weight"),
+                         ("pos_embedding.embedding.weight", "pos_emb"),
+                         *((f"attn.{n}.weight", f"attn.{n}.weight")
+                           for n in ("q", "k", "v", "o"))):
+            names[b + src] = b + dst
+    return names
+
 
 def convert_t5_state_dict(sd: StateDict, cfg: T5Config,
                           dtype: torch.dtype = torch.float32) -> StateDict:
     """Wan umT5 checkpoint keys (`wan_text_encoder.py`'s module tree) ->
     `T5Encoder` state dict in ``dtype`` (the relative position embeddings
     fp32, as JAX keeps them)."""
-    out: StateDict = {"token_embedding": sd["token_embedding.weight"].to(dtype),
-                      "norm.weight": sd["norm.weight"].to(dtype)}
-    for i in range(cfg.num_layers):
-        b = f"blocks.{i}."
-        names = {"norm1.weight": "norm1.weight",
-                 "norm2.weight": "norm2.weight",
-                 "ffn.gate.0.weight": "ffn.gate.weight",
-                 "ffn.fc1.weight": "ffn.fc1.weight",
-                 "ffn.fc2.weight": "ffn.fc2.weight",
-                 **{f"attn.{n}.weight": f"attn.{n}.weight"
-                    for n in ("q", "k", "v", "o")}}
-        for src, dst in names.items():
-            out[b + dst] = sd[b + src].to(dtype)
-        out[b + "pos_emb"] = sd[b + "pos_embedding.embedding.weight"].to(
-            torch.float32)
-    return out
+    return {dst: sd[src].to(torch.float32 if dst.endswith("pos_emb")
+                            else dtype)
+            for src, dst in t5_key_map(cfg).items()}

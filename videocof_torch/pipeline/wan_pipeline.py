@@ -20,19 +20,26 @@ steps. TeaCache plans its skipped steps once from the timestep schedule and
 replays the cached residual of the block stack on them. JAX's fused and
 segmented samplers compute the same trajectory as this loop in one compiled
 program; the port stays stepwise.
+
+`text_to_video` denoises pure noise with standard RoPE and no source
+freeze (JAX's stepwise t2v branch); `set_runtime_lora` attaches LoRA files
+as runtime adapters, the LoRA path over fp8 weights. The VAE's type picks
+the streaming module: the Wan2.2 VAE (`Wan22VAEConfig`) streams through
+`wan_vae22_streaming`, the Wan2.1 one through `wan_vae_streaming`.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, Optional, Sequence, Union
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
+from ..configs import Wan22VAEConfig
 from ..data.tokenizer import WanTokenizer
-from ..models import teacache, wan_dit, wan_vae_streaming
+from ..models import teacache, wan_dit, wan_vae22_streaming, wan_vae_streaming
 from ..models.rope import riflex_angle_table
 from ..models.t5_encoder import T5Encoder
 from ..models.wan_dit import WanDiT
@@ -88,6 +95,19 @@ class WanPipeline:
         self.vae_decode_chunk = 3
         self.vae_encode_chunk = 4
 
+    # --------------------------------------------------------- runtime LoRA
+    def set_runtime_lora(self, runtime) -> None:
+        """Attach runtime LoRA adapters (`lora.load_runtime_lora`'s
+        ``(adapters, scale)``) to every DiT of the pipeline, on its device:
+        each block fuses its delta inside its call and the weights stay
+        as stored (fp8 included). ``None`` detaches."""
+        for dit in self._dits():
+            dit.runtime_lora = (None if runtime is None else
+                                (runtime[0].to(self.device), runtime[1]))
+
+    def _dits(self) -> List[WanDiT]:
+        return [self.dit]
+
     # ------------------------------------------------------------------ text
     @torch.no_grad()
     def encode_prompt(self, prompts: Sequence[str], max_length: int = 512
@@ -114,13 +134,20 @@ class WanPipeline:
         return video.to(self.dtype)
 
     # -------------------------------------------------------------------- VAE
+    def _vae_streaming(self):
+        """The streaming module of this pipeline's VAE, chosen by its
+        config's type (JAX's `_vae_mods`)."""
+        if isinstance(self.vae.cfg, Wan22VAEConfig):
+            return wan_vae22_streaming
+        return wan_vae_streaming
+
     @torch.no_grad()
     def vae_encode(self, video: torch.Tensor) -> torch.Tensor:
         """[B, 3, T, H, W] in [-1, 1] -> mu in self.dtype, streamed when
         T > vae_streaming_threshold_frames."""
         video = video.to(self.dtype)
         if video.shape[2] > self.vae_streaming_threshold_frames:
-            mu, _ = wan_vae_streaming.encode_streaming(
+            mu, _ = self._vae_streaming().encode_streaming(
                 self.vae, video, chunk_latent=self.vae_encode_chunk)
         else:
             mu, _ = self.vae.encode(video)
@@ -131,7 +158,7 @@ class WanPipeline:
         """Latents -> frames in [-1, 1], streamed above the threshold."""
         z = z.to(self.dtype)
         if z.shape[2] > self.vae_streaming_threshold_frames:
-            return wan_vae_streaming.decode_streaming(
+            return self._vae_streaming().decode_streaming(
                 self.vae, z, chunk_latent=self.vae_decode_chunk)
         return self.vae.decode(z)
 
@@ -140,7 +167,7 @@ class WanPipeline:
         """Latents -> device uint8 frames: clip(round(x * 127.5 + 127.5)),
         streamed chunk by chunk above the threshold."""
         if z.shape[2] > self.vae_streaming_threshold_frames:
-            return wan_vae_streaming.decode_streaming_u8(
+            return self._vae_streaming().decode_streaming_u8(
                 self.vae, z, chunk_latent=self.vae_decode_chunk,
                 compute_dtype=self.dtype)
         x = self.vae.decode(z.to(self.dtype)).float()
@@ -178,18 +205,18 @@ class WanPipeline:
                          dim=2)
 
     # ------------------------------------------------------------------ step
-    def _dit(self, x, t_i, context, cos, sin, residual, skip):
+    def _dit(self, dit, x, t_i, context, cos, sin, residual, skip):
         t = torch.full((x.shape[0],), t_i, dtype=torch.float32,
                        device=self.device)
-        return self.dit.forward_with_residual(
+        return dit.forward_with_residual(
             x.to(self.dtype), t, context, cos, sin,
             attn_backend=self.attn_backend, residual=residual,
             skip_blocks=skip)
 
-    def _denoise_step(self, latents, t_i, context, cos, sin, cfg: bool,
+    def _denoise_step(self, dit, latents, t_i, context, cos, sin, cfg: bool,
                       guidance_scale: float, condition_count: int,
                       residual=None, skip: bool = False):
-        """One step's velocity and the DiT's TeaCache residual: with ``cfg``
+        """One step's velocity and ``dit``'s TeaCache residual: with ``cfg``
         the latents are doubled against ``context`` = [uncond | cond] and
         combined as ``vu + g (vc - vu)``; then the source freeze. With
         ``cfg_sequential`` the two halves run as two batch-B forwards (the
@@ -198,19 +225,137 @@ class WanPipeline:
         if cfg and self.cfg_sequential:
             B = latents.shape[0]
             res = (None, None) if residual is None else residual.split(B)
-            vu, res_u = self._dit(latents, t_i, context[:B], cos, sin,
+            vu, res_u = self._dit(dit, latents, t_i, context[:B], cos, sin,
                                   res[0], skip)
-            vc, res_c = self._dit(latents, t_i, context[B:], cos, sin,
+            vc, res_c = self._dit(dit, latents, t_i, context[B:], cos, sin,
                                   res[1], skip)
             v, res = vu + guidance_scale * (vc - vu), torch.cat([res_u, res_c])
         else:
             x = torch.cat([latents, latents]) if cfg else latents
-            v, res = self._dit(x, t_i, context, cos, sin, residual, skip)
+            v, res = self._dit(dit, x, t_i, context, cos, sin, residual,
+                               skip)
             if cfg:
                 vu, vc = v.chunk(2)
                 v = vu + guidance_scale * (vc - vu)
         v[:, :, :condition_count] = 0.0      # freeze the source latents
         return v, res
+
+    # ------------------------------------------------------------ trajectory
+    def _stage_timer(self, timings: Optional[Dict[str, float]]
+                     ) -> Callable[[str], None]:
+        """``tick(label)`` records the wall seconds since the last tick into
+        ``timings`` (synchronizing the device), a no-op without it."""
+        t0 = time.perf_counter()
+
+        def tick(label):
+            nonlocal t0
+            if timings is not None:
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                now = time.perf_counter()
+                timings[label] = now - t0
+                t0 = now
+        return tick
+
+    def _context(self, prompts, do_cfg, negative_prompt, max_sequence_length,
+                 prompt_embeds, negative_prompt_embeds) -> torch.Tensor:
+        """The text context in self.dtype: the prompts' embeddings, behind
+        the negative prompt's (uncond first) with CFG."""
+        if prompt_embeds is not None:
+            context = torch.as_tensor(prompt_embeds, device=self.device)
+        else:
+            context = self.encode_prompt(prompts, max_sequence_length)
+        if do_cfg:
+            if negative_prompt_embeds is not None:
+                neg = torch.as_tensor(negative_prompt_embeds,
+                                      device=self.device)
+            else:
+                neg = self.encode_prompt([negative_prompt] * len(prompts),
+                                         max_sequence_length)
+            context = torch.cat([neg.to(context.dtype), context])
+        return context.to(self.dtype)
+
+    @staticmethod
+    def _scheduler(sampler, num_inference_steps, shift, solver_order):
+        sched_kw = ({"solver_order": solver_order}
+                    if solver_order is not None
+                    and sampler in ("unipc", "dpm++") else {})
+        sched = get_scheduler(sampler, **sched_kw)
+        sched.set_timesteps(num_inference_steps, shift=shift)
+        return sched
+
+    def _plan_t2v_teacache(self, sched, num_inference_steps,
+                           enable_teacache, teacache_threshold,
+                           teacache_skip_start_steps, teacache_coefficients,
+                           teacache_forced_plan, do_cfg, cfg_skip_ratio
+                           ) -> Tuple[List[bool], int]:
+        """(skipped steps, the first step without the uncond rows): the
+        TeaCache plan (``teacache_forced_plan`` pinned, step 0 computed; or
+        planned from the DiT's timestep modulations with
+        ``teacache_coefficients``, default Wan2.1 T2V 14B's) and the
+        cfg-skip cut, shared by the edit and text-to-video."""
+        skips = [False] * num_inference_steps
+        if enable_teacache and teacache_forced_plan is not None:
+            skips = self._forced_plan(teacache_forced_plan,
+                                      num_inference_steps)
+        elif enable_teacache:
+            skips = teacache.plan_teacache_skips(
+                self.dit, sched.timesteps,
+                teacache_coefficients
+                or teacache.TEACACHE_COEFFICIENTS["wan2.1-t2v-14b"],
+                teacache_threshold, teacache_skip_start_steps)
+        cfg_off = num_inference_steps
+        if do_cfg:
+            cfg_off -= int(round(num_inference_steps * cfg_skip_ratio))
+        return skips, cfg_off
+
+    @staticmethod
+    def _forced_plan(plan, num_inference_steps) -> List[bool]:
+        if len(plan) != num_inference_steps:
+            raise ValueError(f"teacache_forced_plan has {len(plan)} entries "
+                             f"for {num_inference_steps} steps")
+        skips = [bool(x) for x in plan]
+        skips[0] = False   # step 0 has no residual to replay
+        return skips
+
+    def _expert_plan(self, sched, guidance_scale: float
+                     ) -> List[Tuple[WanDiT, float]]:
+        """(DiT, guidance scale) of each step: one DiT here; Wan2.2's MoE
+        routes the high-noise steps to its second expert."""
+        return [(self.dit, guidance_scale)] * len(sched.timesteps)
+
+    def _t2v_denoise(self, latents, context, cos, sin, sched, do_cfg: bool,
+                     guidance_scale: float, skips: Sequence[bool],
+                     cfg_off: int, condition_count: int = 0,
+                     tick: Optional[Callable[[str], None]] = None
+                     ) -> torch.Tensor:
+        """The stepwise trajectory from ``latents`` (JAX's stepwise branch of
+        `_t2v_denoise` and of `__call__`): each step's DiT and guidance
+        from `_expert_plan`, CFG until ``cfg_off``, TeaCache's cached
+        residual replayed where ``skips``, the first ``condition_count``
+        latent frames frozen (0: text-to-video). ``tick`` labels each
+        step's wall time."""
+        state = sched.init_state(latents)
+        residual = None
+        for i, (dit, g) in enumerate(self._expert_plan(sched,
+                                                       guidance_scale)):
+            step_cfg = do_cfg and i < cfg_off
+            ctx_i = context
+            if do_cfg and not step_cfg:
+                ctx_i = context[context.shape[0] // 2:]   # cond rows only
+            res_in = None
+            if skips[i]:
+                need = latents.shape[0] * (2 if step_cfg else 1)
+                res_in = residual[-need:]   # cfg-skip keeps the cond rows
+            v, res = self._denoise_step(
+                dit, latents, float(sched.timesteps[i]), ctx_i, cos, sin,
+                step_cfg, g, condition_count, res_in, skips[i])
+            if not skips[i]:
+                residual = res
+            latents, state = sched.step(v, i, latents, state)
+            if tick is not None:
+                tick(f"step{i} skipped" if skips[i] else f"step{i}")
+        return latents
 
     # ------------------------------------------------------------------- call
     @torch.no_grad()
@@ -257,17 +402,7 @@ class WanPipeline:
         entry a step (``stepI``, or ``stepI skipped`` where TeaCache replayed
         the residual); the device is synchronized at each stage boundary
         only then."""
-        t0 = time.perf_counter()
-
-        def tick(label):
-            nonlocal t0
-            if timings is not None:
-                if self.device.type == "cuda":
-                    torch.cuda.synchronize(self.device)
-                now = time.perf_counter()
-                timings[label] = now - t0
-                t0 = now
-
+        tick = self._stage_timer(timings)
         prompts = [prompt] if isinstance(prompt, str) else list(prompt)
         video = self._prepare_video(video)
         if len(prompts) != video.shape[0]:
@@ -279,19 +414,9 @@ class WanPipeline:
                                if cot else 0)
 
         do_cfg = guidance_scale > 1.0
-        if prompt_embeds is not None:
-            context = torch.as_tensor(prompt_embeds, device=self.device)
-        else:
-            context = self.encode_prompt(prompts, max_sequence_length)
-        if do_cfg:
-            if negative_prompt_embeds is not None:
-                neg = torch.as_tensor(negative_prompt_embeds,
-                                      device=self.device)
-            else:
-                neg = self.encode_prompt([negative_prompt] * len(prompts),
-                                         max_sequence_length)
-            context = torch.cat([neg.to(context.dtype), context])  # uncond first
-        context = context.to(self.dtype)
+        context = self._context(prompts, do_cfg, negative_prompt,
+                                max_sequence_length, prompt_embeds,
+                                negative_prompt_embeds)
         tick("text")
 
         if latents is not None:
@@ -323,48 +448,15 @@ class WanPipeline:
         cos = torch.as_tensor(cos, device=self.device)
         sin = torch.as_tensor(sin, device=self.device)
 
-        sched_kw = ({"solver_order": solver_order}
-                    if solver_order is not None
-                    and sampler in ("unipc", "dpm++") else {})
-        sched = get_scheduler(sampler, **sched_kw)
-        sched.set_timesteps(num_inference_steps, shift=shift)
-        state = sched.init_state(latents)
-
-        skips = [False] * num_inference_steps
-        if enable_teacache and teacache_forced_plan is not None:
-            if len(teacache_forced_plan) != num_inference_steps:
-                raise ValueError(f"teacache_forced_plan has "
-                                 f"{len(teacache_forced_plan)} entries for "
-                                 f"{num_inference_steps} steps")
-            skips = [bool(x) for x in teacache_forced_plan]
-            skips[0] = False   # step 0 has no residual to replay
-        elif enable_teacache:
-            skips = teacache.plan_teacache_skips(
-                self.dit, sched.timesteps,
-                teacache_coefficients
-                or teacache.TEACACHE_COEFFICIENTS["wan2.1-t2v-14b"],
-                teacache_threshold, teacache_skip_start_steps)
-        # cfg-skip: the uncond rows leave the last fraction of the steps
-        cfg_off_after = num_inference_steps - int(
-            round(num_inference_steps * cfg_skip_ratio))
-
-        residual = None
-        for i in range(num_inference_steps):
-            step_cfg = do_cfg and i < cfg_off_after
-            ctx_i = context
-            if do_cfg and not step_cfg:
-                ctx_i = context[context.shape[0] // 2:]   # cond rows only
-            res_in = None
-            if skips[i]:
-                need = latents.shape[0] * (2 if step_cfg else 1)
-                res_in = residual[-need:]   # cfg-skip keeps the cond rows
-            v, res = self._denoise_step(
-                latents, float(sched.timesteps[i]), ctx_i, cos, sin, step_cfg,
-                guidance_scale, condition_count, res_in, skips[i])
-            if not skips[i]:
-                residual = res
-            latents, state = sched.step(v, i, latents, state)
-            tick(f"step{i} skipped" if skips[i] else f"step{i}")
+        sched = self._scheduler(sampler, num_inference_steps, shift,
+                                solver_order)
+        skips, cfg_off = self._plan_t2v_teacache(
+            sched, num_inference_steps, enable_teacache, teacache_threshold,
+            teacache_skip_start_steps, teacache_coefficients,
+            teacache_forced_plan, do_cfg, cfg_skip_ratio)
+        latents = self._t2v_denoise(latents, context, cos, sin, sched, do_cfg,
+                                    guidance_scale, skips, cfg_off,
+                                    condition_count, tick)
 
         out = self._decode_outputs(latents, condition_count,
                                    ground_latent_count)
@@ -389,3 +481,67 @@ class WanPipeline:
         return WanPipelineOutput(
             videos=host, ground_videos=host[:, :, :gf] if gf else None,
             edit_videos=host[:, :, gf:])
+
+    # -------------------------------------------------------- text-to-video
+    @torch.no_grad()
+    def text_to_video(self, prompt: Union[str, Sequence[str]], *,
+                      negative_prompt: str = "", height: int = 480,
+                      width: int = 832, num_frames: int = 81,
+                      num_inference_steps: int = 50,
+                      guidance_scale: float = 5.0, shift: float = 5.0,
+                      sampler: str = "unipc", seed: int = 0,
+                      max_sequence_length: int = 512,
+                      prompt_embeds=None, negative_prompt_embeds=None,
+                      noise=None, output_latents: bool = False,
+                      solver_order: Optional[int] = None,
+                      enable_teacache: bool = False,
+                      teacache_threshold: float = 0.10,
+                      teacache_skip_start_steps: int = 5,
+                      teacache_coefficients: Optional[Sequence[float]] = None,
+                      teacache_forced_plan: Optional[Sequence[bool]] = None,
+                      cfg_skip_ratio: float = 0.0,
+                      timings: Optional[Dict[str, float]] = None
+                      ) -> WanPipelineOutput:
+        """Text-to-video with JAX's defaults (the reference's
+        `Wan2_2Pipeline` flow): noise latents [B, z_dim, (F - 1) // 4 + 1,
+        H / s, W / s] from ``seed`` (or ``noise``), standard RoPE, no
+        source freeze, CFG against ``negative_prompt`` when
+        ``guidance_scale > 1``, TeaCache and cfg-skip as in `__call__`, and
+        the whole clip decoded to uint8 (streamed above the threshold).
+        ``timings`` receives the stage walls as `__call__`'s does."""
+        tick = self._stage_timer(timings)
+        prompts = [prompt] if isinstance(prompt, str) else list(prompt)
+        do_cfg = guidance_scale > 1.0
+        context = self._context(prompts, do_cfg, negative_prompt,
+                                max_sequence_length, prompt_embeds,
+                                negative_prompt_embeds)
+        tick("text")
+        vcfg = self.vae.cfg
+        sc = vcfg.spatial_compression_ratio
+        shape = (len(prompts), vcfg.z_dim,
+                 latent_frame_count(num_frames,
+                                    vcfg.temporal_compression_ratio),
+                 height // sc, width // sc)
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        latents = self._noise(shape, gen, noise)
+        ph, pw = self.dit.cfg.patch_size[1:]
+        cos, sin = wan_dit.make_rope_for_geometry(
+            self.dit.cfg, (shape[2], shape[3] // ph, shape[4] // pw))
+        cos = torch.as_tensor(cos, device=self.device)
+        sin = torch.as_tensor(sin, device=self.device)
+        tick("latents")
+        sched = self._scheduler(sampler, num_inference_steps, shift,
+                                solver_order)
+        skips, cfg_off = self._plan_t2v_teacache(
+            sched, num_inference_steps, enable_teacache, teacache_threshold,
+            teacache_skip_start_steps, teacache_coefficients,
+            teacache_forced_plan, do_cfg, cfg_skip_ratio)
+        latents = self._t2v_denoise(latents, context, cos, sin, sched, do_cfg,
+                                    guidance_scale, skips, cfg_off, 0, tick)
+        host = self.decode_to_u8(latents).cpu().numpy().astype(
+            np.float32) / 255.0
+        tick("decode")
+        out = WanPipelineOutput(videos=host, edit_videos=host)
+        if output_latents:
+            out.latents = latents.cpu().numpy()
+        return out

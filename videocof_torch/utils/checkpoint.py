@@ -1,9 +1,11 @@
-"""Writing DiT weights back to the published Wan2.1 layout.
+"""Writing weights back to the published Wan layouts.
 
 Counterpart of the safetensors half of `videocof_tpu/utils/checkpoint.py`
 (`export_dit_state_dict`, `save_dit_safetensors`): the inverse of
 `models.weights.convert_dit_state_dict`, so that weights made or trained by
-the port load in the reference and back. The writer is the port's own (no
+the port load in the reference and back; and the inverses of the VAE and
+umT5 converters, with which `save_wan_checkpoint_dir` writes a whole
+checkpoint directory (Wan2.1, the Wan2.2 A14B MoE or the TI2V-5B). The writer is the port's own (no
 ``safetensors`` package): tensors keep their dtype (bf16 included; JAX's
 writer widens everything to fp32), ordered by element size, then name, so
 that each starts aligned, behind a header padded to 8 bytes. Train-state
@@ -14,13 +16,14 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import torch
 
-from ..configs import WanDiTConfig
+from ..configs import T5Config, Wan22VAEConfig, WanDiTConfig
 from ..models.weights import (DIT_BLOCK_NAMES, DIT_INDEX, DIT_TOP_NAMES,
-                              SAFETENSORS_DTYPES)
+                              SAFETENSORS_DTYPES, AnyKey, t5_key_map,
+                              vae_key_map)
 
 StateDict = Dict[str, torch.Tensor]
 _DTYPE_NAMES = {v: k for k, v in SAFETENSORS_DTYPES.items()}
@@ -128,4 +131,55 @@ def save_dit_checkpoint_dir(model_dir: str, dit: torch.nn.Module,
                    "weight_map": weight_map}, f, indent=1)
     with open(os.path.join(model_dir, "config.json"), "w") as f:
         json.dump(dit_checkpoint_config(cfg), f, indent=1)
+    return written
+
+
+def export_vae_state_dict(sd: Mapping[str, torch.Tensor], cfg) -> StateDict:
+    """A `WanVAE` or `Wan22VAE` state dict -> the published
+    ``Wan2.1_VAE.pth`` or ``Wan2.2_VAE.pth`` keys (by ``cfg``'s type)."""
+    from ..models.wan_vae22 import wan22_vae_key_map
+    names = (wan22_vae_key_map(cfg, AnyKey()) if isinstance(
+        cfg, Wan22VAEConfig) else vae_key_map(cfg, AnyKey()))
+    return {src: sd[dst] for src, dst in names.items() if dst in sd}
+
+
+def export_t5_state_dict(sd: Mapping[str, torch.Tensor], cfg: T5Config
+                         ) -> StateDict:
+    """A `T5Encoder` state dict -> the published umT5 keys."""
+    return {src: sd[dst] for src, dst in t5_key_map(cfg).items()}
+
+
+def save_wan_checkpoint_dir(model_dir: str, dit: torch.nn.Module,
+                            vae: torch.nn.Module, t5: torch.nn.Module,
+                            dit_2: Optional[torch.nn.Module] = None,
+                            num_shards: int = 2) -> int:
+    """A whole checkpoint directory in the published layout, as
+    `factory.load_pipeline` reads it: the DiT's directory at the root, or
+    with a high-noise expert ``dit_2`` the Wan2.2 A14B layout
+    (``low_noise_model/`` holding ``dit``, ``high_noise_model/`` holding
+    ``dit_2``); the VAE as ``Wan2.2_VAE.pth`` for a Wan2.2 VAE (the TI2V-5B
+    layout) or ``Wan2.1_VAE.pth``; umT5 as
+    ``models_t5_umt5-xxl-enc-bf16.pth``. The DiTs go through the port's
+    safetensors writer, the VAE and umT5 through ``torch.save`` (the
+    published files are ``.pth``). Returns the bytes written."""
+    from .. import factory
+    os.makedirs(model_dir, exist_ok=True)
+    written = 0
+    if dit_2 is None:
+        written += save_dit_checkpoint_dir(model_dir, dit, dit.cfg,
+                                           num_shards)
+    else:
+        for sub, d in ((factory.LOW_NOISE_SUBPATH, dit),
+                       (factory.HIGH_NOISE_SUBPATH, dit_2)):
+            written += save_dit_checkpoint_dir(
+                os.path.join(model_dir, sub), d, d.cfg, num_shards)
+    vae_name = (factory.VAE22_SUBPATH if isinstance(vae.cfg, Wan22VAEConfig)
+                else factory.VAE_SUBPATH)
+    for path, sd in ((vae_name, export_vae_state_dict(vae.state_dict(),
+                                                      vae.cfg)),
+                     (factory.T5_SUBPATH, export_t5_state_dict(
+                         t5.state_dict(), t5.cfg))):
+        sd = {k: v.detach().cpu() for k, v in sd.items()}
+        torch.save(sd, os.path.join(model_dir, path))
+        written += sum(v.numel() * v.element_size() for v in sd.values())
     return written
