@@ -164,7 +164,40 @@ Phases, each of which fails the run (non-zero exit) on any fault:
      with fp8 experts, the files, the launches, the seconds (the
      directory has no tokenizer: the factory gets
      ``require_real_tokenizer=False``).
-  19. a `kernels` JSON line and, last, the device JSON line.
+  19. serving, at full width: (a) the Wan2.1 14B in fp8 with umT5
+     offloaded (`factory.load_pipeline(random_init=True, quantize="fp8",
+     offload_t5=True)`) behind `VideoCoFController` and `serving.api`'s
+     handler on a thread, four POSTs of the cv2 clip as a base64 mp4 (4
+     steps, guidance 1, one seed) with phase 8's LoRA files as runtime
+     adapters per request: FusionX, VideoCoF, none, FusionX; every reply
+     "Success" with an mp4 cv2 reads at 34 frames of 480x832; 160 self and
+     160 cross B1 calls at 40 heads a request and nothing else; the
+     adapters detached after "none"; the edits of requests 1-3 pairwise
+     different and request 4 equal to request 1 bit for bit; the allocated
+     memory between requests below the fp8 DiT, the VAE, the adapters and
+     1 GB (umT5 not resident); per request the client's and the
+     controller's seconds, the text stage, the LoRA switch and the peak;
+     /metrics, /healthz, the page, and the refusals with the JAX API's
+     codes and counts (404, 400 missing video, 400 embeddings-in, 403 a
+     source path outside the allowlist, 403 an update outside
+     VIDEOCOF_MODEL_DIRS, 413 an oversized body; and the port's own 403
+     for a LoRA file outside VIDEOCOF_MODEL_DIRS). (b) At 1.3B:
+     `VideoCoFModelLoader` twice (one build) and `VideoCoFEdit` on a torch
+     IMAGE wire (240 B1 calls); that pipeline behind the API, a second DiT
+     draw written to the published layout and swapped in by the update
+     endpoint in place (the DiT equal to the draw bit for bit, allocated
+     memory flat within 64 MB, the peak within the largest tensor + 256 MB),
+     an edit after it within 1e-3 relative L2 of a `WanPipeline` on the
+     second draw; LoRA files merged and unmerged (the largest ulp distance,
+     printed); two concurrent requests answered one after the other with
+     ``busy`` >= 1; the DiT quantized to fp8 with adapters attached and
+     the swap again (bit for bit `quantize_dit_fp8` of the draw, adapters
+     detached). (c) `python -m videocof_torch.serving.api --random_init
+     --offload_t5` as a subprocess: /healthz within 300 s, `WorkerPool`
+     healthy and two mapped requests, `VideoCoFClient.post_to_host` writing
+     an mp4, exit within 30 s of SIGTERM. (d) `init_distributed` on NCCL,
+     a world of 1: an all_reduce, then `destroy_process_group`.
+  20. a `kernels` JSON line and, last, the device JSON line.
 
 B1 is also held against its plain version (phase 2) and timed (phase 3) at
 the 14B's 40 heads, at the self and cross shapes, and at the shapes of
@@ -249,6 +282,16 @@ T2V_GUIDANCE = 4.0             # ... its guidance, and the high-noise one's
 T2V_GUIDANCE_2 = 3.0
 TI2V_HW = (704, 1280)          # the TI2V-5B's published size
 ENTRY22_LAYERS = 2             # layers per expert of the entries' checkpoint
+# the serving phase: the 14B server's LoRA file per request (runtime
+# adapters over fp8 weights; request 4 repeats request 1)
+SERVE_LORAS = ("fusionx", "videocof", "none", "fusionx")
+SERVE_MEM_SLACK = 1e9          # allocated between requests over DiT + VAE +
+                               # adapters (umT5's 11.4 GB are not resident)
+SWAP_MEM_SLACK = 64e6          # allocated after a weight swap vs before
+SWAP_PEAK_SLACK = 256e6        # a swap's peak over before + largest tensor
+SWAP_REL_TOL = 1e-3            # an edit after a swap vs its draw's pipeline
+SERVER_START_S = 300           # the subprocess server's /healthz deadline
+SERVER_STOP_S = 30             # ... and its exit after SIGTERM
 # fp8 weights against bf16, one DiT forward (JAX's tests/test_fp8.py bound):
 # mean |err| < FP8_ERR_REL * mean |bf16| + FP8_ERR_ABS
 FP8_ERR_REL = 0.05
@@ -703,9 +746,9 @@ def edit_14b_phase(card, cfg14, geo, gen, video, prompt, want_shape,
                    want_launches, counters):
     """The 14B edit: `factory.load_pipeline("", random_init=True,
     dit_cfg=cfg14)` with two LoRA files at ``cfg14``'s shapes (written to
-    LORA_DIR, kept for the fp8 phase); the merged weights against
-    fingerprints of a second, unmerged draw (and the two merges recomputed
-    on two modules); the 4-step edit of ``video`` (output, launches: 2 x
+    LORA_DIR, kept for the fp8 and serving phases); the merged weights
+    against fingerprints of a second, unmerged draw (and the two merges
+    recomputed on two modules); the 4-step edit of ``video`` (output, launches: 2 x
     layers x steps of B1 and nothing else, stage walls, peak memory); one
     DiT step under torch.profiler. Returns (the edit's launches, its final
     latents on the host, the two LoRA files' paths)."""
@@ -880,15 +923,16 @@ def recorded_loads(**override):
 
 @contextlib.contextmanager
 def b1_calls():
-    """Record (batch, Lq, Lk, the key mask or None) of every call of B1's
-    wrapper body (`flash_attention._forward_b1`, which launches the kernel on
-    a CUDA tensor) while the block runs; the masks are read afterwards, so
-    the run is not synchronized per call."""
+    """Record (batch, Lq, Lk, the key mask or None, heads) of every call of
+    B1's wrapper body (`flash_attention._forward_b1`, which launches the
+    kernel on a CUDA tensor) while the block runs; the masks are read
+    afterwards, so the run is not synchronized per call."""
     from videocof_torch.ops import flash_attention as fa
     real, seen = fa._forward_b1, []
 
     def spy(q, k, v, kv_mask, scale):
-        seen.append((q.shape[0], q.shape[1], k.shape[1], kv_mask))
+        seen.append((q.shape[0], q.shape[1], k.shape[1], kv_mask,
+                     q.shape[2]))
         return real(q, k, v, kv_mask, scale)
     fa._forward_b1 = spy
     try:
@@ -901,7 +945,7 @@ def b1_shapes(seen):
     """{(batch, Lq, Lk, valid keys of each row or None): calls} of a
     `b1_calls` record."""
     shapes = {}
-    for B, Lq, Lk, mask in seen:
+    for B, Lq, Lk, mask, _ in seen:
         key = (B, Lq, Lk, None if mask is None
                else tuple(mask.sum(dim=1).tolist()))
         shapes[key] = shapes.get(key, 0) + 1
@@ -1489,7 +1533,6 @@ def fp8_14b_phase(card, cfg14, geo, gen, video, prompt, want_shape,
               "dequant_ms": deq_ms, "fuse_ms": fuse_ms, "step_ms": step_ms}
     log("[fp8 14B] " + json.dumps(record))
     del pipe, dit, runtime, ad, lins, res
-    shutil.rmtree(LORA_DIR, ignore_errors=True)
     return record
 
 
@@ -1967,6 +2010,680 @@ def wan22_entries_phase(card, geo, gen, prompt, counters):
     record = {"card": card, "write_s": write_s, "bytes": nbytes, **records}
     log("[entry 2.2] " + json.dumps(record))
     return record
+
+
+@contextlib.contextmanager
+def http_server(controller):
+    """`serving.api`'s handler in front of ``controller`` on a free
+    loopback port, served by a thread; yields its URL. The server and its
+    thread stop when the block ends."""
+    import threading
+    from http.server import ThreadingHTTPServer
+    from videocof_torch.serving import api
+    server = ThreadingHTTPServer(("127.0.0.1", 0), api.make_handler(
+        controller, threading.Lock()))
+    th = threading.Thread(target=server.serve_forever, daemon=True)
+    th.start()
+    try:
+        yield f"http://127.0.0.1:{server.server_address[1]}"
+    finally:
+        server.shutdown()
+        server.server_close()
+        th.join(timeout=60)
+
+
+def http_call(url, path, payload=None, content_length=None, timeout=900):
+    """(status, reply) of a GET (no payload) or a json POST to ``url`` +
+    ``path``: the reply parsed as json where it is json, else its text.
+    ``content_length`` announces that many bytes and sends none (a server
+    must refuse an oversized body before reading it)."""
+    import http.client
+    host, port = url.rsplit("/", 1)[1].split(":")
+    conn = http.client.HTTPConnection(host, int(port), timeout=timeout)
+    try:
+        if content_length is not None:
+            conn.putrequest("POST", path)
+            conn.putheader("Content-Length", str(content_length))
+            conn.endheaders()
+        elif payload is None:
+            conn.request("GET", path)
+        else:
+            conn.request("POST", path, body=json.dumps(payload).encode(),
+                         headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        data = resp.read()
+    finally:
+        conn.close()
+    try:
+        return resp.status, json.loads(data)
+    except ValueError:
+        return resp.status, data.decode()
+
+
+def metric_values(text):
+    """{name: value} of the ``videocof_*`` samples of a /metrics reply."""
+    return {m.group(1): float(m.group(2)) for m in re.finditer(
+        r"^videocof_(\w+) (\S+)$", text, re.M)}
+
+
+def check_metrics(tag, url, want):
+    """Fail unless /metrics reports ``want`` ({name: value})."""
+    code, text = http_call(url, "/metrics")
+    got = metric_values(text) if code == 200 else {}
+    seen = {k: got.get(k) for k in want}
+    log(f"[{tag}] /metrics: {seen}")
+    if seen != want:
+        fail(f"{tag}: /metrics reports {seen}, expected {want}")
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def b64_file(path):
+    import base64
+    with open(path, "rb") as f:
+        return base64.b64encode(f.read()).decode()
+
+
+def edit_payload(geo, prompt, clip_b64, **extra):
+    """The reference API's request for the 4-step edit of the geometry."""
+    return {"prompt_textbox": prompt, "source_video": clip_b64,
+            "seed_textbox": SEED, "sample_step_slider":
+            geo.num_inference_steps, "cfg_scale_slider": geo.guidance_scale,
+            "source_frames": geo.source_frames,
+            "reasoning_frames": geo.reasoning_frames, **extra}
+
+
+def reply_video(tag, reply, geo, want_frames, name):
+    """Decode a reply's base64 mp4 with cv2 (written under SCRATCH); fail
+    unless it holds ``want_frames`` frames of the geometry's size."""
+    import base64
+    from videocof_torch.utils import video_io
+    path = SCRATCH / name
+    path.write_bytes(base64.b64decode(reply.get("base64_encoding", "")))
+    info = video_io.video_info(str(path))
+    if info[:3] != (want_frames, geo.height, geo.width):
+        fail(f"{tag}: the reply's mp4 holds {info[0]} frames of "
+             f"{info[1]}x{info[2]}, expected {want_frames} of "
+             f"{geo.height}x{geo.width}")
+    return info
+
+
+def serving_14b_phase(card, cfg14, geo, prompt, counters, lora_paths, clip,
+                      want_frames):
+    """The Wan2.1 14B server with fp8 weights, runtime LoRA and umT5
+    offload, in this process: `factory.load_pipeline(random_init=True,
+    quantize="fp8", offload_t5=True)` behind `VideoCoFController` and
+    `serving.api`'s handler on a thread; four POSTs of ``clip`` (base64
+    mp4) with the LoRA files of SERVE_LORAS; per request the reply, its
+    mp4, the B1 calls (2 x layers x steps at 40 heads and no other
+    launch), the allocated memory after it (below the fp8 DiT, the VAE,
+    the adapters and SERVE_MEM_SLACK: umT5 is not resident), the walls
+    (client, the controller's edit, the text stage, the LoRA switch) and
+    the peak; the adapters gone after "none"; requests 1-3 pairwise
+    different and request 4 equal to request 1 bit for bit (the arrays
+    handed to the mp4 encoder); then /metrics, /healthz, the page and the
+    refusals, counted as the JAX package counts them, with the port's own
+    refusal of a LoRA file outside VIDEOCOF_MODEL_DIRS (which names
+    LORA_DIR for the phase). Returns the phase's record."""
+    import numpy as np
+    import torch
+    from videocof_torch import factory
+    from videocof_torch.serving import VideoCoFController, api
+    from videocof_torch.utils import fp8
+    launch_counts, reset_launch_counts = counters
+    os.environ.pop("VIDEOCOF_ASSET_DIRS", None)
+    # the LoRA files a request names must lie in the model allowlist
+    os.environ["VIDEOCOF_MODEL_DIRS"] = str(LORA_DIR)
+    t0 = time.perf_counter()
+    pipe = factory.load_pipeline("", random_init=True, dit_cfg=cfg14,
+                                 seed=SEED, quantize="fp8", offload_t5=True)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    resident = {"dit": fp8.fp8_bytes(pipe.dit), "vae": fp8.fp8_bytes(pipe.vae)}
+    t5_bytes = fp8.fp8_bytes(pipe.t5)
+    t5_host = all(p.device.type == "cpu" and p.is_pinned()
+                  for p in pipe.t5.parameters())
+    log(f"[serve 14B] factory.load_pipeline(random_init, fp8, offload_t5) in "
+        f"{build_s:.1f} s: fp8 DiT {resident['dit'] / 1e9:.3f} GB and VAE "
+        f"{resident['vae'] / 1e9:.3f} GB on the card, umT5 "
+        f"{t5_bytes / 1e9:.3f} GB pinned in host memory: "
+        f"{'ok' if t5_host else 'FAIL'}")
+    if not t5_host:
+        fail("offload_t5 left umT5's weights off pinned host memory")
+    controller = VideoCoFController(pipe)
+    encoded, cur = [], {}
+    real_enc = controller.encode_video_base64
+    real_gen, real_lora = controller.generate, controller.ensure_lora
+
+    def enc(video, fps=16):
+        encoded.append(np.asarray(video))
+        return real_enc(video, fps)
+
+    def gen_timed(**kw):
+        t = time.perf_counter()
+        out = real_gen(timings=cur.setdefault("stages_s", {}), **kw)
+        cur["edit_s"] = time.perf_counter() - t
+        return out
+
+    def lora_timed(*a, **kw):
+        t = time.perf_counter()
+        real_lora(*a, **kw)
+        torch.cuda.synchronize()
+        cur["lora_s"] = time.perf_counter() - t
+    controller.encode_video_base64 = enc
+    controller.generate = gen_timed
+    controller.ensure_lora = lora_timed
+    clip_b64 = b64_file(clip)
+    fusionx, videocof = lora_paths
+    files = {"fusionx": fusionx, "videocof": videocof, "none": "none"}
+    per = cfg14.num_layers * geo.num_inference_steps
+    want = dict(dict.fromkeys(launch_counts(), 0),
+                flash_attention_fwd=2 * per)
+    requests, L = [], None
+    with http_server(controller) as url:
+        for i, name in enumerate(SERVE_LORAS):
+            cur.clear()
+            tag = f"serve 14B request {i + 1} ({name})"
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            with b1_calls() as seen:
+                t = time.perf_counter()
+                code, reply = http_call(url, api.ENDPOINT, edit_payload(
+                    geo, prompt, clip_b64, lora_model_path=files[name],
+                    lora_alpha_slider=1.0))
+                wall = time.perf_counter() - t
+            launches = launch_counts()
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            torch.cuda.synchronize()
+            between = torch.cuda.memory_allocated()
+            runtime = pipe.dit.runtime_lora
+            ad_bytes = fp8.fp8_bytes(runtime[0]) if runtime else 0
+            limit = (resident["dit"] + resident["vae"] + ad_bytes
+                     + SERVE_MEM_SLACK)
+            if code != 200 or reply.get("message") != "Success":
+                fail(f"{tag}: {code} {str(reply)[:300]}")
+            info = reply_video(tag, reply, geo, want_frames, f"reply{i}.mp4")
+            shapes = b1_shapes(seen)
+            heads = {c[4] for c in seen}
+            L = max(k[1] for k in shapes)
+            stages = cur.get("stages_s", {})
+            log(f"[{tag}] client {wall:.3f} s, the controller's edit "
+                f"{cur['edit_s']:.3f} s (text stage "
+                f"{stages.get('text', 0.0):.3f} s), LoRA switch "
+                f"{cur.get('lora_s', 0.0):.3f} s; peak {peak_gb:.2f} GB; "
+                f"allocated after it {between / 1e9:.3f} GB (limit "
+                f"{limit / 1e9:.3f}: DiT + VAE + adapters "
+                f"{ad_bytes / 1e9:.3f} GB + {SERVE_MEM_SLACK / 1e9:.0f} GB); "
+                f"mp4 {info[0]} frames of {info[1]}x{info[2]}; B1 calls "
+                f"{shapes} at heads {sorted(heads)}; launches {launches}")
+            log(f"[{tag}] stage walls (s): " + ", ".join(
+                f"{k} {v:.3f}" for k, v in stages.items()))
+            check_launches(tag, launches, want)
+            if shapes != {(1, L, L, None): per,
+                          (1, L, TEXT_TOKENS, None): per} or heads != {
+                    cfg14.num_heads}:
+                fail(f"{tag}: B1 calls {shapes} at heads {heads}")
+            if between >= limit:
+                fail(f"{tag}: {between / 1e9:.3f} GB allocated between "
+                     f"requests, above {limit / 1e9:.3f} GB")
+            if (runtime is None) != (name == "none"):
+                fail(f"{tag}: runtime adapters attached: "
+                     f"{runtime is not None}")
+            requests.append({"lora": name, "client_s": wall,
+                             "edit_s": cur["edit_s"], "stages_s": stages,
+                             "lora_switch_s": cur.get("lora_s"),
+                             "peak_memory_gb": peak_gb,
+                             "allocated_between_gb": between / 1e9,
+                             "launches": launches})
+            del runtime     # the next request's reading must not hold it
+        edits = [e[:, :, -geo.source_frames:] for e in encoded]
+        differ = all(not np.array_equal(edits[a], edits[b])
+                     for a, b in ((0, 1), (0, 2), (1, 2)))
+        diff = np.abs(encoded[3] - encoded[0])
+        same = bool(diff.max() == 0)
+        log(f"[serve 14B] edits of requests 1, 2, 3 differ pairwise: "
+            f"{'ok' if differ else 'FAIL'}; request 4 (FusionX again) equal "
+            f"to request 1 bit for bit: {'ok' if same else 'FAIL'} (max "
+            f"difference {diff.max():.3e}, share of values that differ "
+            f"{float((diff > 0).mean()):.3e})")
+        if not differ:
+            fail("the 14B server's edits under other LoRA sets are equal")
+        if not same:
+            fail("request 4 differs from request 1 under the same LoRA file")
+        check_metrics("serve 14B", url, {
+            "requests_total": 4, "failures_total": 0,
+            "generate_seconds_count": 4, "busy": 0})
+        code, health = http_call(url, "/healthz")
+        page_code, page = http_call(url, "/")
+        log(f"[serve 14B] /healthz {code} {health}; / {page_code}, "
+            f"{len(page)} characters")
+        if code != 200 or health.get("status") != "ok":
+            fail(f"/healthz answered {code} {health}")
+        if page_code != 200 or api.ENDPOINT not in page:
+            fail(f"/ answered {page_code}")
+        probes = [
+            ("an unknown path", "/nowhere", {}, None, 404),
+            ("a missing video", api.ENDPOINT, {"prompt_textbox": prompt},
+             None, 400),
+            ("an embeddings-in payload", api.ENDPOINT,
+             {"embeddings_path": "assets/embeds.npz"}, None, 400),
+            ("a source_video_path outside the allowlist", api.ENDPOINT,
+             {"prompt_textbox": prompt, "source_video_path": str(clip)},
+             None, 403),
+            ("an update outside VIDEOCOF_MODEL_DIRS", api.UPDATE_ENDPOINT,
+             {"diffusion_transformer_path": str(SCRATCH)}, None, 403),
+            ("a lora_model_path outside VIDEOCOF_MODEL_DIRS", api.ENDPOINT,
+             edit_payload(geo, prompt, clip_b64, lora_model_path=str(clip)),
+             None, 403),
+            ("an oversized Content-Length", api.ENDPOINT, None, 10 ** 12,
+             413)]
+        for label, path, payload, length, want_code in probes:
+            code, body = http_call(url, path, payload, content_length=length)
+            log(f"[serve 14B] {label}: {code} {body}")
+            if code != want_code:
+                fail(f"the server answered {label} with {code}, expected "
+                     f"{want_code}")
+        # the JAX API counts a refused video as a failed request, and the
+        # port a refused LoRA file too; the other refusals come before the
+        # counting
+        check_metrics("serve 14B", url, {
+            "requests_total": 7, "failures_total": 3,
+            "generate_seconds_count": 4, "busy": 0})
+    os.environ.pop("VIDEOCOF_MODEL_DIRS", None)
+    record = {"card": card, "build_s": build_s, "tokens": L,
+              "dit_bytes": resident["dit"], "vae_bytes": resident["vae"],
+              "t5_host_bytes": t5_bytes, "requests": requests}
+    log("[serve 14B] " + json.dumps(record))
+    return record
+
+
+def swap_phase(card, dcfg, geo, gen, prompt, counters, clip, want_frames):
+    """The ComfyUI nodes and the weight swap at 1.3B: `VideoCoFModelLoader`
+    twice (one build) and `VideoCoFEdit` on a torch IMAGE wire of ``clip``
+    (2 x layers x steps B1 launches); then that pipeline behind the API: a
+    second DiT draw written by `save_dit_checkpoint_dir`, swapped in by the
+    update endpoint (in place: the DiT equal to the draw bit for bit, the
+    allocated memory flat within SWAP_MEM_SLACK, the peak within the
+    largest tensor + SWAP_PEAK_SLACK), an edit request after it against a
+    `WanPipeline` on the second draw with the same VAE and umT5 (final
+    latents within SWAP_REL_TOL); the LoRA sequence FusionX, VideoCoF, none
+    merged in bf16 (the largest ulp distance from the original weights,
+    printed); two concurrent requests (both answered, one after the other,
+    ``busy`` >= 1 while they run); then the DiT quantized to fp8, an
+    adapter attached and the same swap (fp8 weights and scales equal to
+    `quantize_dit_fp8` of the draw bit for bit, the adapters detached).
+    Returns the phase's record."""
+    import threading
+    import numpy as np
+    import torch
+    from videocof_torch.comfyui.comfyui_nodes import (VideoCoFEdit,
+                                                      VideoCoFModelLoader)
+    from videocof_torch.models.wan_dit import init_wan_dit
+    from videocof_torch.pipeline import WanPipeline
+    from videocof_torch.serving import VideoCoFController, api
+    from videocof_torch.utils import checkpoint, video_io
+    from videocof_torch.utils.fp8 import FP8, quantize_dit_fp8
+    launch_counts, reset_launch_counts = counters
+    dev, bf16 = gen.device, torch.bfloat16
+    want = dict(dict.fromkeys(launch_counts(), 0), flash_attention_fwd=(
+        2 * dcfg.num_layers * geo.num_inference_steps))
+
+    # ComfyUI: the loader's one cached build, the edit node on a torch wire
+    t0 = time.perf_counter()
+    (pipe,) = VideoCoFModelLoader().load("", "none", True)
+    (again,) = VideoCoFModelLoader().load("", "none", True)
+    build_s = time.perf_counter() - t0
+    frames, _, _ = video_io.load_video_frames(str(clip), geo.source_frames)
+    wire = torch.from_numpy(frames[0].transpose(1, 2, 3, 0).astype(
+        np.float32) / 255.0)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    (out,) = VideoCoFEdit().edit(
+        pipe, wire, prompt, steps=geo.num_inference_steps,
+        guidance_scale=geo.guidance_scale, seed=SEED,
+        reasoning_frames=geo.reasoning_frames)
+    comfy_s = time.perf_counter() - t0
+    launches = launch_counts()
+    want_shape = (geo.source_frames, geo.height, geo.width, 3)
+    ok = (isinstance(out, torch.Tensor) and tuple(out.shape) == want_shape
+          and bool(torch.isfinite(out).all()) and 0.0 <= out.min().item()
+          and out.max().item() <= 1.0)
+    log(f"[comfyui] the loader twice: one pipeline: {again is pipe} "
+        f"({build_s:.1f} s); the edit node on a torch IMAGE wire "
+        f"{tuple(wire.shape)}: {type(out).__name__} {tuple(out.shape)} in "
+        f"[{out.min().item():.4f}, {out.max().item():.4f}], {comfy_s:.3f} s; "
+        f"launches {launches}")
+    if again is not pipe:
+        fail("VideoCoFModelLoader built its pipeline twice")
+    if not ok:
+        fail(f"VideoCoFEdit returned {type(out).__name__} "
+             f"{tuple(getattr(out, 'shape', ()))}, expected {want_shape}")
+    check_launches("ComfyUI edit", launches, want)
+    VideoCoFModelLoader._cache_pipe = None      # the controller owns it now
+    del out, again, wire, frames
+
+    # the swap into bf16 weights, in place
+    ckpt = SCRATCH / "swap_dit"
+    draw = init_wan_dit(dcfg, torch.Generator(device=dev).manual_seed(
+        SEED + 7), bf16, dev)
+    checkpoint.save_dit_checkpoint_dir(str(ckpt), draw, dcfg)
+    # the draw itself, on the host: the swap is held against it, not
+    # against the file read back through the loader the swap uses
+    drawn = {k: v.cpu() for k, v in draw.state_dict().items()}
+    del draw
+    torch.cuda.empty_cache()
+    os.environ["VIDEOCOF_MODEL_DIRS"] = str(SCRATCH)
+    controller = VideoCoFController(pipe)
+    clip_b64 = b64_file(clip)
+    with http_server(controller) as url:
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        largest = max(t.numel() * t.element_size()
+                      for t in pipe.dit.state_dict().values())
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        code, reply = http_call(url, api.UPDATE_ENDPOINT,
+                                {"diffusion_transformer_path": str(ckpt)})
+        torch.cuda.synchronize()
+        swap_s = time.perf_counter() - t0
+        after = torch.cuda.memory_allocated()
+        peak = torch.cuda.max_memory_allocated()
+        resident = pipe.dit.state_dict()
+        exact = set(drawn) == set(resident) and all(
+            torch.equal(resident[k].cpu(), v) for k, v in drawn.items())
+        log(f"[swap] update endpoint {code} {reply} in {swap_s:.3f} s; the "
+            f"DiT equal to the saved draw bit for bit, tensor by tensor: "
+            f"{'ok' if exact else 'FAIL'};"
+            f" allocated {before / 1e9:.3f} -> {after / 1e9:.3f} GB (slack "
+            f"{SWAP_MEM_SLACK / 1e6:.0f} MB); peak {peak / 1e9:.3f} GB, limit "
+            f"{(before + largest + SWAP_PEAK_SLACK) / 1e9:.3f} GB (largest "
+            f"tensor {largest / 1e6:.1f} MB)")
+        if code != 200 or reply.get("message") != "Success" or not exact:
+            fail("the weight swap did not load the checkpoint")
+        if abs(after - before) > SWAP_MEM_SLACK:
+            fail(f"the weight swap moved the allocated memory by "
+                 f"{(after - before) / 1e6:.1f} MB")
+        if peak > before + largest + SWAP_PEAK_SLACK:
+            fail(f"the weight swap peaked at {peak / 1e9:.3f} GB: a second "
+                 f"model on the card")
+        del drawn, resident
+
+        # an edit after the swap against a pipeline on the second draw
+        latents = {}
+
+        def keep_latents(p, key):
+            real = p._decode_outputs
+
+            def decode(lat, *a):
+                latents[key] = lat.float().cpu()
+                return real(lat, *a)
+            p._decode_outputs = decode
+        keep_latents(pipe, "server")
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        code, reply = http_call(url, api.ENDPOINT,
+                                edit_payload(geo, prompt, clip_b64))
+        edit_s = time.perf_counter() - t0
+        del pipe._decode_outputs
+        if code != 200 or reply.get("message") != "Success":
+            fail(f"the edit after the swap: {code} {str(reply)[:300]}")
+        reply_video("swap", reply, geo, want_frames, "swap.mp4")
+        check_launches("edit after the swap", launch_counts(), want)
+        direct = WanPipeline(init_wan_dit(dcfg, torch.Generator(
+            device=dev).manual_seed(SEED + 7), bf16, dev), pipe.vae, pipe.t5,
+            pipe.tokenizer)
+        keep_latents(direct, "direct")
+        VideoCoFController(direct).generate(
+            video_path=str(clip), prompt=prompt, seed=SEED,
+            num_inference_steps=geo.num_inference_steps,
+            guidance_scale=geo.guidance_scale,
+            source_frames=geo.source_frames,
+            reasoning_frames=geo.reasoning_frames)
+        del direct
+        torch.cuda.empty_cache()
+        rel = float((latents["server"] - latents["direct"]).norm()
+                    / latents["direct"].norm())
+        log(f"[swap] an edit request after the swap ({edit_s:.3f} s): final "
+            f"latents against a WanPipeline built on the second draw with "
+            f"the same VAE and umT5: relative L2 {rel:.3e} (tol "
+            f"{SWAP_REL_TOL})")
+        if not rel <= SWAP_REL_TOL:
+            fail(f"the swapped server's edit strays from the second draw's: "
+                 f"{rel:.3e}")
+
+        # the LoRA sequence merged into bf16 weights and out again
+        orig = {k: v.clone() for k, v in pipe.dit.state_dict().items()}
+        (fx, vc), _ = write_lora_files(dcfg, gen, SCRATCH / "lora_1.3b")
+        t0 = time.perf_counter()
+        for path in (fx, vc, None):
+            controller.ensure_lora(path)
+        torch.cuda.synchronize()
+        merge_s = time.perf_counter() - t0
+        def ordered(t):         # bf16 bits -> integers in value order
+            i = t.view(torch.int16).int()
+            return torch.where(i < 0, -(i & 0x7FFF), i)
+        ulps, err, changed = 0, 0.0, 0
+        for k, v in pipe.dit.state_dict().items():
+            if v.dtype == bf16 and not torch.equal(v, orig[k]):
+                changed += 1
+                ulps = max(ulps, (ordered(v) - ordered(orig[k])).abs().max()
+                           .item())
+                err = max(err, (v.float() - orig[k].float()).abs().max()
+                          .item())
+        log(f"[swap] LoRA FusionX, then VideoCoF, then none merged in bf16 "
+            f"in {merge_s:.3f} s: {changed} weights not back bit for bit, "
+            f"the largest distance {ulps} ulp, {err:.3e} absolute (the JAX "
+            f"package's unmerge is not exact either)")
+        del orig
+
+        # two requests at once: answered, one after the other
+        spans, polled, done = [], [], threading.Event()
+        real_gen = controller.generate
+
+        def spanned(**kw):
+            t = time.perf_counter()
+            try:
+                return real_gen(**kw)
+            finally:
+                spans.append((t, time.perf_counter()))
+        controller.generate = spanned
+        replies = [None, None]
+
+        def post(i):
+            replies[i] = http_call(url, api.ENDPOINT, edit_payload(
+                geo, prompt, clip_b64, seed_textbox=SEED + i))
+
+        def poll():
+            while not done.is_set():
+                polled.append(metric_values(http_call(url, "/metrics")[1])[
+                    "busy"])
+                time.sleep(0.2)
+        poller = threading.Thread(target=poll)
+        poller.start()
+        threads = [threading.Thread(target=post, args=(i,)) for i in (0, 1)]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        both_s = time.perf_counter() - t0
+        done.set()
+        poller.join(timeout=30)
+        controller.generate = real_gen
+        spans.sort()
+        serial = len(spans) == 2 and spans[0][1] <= spans[1][0]
+        answered = all(r and r[0] == 200 and r[1].get("message") == "Success"
+                       for r in replies)
+        log(f"[swap] two concurrent requests: answered "
+            f"{[r and r[0] for r in replies]} in {both_s:.3f} s; one after "
+            f"the other: {'ok' if serial else 'FAIL'}; busy polled up to "
+            f"{max(polled, default=0):.0f}")
+        if not answered or any(th.is_alive() for th in threads):
+            fail(f"the concurrent requests: {[r and r[0] for r in replies]}")
+        if not serial:
+            fail(f"the concurrent generations overlapped: {spans}")
+        if not max(polled, default=0) >= 1:
+            fail("/metrics never read busy >= 1 during the requests")
+
+        # the swap into fp8 weights with runtime adapters attached
+        quantize_dit_fp8(pipe.dit)
+        controller.ensure_lora(fx)
+        attached = pipe.dit.runtime_lora is not None
+        t0 = time.perf_counter()
+        code, reply = http_call(url, api.UPDATE_ENDPOINT,
+                                {"diffusion_transformer_path": str(ckpt)})
+        torch.cuda.synchronize()
+        swap8_s = time.perf_counter() - t0
+        ref = quantize_dit_fp8(init_wan_dit(dcfg, torch.Generator(
+            device=dev).manual_seed(SEED + 7), bf16, dev))   # the draw again
+        want_sd, got_sd = ref.state_dict(), pipe.dit.state_dict()
+        same = set(want_sd) == set(got_sd) and all(
+            torch.equal(*(t.view(torch.uint8) if t.dtype == FP8 else t
+                          for t in (got_sd[k], v)))
+            for k, v in want_sd.items())
+        detached = pipe.dit.runtime_lora is None
+        log(f"[swap] into fp8 weights with runtime adapters attached "
+            f"({attached}): {code} {reply} in {swap8_s:.3f} s; fp8 weights "
+            f"and scales equal to quantize_dit_fp8 of the draw bit for bit: "
+            f"{'ok' if same else 'FAIL'}; adapters detached: "
+            f"{'ok' if detached else 'FAIL'}")
+        if not (attached and code == 200 and same and detached):
+            fail("the swap into fp8 weights")
+        del ref, want_sd, got_sd
+    os.environ.pop("VIDEOCOF_MODEL_DIRS", None)
+    record = {"card": card, "build_s": build_s, "comfyui_edit_s": comfy_s,
+              "swap_s": swap_s, "swap_peak_gb": peak / 1e9,
+              "allocated_before_gb": before / 1e9,
+              "allocated_after_gb": after / 1e9,
+              "largest_tensor_mb": largest / 1e6,
+              "edit_after_swap_s": edit_s, "rel_l2_vs_second_draw": rel,
+              "lora_merge_s": merge_s, "lora_unmerge_max_ulp": ulps,
+              "lora_unmerge_max_abs": err,
+              "concurrent_two_s": both_s, "swap_fp8_s": swap8_s}
+    log("[swap] " + json.dumps(record))
+    return record
+
+
+def serving_entry_phase(card, geo, prompt, clip, want_frames):
+    """`python -m videocof_torch.serving.api --random_init --offload_t5` as
+    a subprocess on a free port, with VIDEOCOF_ASSET_DIRS naming SCRATCH:
+    /healthz within SERVER_START_S; `WorkerPool` sees it healthy and maps
+    two payloads (``source_video_path`` inside the allowlist) to two
+    "Success" replies; `VideoCoFClient.post_to_host` writes an mp4 that cv2
+    reads back at the geometry; the server exits within SERVER_STOP_S of
+    SIGTERM. On a failure the server's log tail is printed. Returns the
+    phase's record."""
+    from videocof_torch.serving import VideoCoFClient
+    from videocof_torch.serving.multihost import WorkerPool
+    from videocof_torch.utils import video_io
+    port = free_port()
+    url = f"http://127.0.0.1:{port}"
+    log_path = SCRATCH / "server.log"
+    env = dict(os.environ, VIDEOCOF_ASSET_DIRS=str(SCRATCH),
+               PYTHONUNBUFFERED="1")
+    argv = [sys.executable, "-m", "videocof_torch.serving.api",
+            "--random_init", "--offload_t5", "--port", str(port)]
+    with open(log_path, "w") as logf:
+        proc = subprocess.Popen(argv, cwd=ROOT, env=env, stdout=logf,
+                                stderr=subprocess.STDOUT)
+
+    def bad(msg):
+        log("[serve entry] the server's log, last lines:\n"
+            + "\n".join(log_path.read_text().splitlines()[-40:]))
+        fail(msg)
+    record = {"card": card}
+    try:
+        t0 = time.perf_counter()
+        while True:
+            if proc.poll() is not None:
+                bad(f"the server exited with {proc.returncode} before "
+                    f"answering /healthz")
+            try:
+                if http_call(url, "/healthz", timeout=5)[0] == 200:
+                    break
+            except OSError:
+                pass
+            if time.perf_counter() - t0 > SERVER_START_S:
+                bad(f"no /healthz within {SERVER_START_S} s")
+            time.sleep(1.0)
+        record["ready_s"] = time.perf_counter() - t0
+        pool = WorkerPool([url], timeout=900)
+        healthy = pool.healthy()
+        payloads = [{"prompt_textbox": prompt,
+                     "source_video_path": str(clip),
+                     "seed_textbox": SEED + i,
+                     "sample_step_slider": geo.num_inference_steps,
+                     "source_frames": geo.source_frames,
+                     "reasoning_frames": geo.reasoning_frames}
+                    for i in range(2)]
+        t0 = time.perf_counter()
+        replies = pool.map(payloads)
+        record["pool_map_two_s"] = time.perf_counter() - t0
+        messages = [r.get("message") for r in replies]
+        save = SCRATCH / "client" / "edit.mp4"
+        t0 = time.perf_counter()
+        out = VideoCoFClient(url, timeout=900).post_to_host(
+            prompt, video_path=str(clip), save_path=str(save),
+            seed_textbox=SEED, sample_step_slider=geo.num_inference_steps,
+            source_frames=geo.source_frames,
+            reasoning_frames=geo.reasoning_frames)
+        record["client_s"] = time.perf_counter() - t0
+        info = video_io.video_info(str(save)) if save.exists() else None
+        log(f"[serve entry] {' '.join(argv[1:])}: /healthz after "
+            f"{record['ready_s']:.1f} s; WorkerPool.healthy() {healthy}; "
+            f"map of two payloads {messages} in "
+            f"{record['pool_map_two_s']:.3f} s; VideoCoFClient.post_to_host "
+            f"{out.get('message')} in {record['client_s']:.3f} s, wrote "
+            f"{info}")
+        if healthy != [url]:
+            bad(f"WorkerPool.healthy() gave {healthy}")
+        if messages != ["Success", "Success"]:
+            bad(f"WorkerPool.map gave {messages}")
+        if info is None or info[:3] != (want_frames, geo.height, geo.width):
+            bad(f"post_to_host wrote {info}")
+    finally:
+        t0 = time.perf_counter()
+        proc.terminate()
+        try:
+            proc.wait(timeout=SERVER_STOP_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            fail(f"the server did not exit within {SERVER_STOP_S} s")
+    record["stop_s"] = time.perf_counter() - t0
+    log(f"[serve entry] SIGTERM: exited with {proc.returncode} in "
+        f"{record['stop_s']:.2f} s")
+    log("[serve entry] " + json.dumps(record))
+    return record
+
+
+def nccl_phase(card):
+    """`init_distributed` on NCCL as a world of 1 over
+    ``tcp://127.0.0.1:<free port>``: an all_reduce of a CUDA tensor, then
+    `destroy_process_group`."""
+    import torch
+    import torch.distributed as dist
+    from videocof_torch.serving.multihost import init_distributed
+    t0 = time.perf_counter()
+    init_distributed(f"tcp://127.0.0.1:{free_port()}", 1, 0)
+    backend = dist.get_backend()
+    x = torch.arange(4, dtype=torch.float32, device="cuda")
+    dist.all_reduce(x)
+    torch.cuda.synchronize()
+    ok = backend == "nccl" and x.tolist() == [0.0, 1.0, 2.0, 3.0]
+    dist.destroy_process_group()
+    wall = time.perf_counter() - t0
+    log(f"[nccl] init_distributed: backend {backend}, world of 1, "
+        f"all_reduce {x.tolist()}, destroyed, in {wall:.2f} s: "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("init_distributed on NCCL")
+    return {"card": card, "backend": backend, "seconds": wall}
 
 
 def main() -> int:
@@ -2946,8 +3663,27 @@ def main() -> int:
 
     # ---------------------------------------- 18. the entries on Wan2.2
     rec_entry22 = wan22_entries_phase(card, geo, gen, prompt, counters)
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    # ----------------------------------------------------------- 19. report
+    # ------------------------------------------------------- 19. serving
+    t_serve = time.perf_counter()
+    clip = write_clip("serving", geo)
+    rec_serve = serving_14b_phase(card, WAN21_T2V_14B, geo, prompt, counters,
+                                  lora14, clip, out_frames)
+    shutil.rmtree(LORA_DIR, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec_swap = swap_phase(card, dcfg, geo, gen, prompt, counters, clip,
+                          out_frames)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec_entry = serving_entry_phase(card, geo, prompt, clip, out_frames)
+    rec_nccl = nccl_phase(card)
+    shutil.rmtree(SCRATCH, ignore_errors=True)
+    log(f"[serving] phase 19 in {time.perf_counter() - t_serve:.1f} s")
+
+    # ----------------------------------------------------------- 20. report
     sources = {"flash_attention_fwd": "flash_attention_fwd.cu",
                "flash_attention_fwd_lse": "flash_attention_fwd.cu",
                "flash_attention_bwd": "flash_attention_bwd.cu"}
@@ -2960,6 +3696,10 @@ def main() -> int:
                     else train_launches)[n] for n in names}
     b1_14b = {"launches_14b": launches14["flash_attention_fwd"],
               "launches_14b_on": "14B edit",
+              "launches_serving_14b": [
+                  r["launches"]["flash_attention_fwd"]
+                  for r in rec_serve["requests"]],
+              "launches_serving_14b_on": "each request of the 14B server",
               "launches_14b_fp8": rec_fp8["launches"]["flash_attention_fwd"],
               "launches_a14b_edit": rec_a14b["launches"][
                   "flash_attention_fwd"],
@@ -3045,7 +3785,10 @@ def main() -> int:
     log("[wan2.2] " + json.dumps({"fp8_14b": rec_fp8, "a14b_edit": rec_a14b,
                                   "a14b_t2v": rec_t2v, "ti2v_5b": rec_5b,
                                   "entries": rec_entry22}))
-    log(f"[smoke] phases 1-18 in {time.perf_counter() - t_start:.1f} s")
+    log("[serving] " + json.dumps({"server_14b": rec_serve,
+                                   "swap_1.3b": rec_swap,
+                                   "entry": rec_entry, "nccl": rec_nccl}))
+    log(f"[smoke] phases 1-19 in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -324,7 +324,7 @@ def test_factory_random_init_draws_from_the_seed_and_merges(tmp_path):
                                   vae_cfg=TVCFG, t5_cfg=TT5CFG)
 
 
-@pytest.mark.parametrize("kw", [dict(offload_t5=True), dict(precompile={})])
+@pytest.mark.parametrize("kw", [dict(precompile={})])
 def test_factory_unported_options_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         factory.load_pipeline("", random_init=True, device="cpu", **kw)
@@ -332,7 +332,6 @@ def test_factory_unported_options_raise(kw):
 
 @pytest.mark.parametrize("argv", [["--start_image", "a.png"],
                                   ["--control_video", "c.mp4"],
-                                  ["--offload_t5"],
                                   ["--precompile_hw", "480", "832"],
                                   ["--attention", "xla"]])
 def test_cli_unported_modes_stop(tmp_path, argv):

@@ -1,8 +1,9 @@
 """The port on a CUDA device: the hand-written flash-attention kernels (the
 forward B1, the forward with LSE B2, the backward B3) and the int8
 attention kernel B4 against their plain versions, their shape checks, the
-pipeline's and the trainer's default device, and fp8 weights, runtime LoRA,
-the Wan2.2 pipeline and the Wan2.2 VAE on the card.
+pipeline's and the trainer's default device, fp8 weights, runtime LoRA,
+the Wan2.2 pipeline and the Wan2.2 VAE on the card, and umT5 offload and
+the serving controller's weight swap.
 
 These tests need an NVIDIA GPU and nvcc, and skip without them. The module
 imports neither JAX nor the JAX package, so that on a GPU machine without
@@ -10,6 +11,8 @@ JAX it runs as
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
+
+import copy
 
 import numpy as np
 import pytest
@@ -870,3 +873,54 @@ def test_wan22_streaming_vae_matches_whole_in_bf16(cuda):
             want = torch.round(whole.float() * 127.5 + 127.5)
             assert u8.dtype == torch.uint8 and u8.shape == want.shape
             assert (u8.float() - want).abs().mean().item() <= 2.0
+
+
+@pytest.mark.cuda
+def test_offloaded_umt5_stays_on_the_host(cuda):
+    """`offload_t5`: umT5's weights stay pinned in host memory through a
+    prompt encoding on the card, whose embeddings equal the resident
+    encoder's, and the device copies die with the call."""
+    dcfg = WAN_TINY.replace(in_dim=VAE_TINY.z_dim, out_dim=VAE_TINY.z_dim,
+                            text_dim=T5_TINY.dim)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    dit, vae = init_wan_dit(dcfg, g), init_wan_vae(VAE_TINY, g)
+    t5 = init_t5_encoder(T5_TINY, g)
+    resident = WanPipeline(dit, vae, t5, dtype=torch.float32)
+    prompts = ["remove the ball", "a red kite over a quiet lake"]
+    want = resident.encode_prompt(prompts, max_length=64)
+    off = WanPipeline(dit, vae, copy.deepcopy(t5), dtype=torch.float32,
+                      offload_t5=True)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    got = off.encode_prompt(prompts, max_length=64)
+    torch.cuda.synchronize()
+    assert got.device.type == "cuda" and torch.equal(got, want)
+    assert all(p.device.type == "cpu" and p.is_pinned()
+               for p in off.t5.parameters())
+    assert torch.cuda.memory_allocated() - before == (
+        got.numel() * got.element_size())
+
+
+@pytest.mark.cuda
+def test_weight_swap_keeps_device_memory_flat(cuda, tmp_path):
+    """The controller's weight swap copies a checkpoint into the resident
+    DiT in place: the weights equal the file's, and the allocated device
+    memory is the same before and after."""
+    from videocof_torch.serving import VideoCoFController
+    from videocof_torch.utils.checkpoint import save_dit_checkpoint_dir
+    dcfg = WAN_TINY.replace(in_dim=VAE_TINY.z_dim, out_dim=VAE_TINY.z_dim,
+                            text_dim=T5_TINY.dim)
+    g = torch.Generator(device=cuda).manual_seed(6)
+    pipe = WanPipeline(init_wan_dit(dcfg, g, torch.bfloat16),
+                       init_wan_vae(VAE_TINY, g, torch.bfloat16),
+                       init_t5_encoder(T5_TINY, g, torch.bfloat16))
+    other = init_wan_dit(dcfg, g, torch.bfloat16)
+    save_dit_checkpoint_dir(str(tmp_path / "dit"), other, dcfg)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    VideoCoFController(pipe).update_diffusion_transformer(
+        str(tmp_path / "dit"))
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() == before
+    for k, v in other.state_dict().items():
+        assert torch.equal(pipe.dit.state_dict()[k], v), k

@@ -54,7 +54,12 @@ def test_new_modules_are_covered():
             "videocof_torch/utils/fp8.py",
             "videocof_torch/models/wan_vae22.py",
             "videocof_torch/models/wan_vae22_streaming.py",
-            "videocof_torch/pipeline/wan22_pipeline.py"} <= names
+            "videocof_torch/pipeline/wan22_pipeline.py",
+            "videocof_torch/serving/controller.py",
+            "videocof_torch/serving/api.py",
+            "videocof_torch/serving/webui.py",
+            "videocof_torch/serving/multihost.py",
+            "videocof_torch/comfyui/comfyui_nodes.py"} <= names
 
 
 def test_pipeline_imports_without_jax():
@@ -79,7 +84,10 @@ def test_pipeline_imports_without_jax():
             "from videocof_torch.pipeline import batch_edit\n"
             "import videocof_torch.utils.fp8\n"
             "import videocof_torch.models.wan_vae22_streaming\n"
-            "from videocof_torch.pipeline import Wan22Pipeline\n")
+            "from videocof_torch.pipeline import Wan22Pipeline\n"
+            "import videocof_torch.serving.api\n"
+            "import videocof_torch.serving.multihost\n"
+            "import videocof_torch.comfyui\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr

@@ -6,11 +6,11 @@ resume by skipping finished outputs, items strided over processes
 (``pending[rank::world]``), the CoT prompt, and the reason+edit, edit-only
 and side-by-side outputs with an ``_info.txt`` prompt record; ``--t2v``
 items (text-to-video, with ``--guidance_scale_2`` on a Wan2.2 MoE) write
-the video and its prompt record. ``--quantize fp8`` reaches the factory,
-which also finds Wan2.2 MoE and Wan2.2-VAE directories. Every flag of the
-JAX CLI parses, so the reference's scripts do; the modes the port does not
-carry (image-to-video, VACE control, T5 offload, ahead-of-time compilation)
-stop with an error naming their ROADMAP.md item.
+the video and its prompt record. ``--quantize fp8`` and ``--offload_t5``
+reach the factory, which also finds Wan2.2 MoE and Wan2.2-VAE directories.
+Every flag of the JAX CLI parses, so the reference's scripts do; the modes
+the port does not carry (image-to-video, VACE control, ahead-of-time
+compilation) stop with an error naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -32,7 +32,6 @@ from ..utils.video_io import (load_video_frames, save_results,
 _UNPORTED_FLAGS = {
     "start_image": "image-to-video (ROADMAP.md §A.10)",
     "control_video": "VACE control-to-video (ROADMAP.md §A.10)",
-    "offload_t5": "umT5 offload (ROADMAP.md, what the entry slice left)",
     "precompile_hw": "the JAX package's ahead-of-time fused sampler (not "
                      "ported on purpose: the port runs the sampler stepwise)",
 }
@@ -97,7 +96,8 @@ def add_common_args(parser: argparse.ArgumentParser) -> None:
                         choices=[None, "fp8"],
                         help="fp8 weight storage of the DiT(s)")
     parser.add_argument("--offload_t5", action="store_true",
-                        help="host-resident umT5 (not ported)")
+                        help="host-resident umT5, shipped to the device "
+                             "for each prompt encoding")
     parser.add_argument("--precompile_hw", type=int, nargs=2, default=None,
                         metavar=("H", "W"),
                         help="ahead-of-time fused sampler (not ported)")
@@ -296,7 +296,7 @@ def build_pipeline_from_args(args):
     pipe = load_pipeline(args.model_name or "", random_init=args.random_init,
                          attn_backend=ATTENTION_BACKENDS[args.attention],
                          seed=args.seed, quantize=args.quantize,
-                         lora_paths=loras)
+                         offload_t5=args.offload_t5, lora_paths=loras)
     for path, _ in loras:
         print(f"merged LoRA: {path}", file=sys.stderr)
     if args.cfg_sequential:

@@ -11,9 +11,11 @@ VAE (``Wan2.1_VAE.pth``, or the TI2V-5B's ``Wan2.2_VAE.pth``), the umT5
 encoder ``models_t5_umt5-xxl-enc-bf16.pth`` and the tokenizer under
 ``google/umt5-xxl``. LoRA files are merged into every DiT in order, on the
 device, and then ``quantize="fp8"`` stores each DiT's matmul weights in
-fp8 (`utils/fp8.py`), one expert after the other. The non-Wan families,
-``offload_t5`` and ``precompile`` raise `NotImplementedError` naming their
-ROADMAP.md item.
+fp8 (`utils/fp8.py`), one expert after the other. ``offload_t5`` keeps
+the umT5 weights in host memory (pinned when CUDA is present) and ships
+them to the device for each prompt encoding only. The non-Wan families
+and ``precompile`` raise `NotImplementedError` naming their ROADMAP.md
+item; `detect_family` names a checkpoint's family.
 """
 
 from __future__ import annotations
@@ -49,8 +51,12 @@ HIGH_NOISE_SUBPATH = "high_noise_model"
 WAN22_BOUNDARY = 0.875
 # the Wan2.2 VAE of the TI2V-5B layout (wan_civitai_5b.yaml)
 VAE22_SUBPATH = "Wan2.2_VAE.pth"
-_FAMILY_CLASSES = ("CogVideoXTransformer3DModel", "FluxTransformer2DModel",
-                   "QwenImageTransformer2DModel")
+# diffusers ``_class_name`` -> the family key of the non-Wan families
+FAMILY_CLASSES = {
+    "CogVideoXTransformer3DModel": "cogvideox",
+    "FluxTransformer2DModel": "flux",
+    "QwenImageTransformer2DModel": "qwenimage",
+}
 
 
 def is_wan22_moe_dir(model_name: str) -> bool:
@@ -69,18 +75,33 @@ def is_vae22_dir(model_name: str) -> bool:
             and not os.path.isfile(os.path.join(model_name, VAE_SUBPATH)))
 
 
-def _refuse_unported_layout(model_name: str) -> None:
-    """Raise for the checkpoint layouts of the JAX factory's other
-    branches: the non-Wan families."""
+def detect_family(model_name: str) -> str:
+    """'wan' | 'cogvideox' | 'flux' | 'qwenimage' for a checkpoint dir: the
+    diffusers ``_class_name`` of a ``config.json`` at the dir's root or
+    under ``transformer/``; Wan dirs (and anything else) are 'wan'."""
+    if not model_name or not os.path.isdir(model_name):
+        return "wan"
     for sub in ("", "transformer"):
         cfg_path = os.path.join(model_name, sub, "config.json")
         if os.path.isfile(cfg_path):
-            with open(cfg_path) as f:
-                cls = json.load(f).get("_class_name", "")
-            if cls in _FAMILY_CLASSES:
-                raise NotImplementedError(
-                    f"{model_name} is a {cls} checkpoint; the other model "
-                    f"families are not ported (ROADMAP.md §A.10)")
+            try:
+                with open(cfg_path) as f:
+                    cls = json.load(f).get("_class_name", "")
+            except (OSError, ValueError):
+                continue
+            if cls in FAMILY_CLASSES:
+                return FAMILY_CLASSES[cls]
+    return "wan"
+
+
+def _refuse_unported_layout(model_name: str) -> None:
+    """Raise for the checkpoint layouts of the JAX factory's other
+    branches: the non-Wan families."""
+    family = detect_family(model_name)
+    if family != "wan":
+        raise NotImplementedError(
+            f"{model_name} is a {family} checkpoint; the other model "
+            f"families are not ported (ROADMAP.md §A.10)")
 
 
 def _from_state_dict(module_cls, cfg, sd, dtype, device):
@@ -137,14 +158,13 @@ def load_pipeline(
     ``Wan2.1_VAE.pth`` (the TI2V-5B) gets the Wan2.2 VAE; ``vae_cfg``
     overrides the choice. ``lora_paths``: (path, multiplier) pairs merged
     into every DiT in order. ``quantize="fp8"`` then stores the DiTs'
-    matmul weights in fp8 (`utils/fp8.py`). ``device``: CUDA unless the
-    caller asks for the CPU. ``random_init`` draws one DiT, so it raises
-    ``ValueError`` with ``high_noise_model`` rather than ignore it;
-    ``offload_t5`` and ``precompile`` (the JAX package's ahead-of-time
-    fused sampler) raise ``NotImplementedError``."""
-    if offload_t5:
-        raise NotImplementedError("offload_t5 is not ported (ROADMAP.md, "
-                                  "what the entry slice left)")
+    matmul weights in fp8 (`utils/fp8.py`). ``offload_t5``: umT5 stays
+    in host memory and streams to the device per prompt encoding
+    (`WanPipeline`). ``device``: CUDA unless the caller asks for the CPU.
+    ``random_init`` draws one DiT, so it raises ``ValueError`` with
+    ``high_noise_model`` rather than ignore it; ``precompile`` (the JAX
+    package's ahead-of-time fused sampler) raises
+    ``NotImplementedError``."""
     if precompile is not None:
         raise NotImplementedError(
             "precompile: the port runs the sampler stepwise and has no "
@@ -193,7 +213,8 @@ def load_pipeline(
                                dtype, device)
         sd = weights.convert_t5_state_dict(weights.load_state_dict(
             os.path.join(model_name, T5_SUBPATH)), t5_cfg, dtype)
-        t5 = _from_state_dict(T5Encoder, t5_cfg, sd, dtype, device)
+        t5 = _from_state_dict(T5Encoder, t5_cfg, sd, dtype,
+                              "cpu" if offload_t5 else device)
         del sd
         # a real checkpoint demands a real tokenizer: the hash fallback
         # would silently corrupt production prompts
@@ -204,6 +225,8 @@ def load_pipeline(
     if dit_2 is not None:
         return Wan22Pipeline(dit, vae, t5, tokenizer, dtype=dtype,
                              attn_backend=attn_backend, device=device,
-                             dit_2=dit_2, boundary=boundary)
+                             offload_t5=offload_t5, dit_2=dit_2,
+                             boundary=boundary)
     return WanPipeline(dit, vae, t5, tokenizer, dtype=dtype,
-                       attn_backend=attn_backend, device=device)
+                       attn_backend=attn_backend, device=device,
+                       offload_t5=offload_t5)

@@ -21,6 +21,11 @@ replays the cached residual of the block stack on them. JAX's fused and
 segmented samplers compute the same trajectory as this loop in one compiled
 program; the port stays stepwise.
 
+``offload_t5`` keeps umT5's weights in host memory (pinned when CUDA is
+present): each prompt encoding runs the encoder on transient device copies
+of them, which die with the call (JAX's host-resident umT5 that streams to
+the device per `encode_prompt`).
+
 `text_to_video` denoises pure noise with standard RoPE and no source
 freeze (JAX's stepwise t2v branch); `set_runtime_lora` attaches LoRA files
 as runtime adapters, the LoRA path over fp8 weights. The VAE's type picks
@@ -74,15 +79,27 @@ def _resolve_device(device) -> torch.device:
     return device
 
 
+def _to_host(module: torch.nn.Module) -> torch.nn.Module:
+    """``module`` with every tensor in host memory, pinned (one tensor at a
+    time, so no second copy of the module exists) when CUDA is present."""
+    pin = torch.cuda.is_available()
+    for t in list(module.parameters()) + list(module.buffers()):
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=pin)
+        t.data = host.copy_(t.data)
+    return module
+
+
 class WanPipeline:
     def __init__(self, dit: WanDiT, vae: WanVAE, t5: T5Encoder,
                  tokenizer: Optional[WanTokenizer] = None,
                  dtype: torch.dtype = torch.bfloat16,
-                 attn_backend: Optional[str] = None, device=None):
+                 attn_backend: Optional[str] = None, device=None,
+                 offload_t5: bool = False):
         self.device = _resolve_device(device)
         self.dit = dit.to(self.device)
         self.vae = vae.to(self.device)
-        self.t5 = t5.to(self.device)
+        self.offload_t5 = offload_t5
+        self.t5 = _to_host(t5) if offload_t5 else t5.to(self.device)
         self.tokenizer = tokenizer or WanTokenizer(vocab_size=t5.cfg.vocab)
         self.dtype = dtype
         self.attn_backend = attn_backend
@@ -117,7 +134,12 @@ class WanPipeline:
         ids, mask = self.tokenizer(list(prompts), max_length=max_length)
         ids = torch.as_tensor(ids, device=self.device)
         mask = torch.as_tensor(mask, device=self.device)
-        e = self.t5(ids, mask)
+        # under offload the device copies are this call's temporaries
+        # (`.to()` would move the module itself and keep it there); resident
+        # weights are already on the device and `.to()` returns them as is
+        state = {k: v.to(self.device, non_blocking=True)
+                 for k, v in self.t5.state_dict().items()}
+        e = torch.func.functional_call(self.t5, state, (ids, mask))
         return e * mask[..., None].to(e.dtype)
 
     # ---------------------------------------------------------------- latents
