@@ -197,7 +197,46 @@ Phases, each of which fails the run (non-zero exit) on any fault:
      healthy and two mapped requests, `VideoCoFClient.post_to_host` writing
      an mp4, exit within 30 s of SIGTERM. (d) `init_distributed` on NCCL,
      a world of 1: an all_reduce, then `destroy_process_group`.
-  20. a `kernels` JSON line and, last, the device JSON line.
+  20. training from files, at full width: (a) a triplet JSON of four
+     triplets of 40-frame cv2 clips (source, grounded with a gray
+     rectangle, edited), three at 480x832 and one at 512x512, which
+     `resize_center_crop` scales and crops; (b)
+     `videocof_torch.cli.train.main()` in this process (--random_init,
+     Wan2.1 T2V 1.3B, --lora_rank 16 --steps 4 --save_every 2
+     --checkpoint_dir --export_lora, 480x832, 33 + 4 + 33 frames): finite
+     losses, checkpoints at steps 2 and 4, base weights bitwise those of
+     an unmerged draw, 120 B2 and 60 B3 launches a step; seconds per step
+     (the median after the warm-up), stage walls, the saves' seconds, peak
+     memory; (c) each checkpoint restored into a fresh trainer, bit for bit
+     the state as it was saved (adapters, both AdamW moments, step counts)
+     and the latest the state in memory, then one more step from the
+     restored state and from the state in memory on one sample with one
+     seeded generator: the same loss bit for bit, the same step counts, the
+     adapters and moments within 1e-3 relative L2 (B3 adds dq's key tiles
+     in no fixed order, so two steps from one state differ in the last
+     bits: the spread of two steps from the restored state is printed
+     beside it); (d) the
+     exported LoRA file merged by `merge_lora` into the pipeline (300
+     modules) and a 4-step edit: output and 240 B1 launches; (e)
+     `PrefetchLoader(num_threads=4) -> device_prefetch -> CoFTrainer.train`
+     for 3 steps over the four triplets, item 1 with gradual grounding and
+     item 2 with the gray overlay (whose grounding stream, the overlaid
+     source as in JAX's dataset, is cut to its first 4 frames): seconds
+     per step, the loader's seconds per triplet, and a fourth step under
+     torch.profiler, its idle share beside phase 6's on in-memory samples;
+     (f) one LoRA step each under the remat policies True,
+     "dots_with_no_batch_dims_saveable" and
+     "save_names:attn_out,xattn_out" (umT5 moved off the card): the loss
+     equal to full remat's bit for bit, the adapter gradients within 1e-3
+     relative L2 of full remat's, 120 B2 and 60 B3 each, seconds and peak;
+     (g) two steps of `CoFTrainer` on the Wan2.1 T2V 14B drawn on the card
+     by `factory.load_pipeline("", random_init=True, dit_cfg=
+     WAN21_T2V_14B)` at full width and depth, rank-32 LoRA, full remat, on
+     the triplets: finite losses, base weights unchanged, 160 B2 and 80 B3
+     launches a step, seconds per step, stage walls, peak. B2 and B3 are
+     also held against their plain versions (phase 2) and timed (phase 3)
+     at the 14B's 40 heads.
+  21. a `kernels` JSON line and, last, the device JSON line.
 
 B1 is also held against its plain version (phase 2) and timed (phase 3) at
 the 14B's 40 heads, at the self and cross shapes, and at the shapes of
@@ -296,6 +335,26 @@ SERVER_STOP_S = 30             # ... and its exit after SIGTERM
 # mean |err| < FP8_ERR_REL * mean |bf16| + FP8_ERR_ABS
 FP8_ERR_REL = 0.05
 FP8_ERR_ABS = 0.05
+# training from files (phase 20): one instruction per triplet, the last
+# triplet's clips at another aspect ratio, each item's grounding mode in
+# the loader-fed steps
+TRAIN_INSTRUCTIONS = ("remove the red car", "replace the dog with a cat",
+                      "add a hat to the man", "make the sky purple")
+TRAIN_OTHER_HW = (512, 512)
+TRAIN_MODES = ("plain", "gradual", "overlay", "plain")
+TRAIN_CLI_RANK = 16            # the CLI's LoRA rank, steps and saves
+TRAIN_CLI_STEPS = 4
+TRAIN_SAVE_EVERY = 2
+LOADER_THREADS = 4             # the loader-fed steps (one more, profiled)
+LOADER_STEPS = 3
+TRAIN_REMAT_POLICIES = (True, "dots_with_no_batch_dims_saveable",
+                        "save_names:attn_out,xattn_out")
+REMAT_GRAD_REL_TOL = 1e-3      # adapter gradients vs full remat's (B3 may
+                               # reduce in another order)
+RESUME_REL_TOL = 1e-3          # a step from the restored state vs from the
+                               # state in memory (the same reason)
+TRAIN_14B_RANK = 32            # the 14B LoRA steps
+TRAIN_14B_STEPS = 2
 
 
 def log(*args):
@@ -464,11 +523,12 @@ def profile_kernels(fn):
 
 
 def report_profile(label, wall_ms, busy_ms, kernels):
-    """Print a profile: idle share, our kernels, cuBLAS, the rest, the top."""
+    """Print a profile: idle share, our kernels, cuBLAS, the rest, the top.
+    Returns the idle share (None when the profiler saw no device events)."""
     if busy_ms <= 0.0:
         log(f"[profile] {label}: wall {wall_ms:.1f} ms; device time by "
             "kernel not measured (torch.profiler saw no device events)")
-        return
+        return None
     ours = {}
     for ms, n, name in kernels:
         for key in OUR_KERNELS:
@@ -493,6 +553,7 @@ def report_profile(label, wall_ms, busy_ms, kernels):
         f"{kernel_ms - ours_ms - gemm_ms - conv_ms:.1f} ms")
     for ms, count, name in kernels[:15]:
         log(f"[profile]   {ms:9.3f} ms  {count:5d} x  {name[:110]}")
+    return 1 - busy_ms / wall_ms
 
 
 def dit_step_flops(cfg, L, Lt):
@@ -2686,6 +2747,515 @@ def nccl_phase(card):
     return {"card": card, "backend": backend, "seconds": wall}
 
 
+def write_triplets(geo):
+    """TRAIN_TRIPLETS triplets of cv2-written clips (source, grounded,
+    edited; CLIP_FRAMES frames each, random uint8 from the seed, a gray
+    rectangle on the grounded clip for the gray modes to find) and their
+    triplet JSON: the first ones at the geometry's size, the last at
+    TRAIN_OTHER_HW, so that `resize_center_crop` scales and crops it.
+    Returns (the JSON's path, the clips' directory)."""
+    import numpy as np
+    try:
+        import cv2
+    except ImportError:
+        fail("training from files: cv2 is not importable; the dataset "
+             "reads video with it")
+    root = SCRATCH / "triplets"
+    root.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(SEED)
+    items = []
+    for i, instruction in enumerate(TRAIN_INSTRUCTIONS):
+        h, w = (TRAIN_OTHER_HW if i == len(TRAIN_INSTRUCTIONS) - 1
+                else (geo.height, geo.width))
+        names = {}
+        for role in ("src", "ground", "edit"):
+            frames = rng.integers(0, 256, (CLIP_FRAMES, h, w, 3),
+                                  dtype=np.uint8)
+            if role == "ground":
+                frames[:, h // 4: h // 2, w // 4: w // 2] = 128
+            names[role] = str(root / f"t{i}_{role}.mp4")
+            writer = cv2.VideoWriter(names[role],
+                                     cv2.VideoWriter_fourcc(*"mp4v"), 16,
+                                     (w, h))
+            for fr in frames:
+                writer.write(fr)
+            writer.release()
+        items.append({"original_video": names["src"],
+                      "grounded_video": names["ground"],
+                      "edited_video": names["edit"],
+                      "edit_instruction": instruction})
+    path = root / "train.json"
+    path.write_text(json.dumps(items))
+    log(f"[train files] {len(items)} triplets of {CLIP_FRAMES}-frame mp4v "
+        f"clips (cv2 {cv2.__version__}): {len(items) - 1} at "
+        f"{geo.height}x{geo.width}, 1 at {TRAIN_OTHER_HW[0]}x"
+        f"{TRAIN_OTHER_HW[1]}")
+    return path, root
+
+
+class MixedModes:
+    """The phase's triplets through `CoTTripletDataset`, item i in the
+    grounding mode TRAIN_MODES[i] (gradual grounding, the gray overlay),
+    recording each item's read seconds. The overlay mode gives the whole
+    overlaid source stream as its grounding stream (JAX's dataset does the
+    same); the trainer takes ``reasoning_frames`` grounding frames, so the
+    item keeps the first ones, those the overlay marks."""
+
+    def __init__(self, json_path, tcfg):
+        from videocof_torch.data import CoTTripletDataset
+        kw = dict(height=tcfg.height, width=tcfg.width,
+                  source_frames=tcfg.source_frames,
+                  target_frames=tcfg.target_frames,
+                  reasoning_frames=tcfg.reasoning_frames, seed=SEED)
+        self.sets = {mode: CoTTripletDataset(str(json_path), **kw, **opts)
+                     for mode, opts in (("plain", {}),
+                                        ("gradual", {"gradual_ground": True}),
+                                        ("overlay", {"gray_viz": "overlay"}))}
+        self.reasoning = tcfg.reasoning_frames
+        self.read_s = []
+        self.overlay_marked = None
+
+    def __len__(self):
+        return len(TRAIN_MODES)
+
+    def __getitem__(self, i):
+        import numpy as np
+        t0 = time.perf_counter()
+        sample = self.sets[TRAIN_MODES[i]][i]
+        if TRAIN_MODES[i] == "overlay":
+            ground, src = sample["pixel_ground"], sample["pixel_src"]
+            if ground.shape != src.shape:
+                fail(f"the overlay's grounding stream {ground.shape}")
+            self.overlay_marked = not np.array_equal(
+                ground[:, :self.reasoning], src[:, :self.reasoning])
+            sample["pixel_ground"] = ground[:, :self.reasoning]
+        self.read_s.append(time.perf_counter() - t0)
+        return sample
+
+
+def train_state_tensors(state):
+    """Copies of a LoRA train state's tensors: the adapters, both AdamW
+    moments and its step counts, by name."""
+    out = {f"adapters.{k}": v.detach().clone()
+           for k, v in state.adapters.state_dict().items()}
+    for i, st in state.optimizer.adamw.state_dict()["state"].items():
+        out.update({f"adamw.{i}.{k}": v.clone() for k, v in st.items()})
+    return out
+
+
+def state_distance(got, want):
+    """{group: relative L2 of ``got`` from ``want``} over two
+    `train_state_tensors` records, by group: the adapters, each AdamW
+    moment, the step counts."""
+    import torch
+    groups = {}
+    for key, w in want.items():
+        group = key.rsplit(".", 1)[-1] if key.startswith("adamw.") else (
+            "adapters")
+        num, den = groups.get(group, (0.0, 0.0))
+        groups[group] = (num + (got[key].double() - w.double()).square()
+                         .sum().item(), den + w.double().square().sum().item())
+    return {g: (num / den) ** 0.5 if den else num ** 0.5
+            for g, (num, den) in groups.items()}
+
+
+def same_state(tag, got, want):
+    """Fail unless two `train_state_tensors` records are equal bit for bit."""
+    import torch
+    bad = sorted(k for k in want if k not in got
+                 or got[k].dtype != want[k].dtype
+                 or not torch.equal(got[k], want[k]))
+    log(f"[train files] {tag}: {len(want)} tensors, "
+        f"{len(want) - len(bad)} equal bit for bit")
+    if bad or set(got) != set(want):
+        fail(f"{tag}: tensors differ: {bad[:5]}")
+
+
+@contextlib.contextmanager
+def recorded_training():
+    """While the block runs: every `CoFTrainer.train` call records its
+    steps' stage walls (into ``rec["stages"]``), and every
+    `save_train_state` call its seconds and a copy of the state it saved
+    (``rec["saves"]``: {step: (seconds, `train_state_tensors`)})."""
+    import torch
+    from videocof_torch.training import trainer as trainer_mod
+    from videocof_torch.utils import checkpoint
+    rec = {"stages": [], "saves": {}}
+    real_train = trainer_mod.CoFTrainer.train
+    real_save = checkpoint.save_train_state
+
+    def train(self, sample_iter, total_steps=None, timings=None):
+        return real_train(self, sample_iter, total_steps,
+                          timings=rec["stages"] if timings is None
+                          else timings)
+
+    def save(path, state):
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_save(path, state)
+        rec["saves"][state.step] = (time.perf_counter() - t0,
+                                    train_state_tensors(state))
+        return out
+
+    trainer_mod.CoFTrainer.train = train
+    checkpoint.save_train_state = save
+    try:
+        yield rec
+    finally:
+        trainer_mod.CoFTrainer.train = real_train
+        checkpoint.save_train_state = real_save
+
+
+def step_walls(stages):
+    """Each step's wall seconds: the sum of its stage walls."""
+    return [sum(st.values()) for st in stages]
+
+
+def log_steps(tag, stages):
+    walls = step_walls(stages)
+    for i, (st, w) in enumerate(zip(stages, walls)):
+        log(f"[{tag}] step {i + 1}{' (warm-up)' if i == 0 else ''}: "
+            + ", ".join(f"{k} {v:.3f} s" for k, v in st.items())
+            + f"; wall {w:.3f} s")
+    return walls
+
+
+def train_files_phase(card, dcfg, geo, prompt, video, want_shape,
+                      want_launches, counters, idle_synthetic):
+    """Training as users run it, at 1.3B (the factory's random draw): (a)
+    the triplet JSON of cv2 clips; (b) `videocof_torch.cli.train.main()` in
+    this process, TRAIN_CLI_STEPS LoRA steps saving every
+    TRAIN_SAVE_EVERY and exporting the adapters; (c) the saved states
+    restored into a fresh trainer and one more step from it and from the
+    state in memory; (d) the exported file merged into the pipeline and a
+    4-step edit; (e) `PrefetchLoader -> device_prefetch -> CoFTrainer` and
+    one profiled step beside phase 6's idle share (``idle_synthetic``);
+    (f) one step under each of TRAIN_REMAT_POLICIES. Fails on any fault.
+    Returns (the phase's record, the triplet JSON, the CLI run's
+    launches)."""
+    import copy
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from videocof_torch.cli import train as train_cli
+    from videocof_torch.data.loader import PrefetchLoader, device_prefetch
+    from videocof_torch.models.lora import merge_lora
+    from videocof_torch.training import (CoFTrainer, adamw,
+                                         make_lora_train_step)
+    from videocof_torch.utils import checkpoint
+    launch_counts, reset_launch_counts = counters
+    cuda = torch.cuda.is_available()
+    dev = torch.device("cuda" if cuda else "cpu")
+    t_phase = time.perf_counter()
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def peak(reset=False):
+        if not cuda:
+            return None
+        if reset:
+            torch.cuda.reset_peak_memory_stats()
+        return torch.cuda.max_memory_allocated() / 1e9
+
+    # (a) the data
+    json_path, root = write_triplets(geo)
+    prints = {k: fingerprint(v) for k, v in
+              draw_unmerged(dcfg, dev).state_dict().items()}
+
+    # (b) the CLI
+    ckpt_dir, lora_path = root / "ckpt", root / "videocof_lora.safetensors"
+    argv = ["--train_json", str(json_path), "--random_init", "--lora_rank",
+            str(TRAIN_CLI_RANK), "--steps", str(TRAIN_CLI_STEPS),
+            "--save_every", str(TRAIN_SAVE_EVERY), "--checkpoint_dir",
+            str(ckpt_dir), "--export_lora", str(lora_path), "--height",
+            str(geo.height), "--width", str(geo.width), "--source_frames",
+            str(geo.source_frames), "--target_frames",
+            str(geo.source_frames), "--reasoning_frames",
+            str(geo.reasoning_frames)]
+    peak(reset=True)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with recorded_loads() as built, recorded_training() as rec:
+        trainer = train_cli.main(argv)
+    cli_s = time.perf_counter() - t0
+    cli_launches = launch_counts()
+    cli_peak = peak()
+    pipe = built[0][1]
+    tcfg = trainer.tcfg
+    attentions = 2 * dcfg.num_layers
+    want_train = dict(want_launches, flash_attention_fwd=0,
+                      flash_attention_fwd_lse=2 * attentions * TRAIN_CLI_STEPS,
+                      flash_attention_bwd=attentions * TRAIN_CLI_STEPS)
+    steps = checkpoint.checkpoint_steps(str(ckpt_dir))
+    changed = changed_weights(pipe.dit, prints)
+    del prints
+    log(f"[train files] cli.train.main(): {cli_s:.3f} s (weights drawn, "
+        f"{TRAIN_CLI_STEPS} steps reading the clips, {len(rec['saves'])} "
+        f"saves, the export); losses {trainer.losses}")
+    walls = log_steps("train files", rec["stages"])
+    save_s = {s: sec for s, (sec, _) in rec["saves"].items()}
+    log(f"[train files] seconds per step {statistics.median(walls[1:]):.3f} "
+        f"(median after the warm-up; 'prepare' holds the cv2 reads); saves "
+        f"{save_s} s; checkpoints {steps}; peak device memory {cli_peak} "
+        f"GB; launches {cli_launches} (expected {want_train}); base weights "
+        f"changed: {len(changed)}")
+    if (len(trainer.losses) != TRAIN_CLI_STEPS
+            or not np.isfinite(trainer.losses).all()):
+        fail(f"CLI training losses {trainer.losses}")
+    want_steps = list(range(TRAIN_SAVE_EVERY, TRAIN_CLI_STEPS + 1,
+                            TRAIN_SAVE_EVERY))
+    if steps != want_steps or sorted(rec["saves"]) != want_steps:
+        fail(f"checkpoints {steps}, saves {sorted(rec['saves'])}, expected "
+             f"{want_steps}")
+    if changed:
+        fail(f"CLI training changed base weights: {sorted(changed)[:5]}")
+    check_launches("CLI training", cli_launches, want_train)
+    if not lora_path.exists():
+        fail("the CLI exported no LoRA file")
+    record = {"card": card, "cli_seconds": cli_s, "losses": trainer.losses,
+              "stages_s": rec["stages"], "seconds_per_step": walls,
+              "save_s": save_s, "peak_memory_gb": cli_peak,
+              "launches": cli_launches}
+
+    # (c) resume: each checkpoint into a fresh trainer, bit for bit against
+    # the state as it was saved; then one more step from the restored
+    # latest state and from the state in memory, on one sample with one
+    # seeded generator
+    fresh = CoFTrainer(pipe.dit, pipe.vae, pipe.t5, pipe.tokenizer,
+                       dataclasses.replace(tcfg, checkpoint_dir=None),
+                       device=dev)
+    restore_s = {}
+    for step in want_steps:
+        latest = step == want_steps[-1]
+        sync()
+        t0 = time.perf_counter()
+        checkpoint.restore_train_state(str(ckpt_dir), fresh.state,
+                                       step=None if latest else step)
+        sync()
+        restore_s[step] = time.perf_counter() - t0
+        if fresh.state.step != step:
+            fail(f"restored step {fresh.state.step}, expected {step}")
+        same_state(f"step {step} restored{' (the latest)' if latest else ''}"
+                   " vs the state saved", train_state_tensors(fresh.state),
+                   rec["saves"][step][1])
+    same_state("the latest restored vs the state in memory",
+               train_state_tensors(fresh.state),
+               train_state_tensors(trainer.state))
+    # B3 reduce-adds dq's key tiles in no fixed order (its source says so),
+    # so two steps from one state differ in the last bits of the gradients:
+    # the loss must be equal bit for bit, the states within RESUME_REL_TOL,
+    # beside the spread of two steps from the same (restored) state
+    sample = MixedModes(json_path, tcfg).sets["plain"][0]
+    after = []
+    for t in (trainer, fresh, None):
+        if t is None:           # the restored state once more
+            t = fresh
+            checkpoint.restore_train_state(str(ckpt_dir), t.state)
+        t.generator.manual_seed(SEED + 1)
+        t.train(iter([sample]), total_steps=1, timings=[])
+        after.append((t.losses[-1], train_state_tensors(t.state)))
+    (loss_mem, mem), (loss_res, res), (loss_again, again) = after
+    d_res, d_spread = state_distance(res, mem), state_distance(again, res)
+    log(f"[train files] restore seconds {restore_s}; one more step: loss "
+        f"{loss_res!r} restored, {loss_mem!r} in memory, {loss_again!r} "
+        f"restored again; state restored vs in memory (relative L2) "
+        f"{d_res}, restored vs restored again {d_spread}")
+    if not loss_res == loss_mem == loss_again:
+        fail("the step after the restore differs from the one in memory")
+    if d_res["step"] or d_spread["step"] or max(
+            d_res.values()) > RESUME_REL_TOL:
+        fail(f"the state after the restored step: {d_res}")
+    record.update(restore_s=restore_s, resume_state_rel_l2=d_res,
+                  resume_spread_rel_l2=d_spread)
+    adapters = copy.deepcopy(trainer.state.adapters)
+    del trainer, rec, sample
+
+    # (d) the exported LoRA merged into the pipeline; a 4-step edit
+    merged = merge_lora(pipe.dit, str(lora_path))
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = pipe(video, prompt, source_frames=geo.source_frames,
+               reasoning_frames=geo.reasoning_frames,
+               num_inference_steps=geo.num_inference_steps,
+               guidance_scale=geo.guidance_scale, shift=geo.shift,
+               sampler=geo.sampler, repeat_rope=geo.repeat_rope,
+               cot=geo.cot, seed=geo.seed)
+    record["edit_seconds"] = time.perf_counter() - t0
+    edit_launches = launch_counts()
+    log(f"[train files] the exported LoRA merged into {len(merged)} "
+        f"modules; the edit {record['edit_seconds']:.3f} s, launches "
+        f"{edit_launches}")
+    if len(merged) != 10 * dcfg.num_layers:
+        fail(f"the exported LoRA merged {len(merged)} modules")
+    check_video("train files", out.videos, want_shape)
+    check_launches("edit with the trained LoRA", edit_launches, dict(
+        want_launches, flash_attention_fwd=2 * dcfg.num_layers
+        * geo.num_inference_steps))
+    del out
+
+    # (e) the loader in front of the step (over the merged base)
+    mixed = MixedModes(json_path, tcfg)
+    loader = PrefetchLoader(mixed, batch_size=1, num_threads=LOADER_THREADS,
+                            seed=SEED, epochs=1)
+    stream = device_prefetch(loader.sample_iter(), size=2)
+    fed_stages = []
+    for _ in range(LOADER_STEPS):
+        fresh.train(stream, total_steps=1, timings=fed_stages)
+    fed = profile_kernels(lambda: fresh.train(stream, total_steps=1))
+    leftover = list(stream)        # the epoch's end: the loader's threads end
+    fed_walls = log_steps("train files, loader-fed", fed_stages)
+    log(f"[train files] loader-fed seconds per step "
+        f"{statistics.median(fed_walls[1:]):.3f} (median after the first; "
+        f"{LOADER_THREADS} threads); the loader read {len(mixed.read_s)} "
+        f"triplets at {statistics.mean(mixed.read_s):.3f} s each (max "
+        f"{max(mixed.read_s):.3f}); the overlay marked its grounding "
+        f"frames: {mixed.overlay_marked}; modes {TRAIN_MODES}")
+    idle_fed = report_profile("one loader-fed LoRA training step", *fed)
+    show = lambda x: "not measured" if x is None else f"{x:.1%}"  # noqa
+    log(f"[train files] idle share of a training step: {show(idle_fed)} "
+        f"loader-fed, {show(idle_synthetic)} on phase 6's in-memory samples")
+    if leftover or len(mixed.read_s) != len(TRAIN_MODES):
+        fail(f"the loader read {len(mixed.read_s)} triplets, "
+             f"{len(leftover)} left over")
+    if mixed.overlay_marked is not True:
+        fail("the gray overlay marked no grounding frame")
+    if not np.isfinite(fresh.losses).all():
+        fail(f"loader-fed losses {fresh.losses}")
+    record["loader"] = {"seconds_per_step": fed_walls, "stages_s": fed_stages,
+                        "read_s": mixed.read_s, "threads": LOADER_THREADS,
+                        "profiled_wall_ms": fed[0], "idle_share": idle_fed,
+                        "idle_share_synthetic": idle_synthetic}
+
+    # (f) one LoRA step under each remat policy, on one batch and one noise
+    # draw, from the trained adapters (their up is not zero); umT5 leaves
+    # the card once the batch is prepared: the steps run the DiT alone
+    batch = fresh.prepare_batch([mixed.sets["plain"][1]])
+    batch["timesteps"] = torch.tensor([600], device=dev)
+    noise = torch.randn(batch["x0"].shape, device=dev, generator=torch.
+                        Generator(device=dev).manual_seed(SEED))
+    del fresh, loader, stream, mixed
+    pipe.t5.to("cpu")
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    dit = pipe.dit
+    remat = {}
+    for policy in TRAIN_REMAT_POLICIES:
+        dit.cfg = dit.cfg.replace(remat_tag_names=str(policy).startswith(
+            "save_names:"))
+        init_fn, step_fn = make_lora_train_step(
+            dit, adamw(tcfg.learning_rate, tcfg.weight_decay,
+                       tcfg.grad_clip), rank=TRAIN_CLI_RANK, remat=policy)
+        state = init_fn(adapters=copy.deepcopy(adapters))
+        grads, real_step = [], state.optimizer.step
+
+        def step_capturing(real_step=real_step, params=state.optimizer.params,
+                           grads=grads):
+            grads.append(torch.cat([p.grad.float().reshape(-1)
+                                    for p in params]))
+            real_step()
+
+        state.optimizer.step = step_capturing
+        peak(reset=True)
+        reset_launch_counts()
+        sync()
+        t0 = time.perf_counter()
+        _, loss = step_fn(state, batch, noise=noise)
+        sync()
+        remat[str(policy)] = dict(seconds=time.perf_counter() - t0,
+                                  peak_memory_gb=peak(), loss=loss,
+                                  launches=launch_counts(), grads=grads[0])
+        del state, init_fn, step_fn, grads
+    dit.cfg = dit.cfg.replace(remat_tag_names=False)
+    ref = remat[str(True)]
+    want_remat = dict(want_launches, flash_attention_fwd=0,
+                      flash_attention_fwd_lse=2 * attentions,
+                      flash_attention_bwd=attentions)
+    for name, r in remat.items():
+        r["grad_rel_l2"] = ((r["grads"] - ref["grads"]).norm()
+                            / ref["grads"].norm()).item()
+        same_loss = torch.equal(r["loss"], ref["loss"])
+        log(f"[train files] remat {name}: {r['seconds']:.3f} s, peak "
+            f"{r['peak_memory_gb']} GB, loss {r['loss'].item()!r} (full "
+            f"remat's bit for bit: {same_loss}), adapter gradients "
+            f"{r['grad_rel_l2']:.3e} relative L2 from full remat's, "
+            f"launches {r['launches']}")
+        if not same_loss:
+            fail(f"remat {name}: the loss differs from full remat's")
+        if not r["grad_rel_l2"] <= REMAT_GRAD_REL_TOL:
+            fail(f"remat {name}: gradients {r['grad_rel_l2']:.3e} from full "
+                 f"remat's")
+        check_launches(f"remat policy {name}", r["launches"], want_remat)
+    record["remat"] = {k: {key: v[key] for key in (
+        "seconds", "peak_memory_gb", "launches", "grad_rel_l2")}
+        for k, v in remat.items()}
+    log(f"[train files] (a)-(f) in {time.perf_counter() - t_phase:.1f} s")
+    return record, json_path, cli_launches
+
+
+def train_14b_phase(card, cfg14, geo, json_path, want_launches, counters):
+    """(g) TRAIN_14B_STEPS steps of `CoFTrainer` (rank TRAIN_14B_RANK LoRA,
+    full remat, the geometry's size and frames) on `factory.load_pipeline("",
+    random_init=True, dit_cfg=cfg14)` drawn on the card, on the phase's
+    triplets read beforehand: finite losses, base weights unchanged, the
+    launches; seconds per step, stage walls, peak. Returns its record."""
+    import numpy as np
+    import torch
+    from videocof_torch import factory
+    from videocof_torch.training import CoFTrainer, TrainerConfig
+    launch_counts, reset_launch_counts = counters
+    cuda = torch.cuda.is_available()
+    t0 = time.perf_counter()
+    pipe = factory.load_pipeline("", random_init=True, seed=SEED,
+                                 dit_cfg=cfg14)
+    if cuda:
+        torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    prints = {k: fingerprint(v) for k, v in pipe.dit.state_dict().items()}
+    tcfg = TrainerConfig(height=geo.height, width=geo.width,
+                         source_frames=geo.source_frames,
+                         target_frames=geo.source_frames,
+                         reasoning_frames=geo.reasoning_frames,
+                         lora_rank=TRAIN_14B_RANK)
+    trainer = CoFTrainer(pipe.dit, pipe.vae, pipe.t5, pipe.tokenizer, tcfg,
+                         device=pipe.device)
+    mixed = MixedModes(json_path, tcfg)
+    samples = iter([mixed[i] for i in range(TRAIN_14B_STEPS)])
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    stages = []
+    for _ in range(TRAIN_14B_STEPS):
+        trainer.train(samples, total_steps=1, timings=stages)
+    launches = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 if cuda else None
+    attentions = 2 * cfg14.num_layers
+    want = dict(want_launches, flash_attention_fwd=0,
+                flash_attention_fwd_lse=2 * attentions * TRAIN_14B_STEPS,
+                flash_attention_bwd=attentions * TRAIN_14B_STEPS)
+    changed = changed_weights(pipe.dit, prints)
+    log(f"[train 14B] {cfg14.num_layers} blocks of {cfg14.dim}, "
+        f"{cfg14.num_heads} heads, rank {TRAIN_14B_RANK}; drawn in "
+        f"{build_s:.1f} s; losses {trainer.losses}")
+    walls = log_steps("train 14B", stages)
+    log(f"[train 14B] seconds per step {walls[-1]:.3f} (step 2); peak "
+        f"device memory {peak_gb} GB; launches {launches} (expected "
+        f"{want}); base weights changed: {len(changed)}")
+    if not np.isfinite(trainer.losses).all():
+        fail(f"14B training losses {trainer.losses}")
+    if changed:
+        fail(f"14B training changed base weights: {sorted(changed)[:5]}")
+    check_launches("14B LoRA training", launches, want)
+    return {"card": card, "build_s": build_s, "losses": trainer.losses,
+            "stages_s": stages, "seconds_per_step": walls,
+            "peak_memory_gb": peak_gb, "launches": launches,
+            "layers": cfg14.num_layers, "rank": TRAIN_14B_RANK}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2950,6 +3520,36 @@ def main() -> int:
             fa.flash_attention_reference(q, k, v))
         note("flash_attention_fwd", err14[shape_name])
         del q, k, v, out
+
+    def shape_errs(fn):
+        """Run ``fn()`` with B2's and B3's error maxima set aside: returns
+        the maxima it noted, which also join ``errs``."""
+        keys = ("flash_attention_fwd_lse", "flash_attention_bwd")
+        saved = {key: errs[key] for key in keys}
+        for key in keys:
+            errs[key] = [0.0, 0.0]
+        fn()
+        got = {key: errs[key] for key in keys}
+        for key in keys:
+            errs[key] = [max(a, b) for a, b in zip(saved[key], got[key])]
+        return got
+
+    # B2 and B3 at the 14B's 40 heads, the shapes of its LoRA training step
+    # (phase 20): B2's out and LSE, and B3 against the rounded and the fp32
+    # plain backward
+    err14_train = {}
+    for shape_name, (B, Lq, Lk) in (("self", (1, L, L)), ("cross", (1, L, Lt))):
+        label = (f"{shape_name}-attention at the 14B's {N14} heads "
+                 f"{(B, Lq, Lk, N14, D)} bfloat16")
+        q, k, v = qkv(B, Lq, Lk, N14, D)
+
+        def check_both():
+            qs, ref, ref_lse = check_forward(label, q, k, v, None)
+            check_backward(label, qs, k, v, ref, ref_lse)
+
+        err14_train[shape_name] = shape_errs(check_both)
+        del q, k, v
+        torch.cuda.empty_cache()
     # B1 at the 4x edit's and the ragged batch's shapes (the plain version
     # takes its q rows in chunks, so it holds the kernel against all keys
     # at 107,640 tokens too)
@@ -3165,68 +3765,81 @@ def main() -> int:
 
     # ---------------------------------------------------------- 3. timing
     F = torch.nn.functional
-    timing = {}
-    for shape_name, (B, Lq, Lk), plain_runs in (("self", (1, L, L), 3),
-                                                ("cross", (1, L, Lt), 10)):
-        q, k, v = qkv(B, Lq, Lk, N, D)
-        qs = q * fa._rounded(D ** -0.5, bf16)
-        do = randn(B, Lq, N, D)
-        out, lse = fa.flash_fwd_lse(qs, k, v)
-        delta = fa.flash_bwd_delta(out, do)
-        runs = {
-            "flash_attention_fwd": (lambda: fa.flash_attention(q, k, v),
-                                    lambda: fa.flash_attention_reference(
-                                        q, k, v)),
-            "flash_attention_fwd_lse": (
-                lambda: fa.flash_fwd_lse(qs, k, v),
-                lambda: fa.flash_fwd_lse_reference(qs, k, v)),
-            # the wrapper: the dQ accumulator's zeroing, the kernel, the cast
-            "flash_attention_bwd": (
-                lambda: fa.flash_bwd(qs, k, v, do, lse, delta),
-                lambda: (fa.flash_bwd_dq_reference(qs, k, v, do, lse, delta,
-                                                   rounded=True),
-                         fa.flash_bwd_dkv_reference(qs, k, v, do, lse, delta,
-                                                    rounded=True))),
-        }
-        # yardsticks: SDPA's forward without and with a gradient to carry
-        # (then it keeps its LSE), and SDPA's backward alone
-        qt, kt, vt, dot = (a.transpose(1, 2) for a in (q, k, v, do))
-        lq, lk, lv = (a.detach().requires_grad_() for a in (qt, kt, vt))
-        with torch.enable_grad():
-            sdpa_out = F.scaled_dot_product_attention(lq, lk, lv)
 
-        def sdpa_fwd_grad():
+    def time_flash(Nh, kernels, plain_runs_self):
+        """``kernels`` (of B1, B2, B3) at ``Nh`` heads at the self and
+        cross shapes: kernel, plain version, library call, bound."""
+        timing = {}
+        for shape_name, (B, Lq, Lk), plain_runs in (
+                ("self", (1, L, L), plain_runs_self),
+                ("cross", (1, L, Lt), 10)):
+            q, k, v = qkv(B, Lq, Lk, Nh, D)
+            qs = q * fa._rounded(D ** -0.5, bf16)
+            do = randn(B, Lq, Nh, D)
+            out, lse = fa.flash_fwd_lse(qs, k, v)
+            delta = fa.flash_bwd_delta(out, do)
+            runs = {
+                "flash_attention_fwd": (
+                    lambda: fa.flash_attention(q, k, v),
+                    lambda: fa.flash_attention_reference(q, k, v)),
+                "flash_attention_fwd_lse": (
+                    lambda: fa.flash_fwd_lse(qs, k, v),
+                    lambda: fa.flash_fwd_lse_reference(qs, k, v)),
+                # the wrapper: the dQ accumulator's zeroing, the kernel,
+                # the cast
+                "flash_attention_bwd": (
+                    lambda: fa.flash_bwd(qs, k, v, do, lse, delta),
+                    lambda: (fa.flash_bwd_dq_reference(
+                        qs, k, v, do, lse, delta, rounded=True),
+                        fa.flash_bwd_dkv_reference(
+                            qs, k, v, do, lse, delta, rounded=True))),
+            }
+            # yardsticks: SDPA's forward without and with a gradient to
+            # carry (then it keeps its LSE), and SDPA's backward alone
+            qt, kt, vt, dot = (a.transpose(1, 2) for a in (q, k, v, do))
+            lq, lk, lv = (a.detach().requires_grad_() for a in (qt, kt, vt))
             with torch.enable_grad():
-                F.scaled_dot_product_attention(lq, lk, lv)
+                sdpa_out = F.scaled_dot_product_attention(lq, lk, lv)
 
-        library = {
-            "flash_attention_fwd": lambda: F.scaled_dot_product_attention(
-                qt, kt, vt),
-            "flash_attention_fwd_lse": sdpa_fwd_grad,
-            "flash_attention_bwd": lambda: torch.autograd.grad(
-                sdpa_out, (lq, lk, lv), dot, retain_graph=True),
-        }
-        work = kernel_work(B, Lq, Lk, N, D)
-        shape = f"B={B} Lq={Lq} Lk={Lk} N={N} D={D} bf16"
-        timing[shape_name] = {}
-        for kname in names:
-            kernel_fn, plain_fn = runs[kname]
-            ms = cuda_ms(kernel_fn, runs=10)
-            plain_ms = cuda_ms(plain_fn, runs=plain_runs, warmup=1)
-            library_ms = cuda_ms(library[kname], runs=10)
-            bound_ms, bound_by = bound(*work[kname])
-            tflops = work[kname][0] / ms / 1e9
-            timing[shape_name][kname] = dict(
-                shape=shape, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=library_ms, tflops=tflops)
-            log(f"[timing] {kname} {shape_name} {shape}: kernel_ms {ms:.4f} "
-                f"bound_ms {bound_ms:.4f} ({bound_by}) plain_ms "
-                f"{plain_ms:.4f} library_ms {library_ms:.4f} (share of bound "
-                f"{bound_ms / ms:.1%}; {tflops:.1f} TFLOP/s, library "
-                f"{work[kname][0] / library_ms / 1e9:.1f})")
-        del q, k, v, qs, do, out, lse, delta, qt, kt, vt, dot, lq, lk, lv
-        del sdpa_out, runs, library
-        torch.cuda.empty_cache()
+            def sdpa_fwd_grad():
+                with torch.enable_grad():
+                    F.scaled_dot_product_attention(lq, lk, lv)
+
+            library = {
+                "flash_attention_fwd":
+                    lambda: F.scaled_dot_product_attention(qt, kt, vt),
+                "flash_attention_fwd_lse": sdpa_fwd_grad,
+                "flash_attention_bwd": lambda: torch.autograd.grad(
+                    sdpa_out, (lq, lk, lv), dot, retain_graph=True),
+            }
+            work = kernel_work(B, Lq, Lk, Nh, D)
+            shape = f"B={B} Lq={Lq} Lk={Lk} N={Nh} D={D} bf16"
+            timing[shape_name] = {}
+            for kname in kernels:
+                kernel_fn, plain_fn = runs[kname]
+                ms = cuda_ms(kernel_fn, runs=10)
+                plain_ms = cuda_ms(plain_fn, runs=plain_runs, warmup=1)
+                library_ms = cuda_ms(library[kname], runs=10)
+                bound_ms, bound_by = bound(*work[kname])
+                tflops = work[kname][0] / ms / 1e9
+                timing[shape_name][kname] = dict(
+                    shape=shape, ms=ms, plain_ms=plain_ms,
+                    bound_ms=bound_ms, bound_by=bound_by,
+                    library_ms=library_ms, tflops=tflops)
+                log(f"[timing] {kname} {shape_name} {shape}: kernel_ms "
+                    f"{ms:.4f} bound_ms {bound_ms:.4f} ({bound_by}) "
+                    f"plain_ms {plain_ms:.4f} library_ms {library_ms:.4f} "
+                    f"(share of bound {bound_ms / ms:.1%}; {tflops:.1f} "
+                    f"TFLOP/s, library "
+                    f"{work[kname][0] / library_ms / 1e9:.1f})")
+            del q, k, v, qs, do, out, lse, delta, qt, kt, vt, dot
+            del lq, lk, lv, sdpa_out, runs, library
+            torch.cuda.empty_cache()
+        return timing
+
+    timing = time_flash(N, names, 3)
+    # B2 and B3 at the 14B's 40 heads (its LoRA training step, phase 20)
+    timing14_train = time_flash(N14, names[1:], 1)
 
     # B1 at the 14B's 40 heads: kernel, plain version, SDPA and the bound
     timing14 = {}
@@ -3597,8 +4210,9 @@ def main() -> int:
         "losses": losses, "peak_memory_gb": train_peak_gb,
         "launches": train_launches}))
     del base
-    report_profile("one LoRA training step", *profile_kernels(
-        lambda: trainer.train(samples, total_steps=1)))
+    idle_synthetic = report_profile(
+        "one LoRA training step", *profile_kernels(
+            lambda: trainer.train(samples, total_steps=1)))
 
     # ------------------------------------------------ 7. the entry at 1.3B
     shutil.rmtree(SCRATCH, ignore_errors=True)
@@ -3683,7 +4297,21 @@ def main() -> int:
     shutil.rmtree(SCRATCH, ignore_errors=True)
     log(f"[serving] phase 19 in {time.perf_counter() - t_serve:.1f} s")
 
-    # ----------------------------------------------------------- 20. report
+    # --------------------------------------------- 20. training from files
+    t_train = time.perf_counter()
+    rec_train, train_json, cli_launches = train_files_phase(
+        card, dcfg, geo, prompt, video, want_shape, want_launches, counters,
+        idle_synthetic)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec_14b = train_14b_phase(card, WAN21_T2V_14B, geo, train_json,
+                              want_launches, counters)
+    shutil.rmtree(SCRATCH, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[train files] phase 20 in {time.perf_counter() - t_train:.1f} s")
+
+    # ----------------------------------------------------------- 21. report
     sources = {"flash_attention_fwd": "flash_attention_fwd.cu",
                "flash_attention_fwd_lse": "flash_attention_fwd.cu",
                "flash_attention_bwd": "flash_attention_bwd.cu"}
@@ -3692,8 +4320,9 @@ def main() -> int:
                                             " (lse_ref :96-98)"),
                 "flash_attention_bwd": ("201,233",
                                         "_bwd_dq_kernel and _bwd_dkv_kernel")}
+    # B2 and B3 on this slice's path: the CLI's training run (phase 20)
     launches = {n: (edit_launches if n == "flash_attention_fwd"
-                    else train_launches)[n] for n in names}
+                    else cli_launches)[n] for n in names}
     b1_14b = {"launches_14b": launches14["flash_attention_fwd"],
               "launches_14b_on": "14B edit",
               "launches_serving_14b": [
@@ -3715,7 +4344,14 @@ def main() -> int:
             "tpu_kernel": tpu,
             "launches": launches[kname],
             "launches_on": "edit" if kname == "flash_attention_fwd"
-                           else f"{TRAIN_STEPS} training steps",
+                           else f"cli.train, {TRAIN_CLI_STEPS} steps",
+            **({} if kname == "flash_attention_fwd" else {
+                "launches_synthetic": train_launches[kname],
+                "launches_synthetic_on": f"{TRAIN_STEPS} training steps "
+                                         "(phase 6)",
+                "launches_per_remat_policy": {
+                    pol: r["launches"][kname]
+                    for pol, r in rec_train["remat"].items()}}),
             "max_abs_err": errs[kname][0],
             "max_rel_l2_err": errs[kname][1],
             **({"rel_l2_err_vs_fp32_plain": c1}
@@ -3728,6 +4364,25 @@ def main() -> int:
             "shape": main_shape["shape"],
             "cross": timing["cross"][kname],
             **(b1_14b if kname == "flash_attention_fwd" else {}),
+        })
+    # B2 and B3 at the 14B's 40 heads, with the launches of its LoRA steps
+    for kname in names[1:]:
+        line, tpu = replaces[kname]
+        main_shape = timing14_train["self"][kname]
+        rows.append({
+            "name": kname, "route": "cuda",
+            "source": f"videocof_torch/csrc/{sources[kname]}",
+            "replaces": f"videocof_tpu/ops/flash_attention.py:{line}",
+            "tpu_kernel": tpu, "launches": rec_14b["launches"][kname],
+            "launches_on": f"14B LoRA training, {TRAIN_14B_STEPS} steps",
+            "max_abs_err": err14_train["self"][kname][0],
+            "max_rel_l2_err": err14_train["self"][kname][1],
+            **{key: main_shape[key] for key in (
+                "ms", "tflops", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "shape")},
+            "cross": dict(timing14_train["cross"][kname],
+                          max_abs_err=err14_train["cross"][kname][0],
+                          max_rel_l2_err=err14_train["cross"][kname][1]),
         })
     # B4: its two kernels, with the whole of it (K mean, pre-pass,
     # attention) beside the attention kernel's row
@@ -3788,7 +4443,9 @@ def main() -> int:
     log("[serving] " + json.dumps({"server_14b": rec_serve,
                                    "swap_1.3b": rec_swap,
                                    "entry": rec_entry, "nccl": rec_nccl}))
-    log(f"[smoke] phases 1-19 in {time.perf_counter() - t_start:.1f} s")
+    log("[train] " + json.dumps({"from_files_1.3b": rec_train,
+                                 "lora_14b": rec_14b}, default=str))
+    log(f"[smoke] phases 1-20 in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -924,3 +924,96 @@ def test_weight_swap_keeps_device_memory_flat(cuda, tmp_path):
     assert torch.cuda.memory_allocated() == before
     for k, v in other.state_dict().items():
         assert torch.equal(pipe.dit.state_dict()[k], v), k
+
+
+def _tiny_trainer(cuda, ckpt=None, save_every=0, seed=0):
+    dcfg = WAN_TINY.replace(dim=128, ffn_dim=256, num_heads=2,
+                            in_dim=VAE_TINY.z_dim, out_dim=VAE_TINY.z_dim,
+                            text_dim=T5_TINY.dim)
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    bf16 = torch.bfloat16
+    tcfg = TrainerConfig(height=16, width=16, source_frames=5,
+                         target_frames=5, reasoning_frames=4, lora_rank=4,
+                         learning_rate=1e-3, checkpoint_dir=ckpt,
+                         save_every=save_every)
+    return CoFTrainer(init_wan_dit(dcfg, g, bf16),
+                      init_wan_vae(VAE_TINY, g, bf16),
+                      init_t5_encoder(T5_TINY, g, bf16), None, tcfg)
+
+
+def _triplet(seed):
+    rng = np.random.default_rng(seed)
+    return {k: rng.uniform(-1, 1, (3, T, 16, 16)).astype(np.float32)
+            for k, T in (("pixel_src", 5), ("pixel_ground", 4),
+                         ("pixel_tgt", 5))} | {"text": "remove it"}
+
+
+@pytest.mark.cuda
+def test_restored_trainer_resumes_on_the_card(cuda, tmp_path):
+    """A LoRA state saved at step 2 on the card and restored into a fresh
+    trainer equals the state in memory bit for bit (adapters, both AdamW
+    moments, step); one more step on the same sample with the same seeded
+    generator gives the same loss bit for bit and the same state within
+    1e-3 relative L2 (B3 adds dq's key tiles in no fixed order)."""
+    from videocof_torch.utils.checkpoint import restore_train_state
+    trainer = _tiny_trainer(cuda, str(tmp_path), save_every=2)
+    trainer.train(iter([_triplet(0), _triplet(1)]), total_steps=2)
+    fresh = _tiny_trainer(cuda)
+    restore_train_state(str(tmp_path), fresh.state)
+
+    def tensors(state):
+        out = dict(state.adapters.state_dict())
+        for i, st in state.optimizer.adamw.state_dict()["state"].items():
+            out.update({f"{i}.{k}": v for k, v in st.items()})
+        return out
+
+    want = tensors(trainer.state)
+    got = tensors(fresh.state)
+    assert set(got) == set(want) and fresh.state.step == 2
+    assert all(torch.equal(v, want[k]) for k, v in got.items())
+    fa.reset_launch_counts()
+    for t in (trainer, fresh):
+        t.generator.manual_seed(7)
+        t.train(iter([_triplet(2)]), total_steps=1)
+    assert fa.launch_counts()["flash_attention_bwd"] == 2 * 2 * 2
+    assert fresh.losses[-1] == trainer.losses[-1]
+    want = tensors(trainer.state)
+    for k, v in tensors(fresh.state).items():
+        if k.endswith("step"):
+            assert torch.equal(v, want[k]), k
+        else:
+            assert ((v - want[k]).float().norm()
+                    <= 1e-3 * want[k].float().norm()), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy,fwd_per_attention", [
+    (False, 1), (True, 2), ("everything_saveable", 1),
+    ("dots_with_no_batch_dims_saveable", 2),
+    ("save_names:attn_out,xattn_out", 2)])
+def test_remat_policy_launches(cuda, policy, fwd_per_attention):
+    """One LoRA step per policy: B2 once per attention, and again in the
+    backward's recompute under a checkpointing policy; B3 once; the loss
+    equals full remat's bit for bit."""
+    from videocof_torch.training import make_lora_train_step
+    trainer = _tiny_trainer(cuda)
+    dit = trainer.dit
+    dit.cfg = dit.cfg.replace(
+        remat_tag_names=str(policy).startswith("save_names"))
+    batch = trainer.prepare_batch([_triplet(3)])
+    batch["timesteps"] = torch.tensor([600], device=cuda)
+    noise = torch.randn(batch["x0"].shape, device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(1))
+    losses = {}
+    for pol in (True, policy):
+        init_fn, step_fn = make_lora_train_step(dit, rank=4, remat=pol)
+        fa.reset_launch_counts()
+        _, losses[pol] = step_fn(
+            init_fn(torch.Generator(device=cuda).manual_seed(2)), batch,
+            noise=noise)
+    n = 2 * dit.cfg.num_layers
+    assert fa.launch_counts() == {
+        "flash_attention_fwd": 0,
+        "flash_attention_fwd_lse": fwd_per_attention * n,
+        "flash_attention_bwd": n}
+    assert torch.equal(losses[policy], losses[True])

@@ -59,7 +59,15 @@ def test_new_modules_are_covered():
             "videocof_torch/serving/api.py",
             "videocof_torch/serving/webui.py",
             "videocof_torch/serving/multihost.py",
-            "videocof_torch/comfyui/comfyui_nodes.py"} <= names
+            "videocof_torch/comfyui/comfyui_nodes.py",
+            "videocof_torch/data/buckets.py",
+            "videocof_torch/data/dataset.py",
+            "videocof_torch/data/loader.py",
+            "videocof_torch/data/masks.py",
+            "videocof_torch/data/camera.py",
+            "videocof_torch/data/datasets_extra.py",
+            "videocof_torch/data/datasets_legacy.py",
+            "videocof_torch/cli/train.py"} <= names
 
 
 def test_pipeline_imports_without_jax():
@@ -87,7 +95,11 @@ def test_pipeline_imports_without_jax():
             "from videocof_torch.pipeline import Wan22Pipeline\n"
             "import videocof_torch.serving.api\n"
             "import videocof_torch.serving.multihost\n"
-            "import videocof_torch.comfyui\n")
+            "import videocof_torch.comfyui\n"
+            "import videocof_torch.data\n"
+            "import videocof_torch.data.loader\n"
+            "import videocof_torch.data.masks\n"
+            "import videocof_torch.cli.train\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr

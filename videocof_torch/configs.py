@@ -3,7 +3,7 @@
 The same frozen dataclasses and published geometries as
 `videocof_tpu/configs.py` (and the Wan2.2 VAE's config of
 `videocof_tpu/models/wan_vae22.py`), minus the fields whose behaviour the
-port does not carry yet (i2v, remat, FFN chunking).
+port does not carry yet (i2v, FFN chunking).
 """
 
 from __future__ import annotations
@@ -38,6 +38,10 @@ class WanDiTConfig:
     rope_dtype: str = "float32"
     # Residual-stream storage dtype between blocks.
     stream_dtype: str = "float32"
+    # Tag the self- and cross-attention outputs "attn_out" and "xattn_out"
+    # for a 'save_names:attn_out,xattn_out' remat policy (off by default:
+    # each tag copies the [B, L, D] output once).
+    remat_tag_names: bool = False
 
     @property
     def head_dim(self) -> int:

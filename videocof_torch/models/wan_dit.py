@@ -7,6 +7,10 @@ fp32; q/k RMSNorm returns its input dtype; matmul inputs are cast to the
 parameter dtype. Patch embedding is patchify + linear (identical to the
 stride == kernel Conv3d). RoPE arrives as per-token cos/sin tables.
 
+Activation checkpointing of the blocks (``remat_blocks``) takes JAX's
+named policies where they mean something on a torch graph (`remat_policy`),
+through selective activation checkpointing.
+
 Parameter names follow the JAX tree (`convert.dit_from_jax` maps one onto
 the other); linear weights are [out, in] as in ``nn.Linear``. A linear may
 store its weight in fp8 (`utils/fp8.py`): it is dequantized to bf16 at its
@@ -19,14 +23,15 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.func import functional_call
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..configs import WanDiTConfig
 from ..ops import attention
@@ -70,6 +75,82 @@ def _linear(x, lin: nn.Linear, dtype=None):
 
 def _gelu_tanh(x):
     return F.gelu(x, approximate="tanh")
+
+
+# ------------------------------------------------------------------- remat
+
+@torch.library.custom_op("videocof::checkpoint_name", mutates_args=())
+def checkpoint_name(x: torch.Tensor, name: str) -> torch.Tensor:
+    """A copy of ``x`` under ``name``: the op a 'save_names:' policy saves
+    (JAX's `checkpoint_name`; a custom op, so that selective checkpointing
+    sees it with its name)."""
+    return x.clone()
+
+
+checkpoint_name.register_fake(lambda x, name: torch.empty_like(x))
+checkpoint_name.register_autograd(lambda ctx, grad: (grad, None),
+                                  setup_context=lambda ctx, inputs,
+                                  output: None)
+
+_MATMULS = frozenset({torch.ops.aten.mm.default,
+                      torch.ops.aten.addmm.default})
+# JAX's `jax.checkpoint_policies` names that keep the outputs of some ops:
+# the dots (the linears, the adapters' products and, under "dots_saveable",
+# the batched products of the naive attention)
+_SAVED_OPS = {
+    "dots_saveable": _MATMULS | {torch.ops.aten.bmm.default},
+    "checkpoint_dots": _MATMULS | {torch.ops.aten.bmm.default},
+    "dots_with_no_batch_dims_saveable": _MATMULS,
+    "checkpoint_dots_with_no_batch_dims": _MATMULS,
+}
+REMAT_POLICIES = ("nothing_saveable", "everything_saveable", *_SAVED_OPS)
+
+
+def remat_policy(remat_blocks: Union[bool, str]) -> Optional[dict]:
+    """``remat_blocks`` -> the keyword arguments of each block's
+    ``checkpoint`` call, or None for no checkpointing (JAX's `_remat_wrap`).
+
+    False: none. True or "nothing_saveable": full remat, the backward
+    recomputes the block from its input. "everything_saveable": every
+    residual is kept, which is the block without checkpointing (a selective
+    checkpoint would still rerun the block's Python, and with it the
+    attention kernels, which it cannot see). "dots_saveable" /
+    "checkpoint_dots": the outputs of ``mm``, ``addmm`` and ``bmm`` are kept;
+    "dots_with_no_batch_dims_saveable" /
+    "checkpoint_dots_with_no_batch_dims": those of ``mm`` and ``addmm``
+    (the linears, the adapters' products). "save_names:<n1,n2>": the
+    outputs tagged by `checkpoint_name` (``attn_out``, ``xattn_out`` on a
+    config with ``remat_tag_names``; without the tags nothing is saved, as
+    in JAX). Every other value raises ValueError. The attention kernels are
+    recomputed under every policy that checkpoints (as JAX recomputes a
+    ``pallas_call``, which is not a dot)."""
+    if remat_blocks in (False, None, "everything_saveable"):
+        return None
+    if remat_blocks in (True, "nothing_saveable"):
+        return {}
+    if isinstance(remat_blocks, str) and remat_blocks.startswith(
+            "save_names:"):
+        names = frozenset(remat_blocks.split(":", 1)[1].split(","))
+
+        def must_save(op, args):
+            return (op is torch.ops.videocof.checkpoint_name.default
+                    and args[1] in names)
+    elif isinstance(remat_blocks, str) and remat_blocks in _SAVED_OPS:
+        saved = _SAVED_OPS[remat_blocks]
+
+        def must_save(op, args):
+            return op in saved
+    else:
+        raise ValueError(
+            f"unknown remat policy {remat_blocks!r}; use a bool, one of "
+            f"{list(REMAT_POLICIES)} or 'save_names:<n1,n2>'")
+
+    def policy(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if must_save(op, args)
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+
+    return {"context_fn": functools.partial(
+        create_selective_checkpoint_contexts, policy)}
 
 
 # ---------------------------------------------------------------------- modules
@@ -142,7 +223,9 @@ class WanBlock(nn.Module):
             self.norm3 = _ScaleBias(d, dtype, device)
 
     def forward(self, x, e0, context, rope_cs, seq_mask=None,
-                attn_backend=None):
+                attn_backend=None, tag_names=False):
+        """``tag_names`` tags the attention outputs for a 'save_names:'
+        remat policy (`checkpoint_name`)."""
         cfg, eps = self.cfg, self.cfg.eps
         e = self.modulation[None].float() + e0                  # [B, 6, D]
         e_ = [e[:, i][:, None, :] for i in range(6)]
@@ -153,6 +236,8 @@ class WanBlock(nn.Module):
                            rope_cs=rope_cs, kv_mask=seq_mask,
                            backend=attn_backend,
                            rope_dtype=getattr(torch, cfg.rope_dtype))
+        if tag_names:
+            y = checkpoint_name(y, "attn_out")
         x = (x.float() + y.float() * e_[2]).to(sdt)
 
         if cfg.cross_attn_norm:
@@ -161,6 +246,8 @@ class WanBlock(nn.Module):
             nx = x
         y = self.cross_attn(nx.to(context.dtype), cfg.num_heads, eps,
                             kv_in=context, backend=attn_backend)
+        if tag_names:
+            y = checkpoint_name(y, "xattn_out")
         x = (x.float() + y.float()).to(sdt)
 
         tx = _layer_norm(x, eps) * (1.0 + e_[4]) + e_[3]
@@ -215,11 +302,12 @@ def unpatchify(x: torch.Tensor, grid, patch_size, out_dim: int) -> torch.Tensor:
 
 # ---------------------------------------------------------------------- model
 
-def _block_call(block, ad, lora_scale, attn_backend, stream, e0, ctx,
-                rope_cos, rope_sin, seq_mask):
+def _block_call(block, ad, lora_scale, attn_backend, tag_names, stream, e0,
+                ctx, rope_cos, rope_sin, seq_mask):
     """One block, with its LoRA adapters ``ad`` fused into its weights for
     this call only when given."""
-    args = (stream, e0, ctx, (rope_cos, rope_sin), seq_mask, attn_backend)
+    args = (stream, e0, ctx, (rope_cos, rope_sin), seq_mask, attn_backend,
+            tag_names)
     if ad is None:
         return block(*args)
     return functional_call(block, fuse_block_adapters(block, ad, lora_scale),
@@ -248,14 +336,14 @@ class WanDiT(nn.Module):
     def forward(self, x: torch.Tensor, t: torch.Tensor, context: torch.Tensor,
                 rope_cos: torch.Tensor, rope_sin: torch.Tensor,
                 attn_backend: Optional[str] = None, lora=None,
-                remat_blocks: bool = False,
+                remat_blocks: Union[bool, str] = False,
                 seq_lens: Optional[torch.Tensor] = None) -> torch.Tensor:
         """``lora`` = (`LoRAAdapters`, scale) fuses each block's adapters into
         its weights inside that block's call, as the JAX scan does, so only
         one block's fused weights exist at a time; without it the attached
-        ``runtime_lora`` is fused so. ``remat_blocks`` wraps each
-        block in activation checkpointing (JAX's full remat): the backward
-        recomputes the block from its input stream.
+        ``runtime_lora`` is fused so. ``remat_blocks`` checkpoints each
+        block under a policy (`remat_policy`: True is JAX's full remat, the
+        backward recomputes the block from its input stream).
 
         The RoPE tables are [L, head_dim//2], or [B, L, head_dim//2] per
         sample. ``seq_lens`` [B] (a ragged batch) gives each sample's valid
@@ -290,6 +378,7 @@ class WanDiT(nn.Module):
              remat_blocks=False, residual=None, skip_blocks=False,
              want_residual=False, seq_lens=None):
         cfg = self.cfg
+        remat = remat_policy(remat_blocks)
         if lora is None:
             lora = self.runtime_lora
         compute_dtype = _kernel_dtype(self.patch_embed)
@@ -333,10 +422,10 @@ class WanDiT(nn.Module):
             ad = None if lora is None else lora[0].blocks[i]
             call = functools.partial(_block_call, block, ad,
                                      None if lora is None else lora[1],
-                                     attn_backend)
+                                     attn_backend, cfg.remat_tag_names)
             args = (stream, e0, ctx, rope_cos, rope_sin, seq_mask)
-            if remat_blocks and torch.is_grad_enabled():
-                stream = checkpoint(call, *args, use_reentrant=False)
+            if remat is not None and torch.is_grad_enabled():
+                stream = checkpoint(call, *args, use_reentrant=False, **remat)
             else:
                 stream = call(*args)
         if skip_blocks:

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass
-from typing import Callable, Dict, Iterable, List, Optional, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -28,9 +28,11 @@ from ..models.wan_dit import WanDiT
 
 def flow_matching_loss(dit: WanDiT, x0, context, rope_cos, rope_sin,
                        timesteps, noise, attn_backend=None,
-                       remat: bool = True, frame_mask=None, lora=None):
+                       remat: Union[bool, str] = True, frame_mask=None,
+                       lora=None):
     """Rectified-flow loss: x_t = (1 - sigma) x0 + sigma n, target n - x0.
 
+    ``remat`` is the blocks' checkpoint policy (`wan_dit.remat_policy`).
     ``frame_mask`` [F] (1 = denoised frame, 0 = clean conditioning frame) is
     the chain-of-frames objective: source latent frames stay clean at every
     t and leave the loss. ``lora`` = (adapters, scale) as for `WanDiT`."""
@@ -148,7 +150,8 @@ def _loss(dit, batch, x0, noise, attn_backend, remat, lora=None):
         frame_mask=batch.get("frame_mask"), lora=lora)
 
 
-def make_train_step(dit: WanDiT, optimizer=None, remat: bool = True,
+def make_train_step(dit: WanDiT, optimizer=None,
+                    remat: Union[bool, str] = True,
                     attn_backend: Optional[str] = None
                     ) -> Tuple[Callable, Callable]:
     """Full fine-tuning: (init_fn, step_fn).
@@ -159,7 +162,9 @@ def make_train_step(dit: WanDiT, optimizer=None, remat: bool = True,
     ``rope_cos``, ``rope_sin``, ``timesteps`` [B] and optionally
     ``frame_mask``; ``noise`` replaces the draw from ``generator`` (JAX
     draws it inside the step from its key); ``timings`` (a dict) receives the
-    stage walls "forward+backward" and "optimizer"."""
+    stage walls "forward+backward" and "optimizer". ``remat``: False, True,
+    a policy name or 'save_names:<n1,n2>' (`wan_dit.remat_policy`; an
+    unknown name raises ValueError at the first step, as in JAX)."""
     optimizer = optimizer or adamw(1e-5, weight_decay=1e-3)
 
     def init_fn() -> TrainState:
@@ -178,7 +183,7 @@ def make_train_step(dit: WanDiT, optimizer=None, remat: bool = True,
 
 
 def make_lora_train_step(dit: WanDiT, optimizer=None, rank: int = 16,
-                         remat: bool = True,
+                         remat: Union[bool, str] = True,
                          attn_backend: Optional[str] = None
                          ) -> Tuple[Callable, Callable]:
     """LoRA-adapter training over a frozen base: (init_fn, step_fn).

@@ -4,8 +4,9 @@ Counterpart of `videocof_tpu/training/trainer.py`: dataset triplets ->
 frozen-VAE latents in the CoF layout [src | ground | tgt] -> frozen-umT5 text
 embeddings -> masked flow-matching loss (source frames stay clean, as in the
 edit) -> one training step (LoRA adapters over a frozen base, or full
-fine-tuning), with block remat. Not ported yet: the mesh (data and sequence
-parallelism) and checkpoint saving, which raise.
+fine-tuning), with block remat -> a train-state checkpoint every
+``save_every`` steps (`utils.checkpoint.save_train_state`). Not ported yet:
+the mesh (data and sequence parallelism), which raises.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from ..models.t5_encoder import T5Encoder
 from ..models.wan_dit import WanDiT, make_rope_for_geometry
 from ..models.wan_vae import WanVAE
 from ..pipeline.wan_pipeline import _resolve_device, latent_frame_count
+from ..utils import checkpoint
 from .timestep_sampler import DiscreteSampling
 from .train_step import (StageTimer, adamw, make_lora_train_step,
                          make_train_step)
@@ -62,8 +64,6 @@ class CoFTrainer:
         if tcfg.mesh_data * tcfg.mesh_seq > 1:
             raise NotImplementedError("data/sequence parallel training is "
                                       "not ported")
-        if tcfg.checkpoint_dir:
-            raise NotImplementedError("checkpoint saving is not ported")
         self.device = _resolve_device(device)
         self.dit = dit.to(self.device)
         self.vae = vae.to(self.device).requires_grad_(False)
@@ -137,7 +137,10 @@ class CoFTrainer:
     def train(self, sample_iter: Iterator, total_steps: Optional[int] = None,
               timings: Optional[List[Dict[str, float]]] = None):
         """Run ``total_steps`` steps (``tcfg.total_steps`` by default) and
-        return the state. Losses go to ``self.losses``. A list passed as
+        return the state. Losses go to ``self.losses``. With a
+        ``checkpoint_dir``, the state is saved after every step whose count
+        (``state.step``, which a restored state carries on) is a multiple
+        of ``save_every``. A list passed as
         ``timings`` receives one dict of stage walls per step: "prepare",
         "forward+backward", "optimizer" (the device is synchronized at each
         stage boundary only then)."""
@@ -162,4 +165,9 @@ class CoFTrainer:
                 print(f"[train] step {step} loss {self.losses[-1]:.4f} "
                       f"({time.time() - t_start:.0f}s)", file=sys.stderr,
                       flush=True)
+            if (tcfg.checkpoint_dir and tcfg.save_every
+                    and self.state.step % tcfg.save_every == 0):
+                checkpoint.save_train_state(tcfg.checkpoint_dir, self.state)
+                print(f"[train] checkpoint @ step {self.state.step}",
+                      file=sys.stderr)
         return self.state

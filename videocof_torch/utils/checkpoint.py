@@ -1,22 +1,29 @@
-"""Writing weights back to the published Wan layouts.
+"""Training-state checkpoints, and writing weights back to the published Wan
+layouts.
 
-Counterpart of the safetensors half of `videocof_tpu/utils/checkpoint.py`
-(`export_dit_state_dict`, `save_dit_safetensors`): the inverse of
+Counterpart of `videocof_tpu/utils/checkpoint.py`. `save_train_state` and
+`restore_train_state` keep orbax's `CheckpointManager` layout (one
+subdirectory per step, the latest restored by default) and write with
+``torch.save`` only plain tensors, numbers and dicts, which
+``torch.load(weights_only=True)`` reads back. They take the full
+fine-tuning `TrainState` and the `LoRATrainState`; saving the latter is a
+departure from JAX, whose save reads ``state.params`` and raises on it.
+`export_dit_state_dict` and `save_dit_safetensors` are the inverse of
 `models.weights.convert_dit_state_dict`, so that weights made or trained by
 the port load in the reference and back; and the inverses of the VAE and
 umT5 converters, with which `save_wan_checkpoint_dir` writes a whole
 checkpoint directory (Wan2.1, the Wan2.2 A14B MoE or the TI2V-5B). The writer is the port's own (no
 ``safetensors`` package): tensors keep their dtype (bf16 included; JAX's
 writer widens everything to fp32), ordered by element size, then name, so
-that each starts aligned, behind a header padded to 8 bytes. Train-state
-checkpoints are not ported (ROADMAP.md §A.9).
+that each starts aligned, behind a header padded to 8 bytes.
 """
 
 from __future__ import annotations
 
 import json
 import os
-from typing import Dict, Mapping, Optional
+import shutil
+from typing import Any, Dict, Mapping, Optional
 
 import torch
 
@@ -27,6 +34,71 @@ from ..models.weights import (DIT_BLOCK_NAMES, DIT_INDEX, DIT_TOP_NAMES,
 
 StateDict = Dict[str, torch.Tensor]
 _DTYPE_NAMES = {v: k for k, v in SAFETENSORS_DTYPES.items()}
+_STATE_FILE = "train_state.pt"
+
+
+# ------------------------------------------------------------ train state
+
+def _trained(state: Any) -> tuple:
+    """("adapters" or "params", the module a train state trains)."""
+    if hasattr(state, "adapters"):
+        return "adapters", state.adapters
+    return "params", state.params
+
+
+def checkpoint_steps(path: str) -> list:
+    """The steps saved under ``path``, ascending."""
+    if not os.path.isdir(path):
+        return []
+    return sorted(int(d) for d in os.listdir(path) if d.isdigit()
+                  and os.path.isfile(os.path.join(path, d, _STATE_FILE)))
+
+
+def save_train_state(path: str, state: Any) -> str:
+    """Write ``state`` (a `TrainState` or a `LoRATrainState`) to
+    ``path/<step>/``: the trained module's state dict (the adapters or the
+    parameters), the AdamW state (keyed by parameter index, as
+    ``torch.optim`` keys it) and the step. The directory appears whole:
+    it is written under a temporary name and renamed. Returns it."""
+    root = os.path.abspath(path)
+    step = int(state.step)
+    kind, module = _trained(state)
+    payload = {"step": step, kind: module.state_dict(),
+               "optimizer": state.optimizer.adamw.state_dict()}
+    final = os.path.join(root, str(step))
+    tmp = final + ".partial"
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    torch.save(payload, os.path.join(tmp, _STATE_FILE))
+    shutil.rmtree(final, ignore_errors=True)
+    os.replace(tmp, final)
+    return final
+
+
+def restore_train_state(path: str, state_like: Any,
+                        step: Optional[int] = None) -> Any:
+    """Load the state saved at ``step`` (the latest by default) into
+    ``state_like`` in place and return it. ``state_like`` is a state of the
+    same kind built as the saved one was (the same model config, LoRA rank
+    and parameter order, since the optimizer state is keyed by parameter
+    index), on the device to restore to."""
+    root = os.path.abspath(path)
+    if step is None:
+        steps = checkpoint_steps(root)
+        if not steps:
+            raise FileNotFoundError(f"no train state under {root}")
+        step = steps[-1]
+    kind, module = _trained(state_like)
+    # on the host: the modules and the optimizer copy to their devices (and
+    # AdamW keeps its step counts on the host)
+    payload = torch.load(os.path.join(root, str(step), _STATE_FILE),
+                         map_location="cpu", weights_only=True)
+    if kind not in payload:
+        raise ValueError(f"step {step} under {root} holds no {kind}")
+    module.load_state_dict(payload[kind])
+    state_like.optimizer.adamw.load_state_dict(payload["optimizer"])
+    state_like.step = int(payload["step"])
+    return state_like
 
 
 def write_safetensors(path: str, tensors: Mapping[str, torch.Tensor]) -> int:
