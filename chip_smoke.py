@@ -236,7 +236,35 @@ Phases, each of which fails the run (non-zero exit) on any fault:
      launches a step, seconds per step, stage walls, peak. B2 and B3 are
      also held against their plain versions (phase 2) and timed (phase 3)
      at the 14B's 40 heads.
-  21. a `kernels` JSON line and, last, the device JSON line.
+  21. parallelism on `torch.distributed` at the 1.3B's full width and
+     depth, two ranks sharing the one card: (a) the probe of the
+     collectives on CUDA tensors of two ranks on cuda:0 (NCCL's one
+     all_reduce; gloo's all_reduce, all_to_all_single,
+     all_gather_into_tensor, reduce_scatter_tensor and batch_isend_irecv),
+     each pair of processes killed if it outlives 120 s; (b) the 4-step
+     480x832 33 + 4-frame edit with Ulysses over seq 2 (gloo) and (d) the
+     same edit at guidance 5 with one guidance branch per data rank (data
+     2), each rank's final latents against the world-1 edit of the same
+     factory weights and seed within 2e-2 relative L2, the uint8
+     difference, each rank's B1 calls by shape (Ulysses: 120 self over 6
+     of 12 heads and 120 cross over 14,820 tokens), stage walls and peak
+     beside world 1's; (c) ring attention on the 4x edit at world 1 under
+     NCCL (gloo carries no point-to-point on CUDA tensors): 120 B2 and 120
+     cross B1, against phase 9's 4x edit within 2e-2; (e)
+     `videocof_torch.cli.train` under one `torch.distributed.run
+     --nproc_per_node=2` (this script's ``--train-rank`` mode runs its
+     `main` twice) with --mesh_seq 2 and with --mesh_data 2 (the frozen
+     base FSDP-sharded, batch 2), rank 16, two steps: each rank's first loss
+     within 2e-2 of a world-1 CLI run on the same triplets, seed and
+     timesteps (batch 2 and a sampler of 2 bands for the data run; the clip
+     off and umT5 off the card, --offload_t5, in both), its gradient (AdamW's first moment after step 1) within
+     5e-2 relative L2 of world 1's, the adapters' move printed, 240 B2 and
+     120 B3 launches per rank, the peaks. Two ranks share one
+     card's SMs: the phase's seconds are no multi-GPU speed. B1, B2 and B3
+     are also held against their plain versions (phase 2) and timed
+     (phase 3) at these shapes (6 heads over 29,640 tokens, 12 heads over
+     14,820 tokens by 512 keys, and B2 over the 4x sequence).
+  22. a `kernels` JSON line and, last, the device JSON line.
 
 B1 is also held against its plain version (phase 2) and timed (phase 3) at
 the 14B's 40 heads, at the self and cross shapes, and at the shapes of
@@ -355,6 +383,17 @@ RESUME_REL_TOL = 1e-3          # a step from the restored state vs from the
                                # state in memory (the same reason)
 TRAIN_14B_RANK = 32            # the 14B LoRA steps
 TRAIN_14B_STEPS = 2
+SP_DEGREE = 2                  # phase 21: two ranks share the one card
+SP_TRAIN_STEPS = 2             # ... its training runs' steps
+SP_TIMEOUT_S = 600             # ... the deadline of its spawned ranks
+# an SP edit's final latents vs world 1's (the DiT gate: the ranks' linears
+# see other row counts, and cuBLAS picks kernels by them)
+SP_REL_TOL = 2e-2
+# an SP training step's first loss vs world 1's, and its gradient's
+# relative L2 (bf16, other reduction orders; B3 adds dq's key tiles in no
+# fixed order)
+SP_LOSS_TOL = 2e-2
+SP_GRAD_TOL = 5e-2
 
 
 def log(*args):
@@ -1036,7 +1075,7 @@ def extrapolation_phase(card, pipe, geo, gen, prompt, counters,
     VAE streamed; the output, the launches (2 x layers x steps of B1 and
     nothing else), stage walls and peak memory; then one DiT step of its
     geometry under torch.profiler. Returns (the clip, the phase's
-    record)."""
+    record, its final latents and uint8 frames)."""
     import numpy as np
     import torch
     from videocof_torch.models.rope import riflex_angle_table
@@ -1067,11 +1106,15 @@ def extrapolation_phase(card, pipe, geo, gen, prompt, counters,
                    reasoning_frames=geo.reasoning_frames,
                    num_inference_steps=geo.num_inference_steps,
                    shift=geo.shift, sampler=geo.sampler, repeat_rope=True,
-                   seed=geo.seed, riflex_k=RIFLEX_K, timings=timings)
+                   seed=geo.seed, riflex_k=RIFLEX_K, timings=timings,
+                   output_latents=True)
     wall = time.perf_counter() - t0
     launches = launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9 if cuda else None
     shapes = b1_shapes(seen)
+    # phase 21's ring edit is held against this one
+    ref = {"latents": out.latents,
+           "u8": np.round(out.videos * 255).astype(np.uint8)}
     per_layer = dcfg.num_layers * geo.num_inference_steps
     check_video("4x edit", out.videos, (1, 3, 1 + (ground - 1) * tc
                                          + EXTRAP_FRAMES, geo.height,
@@ -1115,7 +1158,7 @@ def extrapolation_phase(card, pipe, geo, gen, prompt, counters,
               "profiled_step": prof and {"wall_ms": prof[0],
                                          "busy_ms": prof[1]}}
     log("[4x edit] " + json.dumps(record))
-    return video, record
+    return video, record, ref
 
 
 def ragged_phase(card, pipe, geo, prompt, items, counters, want_launches):
@@ -2747,6 +2790,658 @@ def nccl_phase(card):
     return {"card": card, "backend": backend, "seconds": wall}
 
 
+# ------------------------------------------------- phase 21: parallelism
+# The collectives the parallel path runs, each probed on CUDA tensors by two
+# ranks on the one card (a pair of processes per backend and collective, so
+# that one that crashes or hangs takes no other probe with it).
+PROBE_OPS = ("all_reduce", "all_to_all_single", "all_gather_into_tensor",
+             "reduce_scatter_tensor", "batch_isend_irecv")
+PROBE_TIMEOUT_S = 120
+
+
+def _probe_worker(rank, world, init_file, backend, op, out_path):
+    """One rank of a probe: ``op`` on a CUDA tensor of ``backend``; writes
+    {"ok": bool, "error": str | None} to ``out_path.rank<r>``."""
+    import torch
+    import torch.distributed as dist
+    result = {"ok": False, "error": None}
+    try:
+        dist.init_process_group(backend, init_method=f"file://{init_file}",
+                                world_size=world, rank=rank)
+        dev = torch.device("cuda", 0)
+        x = torch.arange(4 * world, dtype=torch.float32, device=dev) + rank
+        if op == "all_reduce":
+            dist.all_reduce(x)
+            want = (torch.arange(4 * world, device=dev) * world
+                    + sum(range(world))).float()
+        elif op == "all_to_all_single":
+            out = torch.empty_like(x)
+            dist.all_to_all_single(out, x)
+            want = torch.cat([torch.arange(4 * rank, 4 * rank + 4,
+                                           device=dev).float() + s
+                              for s in range(world)])
+            x = out
+        elif op == "all_gather_into_tensor":
+            out = torch.empty(world * x.numel(), device=dev)
+            dist.all_gather_into_tensor(out, x)
+            want = torch.cat([torch.arange(4 * world, device=dev).float() + s
+                              for s in range(world)])
+            x = out
+        elif op == "reduce_scatter_tensor":
+            out = torch.empty(4, device=dev)
+            dist.reduce_scatter_tensor(out, x)
+            want = (torch.arange(4 * rank, 4 * rank + 4, device=dev) * world
+                    + sum(range(world))).float()
+            x = out
+        else:
+            out = torch.empty_like(x)
+            ops = [dist.P2POp(dist.isend, x, (rank + 1) % world),
+                   dist.P2POp(dist.irecv, out, (rank - 1) % world)]
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+            want = torch.arange(4 * world, device=dev).float() + (
+                (rank - 1) % world)
+            x = out
+        torch.cuda.synchronize()
+        result["ok"] = bool(torch.equal(x, want))
+        if not result["ok"]:
+            result["error"] = f"wrong values {x.tolist()}"
+        dist.destroy_process_group()
+    except Exception as e:      # the probe's answer: recorded, not raised
+        result["error"] = f"{type(e).__name__}: {str(e).strip()[:400]}"
+    Path(f"{out_path}.rank{rank}").write_text(json.dumps(result))
+
+
+def start_probes(world=2):
+    """Start the probes of the collectives on CUDA tensors of two ranks on
+    cuda:0: NCCL (one all_reduce: two ranks on one device) and gloo (every
+    collective of the path), a pair of processes each; `finish_probes`
+    collects them."""
+    import multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    base = SCRATCH / "probe"
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    jobs = [("nccl", "all_reduce")] + [("gloo", op) for op in PROBE_OPS]
+    procs = {}
+    for backend, op in jobs:
+        tag = f"{backend}_{op}"
+        out = base / f"{tag}.json"
+        procs[(backend, op)] = [
+            ctx.Process(target=_probe_worker,
+                        args=(r, world, str(base / f"{tag}.rdzv"), backend,
+                              op, str(out)))
+            for r in range(world)]
+    for ps in procs.values():
+        for p in ps:
+            p.start()
+    return procs, base, time.perf_counter() + PROBE_TIMEOUT_S, world
+
+
+def finish_probes(started):
+    """{backend: {op: result}} of `start_probes`: a rank that crashes or
+    outlives ``PROBE_TIMEOUT_S`` from the start is recorded as such (its
+    exit code or "timeout") and killed."""
+    procs, base, deadline, world = started
+    results = {}
+    for (backend, op), ps in procs.items():
+        codes = []
+        for p in ps:
+            p.join(max(0.0, deadline - time.perf_counter()))
+            if p.is_alive():
+                p.kill()
+                p.join()
+                codes.append("timeout")
+            else:
+                codes.append(p.exitcode)
+        answers = []
+        for r in range(world):
+            out = base / f"{backend}_{op}.json.rank{r}"
+            answers.append(json.loads(out.read_text()) if out.exists()
+                           else {"ok": False, "error": "no answer"})
+        res = {"ok": all(a["ok"] for a in answers),
+               "error": "; ".join(f"rank {r}: {a['error']}"
+                                  for r, a in enumerate(answers)
+                                  if a["error"]) or None,
+               "exit_codes": codes}
+        results.setdefault(backend, {})[op] = res
+        log(f"[parallel] probe {backend} {op} on CUDA tensors, 2 ranks on "
+            f"cuda:0: {'ok' if res['ok'] else 'refused'}"
+            + ("" if res["ok"] else f": {res['error']} (exit codes "
+               f"{codes})"))
+    shutil.rmtree(base, ignore_errors=True)
+    return results
+
+
+def _edit_kw(geo):
+    """The 4-step edit's arguments of a `GenerationConfig`."""
+    return dict(source_frames=geo.source_frames,
+                reasoning_frames=geo.reasoning_frames,
+                num_inference_steps=geo.num_inference_steps,
+                shift=geo.shift, sampler=geo.sampler,
+                repeat_rope=geo.repeat_rope, seed=geo.seed)
+
+
+def sp_tokens(dcfg, geo, source_frames):
+    """DiT tokens of a CoF edit of ``source_frames`` at ``geo`` (the Wan2.1
+    VAE's 4x temporal, 8x spatial compression)."""
+    from videocof_torch.pipeline import latent_frame_count
+    cond = latent_frame_count(source_frames)
+    ground = latent_frame_count(geo.reasoning_frames)
+    _, ph, pw = dcfg.patch_size
+    return ((2 * cond + ground) * (geo.height // 8 // ph)
+            * (geo.width // 8 // pw))
+
+
+def _b1_by_shape(seen):
+    """{"(batch, Lq, Lk, heads, masked)": calls} of a `b1_calls` record."""
+    shapes = {}
+    for B, Lq, Lk, mask, heads in seen:
+        key = str((B, Lq, Lk, heads, mask is not None))
+        shapes[key] = shapes.get(key, 0) + 1
+    return shapes
+
+
+def _sp_edit_rank(rank, world, init_file, out_dir, video, prompt, edit_kw,
+                  negative):
+    """One rank of phase 21 (b) and (d), on cuda:0 beside the other, in a
+    gloo world: the factory's 1.3B pipeline from the seed, then the 4-step
+    edit with Ulysses over seq ``world`` and the guidance-5 edit with one
+    guidance branch per data rank; for each, the final latents (and on
+    rank 0 the uint8 frames), the launches and B1 calls by shape, the stage
+    walls and the peak memory, into ``out_dir/rank<r>.pt``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT))
+    from videocof_torch import factory
+    from videocof_torch.ops import flash_attention as fa
+    from videocof_torch.parallel import rank_device
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            world_size=world, rank=rank)
+    dev = rank_device()
+    torch.cuda.set_device(dev)
+    pipe = factory.load_pipeline("", random_init=True, seed=SEED,
+                                 device=dev)
+    results = {"device": str(dev)}
+    for job, sp_kw, kw in (
+            ("ulysses", dict(seq=world, mode="ulysses"), {}),
+            ("cfg", dict(data=world, seq=1, cfg_parallel=True),
+             dict(guidance_scale=5.0, negative_prompt=negative))):
+        pipe.enable_sequence_parallel(**sp_kw)
+        dist.barrier()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launch_counts()
+        timings = {}
+        t0 = time.perf_counter()
+        with b1_calls() as seen, dit_step_memory(pipe) as mem:
+            out = pipe(video, prompt, output_latents=True, timings=timings,
+                       **edit_kw, **kw)
+        wall = time.perf_counter() - t0
+        peak = max(mem["pre_gb"], torch.cuda.max_memory_allocated() / 1e9)
+        results[job] = {
+            "latents": out.latents, "launches": fa.launch_counts(),
+            "b1": _b1_by_shape(seen), "stages_s": timings, "seconds": wall,
+            "peak_memory_gb": peak, "dit_steps_gb": mem["dit_steps_gb"],
+            "u8": (np.round(out.videos * 255).astype(np.uint8)
+                   if rank == 0 else None)}
+        pipe.disable_sequence_parallel()
+    dist.barrier()
+    dist.destroy_process_group()
+    torch.save(results, os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+@contextlib.contextmanager
+def dit_step_memory(pipe):
+    """While the block runs: the device memory the pipeline's denoising
+    steps take above what was allocated when they started (the DiT's
+    activations), in GB, into the yielded dict's "dit_steps_gb"; the peak
+    before them into "pre_gb" (the peak statistics restart with the
+    steps: the call's peak is the larger of "pre_gb" and the peak read
+    after it)."""
+    import torch
+    rec = {}
+    real = pipe._t2v_denoise
+
+    def denoise(*args, **kw):
+        torch.cuda.synchronize()
+        start = torch.cuda.memory_allocated()
+        rec["pre_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        out = real(*args, **kw)
+        torch.cuda.synchronize()
+        rec["dit_steps_gb"] = (torch.cuda.max_memory_allocated() - start) / 1e9
+        return out
+
+    pipe._t2v_denoise = denoise
+    try:
+        yield rec
+    finally:
+        del pipe._t2v_denoise
+
+
+def _spawn_ranks(target, world, args, tag):
+    """``target(rank, world, *args)`` in ``world`` spawned processes; each
+    is waited for (SP_TIMEOUT_S in all) and killed if it outlives it. Fails
+    the run unless every rank exits 0."""
+    import multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=target, args=(r, world, *args))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.perf_counter() + SP_TIMEOUT_S
+    codes = []
+    for p in procs:
+        p.join(max(0.0, deadline - time.perf_counter()))
+        if p.is_alive():
+            p.kill()
+            p.join()
+            codes.append("timeout")
+        else:
+            codes.append(p.exitcode)
+    if codes != [0] * world:
+        fail(f"{tag}: ranks exited {codes}")
+
+
+def _u8_diff(a, b):
+    """(largest, mean) difference of two uint8 arrays, in levels."""
+    import numpy as np
+    d = np.abs(a.astype(np.int16) - b.astype(np.int16))
+    return int(d.max()), float(d.mean())
+
+
+def _rel_l2(got, want):
+    import numpy as np
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+def sp_edit_phase(card, geo, video, prompt, counters, probe):
+    """Phase 21 (b) Ulysses at seq 2 and (d) CFG parallelism at data 2, two
+    gloo ranks on the one card (NCCL refuses two ranks on one device, the
+    probe's finding), each rank's edit against the world-1 edit of the same
+    factory weights and seed in this process: the largest and mean uint8
+    difference, the latents' relative L2 (<= SP_REL_TOL), B1's launches on
+    each rank by shape, each rank's peak beside world 1's. ``probe()``
+    (phase 21 (a), started before) is collected between the world-1 edits
+    and the ranks; the path's collectives must have passed it."""
+    import numpy as np
+    import torch
+    from videocof_torch import factory
+    launch_counts, reset_launch_counts = counters
+    edit_kw = _edit_kw(geo)
+    negative = geo.negative_prompt
+    pipe = factory.load_pipeline("", random_init=True, seed=SEED)
+    ref = {}
+    for job, kw in (("ulysses", {}),
+                    ("cfg", dict(guidance_scale=5.0,
+                                 negative_prompt=negative))):
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with dit_step_memory(pipe) as mem:
+            out = pipe(video, prompt, output_latents=True, **edit_kw, **kw)
+        torch.cuda.synchronize()
+        ref[job] = {"latents": out.latents, "seconds":
+                    time.perf_counter() - t0,
+                    "u8": np.round(out.videos * 255).astype(np.uint8),
+                    "peak_memory_gb": max(
+                        mem["pre_gb"], torch.cuda.max_memory_allocated() / 1e9),
+                    "dit_steps_gb": mem["dit_steps_gb"],
+                    "launches": launch_counts()}
+    del pipe, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    probed = probe()
+    for op in ("all_reduce", "all_to_all_single", "all_gather_into_tensor"):
+        if not probed["gloo"][op]["ok"]:
+            fail(f"gloo {op} on CUDA tensors: {probed['gloo'][op]}")
+    base = SCRATCH / "sp_edit"
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    free, total = torch.cuda.mem_get_info()
+    log(f"[parallel] edit ranks start with {free / 1e9:.2f} of "
+        f"{total / 1e9:.2f} GB free on the card (this process holds "
+        f"{torch.cuda.memory_reserved() / 1e9:.2f} GB)")
+    t0 = time.perf_counter()
+    _spawn_ranks(_sp_edit_rank, SP_DEGREE,
+                 (str(base / "rdzv"), str(base), video, prompt, edit_kw,
+                  negative), "phase 21 edits")
+    spawn_s = time.perf_counter() - t0
+    ranks = [torch.load(base / f"rank{r}.pt", weights_only=False)
+             for r in range(SP_DEGREE)]
+    shutil.rmtree(base, ignore_errors=True)
+    dcfg = factory.WAN21_T2V_1_3B
+    L = sp_tokens(dcfg, geo, geo.source_frames)
+    heads, layers = dcfg.num_heads, dcfg.num_layers
+    steps = geo.num_inference_steps
+    record = {"card": card, "world": SP_DEGREE, "backend": "gloo",
+              "ranks_seconds_total": spawn_s, "probe": probed}
+    for job, want_b1 in (
+            ("ulysses", {str((1, L, L, heads // SP_DEGREE, False)):
+                         layers * steps,
+                         str((1, L // SP_DEGREE, TEXT_TOKENS, heads,
+                              False)): layers * steps}),
+            ("cfg", {str((1, L, L, heads, False)): layers * steps,
+                     str((1, L, TEXT_TOKENS, heads, False)):
+                     layers * steps})):
+        w1 = ref[job]
+        rec = {"world1": {k: w1[k] for k in ("seconds", "peak_memory_gb",
+                                             "dit_steps_gb", "launches")},
+               "ranks": []}
+        for r, got in enumerate(ranks):
+            g = got[job]
+            rel = _rel_l2(g["latents"], w1["latents"])
+            row = {"device": got["device"], "latents_rel_l2": rel,
+                   **{k: g[k] for k in ("seconds", "peak_memory_gb",
+                                        "dit_steps_gb", "launches", "b1",
+                                        "stages_s")}}
+            if g["u8"] is not None:
+                row["u8_max_diff"], row["u8_mean_diff"] = _u8_diff(
+                    g["u8"], w1["u8"])
+                if g["u8"].shape != w1["u8"].shape:
+                    fail(f"phase 21 {job}: frames {g['u8'].shape} != "
+                         f"{w1['u8'].shape}")
+            rec["ranks"].append(row)
+            log(f"[parallel] {job} rank {r} on {got['device']}: latents "
+                f"relative L2 {rel:.3e} (gate {SP_REL_TOL})"
+                + (f", uint8 max {row['u8_max_diff']} mean "
+                   f"{row['u8_mean_diff']:.4f}" if "u8_max_diff" in row
+                   else "")
+                + f"; {g['seconds']:.3f} s; peak {g['peak_memory_gb']:.2f} "
+                f"GB, the DiT steps {g['dit_steps_gb']:.3f} GB over their "
+                f"start (world 1: {w1['peak_memory_gb']:.2f} GB, "
+                f"{w1['dit_steps_gb']:.3f} GB, {w1['seconds']:.3f} s); B1 "
+                f"calls {g['b1']}")
+            if not np.isfinite(g["latents"]).all() or rel > SP_REL_TOL:
+                fail(f"phase 21 {job} rank {r}: latents {rel:.3e} from "
+                     f"world 1's")
+            if g["b1"] != want_b1:
+                fail(f"phase 21 {job} rank {r}: B1 calls {g['b1']}, "
+                     f"expected {want_b1}")
+            if g["launches"]["flash_attention_fwd"] != 2 * layers * steps:
+                fail(f"phase 21 {job} rank {r}: launches {g['launches']}")
+        record[job] = rec
+    log("[parallel] edits " + json.dumps(record))
+    return record
+
+
+def sp_ring_phase(card, geo, prompt, ref4, counters):
+    """Phase 21 (c): ring attention on the 4x edit. gloo carries no
+    point-to-point on CUDA tensors (the probe), and NCCL refuses two ranks
+    on one card, so ring runs here at world 1 under NCCL: one shard, B2
+    over all 107,640 keys and the fp32 LSE combine, the cross-attention
+    B1; held against phase 9's 4x edit of the same weights and seed."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from videocof_torch import factory
+    from videocof_torch.serving.multihost import init_distributed
+    launch_counts, reset_launch_counts = counters
+    video4 = np.random.default_rng(SEED).integers(   # phase 9's clip
+        0, 256, (1, 3, EXTRAP_FRAMES, geo.height, geo.width), dtype=np.uint8)
+    init_distributed(f"tcp://127.0.0.1:{free_port()}", 1, 0,
+                     backend="nccl")
+    pipe = factory.load_pipeline("", random_init=True, seed=SEED)
+    pipe.enable_sequence_parallel(seq=1, mode="ring")
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    timings = {}
+    t0 = time.perf_counter()
+    with b1_calls() as seen:
+        out = pipe(video4, prompt, output_latents=True, timings=timings,
+                   riflex_k=RIFLEX_K, **dict(_edit_kw(geo),
+                                             source_frames=EXTRAP_FRAMES))
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    backend = dist.get_backend()
+    pipe.disable_sequence_parallel()
+    dist.destroy_process_group()
+    L = sp_tokens(pipe.dit.cfg, geo, EXTRAP_FRAMES)
+    layers, steps = pipe.dit.cfg.num_layers, geo.num_inference_steps
+    heads = pipe.dit.cfg.num_heads
+    del pipe
+    rel = _rel_l2(out.latents, ref4["latents"])
+    u8 = np.round(out.videos * 255).astype(np.uint8)
+    umax, umean = _u8_diff(u8, ref4["u8"])
+    b1 = _b1_by_shape(seen)
+    want_b1 = {str((1, L, TEXT_TOKENS, heads, False)): layers * steps}
+    want = {"flash_attention_fwd": layers * steps,
+            "flash_attention_fwd_lse": layers * steps}
+    record = {"card": card, "world": 1, "backend": backend, "tokens": L,
+              "seconds": wall, "stages_s": timings, "peak_memory_gb": peak_gb,
+              "launches": launches, "b1": b1, "latents_rel_l2": rel,
+              "u8_max_diff": umax, "u8_mean_diff": umean}
+    log(f"[parallel] ring 4x edit at world 1 ({backend}): {wall:.3f} s, "
+        f"peak {peak_gb:.2f} GB, latents relative L2 {rel:.3e} from phase "
+        f"9's (gate {SP_REL_TOL}), uint8 max {umax} mean {umean:.4f}; "
+        f"launches {launches}")
+    if backend != "nccl" or rel > SP_REL_TOL or b1 != want_b1 or any(
+            launches[k] != n for k, n in want.items()):
+        fail(f"phase 21 ring: {record}")
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("[parallel] ring " + json.dumps(record))
+    return record
+
+
+@contextlib.contextmanager
+def step_memory():
+    """While the block runs: for each training step (forward, backward,
+    update) the device memory it takes above what was allocated when it
+    started, in GB, into the yielded dict's "steps"; the peak before it
+    into "pre" (the peak statistics restart with each step)."""
+    import torch
+    from videocof_torch.training import train_step
+    rec, real = {"steps": [], "pre": []}, train_step._run_step
+
+    def run_step(*args, **kw):
+        torch.cuda.synchronize()
+        start = torch.cuda.memory_allocated()
+        rec["pre"].append(torch.cuda.max_memory_allocated() / 1e9)
+        torch.cuda.reset_peak_memory_stats()
+        out = real(*args, **kw)
+        torch.cuda.synchronize()
+        rec["steps"].append((torch.cuda.max_memory_allocated() - start)
+                            / 1e9)
+        return out
+
+    train_step._run_step = run_step
+    try:
+        yield rec
+    finally:
+        train_step._run_step = real
+
+
+def _train_run(argv, bands=None):
+    """`videocof_torch.cli.train.main(argv)` in this process: its losses,
+    launches, peak memory (and each step's over its start), stage walls,
+    seconds, and the adapters and first moments it saved at step 1.
+    ``bands``: the trainer draws its timesteps from that many bands (a
+    world-1 run repeating a data-parallel run's draws)."""
+    import torch
+    from videocof_torch.cli import train as train_cli
+    from videocof_torch.ops import flash_attention as fa
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    with recorded_training(bands) as rec, step_memory() as mem:
+        trainer = train_cli.main(argv)
+    wall = time.perf_counter() - t0
+    peak = max(mem["pre"] + [torch.cuda.max_memory_allocated() / 1e9])
+    out = {"losses": trainer.losses, "launches": fa.launch_counts(),
+           "peak_memory_gb": peak, "steps_gb": mem["steps"],
+           "stages_s": rec["stages"], "seconds": wall,
+           "step1": {k: v.cpu() for k, v in rec["saves"][1][1].items()
+                     if not k.endswith((".exp_avg_sq", ".step"))}}
+    del trainer, rec
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_rank_main(out_dir, jobs_json):
+    """One rank of phase 21 (e), started by ``torch.distributed.run``: for
+    each (mode, argv) of the JSON file, `_train_run(argv)`, into
+    ``out_dir/<mode>.rank<RANK>.pt``."""
+    import torch
+    sys.path.insert(0, str(ROOT))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for mode, argv in json.loads(Path(jobs_json).read_text()).items():
+        torch.save(_train_run(argv), os.path.join(
+            out_dir, f"{mode}.rank{os.environ['RANK']}.pt"))
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def _run_group(cmd, env, tag):
+    """``cmd`` in its own session, killed with its children if it outlives
+    SP_TIMEOUT_S; fails the run unless it exits 0."""
+    import signal
+    proc = subprocess.Popen(cmd, env=env, start_new_session=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    try:
+        text, _ = proc.communicate(timeout=SP_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        text, _ = proc.communicate()
+        fail(f"{tag}: timed out after {SP_TIMEOUT_S} s: {text[-3000:]}")
+    if proc.returncode != 0:
+        # each rank's own lines first (the first to fail is the cause)
+        first = [ln for ln in text.splitlines() if ln.startswith("[rank0]")]
+        fail(f"{tag}: exit {proc.returncode}: rank 0: "
+             + "\n".join(first[-80:]) + f"\n... the end: {text[-3000:]}")
+    return text
+
+
+def sp_train_phase(card, geo):
+    """Phase 21 (e): `cli.train` in the two ranks of one
+    ``torch.distributed.run --nproc_per_node=2`` on the one card (gloo),
+    rank 16, two steps, once with ``--mesh_seq 2`` (Ulysses: B2 and B3
+    through the all-to-alls) and once with ``--mesh_data 2`` (the base
+    FSDP-sharded, data-parallel adapters, batch 2); each against a world-1
+    run of the CLI (in this process, before) on the same
+    triplets, seed and timesteps (batch 2 and a sampler of 2 bands for
+    the data run), with the clip off (``--grad_clip 1e6``) so that the
+    gradient is compared at its reduced size, and umT5 off the card
+    (``--offload_t5``: two ranks holding it, 35.8 GB each, beside this
+    process's leftovers ran out of memory): the first step's loss
+    (relative, <= SP_LOSS_TOL) and gradient (AdamW's first moment after
+    step 1, 0.1 g: relative L2 <= SP_GRAD_TOL), the adapters' move
+    (printed: AdamW's first step moves each entry by lr times the sign of
+    its gradient, so a gradient near 0 may flip it), each rank's launches
+    and peak."""
+    import numpy as np
+    import torch
+    from videocof_torch.configs import WAN21_T2V_1_3B
+    json_path, root = write_triplets(geo)
+    common = ["--train_json", str(json_path), "--random_init", "--lora_rank",
+              str(TRAIN_CLI_RANK), "--save_every", "1", "--height",
+              str(geo.height), "--width", str(geo.width), "--source_frames",
+              str(geo.source_frames), "--target_frames",
+              str(geo.source_frames), "--reasoning_frames",
+              str(geo.reasoning_frames), "--grad_clip", "1e6",
+              "--offload_t5"]
+    attentions = 2 * WAN21_T2V_1_3B.num_layers
+    record = {"card": card, "world": SP_DEGREE, "backend": "gloo"}
+    # mode: (its flags, world 1's flags, world 1's timestep bands)
+    modes = {"seq": (["--mesh_seq", str(SP_DEGREE)], [], None),
+             "data": (["--mesh_data", str(SP_DEGREE), "--batch_size",
+                       str(SP_DEGREE)],
+                      ["--batch_size", str(SP_DEGREE)], SP_DEGREE)}
+    # world 1: one step of each, in this process
+    world1 = {}
+    for mode, (_, ref_extra, bands) in modes.items():
+        world1[mode] = _train_run(common + ref_extra + [
+            "--steps", "1", "--checkpoint_dir", str(root / f"w1_{mode}")],
+            bands)
+    # world 2: both runs in one `torch.distributed.run`
+    out = root / "ranks"
+    out.mkdir(parents=True, exist_ok=True)
+    jobs = root / "jobs.json"
+    jobs.write_text(json.dumps({
+        mode: common + extra + ["--steps", str(SP_TRAIN_STEPS),
+                                "--checkpoint_dir", str(root / mode),
+                                "--dist_backend", "gloo"]
+        for mode, (extra, _, _) in modes.items()}))
+    cmd = [sys.executable, "-m", "torch.distributed.run",
+           f"--nproc_per_node={SP_DEGREE}", "--master_addr=127.0.0.1",
+           f"--master_port={free_port()}", str(ROOT / "chip_smoke.py"),
+           "--train-rank", str(out), str(jobs)]
+    env = dict(os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    log(f"[parallel] training ranks start with {free / 1e9:.2f} of "
+        f"{total / 1e9:.2f} GB free on the card (this process holds "
+        f"{torch.cuda.memory_reserved() / 1e9:.2f} GB)")
+    t0 = time.perf_counter()
+    _run_group(cmd, env, "phase 21 training")
+    record["torchrun_seconds"] = time.perf_counter() - t0
+    for mode in modes:
+        w1 = world1[mode]
+        want_step1 = w1.pop("step1")
+        ranks = [torch.load(out / f"{mode}.rank{r}.pt", weights_only=False)
+                 for r in range(SP_DEGREE)]
+        rec = {"world1": w1, "ranks": []}
+        want = {"flash_attention_fwd": 0,
+                "flash_attention_fwd_lse": 2 * attentions * SP_TRAIN_STEPS,
+                "flash_attention_bwd": attentions * SP_TRAIN_STEPS}
+
+        def norm(state, keys, other=None):
+            return np.sqrt(sum(float((state[k].double() - (
+                0 if other is None else other[k].double())).square().sum())
+                for k in keys))
+
+        moments = [k for k in want_step1 if k.endswith(".exp_avg")]
+        ups = [k for k in want_step1 if k.endswith(".up")]
+        adapters = [k for k in want_step1 if k.startswith("adapters.")]
+        for r, got in enumerate(ranks):
+            w1_loss = w1["losses"][0]
+            loss_rel = abs(got["losses"][0] - w1_loss) / abs(w1_loss)
+            grad_rel = (norm(got["step1"], moments, want_step1)
+                        / norm(want_step1, moments))
+            # the move is ``up`` (initialized to 0) and the same decay of
+            # ``down`` on both sides
+            move_rel = (norm(got["step1"], adapters, want_step1)
+                        / norm(want_step1, ups))
+            row = {"losses": got["losses"], "loss_rel": loss_rel,
+                   "grad_rel_l2": grad_rel,
+                   "adapters_move_rel_l2": move_rel,
+                   **{k: got[k] for k in ("launches", "peak_memory_gb",
+                                          "steps_gb", "seconds",
+                                          "stages_s")}}
+            rec["ranks"].append(row)
+            log(f"[parallel] train {mode} rank {r}: losses {got['losses']} "
+                f"(world 1 {w1_loss:.6f}, relative {loss_rel:.3e}, gate "
+                f"{SP_LOSS_TOL}); gradient {grad_rel:.3e} relative L2 from "
+                f"world 1's (gate {SP_GRAD_TOL}); adapters' move "
+                f"{move_rel:.3e} relative L2 from world 1's; launches "
+                f"{got['launches']} (expected {want}); peak "
+                f"{got['peak_memory_gb']:.2f} GB, a step "
+                f"{max(got['steps_gb']):.2f} GB over its start (world 1 "
+                f"{w1['peak_memory_gb']:.2f}, {max(w1['steps_gb']):.2f} GB); "
+                f"{got['seconds']:.1f} s")
+            if (len(got["losses"]) != SP_TRAIN_STEPS
+                    or not np.isfinite(got["losses"]).all()
+                    or loss_rel > SP_LOSS_TOL or grad_rel > SP_GRAD_TOL):
+                fail(f"phase 21 training {mode} rank {r}: {row}")
+            check_launches(f"phase 21 training {mode} rank {r}",
+                           {k: got["launches"][k] for k in want}, want)
+        record[mode] = rec
+    shutil.rmtree(root, ignore_errors=True)
+    log("[parallel] train " + json.dumps(record, default=str))
+    return record
+
+
 def write_triplets(geo):
     """TRAIN_TRIPLETS triplets of cv2-written clips (source, grounded,
     edited; CLIP_FRAMES frames each, random uint8 from the seed, a gray
@@ -2872,12 +3567,15 @@ def same_state(tag, got, want):
 
 
 @contextlib.contextmanager
-def recorded_training():
+def recorded_training(bands=None):
     """While the block runs: every `CoFTrainer.train` call records its
     steps' stage walls (into ``rec["stages"]``), and every
     `save_train_state` call its seconds and a copy of the state it saved
-    (``rec["saves"]``: {step: (seconds, `train_state_tensors`)})."""
+    (``rec["saves"]``: {step: (seconds, `train_state_tensors`)}). With
+    ``bands``, the trainer draws its timesteps from a sampler of that many
+    bands."""
     import torch
+    from videocof_torch.training import DiscreteSampling
     from videocof_torch.training import trainer as trainer_mod
     from videocof_torch.utils import checkpoint
     rec = {"stages": [], "saves": {}}
@@ -2885,6 +3583,8 @@ def recorded_training():
     real_save = checkpoint.save_train_state
 
     def train(self, sample_iter, total_steps=None, timings=None):
+        if bands is not None:
+            self.sampler = DiscreteSampling(group_num=bands)
         return real_train(self, sample_iter, total_steps,
                           timings=rec["stages"] if timings is None
                           else timings)
@@ -3521,10 +4221,10 @@ def main() -> int:
         note("flash_attention_fwd", err14[shape_name])
         del q, k, v, out
 
-    def shape_errs(fn):
-        """Run ``fn()`` with B2's and B3's error maxima set aside: returns
-        the maxima it noted, which also join ``errs``."""
-        keys = ("flash_attention_fwd_lse", "flash_attention_bwd")
+    def shape_errs(fn, keys=("flash_attention_fwd_lse",
+                             "flash_attention_bwd")):
+        """Run ``fn()`` with the error maxima of ``keys`` (B2's and B3's)
+        set aside: returns the maxima it noted, which also join ``errs``."""
         saved = {key: errs[key] for key in keys}
         for key in keys:
             errs[key] = [0.0, 0.0]
@@ -3548,6 +4248,27 @@ def main() -> int:
             check_backward(label, qs, k, v, ref, ref_lse)
 
         err14_train[shape_name] = shape_errs(check_both)
+        del q, k, v
+        torch.cuda.empty_cache()
+    # B1, B2 and B3 at the shapes of the parallel paths (phase 21): Ulysses
+    # at seq 2 gives each rank half the heads over the whole sequence for
+    # self-attention (B1; B2 and B3 in training) and half the tokens for
+    # the local cross-attention; ring at world 1 runs B2 over the 4x
+    # edit's whole sequence (one shard)
+    sp_shapes = {"sp self": ((1, L, L), N // SP_DEGREE, True),
+                 "sp cross": ((1, L // SP_DEGREE, Lt), N, True),
+                 "ring 4x": ((1, L4, L4), N, False)}
+    err_sp = {}
+    for label, ((B, Lq, Lk), Nh, backward) in sp_shapes.items():
+        q, k, v = qkv(B, Lq, Lk, Nh, D)
+        tag = f"{label} {(B, Lq, Lk, Nh, D)} bfloat16"
+
+        def check_sp():
+            qs, ref, ref_lse = check_forward(tag, q, k, v, None)
+            if backward:
+                check_backward(tag, qs, k, v, ref, ref_lse)
+
+        err_sp[label] = shape_errs(check_sp, keys=names)
         del q, k, v
         torch.cuda.empty_cache()
     # B1 at the 4x edit's and the ragged batch's shapes (the plain version
@@ -3766,13 +4487,17 @@ def main() -> int:
     # ---------------------------------------------------------- 3. timing
     F = torch.nn.functional
 
-    def time_flash(Nh, kernels, plain_runs_self):
+    def time_flash(Nh, kernels, plain_runs_self, shapes=None,
+                   plain_warmup=1):
         """``kernels`` (of B1, B2, B3) at ``Nh`` heads at the self and
-        cross shapes: kernel, plain version, library call, bound."""
+        cross shapes, or at ``shapes`` ((label, (B, Lq, Lk), plain runs,
+        heads), ...): kernel, plain version (after ``plain_warmup``
+        runs), library call, bound."""
         timing = {}
-        for shape_name, (B, Lq, Lk), plain_runs in (
-                ("self", (1, L, L), plain_runs_self),
-                ("cross", (1, L, Lt), 10)):
+        if shapes is None:
+            shapes = (("self", (1, L, L), plain_runs_self, Nh),
+                      ("cross", (1, L, Lt), 10, Nh))
+        for shape_name, (B, Lq, Lk), plain_runs, Nh in shapes:
             q, k, v = qkv(B, Lq, Lk, Nh, D)
             qs = q * fa._rounded(D ** -0.5, bf16)
             do = randn(B, Lq, Nh, D)
@@ -3818,7 +4543,8 @@ def main() -> int:
             for kname in kernels:
                 kernel_fn, plain_fn = runs[kname]
                 ms = cuda_ms(kernel_fn, runs=10)
-                plain_ms = cuda_ms(plain_fn, runs=plain_runs, warmup=1)
+                plain_ms = cuda_ms(plain_fn, runs=plain_runs,
+                                   warmup=plain_warmup)
                 library_ms = cuda_ms(library[kname], runs=10)
                 bound_ms, bound_by = bound(*work[kname])
                 tflops = work[kname][0] / ms / 1e9
@@ -3840,6 +4566,12 @@ def main() -> int:
     timing = time_flash(N, names, 3)
     # B2 and B3 at the 14B's 40 heads (its LoRA training step, phase 20)
     timing14_train = time_flash(N14, names[1:], 1)
+    # B1, B2 and B3 at the parallel paths' shapes (phase 21)
+    timing_sp = time_flash(N, names, 1, shapes=[
+        (label, shape, 1, Nh) for label, (shape, Nh, backward)
+        in sp_shapes.items() if backward])
+    timing_sp.update(time_flash(N, ["flash_attention_fwd_lse"], 1, shapes=[
+        ("ring 4x", sp_shapes["ring 4x"][0], 1, N)], plain_warmup=0))
 
     # B1 at the 14B's 40 heads: kernel, plain version, SDPA and the bound
     timing14 = {}
@@ -4240,8 +4972,8 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"[1.3B] factory.load_pipeline(random_init=True): "
         f"{time.perf_counter() - t0:.1f} s")
-    video4, rec_4x = extrapolation_phase(card, pipe, geo, gen, prompt,
-                                         counters, want_launches)
+    video4, rec_4x, ref4 = extrapolation_phase(card, pipe, geo, gen, prompt,
+                                               counters, want_launches)
     rec_ragged, latents0 = ragged_phase(
         card, pipe, geo, prompt, [video, video4[:, :, :RAGGED_FRAMES]],
         counters, want_launches)
@@ -4310,6 +5042,20 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     log(f"[train files] phase 20 in {time.perf_counter() - t_train:.1f} s")
+
+    # ------------------------------------------------------ 21. parallelism
+    t_par = time.perf_counter()
+    probes = start_probes()           # they run beside the world-1 edits
+    rec_sp = sp_edit_phase(card, geo, video, prompt, counters,
+                           lambda: finish_probes(probes))
+    rec_ring = sp_ring_phase(card, geo, prompt, ref4, counters)
+    del ref4
+    rec_sp_train = sp_train_phase(card, geo)
+    shutil.rmtree(SCRATCH, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[parallel] phase 21 in {time.perf_counter() - t_par:.1f} s (two "
+        f"ranks share the card's SMs: no multi-GPU speed)")
 
     # ----------------------------------------------------------- 21. report
     sources = {"flash_attention_fwd": "flash_attention_fwd.cu",
@@ -4384,6 +5130,40 @@ def main() -> int:
                           max_abs_err=err14_train["cross"][kname][0],
                           max_rel_l2_err=err14_train["cross"][kname][1]),
         })
+    # B1, B2 and B3 on the parallel paths (phase 21), with the launches
+    # each rank counted: B1 on the Ulysses edit's shards (self-attention
+    # over half the heads, cross-attention over half the tokens), B2 on
+    # ring's shard (world 1: the whole 4x sequence), B2 and B3 in the
+    # sequence-parallel training step (per rank, both shapes together)
+    ul = rec_sp["ulysses"]["ranks"]
+    tr = rec_sp_train["seq"]["ranks"]
+    for kname, label, on, per_rank in (
+            ("flash_attention_fwd", "sp self", "Ulysses edit, seq 2",
+             [r["b1"][str((1, L, L, N // SP_DEGREE, False))] for r in ul]),
+            ("flash_attention_fwd", "sp cross", "Ulysses edit, seq 2",
+             [r["b1"][str((1, L // SP_DEGREE, Lt, N, False))] for r in ul]),
+            ("flash_attention_fwd_lse", "ring 4x", "ring 4x edit, world 1",
+             [rec_ring["launches"]["flash_attention_fwd_lse"]]),
+            ("flash_attention_fwd_lse", "sp self",
+             f"cli.train --mesh_seq 2, {SP_TRAIN_STEPS} steps",
+             [r["launches"]["flash_attention_fwd_lse"] for r in tr]),
+            ("flash_attention_bwd", "sp self",
+             f"cli.train --mesh_seq 2, {SP_TRAIN_STEPS} steps",
+             [r["launches"]["flash_attention_bwd"] for r in tr])):
+        line, tpu = replaces[kname]
+        t = timing_sp[label][kname]
+        rows.append({
+            "name": kname, "route": "cuda",
+            "source": f"videocof_torch/csrc/{sources[kname]}",
+            "replaces": f"videocof_tpu/ops/flash_attention.py:{line}",
+            "tpu_kernel": tpu, "launches": per_rank[0],
+            "launches_per_rank": per_rank, "launches_on": on,
+            "shape_label": f"parallel {label}",
+            "max_abs_err": err_sp[label][kname][0],
+            "max_rel_l2_err": err_sp[label][kname][1],
+            **{key: t[key] for key in ("ms", "tflops", "plain_ms",
+                                       "bound_ms", "bound_by", "library_ms",
+                                       "shape")}})
     # B4: its two kernels, with the whole of it (K mean, pre-pass,
     # attention) beside the attention kernel's row
     tpu8 = {"int8_quantize_k": "_int8_kernel's K quantization (:68-71)",
@@ -4445,7 +5225,9 @@ def main() -> int:
                                    "entry": rec_entry, "nccl": rec_nccl}))
     log("[train] " + json.dumps({"from_files_1.3b": rec_train,
                                  "lora_14b": rec_14b}, default=str))
-    log(f"[smoke] phases 1-20 in {time.perf_counter() - t_start:.1f} s")
+    log("[parallel] " + json.dumps({"edits": rec_sp, "ring": rec_ring,
+                                    "train": rec_sp_train}, default=str))
+    log(f"[smoke] phases 1-21 in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4454,4 +5236,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--train-rank"]:     # phase 21's training ranks
+        sys.exit(train_rank_main(sys.argv[2], sys.argv[3]))
     sys.exit(main())

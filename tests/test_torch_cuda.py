@@ -2,8 +2,9 @@
 forward B1, the forward with LSE B2, the backward B3) and the int8
 attention kernel B4 against their plain versions, their shape checks, the
 pipeline's and the trainer's default device, fp8 weights, runtime LoRA,
-the Wan2.2 pipeline and the Wan2.2 VAE on the card, and umT5 offload and
-the serving controller's weight swap.
+the Wan2.2 pipeline and the Wan2.2 VAE on the card, umT5 offload and
+the serving controller's weight swap, and Ulysses and ring attention on
+ranks' shards.
 
 These tests need an NVIDIA GPU and nvcc, and skip without them. The module
 imports neither JAX nor the JAX package, so that on a GPU machine without
@@ -1017,3 +1018,71 @@ def test_remat_policy_launches(cuda, policy, fwd_per_attention):
         "flash_attention_fwd_lse": fwd_per_attention * n,
         "flash_attention_bwd": n}
     assert torch.equal(losses[policy], losses[True])
+
+
+def _sp_card_rank(rank, world, init_file, backend, mode, out):
+    """One rank of `test_parallel_attention_on_shards_matches_whole`: its
+    shard of Ulysses or ring attention against B1 over the whole sequence,
+    with the launches of the parallel call."""
+    import os
+    import torch.distributed as dist
+    from videocof_torch.parallel import (SPContext, make_mesh,
+                                         make_ring_attention,
+                                         make_ulysses_attention, rank_device)
+    os.environ["LOCAL_RANK"] = str(rank)
+    dev = rank_device()
+    torch.cuda.set_device(dev)
+    dist.init_process_group(backend, init_method=f"file://{init_file}",
+                            world_size=world, rank=rank)
+    mesh = make_mesh(seq=world)
+    sp = SPContext(mesh)
+    g = torch.Generator(device=dev).manual_seed(0)
+    B, L, N, D = 2, 2048, 4, 128
+    q, k, v = (torch.randn(B, L, N, D, generator=g, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    mask = torch.ones(B, L, dtype=torch.bool, device=dev)
+    mask[0, L // 2:] = False      # at 2 ranks: rank 1's K/V shard all masked
+    mask[1, 1000:] = False
+    whole = fa.flash_attention(q, k, v, kv_mask=mask)
+    maker = {"ulysses": make_ulysses_attention,
+             "ring": make_ring_attention}[mode]
+    attn = maker(mesh)
+    fa.reset_launch_counts()
+    with torch.no_grad():
+        got = attn(*(sp.shard_tokens(t) for t in (q, k, v)), mask=mask)
+    torch.cuda.synchronize()
+    counts = fa.launch_counts()
+    want = sp.shard_tokens(whole)
+    torch.save({"counts": counts, "finite": bool(torch.isfinite(got).all()),
+                "got": got.float().cpu(), "want": want.float().cpu()},
+               f"{out}/rank{rank}.pt")
+    dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["ulysses", "ring"])
+def test_parallel_attention_on_shards_matches_whole(cuda, tmp_path, mode):
+    """Ulysses at two ranks on the card (gloo; NCCL refuses two ranks on one
+    device): B1 on each rank's [2, 2048, 2 of 4 heads, 128] with the key
+    mask; ring: B2 on each rotated K/V shard, one wholly masked. Ring
+    rotates with point-to-point, which gloo does not carry on CUDA tensors:
+    at two ranks on two cards under NCCL where the machine has them, else
+    at one rank (one shard) under NCCL. Each rank's output against B1 over
+    the whole sequence (bf16 tolerance)."""
+    import torch.multiprocessing as mp
+    cards = torch.cuda.device_count()
+    if mode == "ulysses":
+        world, backend = 2, "gloo"
+    else:
+        world, backend = (2, "nccl") if cards >= 2 else (1, "nccl")
+    fa.build()              # once, before the ranks load it
+    mp.start_processes(_sp_card_rank, args=(world, str(tmp_path / "rdzv"),
+                                            backend, mode, str(tmp_path)),
+                       nprocs=world, join=True, start_method="spawn")
+    for r in range(world):
+        res = torch.load(tmp_path / f"rank{r}.pt")
+        assert res["finite"]
+        want = ({"flash_attention_fwd": 1} if mode == "ulysses"
+                else {"flash_attention_fwd_lse": world})
+        assert {k: res["counts"][k] for k in want} == want, res["counts"]
+        torch.testing.assert_close(res["got"], res["want"], **BF16_TOL)

@@ -12,7 +12,8 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "videocof_tpu")
 SOURCES = sorted((ROOT / "videocof_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_cuda.py"]
+    ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_cuda.py",
+    ROOT / "tests" / "_torch_parallel_ranks.py"]
 
 
 def _imported(path):
@@ -67,7 +68,14 @@ def test_new_modules_are_covered():
             "videocof_torch/data/camera.py",
             "videocof_torch/data/datasets_extra.py",
             "videocof_torch/data/datasets_legacy.py",
-            "videocof_torch/cli/train.py"} <= names
+            "videocof_torch/cli/train.py",
+            "videocof_torch/parallel/mesh.py",
+            "videocof_torch/parallel/_collectives.py",
+            "videocof_torch/parallel/sp.py",
+            "videocof_torch/parallel/ulysses.py",
+            "videocof_torch/parallel/ring.py",
+            "videocof_torch/parallel/sharding.py",
+            "tests/_torch_parallel_ranks.py"} <= names
 
 
 def test_pipeline_imports_without_jax():
@@ -77,6 +85,7 @@ def test_pipeline_imports_without_jax():
             "import videocof_torch.convert\n"
             "import videocof_torch.models.lora\n"
             "import videocof_torch.training\n"
+            "import videocof_torch.parallel\n"
             "import videocof_torch.ops.int8_attention\n"
             "import videocof_torch.models.teacache\n"
             "import videocof_torch.schedulers.flow_euler\n"

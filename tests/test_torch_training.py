@@ -368,7 +368,9 @@ def test_trainer_guards(tmp_path):
                                        checkpoint_dir=str(tmp_path / "ckpt")),
                          device="cpu")
     assert trainer.tcfg.checkpoint_dir and not (tmp_path / "ckpt").exists()
-    with pytest.raises(NotImplementedError):
+    # a mesh is ported (tests/test_torch_parallel_train.py): it needs the
+    # torch.distributed world it spans
+    with pytest.raises(RuntimeError, match="torch.distributed"):
         CoFTrainer(dit, vae, t5, None, TrainerConfig(**TINY_TCFG, mesh_seq=2),
                    device="cpu")
     if not torch.cuda.is_available():

@@ -29,7 +29,6 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.func import functional_call
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
@@ -65,10 +64,14 @@ def _rms_norm(x, weight, eps):
     return (out * weight.float()).to(x.dtype)
 
 
-def _linear(x, lin: nn.Linear, dtype=None):
+def _linear(x, lin: nn.Linear, dtype=None, weight=None):
     """x @ W^T + b in ``dtype`` (default: the weight's compute dtype, bf16
-    for fp8 storage, which is dequantized here)."""
-    w = dequantize(lin, dtype)
+    for fp8 storage, which is dequantized here). ``weight`` replaces the
+    stored weight (a LoRA-fused one)."""
+    if weight is None:
+        w = dequantize(lin, dtype)
+    else:
+        w = weight if dtype is None else weight.to(dtype)
     bias = None if lin.bias is None else lin.bias.to(w.dtype)
     return F.linear(x.to(w.dtype), w, bias)
 
@@ -181,13 +184,19 @@ class Attention(nn.Module):
         self.norm_k = _Weight(d, dtype, device)
 
     def forward(self, x_in, num_heads, eps, kv_in=None, rope_cs=None,
-                kv_mask=None, backend=None, rope_dtype=None):
+                kv_mask=None, backend=None, rope_dtype=None, weights=None):
+        """``backend``: a backend name, or a callable ``(q, k, v, mask)``
+        (the sequence-parallel attention of `parallel`). ``weights``
+        replaces the named projections' weights ({"q": W, ...})."""
         B, L, D = x_in.shape
         hd = D // num_heads
         kv_in = x_in if kv_in is None else kv_in
-        q = _rms_norm(_linear(x_in, self.q), self.norm_q.weight, eps)
-        k = _rms_norm(_linear(kv_in, self.k), self.norm_k.weight, eps)
-        v = _linear(kv_in, self.v)
+        w = weights or {}
+        q = _rms_norm(_linear(x_in, self.q, weight=w.get("q")),
+                      self.norm_q.weight, eps)
+        k = _rms_norm(_linear(kv_in, self.k, weight=w.get("k")),
+                      self.norm_k.weight, eps)
+        v = _linear(kv_in, self.v, weight=w.get("v"))
         q = q.view(B, L, num_heads, hd)
         k = k.view(B, k.shape[1], num_heads, hd)
         v = v.view(B, v.shape[1], num_heads, hd)
@@ -195,8 +204,11 @@ class Attention(nn.Module):
             cos, sin = rope_cs
             q = rope_lib.apply_rope(q, cos, sin, compute_dtype=rope_dtype)
             k = rope_lib.apply_rope(k, cos, sin, compute_dtype=rope_dtype)
-        out = attention(q, k, v, mask=kv_mask, backend=backend)
-        return _linear(out.reshape(B, L, D), self.o)
+        if callable(backend):
+            out = backend(q, k, v, mask=kv_mask)
+        else:
+            out = attention(q, k, v, mask=kv_mask, backend=backend)
+        return _linear(out.reshape(B, L, D), self.o, weight=w.get("o"))
 
 
 class FFN(nn.Module):
@@ -223,10 +235,20 @@ class WanBlock(nn.Module):
             self.norm3 = _ScaleBias(d, dtype, device)
 
     def forward(self, x, e0, context, rope_cs, seq_mask=None,
-                attn_backend=None, tag_names=False):
+                attn_backend=None, tag_names=False, lora=None):
         """``tag_names`` tags the attention outputs for a 'save_names:'
-        remat policy (`checkpoint_name`)."""
+        remat policy (`checkpoint_name`). ``lora`` = (this block's adapters,
+        scale) fuses them into the adapted weights here, inside the call
+        (so that a sharded block has gathered its weights first). A
+        callable ``attn_backend`` is the sequence-parallel self-attention;
+        cross-attention then runs locally against the whole text context
+        (the default backend), as in JAX."""
         cfg, eps = self.cfg, self.cfg.eps
+        fused = {mod: {} for mod in ("self_attn", "cross_attn", "ffn")}
+        if lora is not None:
+            for key, w in fuse_block_adapters(self, *lora).items():
+                mod, name, _ = key.split(".")
+                fused[mod][name] = w
         e = self.modulation[None].float() + e0                  # [B, 6, D]
         e_ = [e[:, i][:, None, :] for i in range(6)]
         sdt = x.dtype
@@ -235,7 +257,8 @@ class WanBlock(nn.Module):
         y = self.self_attn(tx.to(context.dtype), cfg.num_heads, eps,
                            rope_cs=rope_cs, kv_mask=seq_mask,
                            backend=attn_backend,
-                           rope_dtype=getattr(torch, cfg.rope_dtype))
+                           rope_dtype=getattr(torch, cfg.rope_dtype),
+                           weights=fused["self_attn"])
         if tag_names:
             y = checkpoint_name(y, "attn_out")
         x = (x.float() + y.float() * e_[2]).to(sdt)
@@ -245,14 +268,18 @@ class WanBlock(nn.Module):
         else:
             nx = x
         y = self.cross_attn(nx.to(context.dtype), cfg.num_heads, eps,
-                            kv_in=context, backend=attn_backend)
+                            kv_in=context,
+                            backend=(None if callable(attn_backend)
+                                     else attn_backend),
+                            weights=fused["cross_attn"])
         if tag_names:
             y = checkpoint_name(y, "xattn_out")
         x = (x.float() + y.float()).to(sdt)
 
         tx = _layer_norm(x, eps) * (1.0 + e_[4]) + e_[3]
-        h = _gelu_tanh(_linear(tx.to(context.dtype), self.ffn.fc1))
-        h = _linear(h, self.ffn.fc2)
+        h = _gelu_tanh(_linear(tx.to(context.dtype), self.ffn.fc1,
+                               weight=fused["ffn"].get("fc1")))
+        h = _linear(h, self.ffn.fc2, weight=fused["ffn"].get("fc2"))
         return (x.float() + h.float() * e_[5]).to(sdt)
 
 
@@ -306,12 +333,9 @@ def _block_call(block, ad, lora_scale, attn_backend, tag_names, stream, e0,
                 ctx, rope_cos, rope_sin, seq_mask):
     """One block, with its LoRA adapters ``ad`` fused into its weights for
     this call only when given."""
-    args = (stream, e0, ctx, (rope_cos, rope_sin), seq_mask, attn_backend,
-            tag_names)
-    if ad is None:
-        return block(*args)
-    return functional_call(block, fuse_block_adapters(block, ad, lora_scale),
-                           args)
+    return block(stream, e0, ctx, (rope_cos, rope_sin), seq_mask,
+                 attn_backend, tag_names,
+                 None if ad is None else (ad, lora_scale))
 
 
 class WanDiT(nn.Module):
@@ -337,7 +361,8 @@ class WanDiT(nn.Module):
                 rope_cos: torch.Tensor, rope_sin: torch.Tensor,
                 attn_backend: Optional[str] = None, lora=None,
                 remat_blocks: Union[bool, str] = False,
-                seq_lens: Optional[torch.Tensor] = None) -> torch.Tensor:
+                seq_lens: Optional[torch.Tensor] = None,
+                sp=None) -> torch.Tensor:
         """``lora`` = (`LoRAAdapters`, scale) fuses each block's adapters into
         its weights inside that block's call, as the JAX scan does, so only
         one block's fused weights exist at a time; without it the attached
@@ -348,10 +373,23 @@ class WanDiT(nn.Module):
         The RoPE tables are [L, head_dim//2], or [B, L, head_dim//2] per
         sample. ``seq_lens`` [B] (a ragged batch) gives each sample's valid
         token count: keys past it leave that sample's self-attention, and
-        the caller keeps each sample's valid region of the output."""
+        the caller keeps each sample's valid region of the output.
+
+        With ``sp`` (a `parallel.SPContext`) the WHOLE forward is
+        sequence-parallel, as the reference chunks the tokens after the
+        patch embedding and gathers after the head
+        (`wan_transformer3d.py:949-953, 1085-1086`): the token count is
+        padded to a multiple of the seq axis (and of
+        ``cfg.token_pad_multiple``) with identity RoPE and a key mask, this
+        rank keeps its contiguous L/sp tokens and RoPE rows (under CFG
+        parallelism also its batch rows, with their timestep modulations
+        and text context), every block runs on them, and the head's output
+        is all-gathered before the padding is dropped. Each rank returns
+        the whole velocity. ``attn_backend`` is then the sequence-parallel
+        self-attention (`make_ulysses_attention`, `make_ring_attention`)."""
         return self._run(x, t, context, rope_cos, rope_sin, attn_backend,
                          lora=lora, remat_blocks=remat_blocks,
-                         seq_lens=seq_lens)[0]
+                         seq_lens=seq_lens, sp=sp)[0]
 
     def forward_with_residual(self, x: torch.Tensor, t: torch.Tensor,
                               context: torch.Tensor, rope_cos: torch.Tensor,
@@ -359,7 +397,8 @@ class WanDiT(nn.Module):
                               attn_backend: Optional[str] = None,
                               residual: Optional[torch.Tensor] = None,
                               skip_blocks: bool = False,
-                              seq_lens: Optional[torch.Tensor] = None
+                              seq_lens: Optional[torch.Tensor] = None,
+                              sp=None
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
         """The forward that exposes TeaCache's token-stream residual
         (`wan_dit_forward_with_residual` with a Python-bool skip): returns
@@ -367,16 +406,17 @@ class WanDiT(nn.Module):
         output stream minus its input; with ``skip_blocks`` the stack is
         bypassed, ``residual`` (of an earlier computed step) is added to the
         embedded stream and returned as it is, and the head still runs.
-        ``seq_lens`` as in `forward`."""
+        ``seq_lens`` and ``sp`` as in `forward`; under ``sp`` the residual
+        is this rank's shard of the stream, and so is the one it takes."""
         if skip_blocks and residual is None:
             raise ValueError("skip_blocks needs a cached residual")
         return self._run(x, t, context, rope_cos, rope_sin, attn_backend,
                          residual=residual, skip_blocks=skip_blocks,
-                         want_residual=True, seq_lens=seq_lens)
+                         want_residual=True, seq_lens=seq_lens, sp=sp)
 
     def _run(self, x, t, context, rope_cos, rope_sin, attn_backend, lora=None,
              remat_blocks=False, residual=None, skip_blocks=False,
-             want_residual=False, seq_lens=None):
+             want_residual=False, seq_lens=None, sp=None):
         cfg = self.cfg
         remat = remat_policy(remat_blocks)
         if lora is None:
@@ -394,12 +434,13 @@ class WanDiT(nn.Module):
         ctx = _linear(context.to(compute_dtype), self.text_mlp.fc1)
         ctx = _linear(_gelu_tanh(ctx), self.text_mlp.fc2)          # [B, Lt, D]
 
-        # pad tokens to the kernel tile (the tables, [L, D/2] or per sample
-        # [B, L, D/2], with the identity rotation); padded keys leave
-        # self-attention
+        # pad tokens to the kernel tile and the seq axis (the tables, [L,
+        # D/2] or per sample [B, L, D/2], with the identity rotation);
+        # padded keys leave self-attention
         L_real = hseq.shape[1]
         seq_mask = None
-        pad_to = cfg.token_pad_multiple
+        sp_on = sp is not None and (sp.size > 1 or sp.cfg_parallel)
+        pad_to = math.lcm(cfg.token_pad_multiple, sp.size if sp_on else 1)
         Lp = ((L_real + pad_to - 1) // pad_to) * pad_to
         if Lp != L_real:
             pad = Lp - L_real
@@ -413,6 +454,17 @@ class WanDiT(nn.Module):
             # pad mask (the reference's per-sample varlen k_lens)
             seq_mask = (torch.arange(Lp, device=hseq.device)[None]
                         < torch.as_tensor(seq_lens, device=hseq.device)[:, None])
+        if sp_on:
+            # this rank's tokens (and, under CFG parallelism, batch rows);
+            # the key mask stays whole over the tokens
+            hseq = sp.shard_tokens(hseq)
+            shard_table = sp.shard_tokens if rope_cos.dim() == 3 \
+                else sp.shard_rope
+            rope_cos, rope_sin = shard_table(rope_cos), shard_table(rope_sin)
+            if sp.cfg_parallel:
+                e, e0, ctx = (sp.shard_batch(a) for a in (e, e0, ctx))
+                if seq_mask is not None:
+                    seq_mask = sp.shard_batch(seq_mask)
 
         stream0 = hseq.to(getattr(torch, cfg.stream_dtype))
         stream = stream0
@@ -436,7 +488,10 @@ class WanDiT(nn.Module):
         hm = self.head.modulation[None].float() + e[:, None, :]
         he0, he1 = hm[:, 0][:, None, :], hm[:, 1][:, None, :]
         out = _layer_norm(stream, cfg.eps) * (1.0 + he1) + he0
-        out = _linear(out.to(compute_dtype), self.head.fc)[:, :L_real]
+        out = _linear(out.to(compute_dtype), self.head.fc)
+        if sp_on:
+            out = sp.gather(out)         # the head-exit all-gather
+        out = out[:, :L_real]
         return (unpatchify(out.float(), grid, cfg.patch_size, cfg.out_dim),
                 residual_out)
 

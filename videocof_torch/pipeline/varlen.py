@@ -116,6 +116,12 @@ def batch_edit(pipe: WanPipeline, videos: Sequence, source_frames: Sequence[int]
     sched = get_scheduler(sampler, **sched_kw)
     sched.set_timesteps(num_inference_steps, shift=shift)
     state = sched.init_state(latents)
+    if pipe.sp_ctx is not None:
+        # JAX's guard: the ragged step does not shard its tokens, so a
+        # parallel backend would see the whole stream
+        raise NotImplementedError(
+            "varlen.batch_edit does not compose with sequence/cfg-parallel "
+            "pipelines; disable_sequence_parallel() first")
     for i in range(num_inference_steps):
         x = torch.cat([latents, latents]) if do_cfg else latents
         t = torch.full((x.shape[0],), float(sched.timesteps[i]),

@@ -8,7 +8,9 @@ expert ``dit`` runs the rest at ``guidance_scale``. The schedule decreases
 monotonically, so the high-noise steps are a leading run of
 ``_split_idx`` steps. TeaCache is planned per expert, with a forced
 recompute at the boundary (a residual of one expert is never replayed into
-the other). Both experts are the t2v Wan DiT (`wan_dit.py`). JAX's fused
+the other). Both experts are the t2v Wan DiT (`wan_dit.py`); under
+`enable_sequence_parallel` both run with the same SP context and attention
+(JAX's `wan22_pipeline.py:98,233,251`). JAX's fused
 and segmented dual-expert samplers are not ported: the port runs the steps
 one by one, as JAX's ``VIDEOCOF_STEPWISE=1`` does.
 """

@@ -31,6 +31,12 @@ freeze (JAX's stepwise t2v branch); `set_runtime_lora` attaches LoRA files
 as runtime adapters, the LoRA path over fp8 weights. The VAE's type picks
 the streaming module: the Wan2.2 VAE (`Wan22VAEConfig`) streams through
 `wan_vae22_streaming`, the Wan2.1 one through `wan_vae_streaming`.
+
+`enable_sequence_parallel` runs the whole DiT forward sequence-parallel over
+the ranks of a `torch.distributed` world (Ulysses or ring attention), and
+with ``cfg_parallel`` one guidance branch per data rank; every rank runs
+the same call with the same seed and gets the whole result. The VAE and
+umT5 run whole on every rank.
 """
 
 from __future__ import annotations
@@ -79,6 +85,17 @@ def _resolve_device(device) -> torch.device:
     return device
 
 
+def run_t5(t5: T5Encoder, ids: torch.Tensor, mask: torch.Tensor
+           ) -> torch.Tensor:
+    """umT5 on ``ids``'s device: with weights offloaded to the host, on
+    device copies that are this call's temporaries (`.to()` would move the
+    module itself and keep it there); resident weights are already on the
+    device and `.to()` returns them as they are."""
+    state = {k: v.to(ids.device, non_blocking=True)
+             for k, v in t5.state_dict().items()}
+    return torch.func.functional_call(t5, state, (ids, mask))
+
+
 def _to_host(module: torch.nn.Module) -> torch.nn.Module:
     """``module`` with every tensor in host memory, pinned (one tensor at a
     time, so no second copy of the module exists) when CUDA is present."""
@@ -103,6 +120,11 @@ class WanPipeline:
         self.tokenizer = tokenizer or WanTokenizer(vocab_size=t5.cfg.vocab)
         self.dtype = dtype
         self.attn_backend = attn_backend
+        # sequence parallelism (`enable_sequence_parallel`): the SP context
+        # and the backend to restore without it
+        self.sp_ctx = None
+        self.cfg_parallel = False
+        self._local_backend = None
         # CFG as two batch-B DiT forwards instead of one batch-2B forward:
         # half the activations, the same result
         self.cfg_sequential = False
@@ -125,6 +147,66 @@ class WanPipeline:
     def _dits(self) -> List[WanDiT]:
         return [self.dit]
 
+    # ----------------------------------------------------------- parallelism
+    def enable_sequence_parallel(self, mesh=None, data: int = 1,
+                                 seq: Optional[int] = None,
+                                 mode: str = "ulysses",
+                                 cfg_parallel: bool = False,
+                                 model: int = 1) -> None:
+        """Run the WHOLE DiT forward sequence-parallel over the mesh's
+        ``seq`` axis (`WanDiT.forward`'s ``sp``): the residual stream is
+        token-sharded from the patch embedding to the head and gathered at
+        the head exit, RoPE entering as per-token data sharded with the
+        tokens, so CoF repeat-RoPE composes with it. ``mode`` is "ulysses"
+        (all-to-all over heads) or "ring" (K/V rotation, kernel B2 per
+        shard). Without ``mesh`` one is made over the world
+        (`parallel.make_mesh(data, seq)`, ``seq`` the world's ranks over
+        ``data`` by default); every rank of it runs each call with the same
+        arguments and seed, draws the same noise and returns the whole
+        output. The attention of the blocks becomes the parallel one (its
+        inner backend the default, as JAX's), the pipeline's own backend
+        comes back with `disable_sequence_parallel`.
+
+        ``cfg_parallel=True`` (needs a data axis of >= 2): during CFG steps
+        the cond/uncond doubled batch splits over the ``data`` axis, so each
+        data rank runs one guidance branch; the branches are gathered over
+        the data ranks before the guidance combine (the reference's
+        classifier_free_guidance_degree, `dist/fuser.py:35-49`). ``model >
+        1`` (tensor parallelism) is not ported yet and raises."""
+        from ..parallel import (SPContext, make_mesh, make_ring_attention,
+                                make_ulysses_attention)
+        from ..parallel.mesh import axis_size
+        if model > 1:
+            raise NotImplementedError("tensor parallelism (model > 1) is not "
+                                      "ported yet: ROADMAP.md §A.2")
+        if mesh is None:
+            world = torch.distributed.get_world_size()
+            seq = seq or max(1, world // data)
+            mesh = make_mesh(data=data, seq=seq)
+        if cfg_parallel and axis_size(mesh, "data") < 2:
+            raise ValueError("cfg_parallel needs a data axis of >= 2")
+        maker = {"ulysses": make_ulysses_attention,
+                 "ring": make_ring_attention}[mode]
+        if self.sp_ctx is None:
+            self._local_backend = self.attn_backend
+        # under CFG parallelism too: the rows are already this rank's branch
+        self.attn_backend = maker(mesh)
+        self.sp_ctx = SPContext(mesh)
+        self.cfg_parallel = cfg_parallel
+
+    def disable_sequence_parallel(self) -> None:
+        self.attn_backend = self._local_backend
+        self.sp_ctx = None
+        self.cfg_parallel = False
+
+    def _sp_for(self, do_cfg: bool):
+        """The SP context of a step (None without sequence parallelism):
+        its CFG-parallel variant during CFG steps of a CFG-parallel
+        pipeline."""
+        if self.sp_ctx is not None and do_cfg and self.cfg_parallel:
+            return self.sp_ctx.with_cfg_parallel()
+        return self.sp_ctx
+
     # ------------------------------------------------------------------ text
     @torch.no_grad()
     def encode_prompt(self, prompts: Sequence[str], max_length: int = 512
@@ -134,12 +216,7 @@ class WanPipeline:
         ids, mask = self.tokenizer(list(prompts), max_length=max_length)
         ids = torch.as_tensor(ids, device=self.device)
         mask = torch.as_tensor(mask, device=self.device)
-        # under offload the device copies are this call's temporaries
-        # (`.to()` would move the module itself and keep it there); resident
-        # weights are already on the device and `.to()` returns them as is
-        state = {k: v.to(self.device, non_blocking=True)
-                 for k, v in self.t5.state_dict().items()}
-        e = torch.func.functional_call(self.t5, state, (ids, mask))
+        e = run_t5(self.t5, ids, mask)
         return e * mask[..., None].to(e.dtype)
 
     # ---------------------------------------------------------------- latents
@@ -227,13 +304,16 @@ class WanPipeline:
                          dim=2)
 
     # ------------------------------------------------------------------ step
-    def _dit(self, dit, x, t_i, context, cos, sin, residual, skip):
+    def _dit(self, dit, x, t_i, context, cos, sin, residual, skip,
+             cfg: bool = False):
+        """One forward of ``dit``; ``cfg``: ``x`` is the doubled batch of a
+        CFG step (split over the data ranks under CFG parallelism)."""
         t = torch.full((x.shape[0],), t_i, dtype=torch.float32,
                        device=self.device)
         return dit.forward_with_residual(
             x.to(self.dtype), t, context, cos, sin,
             attn_backend=self.attn_backend, residual=residual,
-            skip_blocks=skip)
+            skip_blocks=skip, sp=self._sp_for(cfg))
 
     def _denoise_step(self, dit, latents, t_i, context, cos, sin, cfg: bool,
                       guidance_scale: float, condition_count: int,
@@ -255,7 +335,7 @@ class WanPipeline:
         else:
             x = torch.cat([latents, latents]) if cfg else latents
             v, res = self._dit(dit, x, t_i, context, cos, sin, residual,
-                               skip)
+                               skip, cfg)
             if cfg:
                 vu, vc = v.chunk(2)
                 v = vu + guidance_scale * (vc - vu)
@@ -358,7 +438,7 @@ class WanPipeline:
         latent frames frozen (0: text-to-video). ``tick`` labels each
         step's wall time."""
         state = sched.init_state(latents)
-        residual = None
+        residual, res_split = None, False
         for i, (dit, g) in enumerate(self._expert_plan(sched,
                                                        guidance_scale)):
             step_cfg = do_cfg and i < cfg_off
@@ -368,12 +448,20 @@ class WanPipeline:
             res_in = None
             if skips[i]:
                 need = latents.shape[0] * (2 if step_cfg else 1)
+                if res_split and not step_cfg:
+                    # a CFG-parallel step's residual holds this rank's
+                    # branch: gather the branches for the cond rows
+                    residual = self.sp_ctx.with_cfg_parallel().gather_batch(
+                        residual)
+                    res_split = False
                 res_in = residual[-need:]   # cfg-skip keeps the cond rows
             v, res = self._denoise_step(
                 dit, latents, float(sched.timesteps[i]), ctx_i, cos, sin,
                 step_cfg, g, condition_count, res_in, skips[i])
             if not skips[i]:
                 residual = res
+                res_split = step_cfg and self.cfg_parallel and \
+                    not self.cfg_sequential
             latents, state = sched.step(v, i, latents, state)
             if tick is not None:
                 tick(f"step{i} skipped" if skips[i] else f"step{i}")

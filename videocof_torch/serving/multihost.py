@@ -6,8 +6,9 @@ requests over `@ray.remote(num_gpus=1)` actors that each own a pipeline
 
   * `init_distributed()` starts `torch.distributed` from JAX's variables
     (COORDINATOR_ADDRESS / NUM_PROCESSES / PROCESS_ID) or arguments, over
-    ``tcp://``, with NCCL on CUDA and gloo on the CPU; with none of them it
-    takes ``env://`` (MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK).
+    ``tcp://``, with NCCL on CUDA and gloo on the CPU unless the caller
+    names the backend; with none of them it takes ``env://`` (MASTER_ADDR,
+    MASTER_PORT, WORLD_SIZE, RANK: ``torch.distributed.run``'s).
   * `WorkerPool` fans a batch of requests over N HTTP workers (each a
     `serving.api` process on its own card or host), each worker taking the
     next request when it is free, with retries: the serving side of the
@@ -29,17 +30,21 @@ import torch
 
 def init_distributed(coordinator: Optional[str] = None,
                      num_processes: Optional[int] = None,
-                     process_id: Optional[int] = None) -> None:
+                     process_id: Optional[int] = None,
+                     backend: Optional[str] = None) -> None:
     """`torch.distributed.init_process_group` for this process: the
     coordinator ("host:port", or a ``tcp://`` URL), the world size and this
     process's rank from the arguments or from COORDINATOR_ADDRESS,
-    NUM_PROCESSES and PROCESS_ID; NCCL when CUDA is present, else gloo."""
+    NUM_PROCESSES and PROCESS_ID; ``backend`` (default NCCL when CUDA is
+    present, else gloo; NCCL refuses two ranks on one card, which gloo
+    serves)."""
     coordinator = coordinator or os.environ.get("COORDINATOR_ADDRESS")
     if num_processes is None and os.environ.get("NUM_PROCESSES"):
         num_processes = int(os.environ["NUM_PROCESSES"])
     if process_id is None and os.environ.get("PROCESS_ID"):
         process_id = int(os.environ["PROCESS_ID"])
-    backend = "nccl" if torch.cuda.is_available() else "gloo"
+    if backend is None:
+        backend = "nccl" if torch.cuda.is_available() else "gloo"
     if not (coordinator or num_processes or process_id is not None):
         torch.distributed.init_process_group(backend, init_method="env://")
         return

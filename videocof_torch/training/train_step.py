@@ -1,11 +1,21 @@
-"""Flow-matching training steps on one device.
+"""Flow-matching training steps, on one device or over a mesh.
 
 Counterpart of `videocof_tpu/training/train_step.py`: the chain-of-frames
 flow-matching loss, a full fine-tuning step (`make_train_step`) and a LoRA
-step (`make_lora_train_step`), each returning ``(init_fn, step_fn)``. The
-mesh, Ulysses and tensor-parallel arguments of the JAX steps are not ported
-(one device). PyTorch updates in place: ``step_fn`` returns the state it was
-given, with its parameters, optimizer state and step count moved on.
+step (`make_lora_train_step`), each returning ``(init_fn, step_fn)``.
+PyTorch updates in place: ``step_fn`` returns the state it was given, with
+its parameters, optimizer state and step count moved on.
+
+With a ``mesh`` (`parallel.make_mesh`) the step is explicit SPMD, one rank
+per process: the batch is split over ``data`` (each rank is given its own
+rows), the DiT forward runs Ulysses sequence-parallel over ``seq`` when
+``seq > 1`` (the loss is taken on the prediction gathered at the head exit,
+so every rank of a seq group computes the same loss), the gradients of the
+parameters every seq rank holds whole are summed over the seq group (each
+rank's backward saw only its own tokens) and then averaged over the data
+group, and the clip takes the global norm after those reductions. A full
+fine-tune shards its parameters and AdamW moments over ``data`` with FSDP
+(`parallel.apply_fsdp`). JAX's tensor-parallel step is not ported yet.
 
 The optimizer is optax's ``chain(clip_by_global_norm(max_norm),
 adamw(lr, weight_decay))``: `ClipAdamW` clips as optax does (``g / ||g|| *
@@ -20,7 +30,9 @@ from dataclasses import dataclass
 from typing import Callable, Dict, Iterable, List, Optional, Tuple, Union
 
 import torch
+import torch.distributed as dist
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from ..models.lora import LoRAAdapters, init_lora_adapters
 from ..models.wan_dit import WanDiT
@@ -29,13 +41,14 @@ from ..models.wan_dit import WanDiT
 def flow_matching_loss(dit: WanDiT, x0, context, rope_cos, rope_sin,
                        timesteps, noise, attn_backend=None,
                        remat: Union[bool, str] = True, frame_mask=None,
-                       lora=None):
+                       lora=None, sp=None):
     """Rectified-flow loss: x_t = (1 - sigma) x0 + sigma n, target n - x0.
 
     ``remat`` is the blocks' checkpoint policy (`wan_dit.remat_policy`).
     ``frame_mask`` [F] (1 = denoised frame, 0 = clean conditioning frame) is
     the chain-of-frames objective: source latent frames stay clean at every
-    t and leave the loss. ``lora`` = (adapters, scale) as for `WanDiT`."""
+    t and leave the loss. ``lora`` = (adapters, scale) and ``sp`` as for
+    `WanDiT`."""
     sigma = (timesteps.float() / 1000.0)[:, None, None, None, None]
     x_t = (1.0 - sigma) * x0 + sigma * noise
     target = noise - x0
@@ -44,7 +57,8 @@ def flow_matching_loss(dit: WanDiT, x0, context, rope_cos, rope_sin,
         x_t = m * x_t + (1.0 - m) * x0
         target = target * m
     pred = dit(x_t, timesteps.float(), context, rope_cos, rope_sin,
-               attn_backend=attn_backend, lora=lora, remat_blocks=remat)
+               attn_backend=attn_backend, lora=lora, remat_blocks=remat,
+               sp=sp)
     if frame_mask is not None:
         err = (pred - target).square() * m
         return err.mean() / m.mean().clamp(min=1e-8)
@@ -53,17 +67,94 @@ def flow_matching_loss(dit: WanDiT, x0, context, rope_cos, rope_sin,
 
 # ------------------------------------------------------------------ optimizer
 
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard (FSDP), a plain tensor as it is."""
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
 @torch.no_grad()
-def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> None:
+def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float,
+                         norm_sq: Optional[Callable] = None) -> None:
     """optax.clip_by_global_norm in place: every gradient becomes
     ``g / ||g|| * max_norm`` when the global L2 norm ``||g|| >= max_norm``,
-    and stays as it is otherwise. No host synchronisation."""
+    and stays as it is otherwise. No host synchronisation. ``norm_sq``
+    (grads -> ||g||^2) replaces the local sum of squares (over a mesh,
+    `_MeshReduce.norm_sq`)."""
     if not grads:
         return
-    norm = torch.sqrt(sum(g.float().square().sum() for g in grads))
+    if norm_sq is None:
+        norm = torch.sqrt(sum(g.float().square().sum() for g in grads))
+    else:
+        norm = torch.sqrt(norm_sq(grads))
     keep = norm < max_norm
-    for g in grads:
+    for g in map(_local, grads):
         g.copy_(torch.where(keep, g, g / norm.to(g.dtype) * max_norm))
+
+
+class _MeshReduce:
+    """The step's collectives over a ('data', 'seq', 'model') mesh: the
+    gradient reductions, the global norm and the loss's data mean.
+    Gradients of FSDP-sharded parameters (DTensors) arrive averaged over
+    ``data`` by FSDP's reduce-scatter and are summed over ``seq`` here;
+    every other gradient is summed over ``seq`` and averaged over
+    ``data``."""
+
+    def __init__(self, mesh):
+        self.seq = mesh.get_group("seq")
+        self.data = mesh.get_group("data")
+        self.seq_size = dist.get_world_size(self.seq)
+        self.data_size = dist.get_world_size(self.data)
+        self.data_rank = dist.get_rank(self.data)
+
+    @staticmethod
+    def _all_reduce(tensors, group):
+        """SUM over ``group``, one flat buffer per dtype."""
+        by_dtype: Dict[torch.dtype, List[torch.Tensor]] = {}
+        for t in tensors:
+            by_dtype.setdefault(t.dtype, []).append(t)
+        for ts in by_dtype.values():
+            flat = torch.cat([t.reshape(-1) for t in ts])
+            dist.all_reduce(flat, group=group)
+            for t, r in zip(ts, flat.split([t.numel() for t in ts])):
+                t.copy_(r.view_as(t))
+
+    @torch.no_grad()
+    def reduce_grads(self, params) -> None:
+        grads = [p.grad for p in params if p.grad is not None]
+        if self.seq_size > 1:
+            self._all_reduce([_local(g) for g in grads], self.seq)
+        plain = [g for g in grads if not isinstance(g, DTensor)]
+        if self.data_size > 1 and plain:
+            self._all_reduce(plain, self.data)
+            for g in plain:
+                g.div_(self.data_size)
+
+    @torch.no_grad()
+    def norm_sq(self, grads) -> torch.Tensor:
+        """||g||^2 over the whole of every gradient: the squares of the
+        FSDP shards summed over ``data``, those of whole gradients once."""
+        dev = grads[0].device
+        sharded = torch.zeros((), dtype=torch.float32, device=dev)
+        whole = torch.zeros((), dtype=torch.float32, device=dev)
+        for g in grads:
+            sq = _local(g).float().square().sum()
+            if isinstance(g, DTensor):
+                sharded = sharded + sq
+            else:
+                whole = whole + sq
+        if self.data_size > 1:
+            dist.all_reduce(sharded, group=self.data)
+        return sharded + whole
+
+    @torch.no_grad()
+    def mean_loss(self, loss: torch.Tensor) -> torch.Tensor:
+        """The loss over the global batch: the data ranks' means averaged
+        (equal rows per rank)."""
+        loss = loss.detach().clone()
+        if self.data_size > 1:
+            dist.all_reduce(loss, group=self.data)
+            loss /= self.data_size
+        return loss
 
 
 class ClipAdamW:
@@ -77,10 +168,13 @@ class ClipAdamW:
         self.adamw = torch.optim.AdamW(self.params, lr=lr, betas=(0.9, 0.999),
                                        eps=1e-8, weight_decay=weight_decay)
 
-    def step(self) -> None:
+    def step(self, norm_sq: Optional[Callable] = None) -> None:
+        """Clip and step; ``norm_sq`` (gradients -> ||g||^2) takes the
+        clip's norm over a mesh (`_MeshReduce.norm_sq`)."""
         if self.max_norm is not None:
             clip_by_global_norm_([p.grad for p in self.params
-                                  if p.grad is not None], self.max_norm)
+                                  if p.grad is not None], self.max_norm,
+                                 norm_sq)
         self.adamw.step()
         self.adamw.zero_grad(set_to_none=True)
 
@@ -128,31 +222,64 @@ class LoRATrainState:
     step: int = 0
 
 
-def _run_step(state, optimizer, loss_fn, batch, noise, generator, timings):
+def _run_step(state, optimizer, red, loss_fn, batch, noise, generator,
+              timings):
+    """One step; ``red`` (a `_MeshReduce`, or None off a mesh) reduces
+    the gradients before the optimizer and gives the clip its norm."""
     x0 = batch["x0"]
     clock = StageTimer(timings, x0.device)
     if noise is None:
-        noise = torch.randn(x0.shape, generator=generator, device=x0.device,
+        # the global batch's noise, of which this rank keeps its rows: the
+        # generator moves alike on every rank
+        n_data = 1 if red is None else red.data_size
+        noise = torch.randn((x0.shape[0] * n_data, *x0.shape[1:]),
+                            generator=generator, device=x0.device,
                             dtype=x0.dtype)
+        if n_data > 1:
+            noise = noise.chunk(n_data)[red.data_rank]
     loss = loss_fn(x0, noise)
     loss.backward()
     clock.tick("forward+backward")
-    optimizer.step()
+    if red is None:
+        optimizer.step()
+    else:
+        red.reduce_grads(optimizer.params)
+        optimizer.step(norm_sq=red.norm_sq)
     clock.tick("optimizer")
     state.step += 1
-    return state, loss.detach()
+    return state, (loss.detach() if red is None else red.mean_loss(loss))
 
 
-def _loss(dit, batch, x0, noise, attn_backend, remat, lora=None):
+def _loss(dit, batch, x0, noise, attn_backend, remat, lora=None, sp=None):
     return flow_matching_loss(
         dit, x0, batch["context"], batch["rope_cos"], batch["rope_sin"],
         batch["timesteps"], noise, attn_backend=attn_backend, remat=remat,
-        frame_mask=batch.get("frame_mask"), lora=lora)
+        frame_mask=batch.get("frame_mask"), lora=lora, sp=sp)
+
+
+def _mesh_parts(mesh, attn_backend):
+    """(attention, SP context, reductions) of a step over ``mesh``: Ulysses
+    and the SP context when ``seq > 1`` (``attn_backend`` its inner
+    backend), the reductions when the mesh has more than one rank."""
+    if mesh is None:
+        return attn_backend, None, None
+    from ..parallel import SPContext, make_ulysses_attention
+    from ..parallel.mesh import axis_size
+    if axis_size(mesh, "model") > 1:
+        raise NotImplementedError("the tensor-parallel train step is not "
+                                  "ported yet: ROADMAP.md §A.2")
+    sp, attn = None, attn_backend
+    if axis_size(mesh, "seq") > 1:
+        attn = make_ulysses_attention(mesh, inner_backend=attn_backend)
+        sp = SPContext(mesh)
+    red = _MeshReduce(mesh) if mesh.size() > 1 else None
+    return attn, sp, red
 
 
 def make_train_step(dit: WanDiT, optimizer=None,
                     remat: Union[bool, str] = True,
-                    attn_backend: Optional[str] = None
+                    attn_backend: Optional[str] = None, mesh=None,
+                    fsdp_min_size: int = 2 ** 16
                     ) -> Tuple[Callable, Callable]:
     """Full fine-tuning: (init_fn, step_fn).
 
@@ -164,19 +291,29 @@ def make_train_step(dit: WanDiT, optimizer=None,
     draws it inside the step from its key); ``timings`` (a dict) receives the
     stage walls "forward+backward" and "optimizer". ``remat``: False, True,
     a policy name or 'save_names:<n1,n2>' (`wan_dit.remat_policy`; an
-    unknown name raises ValueError at the first step, as in JAX)."""
+    unknown name raises ValueError at the first step, as in JAX).
+
+    ``mesh``: the step over a ('data', 'seq', 'model') mesh (module
+    docstring); ``batch`` and ``noise`` are then this rank's rows, and
+    ``init_fn`` shards the parameters (those of at least
+    ``fsdp_min_size`` elements) and so the optimizer state over ``data``
+    with FSDP. The loss returned is the global batch's."""
     optimizer = optimizer or adamw(1e-5, weight_decay=1e-3)
+    attn, sp, red = _mesh_parts(mesh, attn_backend)
 
     def init_fn() -> TrainState:
         dit.requires_grad_(True)
+        if mesh is not None:
+            from ..parallel import apply_fsdp
+            apply_fsdp(dit, mesh, min_size=fsdp_min_size)
         return TrainState(dit, optimizer(dit.parameters()))
 
     def step_fn(state: TrainState, batch, noise=None, generator=None,
                 timings=None):
         return _run_step(
-            state, state.optimizer,
-            lambda x0, n: _loss(state.params, batch, x0, n, attn_backend,
-                                remat),
+            state, state.optimizer, red,
+            lambda x0, n: _loss(state.params, batch, x0, n, attn, remat,
+                                sp=sp),
             batch, noise, generator, timings)
 
     return init_fn, step_fn
@@ -184,7 +321,7 @@ def make_train_step(dit: WanDiT, optimizer=None,
 
 def make_lora_train_step(dit: WanDiT, optimizer=None, rank: int = 16,
                          remat: Union[bool, str] = True,
-                         attn_backend: Optional[str] = None
+                         attn_backend: Optional[str] = None, mesh=None
                          ) -> Tuple[Callable, Callable]:
     """LoRA-adapter training over a frozen base: (init_fn, step_fn).
 
@@ -193,8 +330,12 @@ def make_lora_train_step(dit: WanDiT, optimizer=None, rank: int = 16,
     block's weights inside that block's call. ``init_fn(generator=None,
     adapters=None)`` -> `LoRATrainState` with adapters drawn from
     ``generator`` (`init_lora_adapters`) or the ``adapters`` given;
-    ``step_fn`` as in `make_train_step`."""
+    ``step_fn`` as in `make_train_step`. With a ``mesh`` the adapters are
+    replicated (their gradients reduced as the module docstring says); the
+    caller may shard the frozen base over ``data`` (`parallel.apply_fsdp`,
+    as `CoFTrainer` does)."""
     optimizer = optimizer or adamw(1e-4, weight_decay=0.0)
+    attn, sp, red = _mesh_parts(mesh, attn_backend)
 
     def init_fn(generator: Optional[torch.Generator] = None,
                 adapters: Optional[LoRAAdapters] = None) -> LoRATrainState:
@@ -207,8 +348,8 @@ def make_lora_train_step(dit: WanDiT, optimizer=None, rank: int = 16,
                 timings=None):
         lora = (state.adapters, state.adapters.scale)
         return _run_step(
-            state, state.optimizer,
-            lambda x0, n: _loss(dit, batch, x0, n, attn_backend, remat, lora),
+            state, state.optimizer, red,
+            lambda x0, n: _loss(dit, batch, x0, n, attn, remat, lora, sp),
             batch, noise, generator, timings)
 
     return init_fn, step_fn

@@ -1,12 +1,27 @@
-"""Chain-of-frames trainer on one device.
+"""Chain-of-frames trainer, on one device or over a mesh of ranks.
 
 Counterpart of `videocof_tpu/training/trainer.py`: dataset triplets ->
 frozen-VAE latents in the CoF layout [src | ground | tgt] -> frozen-umT5 text
 embeddings -> masked flow-matching loss (source frames stay clean, as in the
 edit) -> one training step (LoRA adapters over a frozen base, or full
 fine-tuning), with block remat -> a train-state checkpoint every
-``save_every`` steps (`utils.checkpoint.save_train_state`). Not ported yet:
-the mesh (data and sequence parallelism), which raises.
+``save_every`` steps (`utils.checkpoint.save_train_state`).
+
+With ``mesh_data * mesh_seq > 1`` it runs in every rank of a
+`torch.distributed` world of that size (`parallel.make_mesh`): each step
+takes the global batch of ``batch_size`` samples from the iterator on
+every rank, and each data rank prepares and trains on its own rows; the
+ranks of a seq group share their rows and run the DiT forward
+sequence-parallel (Ulysses). In LoRA mode the frozen base is sharded over
+``data`` with FSDP (JAX's `trainer.py:74-80`); a full fine-tune shards its
+parameters and optimizer state. Timesteps: the rows of data rank d are
+drawn from band d of ``mesh_data`` bands, the reference's one band per
+data-parallel rank; JAX draws every row with its
+process index, so a single-process JAX mesh draws all of them from band 0
+(the stated departure, ROADMAP.md §A). Every rank draws every band's
+timesteps and the global batch's noise from one seeded generator, so the
+ranks of a group share them, and a one-process trainer whose ``sampler``
+has ``mesh_data`` bands repeats the draws. Only rank 0 logs and writes.
 """
 
 from __future__ import annotations
@@ -23,7 +38,9 @@ from ..data.tokenizer import WanTokenizer
 from ..models.t5_encoder import T5Encoder
 from ..models.wan_dit import WanDiT, make_rope_for_geometry
 from ..models.wan_vae import WanVAE
-from ..pipeline.wan_pipeline import _resolve_device, latent_frame_count
+from ..parallel import apply_fsdp, make_mesh
+from ..pipeline.wan_pipeline import (_resolve_device, _to_host,
+                                     latent_frame_count, run_t5)
 from ..utils import checkpoint
 from .timestep_sampler import DiscreteSampling
 from .train_step import (StageTimer, adamw, make_lora_train_step,
@@ -54,20 +71,32 @@ class TrainerConfig:
 
 
 class CoFTrainer:
-    """``CoFTrainer(dit, vae, t5, tokenizer, tcfg, device=None)``: the
-    models move to ``device`` (CUDA unless ``device="cpu"``; raises without
-    a GPU), VAE and T5 frozen. ``train(sample_iter)`` runs the loop."""
+    """``CoFTrainer(dit, vae, t5, tokenizer, tcfg, device=None,
+    offload_t5=False)``: the models move to ``device`` (CUDA unless
+    ``device="cpu"``; raises without a GPU), VAE and T5 frozen;
+    ``offload_t5`` keeps umT5's weights in host memory (pinned with CUDA)
+    and runs it on transient device copies in each batch's preparation, as
+    the pipeline's ``offload_t5`` does. ``train(sample_iter)`` runs the
+    loop."""
 
     def __init__(self, dit: WanDiT, vae: WanVAE, t5: T5Encoder,
                  tokenizer: Optional[WanTokenizer], tcfg: TrainerConfig,
-                 device=None):
-        if tcfg.mesh_data * tcfg.mesh_seq > 1:
-            raise NotImplementedError("data/sequence parallel training is "
-                                      "not ported")
+                 device=None, offload_t5: bool = False):
         self.device = _resolve_device(device)
+        self.mesh, self.data_rank = None, 0
+        if tcfg.mesh_data * tcfg.mesh_seq > 1:
+            if tcfg.batch_size % tcfg.mesh_data:
+                raise ValueError(f"batch_size {tcfg.batch_size} does not "
+                                 f"divide over {tcfg.mesh_data} data ranks")
+            self.mesh = make_mesh(data=tcfg.mesh_data, seq=tcfg.mesh_seq,
+                                  device_type=self.device.type)
+            self.data_rank = self.mesh.get_local_rank("data")
+        self.is_main = (not torch.distributed.is_initialized()
+                        or torch.distributed.get_rank() == 0)
         self.dit = dit.to(self.device)
         self.vae = vae.to(self.device).requires_grad_(False)
-        self.t5 = t5.to(self.device).requires_grad_(False)
+        self.t5 = (_to_host(t5) if offload_t5 else t5.to(self.device)
+                   ).requires_grad_(False)
         self.tokenizer = tokenizer or WanTokenizer(vocab_size=t5.cfg.vocab)
         self.tcfg = tcfg
         self.losses: List[float] = []
@@ -75,13 +104,17 @@ class CoFTrainer:
         tx = adamw(tcfg.learning_rate, tcfg.weight_decay, tcfg.grad_clip)
         if tcfg.lora_rank:
             init_fn, self.step_fn = make_lora_train_step(
-                self.dit, tx, rank=tcfg.lora_rank)
+                self.dit, tx, rank=tcfg.lora_rank, mesh=self.mesh)
+            if self.mesh is not None:
+                apply_fsdp(self.dit, self.mesh)        # the frozen base
             gen = torch.Generator(device=self.device).manual_seed(tcfg.seed + 1)
             self.state = init_fn(gen)
         else:
-            init_fn, self.step_fn = make_train_step(self.dit, tx)
+            init_fn, self.step_fn = make_train_step(self.dit, tx,
+                                                    mesh=self.mesh)
             self.state = init_fn()
-        self.sampler = DiscreteSampling(group_num=max(1, tcfg.mesh_data))
+        # one timestep band per data rank
+        self.sampler = DiscreteSampling(group_num=tcfg.mesh_data)
         # timesteps and noise; successive `train` calls continue its stream
         self.generator = torch.Generator(device=self.device).manual_seed(
             tcfg.seed)
@@ -117,7 +150,7 @@ class CoFTrainer:
                                    max_length=self.dit.cfg.text_len)
         ids = torch.as_tensor(ids, device=self.device)
         mask = torch.as_tensor(mask, device=self.device)
-        ctx = self.t5(ids, mask).float() * mask[..., None].float()
+        ctx = run_t5(self.t5, ids, mask).float() * mask[..., None].float()
 
         ph, pw = self.dit.cfg.patch_size[1:]
         cos, sin = make_rope_for_geometry(
@@ -147,13 +180,14 @@ class CoFTrainer:
         tcfg = self.tcfg
         total_steps = total_steps or tcfg.total_steps
         t_start = time.time()
+        rows = tcfg.batch_size // tcfg.mesh_data    # this data rank's
+        mine = slice(self.data_rank * rows, (self.data_rank + 1) * rows)
         for step in range(total_steps):
             stages = None if timings is None else {}
             clock = StageTimer(stages, self.device)
-            batch = self.prepare_batch(
-                [next(sample_iter) for _ in range(tcfg.batch_size)])
-            batch["timesteps"] = self.sampler.sample(self.generator,
-                                                     tcfg.batch_size)
+            samples = [next(sample_iter) for _ in range(tcfg.batch_size)]
+            batch = self.prepare_batch(samples[mine])
+            batch["timesteps"] = self.draw_timesteps()[mine]
             clock.tick("prepare")
             self.state, loss = self.step_fn(self.state, batch,
                                             generator=self.generator,
@@ -161,13 +195,26 @@ class CoFTrainer:
             self.losses.append(float(loss))
             if timings is not None:
                 timings.append(stages)
-            if step % tcfg.log_every == 0:
+            if step % tcfg.log_every == 0 and self.is_main:
                 print(f"[train] step {step} loss {self.losses[-1]:.4f} "
                       f"({time.time() - t_start:.0f}s)", file=sys.stderr,
                       flush=True)
             if (tcfg.checkpoint_dir and tcfg.save_every
                     and self.state.step % tcfg.save_every == 0):
                 checkpoint.save_train_state(tcfg.checkpoint_dir, self.state)
-                print(f"[train] checkpoint @ step {self.state.step}",
-                      file=sys.stderr)
+                if self.is_main:
+                    print(f"[train] checkpoint @ step {self.state.step}",
+                          file=sys.stderr)
         return self.state
+
+    def draw_timesteps(self) -> torch.Tensor:
+        """The global batch's integer timesteps [batch_size]: its rows split
+        into the sampler's ``group_num`` equal runs, run g drawn from band
+        g."""
+        n, bands = self.tcfg.batch_size, self.sampler.group_num
+        if n % bands:
+            raise ValueError(f"batch_size {n} does not split into "
+                             f"{bands} timestep bands")
+        return torch.cat([self.sampler.sample(self.generator, n // bands,
+                                              dp_rank=g)
+                          for g in range(bands)])

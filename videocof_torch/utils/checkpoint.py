@@ -26,6 +26,7 @@ import shutil
 from typing import Any, Dict, Mapping, Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from ..configs import T5Config, Wan22VAEConfig, WanDiTConfig
 from ..models.weights import (DIT_BLOCK_NAMES, DIT_INDEX, DIT_TOP_NAMES,
@@ -54,18 +55,37 @@ def checkpoint_steps(path: str) -> list:
                   and os.path.isfile(os.path.join(path, d, _STATE_FILE)))
 
 
+def whole_state(tree: Any) -> Any:
+    """``tree`` (nested dicts and lists) with every DTensor (an FSDP shard)
+    gathered whole: a collective, which every rank of its mesh runs."""
+    if isinstance(tree, DTensor):
+        return tree.full_tensor()
+    if isinstance(tree, dict):
+        return {k: whole_state(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(whole_state(v) for v in tree)
+    return tree
+
+
 def save_train_state(path: str, state: Any) -> str:
     """Write ``state`` (a `TrainState` or a `LoRATrainState`) to
     ``path/<step>/``: the trained module's state dict (the adapters or the
     parameters), the AdamW state (keyed by parameter index, as
     ``torch.optim`` keys it) and the step. The directory appears whole:
-    it is written under a temporary name and renamed. Returns it."""
+    it is written under a temporary name and renamed. Returns it.
+
+    In a `torch.distributed` world every rank calls it: FSDP-sharded
+    parameters and moments (a sharded full fine-tune) are gathered whole
+    first, and rank 0 alone writes. Restoring into a sharded state is not
+    ported."""
     root = os.path.abspath(path)
     step = int(state.step)
     kind, module = _trained(state)
-    payload = {"step": step, kind: module.state_dict(),
-               "optimizer": state.optimizer.adamw.state_dict()}
+    payload = {"step": step, kind: whole_state(module.state_dict()),
+               "optimizer": whole_state(state.optimizer.adamw.state_dict())}
     final = os.path.join(root, str(step))
+    if torch.distributed.is_initialized() and torch.distributed.get_rank():
+        return final                       # rank 0 writes
     tmp = final + ".partial"
     shutil.rmtree(tmp, ignore_errors=True)
     os.makedirs(tmp)
