@@ -55,7 +55,8 @@ Phases, each of which fails the run (non-zero exit) on any fault:
      output and that B1 ran exactly 2 x layers x steps times and no other
      kernel ran; then one DiT step of the edit's geometry under
      torch.profiler (device time by kernel, idle share).
-  5. the standard edit: the same models and video through
+  5. the standard edit: the same models (the DiT's first 10 of its 30
+     layers: the script's time limit) and video through
      `WanPipeline(attn_backend="int8")` in 50 Flow-UniPC steps at shift 3,
      guidance 5 against the default negative prompt, TeaCache with Wan2.1
      T2V 1.3B's coefficients on a plan pinned at a 40% skip rate (18 of 50
@@ -116,13 +117,14 @@ Phases, each of which fails the run (non-zero exit) on any fault:
      streamed VAE in fp32 within 1e-4 relative L2 (mu and decoded frames),
      and the streamed one in bf16 no further from it than 1.5x the whole
      one in bf16.
-  13. the standard CLI: `videocof_torch.cli.infer.main()` in this process
+  13. the standard CLI (on the DiT's first 10 of 30 layers, as phase 5):
+     `videocof_torch.cli.infer.main()` in this process
      (--random_init --repeat_rope, its defaults: 50 steps, CFG 5 against
      the default negative prompt, TeaCache with Wan2.1 T2V 14B's
      coefficients) on a 40-frame clip written with cv2 (it fails without
      cv2); the TeaCache plan
      these random weights give, the files, and B1 launches equal to 2 x
-     30 x the computed steps, each at batch 2.
+     layers x the computed steps, each at batch 2.
   14. fp8 weights and runtime LoRA on the Wan2.1 14B: the unmerged draw of
      phase 8's factory call quantized on the card (`quantize_dit_fp8`;
      the DiT's bytes before and after; a block's fp8 weights and scale
@@ -197,7 +199,8 @@ Phases, each of which fails the run (non-zero exit) on any fault:
      healthy and two mapped requests, `VideoCoFClient.post_to_host` writing
      an mp4, exit within 30 s of SIGTERM. (d) `init_distributed` on NCCL,
      a world of 1: an all_reduce, then `destroy_process_group`.
-  20. training from files, at full width: (a) a triplet JSON of four
+  20. training from files, at full width (the 1.3B runs on its first 10
+     of 30 layers: the script's time limit): (a) a triplet JSON of four
      triplets of 40-frame cv2 clips (source, grounded with a gray
      rectangle, edited), three at 480x832 and one at 512x512, which
      `resize_center_crop` scales and crops; (b)
@@ -205,7 +208,8 @@ Phases, each of which fails the run (non-zero exit) on any fault:
      Wan2.1 T2V 1.3B, --lora_rank 16 --steps 4 --save_every 2
      --checkpoint_dir --export_lora, 480x832, 33 + 4 + 33 frames): finite
      losses, checkpoints at steps 2 and 4, base weights bitwise those of
-     an unmerged draw, 120 B2 and 60 B3 launches a step; seconds per step
+     an unmerged draw, 4 B2 and 2 B3 launches a layer a step; seconds per
+     step
      (the median after the warm-up), stage walls, the saves' seconds, peak
      memory; (c) each checkpoint restored into a fresh trainer, bit for bit
      the state as it was saved (adapters, both AdamW moments, step counts)
@@ -216,8 +220,9 @@ Phases, each of which fails the run (non-zero exit) on any fault:
      in no fixed order, so two steps from one state differ in the last
      bits: the spread of two steps from the restored state is printed
      beside it); (d) the
-     exported LoRA file merged by `merge_lora` into the pipeline (300
-     modules) and a 4-step edit: output and 240 B1 launches; (e)
+     exported LoRA file merged by `merge_lora` into the pipeline (10
+     modules a layer) and a 4-step edit: output and 8 B1 launches a layer;
+     (e)
      `PrefetchLoader(num_threads=4) -> device_prefetch -> CoFTrainer.train`
      for 3 steps over the four triplets, item 1 with gradual grounding and
      item 2 with the gray overlay (whose grounding stream, the overlaid
@@ -228,7 +233,8 @@ Phases, each of which fails the run (non-zero exit) on any fault:
      "dots_with_no_batch_dims_saveable" and
      "save_names:attn_out,xattn_out" (umT5 moved off the card): the loss
      equal to full remat's bit for bit, the adapter gradients within 1e-3
-     relative L2 of full remat's, 120 B2 and 60 B3 each, seconds and peak;
+     relative L2 of full remat's, 4 B2 and 2 B3 a layer each, seconds and
+     peak;
      (g) two steps of `CoFTrainer` on the Wan2.1 T2V 14B drawn on the card
      by `factory.load_pipeline("", random_init=True, dit_cfg=
      WAN21_T2V_14B)` at full width and depth, rank-32 LoRA, full remat, on
@@ -236,18 +242,19 @@ Phases, each of which fails the run (non-zero exit) on any fault:
      launches a step, seconds per step, stage walls, peak. B2 and B3 are
      also held against their plain versions (phase 2) and timed (phase 3)
      at the 14B's 40 heads.
-  21. parallelism on `torch.distributed` at the 1.3B's full width and
-     depth, two ranks sharing the one card: (a) the probe of the
-     collectives on CUDA tensors of two ranks on cuda:0 (NCCL's one
-     all_reduce; gloo's all_reduce, all_to_all_single,
+  21. parallelism on `torch.distributed` at the 1.3B's full width, two
+     ranks sharing the one card, the edits and training runs on its first
+     8 of 30 layers (the script's time limit; the ring edit on all 30):
+     (a) the probe of the collectives on CUDA tensors of two ranks on
+     cuda:0 (NCCL's one all_reduce; gloo's all_reduce, all_to_all_single,
      all_gather_into_tensor, reduce_scatter_tensor and batch_isend_irecv),
      each pair of processes killed if it outlives 120 s; (b) the 4-step
      480x832 33 + 4-frame edit with Ulysses over seq 2 (gloo) and (d) the
      same edit at guidance 5 with one guidance branch per data rank (data
      2), each rank's final latents against the world-1 edit of the same
      factory weights and seed within 2e-2 relative L2, the uint8
-     difference, each rank's B1 calls by shape (Ulysses: 120 self over 6
-     of 12 heads and 120 cross over 14,820 tokens), stage walls and peak
+     difference, each rank's B1 calls by shape (Ulysses: 32 self over 6
+     of 12 heads and 32 cross over 14,820 tokens), stage walls and peak
      beside world 1's; (c) ring attention on the 4x edit at world 1 under
      NCCL (gloo carries no point-to-point on CUDA tensors): 120 B2 and 120
      cross B1, against phase 9's 4x edit within 2e-2; (e)
@@ -258,13 +265,36 @@ Phases, each of which fails the run (non-zero exit) on any fault:
      within 2e-2 of a world-1 CLI run on the same triplets, seed and
      timesteps (batch 2 and a sampler of 2 bands for the data run; the clip
      off and umT5 off the card, --offload_t5, in both), its gradient (AdamW's first moment after step 1) within
-     5e-2 relative L2 of world 1's, the adapters' move printed, 240 B2 and
-     120 B3 launches per rank, the peaks. Two ranks share one
+     5e-2 relative L2 of world 1's, the adapters' move printed, 4 B2 and 2
+     B3 launches a layer a step per rank, the peaks. Two ranks share one
      card's SMs: the phase's seconds are no multi-GPU speed. B1, B2 and B3
      are also held against their plain versions (phase 2) and timed
      (phase 3) at these shapes (6 heads over 29,640 tokens, 12 heads over
      14,820 tokens by 512 keys, and B2 over the 4x sequence).
-  22. a `kernels` JSON line and, last, the device JSON line.
+  22-25. the other Wan variants at full width, random weights from the
+     seed, 480x832, 33 frames (9 latent frames, 14,040 tokens), 4
+     Flow-UniPC steps at shift 5, guidance 5 (batched CFG), each with its
+     stage walls, peak memory, B1 calls by shape (exactly those the path
+     implies, nothing else) and its final latents against the same call
+     through the naive attention backend (relative L2 <= 2e-2, the DiT
+     gate): (22) image-to-video at WAN21_I2V_14B with the CLIP ViT-H/14
+     tower on the card (`factory.load_pipeline("", random_init=True,
+     dit_cfg=WAN21_I2V_14B)`, `image_to_video` of a uint8 start image:
+     self, text cross and 257-key image cross B1 calls), then
+     `fast_infer.main(["--start_image", png, ...])` on a published-layout
+     i2v directory (2 layers, full width, the CLIP file); (23) VACE at
+     Wan2.1 1.3B with 15 hint blocks (stride 2, live projections),
+     `control_to_video` of a uint8 control clip under a region mask, then
+     `fast_infer.main(["--control_video", clip, "--control_mask", clip,
+     ...])` on a published-layout VACE directory (2 layers and their hint
+     block); (24) camera control at 1.3B (the adapter 24 -> 1536 on
+     `pose_params_to_embedding` of 33 pose rows); (25) speech-to-video at
+     the 14B's width and depth with seeded audio features (audio_dim 1024,
+     4 tokens a latent frame, injected at layer 0: B1 at batch 18 over 4
+     keys). B1 is also held against its plain version (phase 2) and timed
+     (phase 3) at the i2v shapes (self, text cross and image cross at 40
+     heads, batch 2, 14,040 tokens) and the audio injection's.
+  26. a `kernels` JSON line and, last, the device JSON line.
 
 B1 is also held against its plain version (phase 2) and timed (phase 3) at
 the 14B's 40 heads, at the self and cross shapes, and at the shapes of
@@ -300,6 +330,9 @@ ROOT = Path(__file__).resolve().parent
 SCRATCH = ROOT / "chiprun_out" / "chip_smoke"
 # the 14B's two LoRA files, kept from the 14B edit to the fp8 phase
 LORA_DIR = ROOT / "chiprun_out" / "chip_smoke_lora"
+# the published umT5 and VAE files of phase 18's directory, kept for the
+# variants' entry directories (phases 22-23)
+SHARED_DIR = ROOT / "chiprun_out" / "chip_smoke_shared"
 
 # the port's kernel functions, as their names appear in ptxas and the profiler
 OUR_KERNELS = ("flash_fwd_kernel", "flash_bwd_kernel", "int8_attn_kernel",
@@ -326,6 +359,9 @@ SASS_OPCODES_INT8 = ("IGMMA", "HGMMA", "UTMALDG")
 SEED = 0
 TRAIN_STEPS = 3
 STD_STEPS = 50                 # the standard edit (the reference's inference.py)
+STD_LAYERS = 10                # ... and the standard CLI (phase 13) on the
+                               # first of the 1.3B's 30 layers (the
+                               # script's time limit)
 TEACACHE_PIN = 0.4             # pinned TeaCache skip rate (bench.py's)
 LORA_RANK = 32                 # the entry phases' synthetic LoRA files
 LORA_ALPHA = 16.0              # ... the kohya file's alpha (scale 0.5)
@@ -370,6 +406,9 @@ TRAIN_INSTRUCTIONS = ("remove the red car", "replace the dog with a cat",
                       "add a hat to the man", "make the sky purple")
 TRAIN_OTHER_HW = (512, 512)
 TRAIN_MODES = ("plain", "gradual", "overlay", "plain")
+# phase 20's 1.3B runs on the first of its 30 layers (the script's time
+# limit; phase 6 trains all 30, and the 14B steps keep their 40)
+TRAIN_LAYERS = 10
 TRAIN_CLI_RANK = 16            # the CLI's LoRA rank, steps and saves
 TRAIN_CLI_STEPS = 4
 TRAIN_SAVE_EVERY = 2
@@ -384,6 +423,10 @@ RESUME_REL_TOL = 1e-3          # a step from the restored state vs from the
 TRAIN_14B_RANK = 32            # the 14B LoRA steps
 TRAIN_14B_STEPS = 2
 SP_DEGREE = 2                  # phase 21: two ranks share the one card
+# phase 21's edits and training runs: the 1.3B cut to these of its 30
+# layers at full width (the script's time limit); its ring edit keeps all
+# 30, held against phase 9's 4x edit
+SP_LAYERS = 8
 SP_TRAIN_STEPS = 2             # ... its training runs' steps
 SP_TIMEOUT_S = 600             # ... the deadline of its spawned ranks
 # an SP edit's final latents vs world 1's (the DiT gate: the ranks' linears
@@ -394,6 +437,17 @@ SP_REL_TOL = 2e-2
 # fixed order)
 SP_LOSS_TOL = 2e-2
 SP_GRAD_TOL = 5e-2
+# phases 22-25, the other Wan variants: frames (9 latent frames, 14,040
+# tokens at 480x832), Flow-UniPC steps, guidance (batched CFG) and JAX's
+# shift of their pipelines; S2V's audio features and tokens a latent frame;
+# the layers of the entries' published-layout directories
+VARIANT_FRAMES = 33
+VARIANT_STEPS = 4
+VARIANT_GUIDANCE = 5.0
+VARIANT_SHIFT = 5.0
+AUDIO_DIM = 1024
+AUDIO_TOKENS = 4
+CLI_LAYERS = 2
 
 
 def log(*args):
@@ -609,6 +663,30 @@ def dit_step_flops(cfg, L, Lt):
     pt, ph, pw = cfg.patch_size
     io = 2 * L * d * pt * ph * pw * (cfg.in_dim + cfg.out_dim)  # embed, head
     return cfg.num_layers * per_block + io
+
+
+@contextlib.contextmanager
+def shallow_1_3b(layers):
+    """The factory's default DiT (Wan2.1 T2V 1.3B) cut to its first
+    ``layers`` layers, at full width, while the block runs."""
+    from videocof_torch import factory
+    real = factory.WAN21_T2V_1_3B
+    factory.WAN21_T2V_1_3B = real.replace(num_layers=layers)
+    try:
+        yield factory.WAN21_T2V_1_3B
+    finally:
+        factory.WAN21_T2V_1_3B = real
+
+
+def first_layers(dit, n):
+    """A DiT holding ``dit``'s first ``n`` blocks (the same tensors: nothing
+    is copied)."""
+    from torch import nn
+    cut = nn.Module.__new__(type(dit))
+    cut.__dict__ = dict(dit.__dict__, _modules=dict(dit._modules))
+    cut.blocks = nn.ModuleList(dit.blocks[:n])
+    cut.cfg = dit.cfg.replace(num_layers=n)
+    return cut
 
 
 def fingerprint(t):
@@ -2021,9 +2099,11 @@ def wan22_entries_phase(card, geo, gen, prompt, counters):
     `Wan22Pipeline` whose experts hold fp8 weights, write its files and
     launch B1 2 x layers x steps times (batch 2 under CFG) and nothing
     else. The directory has no tokenizer files, so the factory is handed
-    ``require_real_tokenizer=False`` (the hash tokenizer). Returns the
-    phase's record."""
+    ``require_real_tokenizer=False`` (the hash tokenizer). Its umT5 and VAE
+    files are kept in SHARED_DIR for phases 22-23. Returns the phase's
+    record."""
     import torch
+    from videocof_torch import factory
     from videocof_torch.cli import fast_infer, infer
     from videocof_torch.configs import T5Config, WAN22_T2V_A14B, WanVAEConfig
     from videocof_torch.models.t5_encoder import init_t5_encoder
@@ -2110,6 +2190,10 @@ def wan22_entries_phase(card, geo, gen, prompt, counters):
             fail(f"{name} wrote {files}, {info}")
         records[name] = {"seconds": wall, "peak_memory_gb": peak_gb,
                          "launches": launches, "files": files}
+    shutil.rmtree(SHARED_DIR, ignore_errors=True)
+    SHARED_DIR.mkdir(parents=True)
+    for name in (factory.VAE_SUBPATH, factory.T5_SUBPATH):
+        shutil.move(str(root / name), str(SHARED_DIR / name))
     shutil.rmtree(SCRATCH, ignore_errors=True)
     record = {"card": card, "write_s": write_s, "bytes": nbytes, **records}
     log("[entry 2.2] " + json.dumps(record))
@@ -2943,9 +3027,10 @@ def _b1_by_shape(seen):
 
 
 def _sp_edit_rank(rank, world, init_file, out_dir, video, prompt, edit_kw,
-                  negative):
+                  negative, layers):
     """One rank of phase 21 (b) and (d), on cuda:0 beside the other, in a
-    gloo world: the factory's 1.3B pipeline from the seed, then the 4-step
+    gloo world: the factory's 1.3B pipeline from the seed (its first
+    ``layers`` layers), then the 4-step
     edit with Ulysses over seq ``world`` and the guidance-5 edit with one
     guidance branch per data rank; for each, the final latents (and on
     rank 0 the uint8 frames), the launches and B1 calls by shape, the stage
@@ -2963,8 +3048,9 @@ def _sp_edit_rank(rank, world, init_file, out_dir, video, prompt, edit_kw,
                             world_size=world, rank=rank)
     dev = rank_device()
     torch.cuda.set_device(dev)
-    pipe = factory.load_pipeline("", random_init=True, seed=SEED,
-                                 device=dev)
+    with shallow_1_3b(layers):
+        pipe = factory.load_pipeline("", random_init=True, seed=SEED,
+                                     device=dev)
     results = {"device": str(dev)}
     for job, sp_kw, kw in (
             ("ulysses", dict(seq=world, mode="ulysses"), {}),
@@ -3110,7 +3196,7 @@ def sp_edit_phase(card, geo, video, prompt, counters, probe):
     t0 = time.perf_counter()
     _spawn_ranks(_sp_edit_rank, SP_DEGREE,
                  (str(base / "rdzv"), str(base), video, prompt, edit_kw,
-                  negative), "phase 21 edits")
+                  negative, SP_LAYERS), "phase 21 edits")
     spawn_s = time.perf_counter() - t0
     ranks = [torch.load(base / f"rank{r}.pt", weights_only=False)
              for r in range(SP_DEGREE)]
@@ -3295,7 +3381,9 @@ def train_rank_main(out_dir, jobs_json):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     for mode, argv in json.loads(Path(jobs_json).read_text()).items():
-        torch.save(_train_run(argv), os.path.join(
+        with shallow_1_3b(SP_LAYERS):
+            run = _train_run(argv)
+        torch.save(run, os.path.join(
             out_dir, f"{mode}.rank{os.environ['RANK']}.pt"))
     torch.distributed.destroy_process_group()
     return 0
@@ -3341,7 +3429,6 @@ def sp_train_phase(card, geo):
     and peak."""
     import numpy as np
     import torch
-    from videocof_torch.configs import WAN21_T2V_1_3B
     json_path, root = write_triplets(geo)
     common = ["--train_json", str(json_path), "--random_init", "--lora_rank",
               str(TRAIN_CLI_RANK), "--save_every", "1", "--height",
@@ -3350,7 +3437,7 @@ def sp_train_phase(card, geo):
               str(geo.source_frames), "--reasoning_frames",
               str(geo.reasoning_frames), "--grad_clip", "1e6",
               "--offload_t5"]
-    attentions = 2 * WAN21_T2V_1_3B.num_layers
+    attentions = 2 * SP_LAYERS
     record = {"card": card, "world": SP_DEGREE, "backend": "gloo"}
     # mode: (its flags, world 1's flags, world 1's timestep bands)
     modes = {"seq": (["--mesh_seq", str(SP_DEGREE)], [], None),
@@ -3956,6 +4043,397 @@ def train_14b_phase(card, cfg14, geo, json_path, want_launches, counters):
             "layers": cfg14.num_layers, "rank": TRAIN_14B_RANK}
 
 
+# ------------------------------------ phases 22-25: the other Wan variants
+# Each drives its pipeline at full width on random weights from the seed,
+# 480x832, VARIANT_FRAMES frames (9 latent frames, 14,040 tokens), in
+# VARIANT_STEPS Flow-UniPC steps at JAX's shift 5 with guidance
+# VARIANT_GUIDANCE (batched CFG, batch 2), then once more with the naive
+# attention backend from the same seed: the final latents within the DiT
+# gate.
+
+def variant_tokens(geo):
+    """(latent frames, DiT tokens, latent frames' tokens) of a variant's
+    VARIANT_FRAMES-frame clip at the geometry's size."""
+    lat = (VARIANT_FRAMES - 1) // 4 + 1
+    per_frame = (geo.height // 16) * (geo.width // 16)
+    return lat, lat * per_frame, per_frame
+
+
+def variant_run(tag, card, pipe, call, counters, want_shape, want_shapes):
+    """Run ``call(pipe, timings)`` (output_latents=True) through the
+    kernels: the output, exactly ``want_shapes`` B1 calls ({(batch, Lq,
+    Lk, None): calls}) and nothing else, stage walls, peak; then the same
+    call with the naive backend, its final latents against the kernels'
+    within DIT_REL_TOL. Returns the run's record."""
+    import torch
+    launch_counts, reset_launch_counts = counters
+    timings = {}
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with b1_calls() as seen:
+        out = call(pipe, timings)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    shapes = b1_shapes(seen)
+    check_video(tag, out.videos, want_shape)
+    log(f"[{tag}] stage walls (s): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in timings.items()))
+    log(f"[{tag}] {wall:.3f} s; peak device memory {peak_gb:.2f} GB; "
+        f"launches {launches}; B1 calls by (batch, Lq, Lk, mask): {shapes}")
+    check_launches(tag, launches, dict(dict.fromkeys(launches, 0),
+                                       flash_attention_fwd=sum(
+                                           want_shapes.values())))
+    if shapes != want_shapes:
+        fail(f"the {tag}'s B1 calls {shapes} != {want_shapes}")
+    backend, pipe.attn_backend = pipe.attn_backend, "naive"
+    t0 = time.perf_counter()
+    ref = call(pipe, None)
+    naive_s = time.perf_counter() - t0
+    pipe.attn_backend = backend
+    got, want = (torch.from_numpy(o.latents) for o in (out, ref))
+    rel = ((got - want).norm() / want.norm()).item()
+    ok = bool(torch.isfinite(got).all()) and rel <= DIT_REL_TOL
+    log(f"[{tag}] final latents through the kernels vs the naive backend "
+        f"({naive_s:.1f} s): relative L2 {rel:.3e} (tol {DIT_REL_TOL}): "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"the {tag}'s latents disagree with the naive backend's")
+    return {"card": card, "seconds": wall, "stages_s": timings,
+            "peak_memory_gb": peak_gb, "launches": launches,
+            "b1_calls": {str(k): n for k, n in shapes.items()},
+            "latents_rel_l2_vs_naive": rel, "naive_s": naive_s}
+
+
+def variant_cli(tag, geo, cli_argv, counters, want_b1, check_pipe):
+    """`fast_infer.main(cli_argv)` in this process, the factory handed
+    ``require_real_tokenizer=False`` (the directory has no tokenizer): one
+    pipeline built (``check_pipe(pipe)`` names what it lacks, or None),
+    one item written at the geometry's size with VARIANT_FRAMES frames,
+    exactly
+    ``want_b1`` B1 launches and nothing else. Returns the run's record."""
+    import torch
+    from videocof_torch.cli import fast_infer
+    from videocof_torch.utils import video_io
+    launch_counts, reset_launch_counts = counters
+    out_dir = Path(cli_argv[cli_argv.index("--output_dir") + 1])
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with recorded_loads(require_real_tokenizer=False) as built, \
+            b1_calls() as seen:
+        arrays = fast_infer.main(cli_argv)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if len(built) != 1 or len(arrays) != 1:
+        fail(f"{tag} built {len(built)} pipelines and wrote {len(arrays)} "
+             f"items")
+    lacks = check_pipe(built.pop()[1])
+    files = sorted(p.name for p in out_dir.glob("*"))
+    mp4 = next((out_dir / f for f in files if f.endswith(".mp4")), None)
+    info = video_io.video_info(str(mp4)) if mp4 else None
+    log(f"[{tag}] fast_infer.main({' '.join(cli_argv)}): {wall:.3f} s, peak "
+        f"{peak_gb:.2f} GB; pipeline: {lacks or 'ok'}; files {files}; "
+        f"{info}; launches {launches}; B1 calls by (batch, Lq, Lk, mask): "
+        f"{b1_shapes(seen)}")
+    if lacks:
+        fail(f"{tag}: the CLI's pipeline {lacks}")
+    check_launches(tag, launches, dict(dict.fromkeys(launches, 0),
+                                       flash_attention_fwd=want_b1))
+    if info is None or info[:3] != (VARIANT_FRAMES, geo.height, geo.width):
+        fail(f"{tag} wrote {files}, {info}")
+    return {"seconds": wall, "peak_memory_gb": peak_gb,
+            "launches": launches, "files": files}
+
+
+def i2v_phase(card, geo, gen, prompt, counters):
+    """Image-to-video at WAN21_I2V_14B (40 blocks of 5120) with the CLIP
+    ViT-H/14 tower, both drawn by `factory.load_pipeline("",
+    random_init=True, dit_cfg=WAN21_I2V_14B)`: `image_to_video` of a
+    480x832 uint8 start image with the tower run on the card (stage
+    "clip"), 40 x steps B1 calls each of self (batch 2, 14,040 tokens),
+    text cross (512 keys) and image cross (257 keys), against the naive
+    backend. Then the entry: a published-layout i2v directory (the DiT at
+    full width and CLI_LAYERS layers, its config's model_type "i2v", the
+    Wan2.1 VAE and umT5-XXL files phase 18 wrote, and the CLIP file) read
+    by `fast_infer.main([..., "--start_image", png])`, whose pipeline must
+    hold the tower. Returns the phase's record."""
+    import numpy as np
+    import torch
+    from PIL import Image
+    from videocof_torch import factory
+    from videocof_torch.configs import WAN21_I2V_14B
+    from videocof_torch.models.clip_vision import (CLIP_FILE, CLIP_VIT_H_14,
+                                                   ClipVision,
+                                                   export_clip_state_dict,
+                                                   init_clip_vision)
+    from videocof_torch.models.wan_dit import init_wan_dit
+    from videocof_torch.utils import checkpoint
+    lat, L, _ = variant_tokens(geo)
+    t0 = time.perf_counter()
+    pipe = factory.load_pipeline("", random_init=True, dit_cfg=WAN21_I2V_14B,
+                                 seed=SEED)
+    build_s = time.perf_counter() - t0
+    image = np.random.default_rng(SEED).integers(
+        0, 256, (geo.height, geo.width, 3), dtype=np.uint8)
+
+    def call(p, timings):
+        return p.image_to_video(
+            image, prompt, num_frames=VARIANT_FRAMES, height=geo.height,
+            width=geo.width, negative_prompt=geo.negative_prompt,
+            num_inference_steps=VARIANT_STEPS, guidance_scale=VARIANT_GUIDANCE,
+            shift=VARIANT_SHIFT, seed=SEED, clip=p.clip, output_latents=True,
+            timings=timings)
+
+    per = WAN21_I2V_14B.num_layers * VARIANT_STEPS
+    shapes = {(2, L, L, None): per, (2, L, TEXT_TOKENS, None): per,
+              (2, L, 257, None): per}
+    log(f"[i2v] WAN21_I2V_14B and CLIP ViT-H/14 drawn in {build_s:.1f} s; "
+        f"{lat} latent frames, {L} tokens")
+    record = variant_run("i2v", card, pipe, call, counters,
+                         (1, 3, VARIANT_FRAMES, geo.height, geo.width), shapes)
+    record.update(build_s=build_s, tokens=L, b1_launches={
+        "i2v self": per, "i2v text cross": per, "i2v image cross": per})
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the entry on a published-layout i2v directory
+    dev, bf16 = gen.device, torch.bfloat16
+    os.environ["HF_HUB_OFFLINE"] = "1"
+    shutil.rmtree(SCRATCH, ignore_errors=True)
+    root = SCRATCH / "wan21_i2v"
+    cfg = WAN21_I2V_14B.replace(num_layers=CLI_LAYERS)
+    t0 = time.perf_counter()
+    dit = init_wan_dit(cfg, gen, bf16, dev)
+    clip = init_clip_vision(CLIP_VIT_H_14, gen, bf16, dev)
+    nbytes = checkpoint.save_dit_checkpoint_dir(str(root), dit, cfg)
+    csd = {k: v.cpu() for k, v in export_clip_state_dict(
+        clip.state_dict(), CLIP_VIT_H_14).items()}
+    torch.save(csd, root / CLIP_FILE)
+    nbytes += sum(v.numel() * v.element_size() for v in csd.values())
+    for name in (factory.VAE_SUBPATH, factory.T5_SUBPATH):
+        (root / name).symlink_to(SHARED_DIR / name)
+    write_s = time.perf_counter() - t0
+    del dit, clip, csd
+    gc.collect()
+    torch.cuda.empty_cache()
+    png = SCRATCH / "start.png"
+    Image.fromarray(image).save(png)
+    log(f"[i2v entry] an i2v directory ({CLI_LAYERS} layers, full width, "
+        f"with {CLIP_FILE}) written in {write_s:.1f} s, {nbytes / 1e9:.2f} "
+        f"GB: {sorted(p.name for p in root.iterdir())}")
+    argv = ["--model_name", str(root), "--start_image", str(png), "--prompt",
+            prompt, "--output_dir", str(SCRATCH / "i2v_out"), "--num_frames",
+            str(VARIANT_FRAMES), "--height", str(geo.height), "--width",
+            str(geo.width), "--shift", str(VARIANT_SHIFT), "--seed",
+            str(SEED)]
+    record["entry"] = variant_cli(
+        "i2v entry", geo, argv, counters, 3 * CLI_LAYERS * VARIANT_STEPS,
+        lambda p: None if isinstance(p.clip, ClipVision) and
+        p.dit.cfg.model_type == "i2v" else "lacks the i2v DiT or its tower")
+    record["entry"].update(write_s=write_s, bytes=nbytes)
+    log("[i2v] " + json.dumps(record))
+    return record
+
+
+def live_vace(vace, gen):
+    """``vace``'s zero-init projections made live (small random weights),
+    so that the hints reach the base stream."""
+    import torch
+    with torch.no_grad():
+        for lin in [vace.before_proj, *vace.after_proj]:
+            d = lin.weight.shape[1]
+            lin.weight.copy_(torch.randn(lin.weight.shape, generator=gen,
+                                         device=gen.device) * 0.1 / d ** 0.5)
+    return vace
+
+
+def vace_camera_phase(card, geo, gen, prompt, counters):
+    """VACE and camera control at Wan2.1 1.3B (`factory.load_pipeline("",
+    random_init=True)`): (a) `VacePipeline` with 15 hint blocks (stride 2,
+    control context of 96 channels, live projections) generating under a
+    uint8 control clip and a region mask: (30 + 15) x steps self and cross
+    B1 calls; (b) `CameraPipeline` with the adapter (24 -> 1536) on
+    `pose_params_to_embedding` of VARIANT_FRAMES pose rows (a dolly with a
+    pan): 30 x steps each; both against the naive backend; (c) the entry:
+    a published-layout VACE directory (CLI_LAYERS base layers and their
+    hint block, the VAE and umT5 files phase 18 wrote) read by
+    `fast_infer.main([..., "--control_video", clip, "--control_mask",
+    clip])`. Returns the phase's records."""
+    import numpy as np
+    import torch
+    from videocof_torch import factory
+    from videocof_torch.configs import WAN21_T2V_1_3B
+    from videocof_torch.data.camera import pose_params_to_embedding
+    from videocof_torch.models.camera_adapter import init_camera_adapter
+    from videocof_torch.models.wan_dit import init_wan_dit
+    from videocof_torch.models.wan_dit_vace import (export_vace_state_dict,
+                                                    init_vace_params)
+    from videocof_torch.pipeline import CameraPipeline, VacePipeline
+    from videocof_torch.utils import checkpoint
+    dev, bf16 = gen.device, torch.bfloat16
+    lat, L, _ = variant_tokens(geo)
+    base = factory.load_pipeline("", random_init=True, seed=SEED)
+    cfg = base.dit.cfg
+    parts = (base.dit, base.vae, base.t5, base.tokenizer)
+    rng = np.random.default_rng(SEED)
+    control = rng.integers(0, 256, (1, 3, VARIANT_FRAMES, geo.height,
+                                    geo.width), dtype=np.uint8)
+    mask = np.zeros((1, 1, VARIANT_FRAMES, geo.height, geo.width),
+                    np.float32)
+    mask[..., geo.height // 4:3 * geo.height // 4,
+         geo.width // 4:3 * geo.width // 4] = 1.0
+    sc = base.vae.cfg.spatial_compression_ratio
+    vace_in = 2 * base.vae.cfg.z_dim + sc * sc       # 96 at Wan2.1's VAE
+    vace = live_vace(init_vace_params(cfg, gen, stride=2, vace_in_dim=vace_in,
+                                      dtype=bf16, device=dev), gen)
+    vpipe = VacePipeline(*parts, vace=vace)
+
+    def vace_call(p, timings):
+        return p.control_to_video(
+            prompt, control, mask=mask, negative_prompt=geo.negative_prompt,
+            num_inference_steps=VARIANT_STEPS, guidance_scale=VARIANT_GUIDANCE,
+            shift=VARIANT_SHIFT, seed=SEED, output_latents=True,
+            timings=timings)
+
+    per = (cfg.num_layers + vace.n_vace) * VARIANT_STEPS
+    want = (1, 3, VARIANT_FRAMES, geo.height, geo.width)
+    rec_vace = variant_run("VACE", card, vpipe, vace_call, counters, want, {
+        (2, L, L, None): per, (2, L, TEXT_TOKENS, None): per})
+    rec_vace.update(tokens=L, hint_blocks=vace.n_vace, stride=vace.stride)
+    del vpipe
+    adapter = init_camera_adapter(gen, in_dim=24, out_dim=cfg.dim,
+                                  dtype=bf16, device=dev)
+    cpipe = CameraPipeline(*parts, camera=adapter)
+    rows = []
+    for i in range(VARIANT_FRAMES):
+        yaw = 0.01 * i
+        w2c = np.eye(4)[:3].copy()
+        w2c[:, :3] = [[np.cos(yaw), 0, np.sin(yaw)], [0, 1, 0],
+                      [-np.sin(yaw), 0, np.cos(yaw)]]
+        w2c[2, 3] = -0.03 * i
+        rows.append([float(i), 0.6, 1.07, 0.5, 0.5, 0.0, 0.0,
+                     *w2c.reshape(-1).tolist()])
+
+    # the naive run takes the rays the timed run made from the pose rows
+    # (the host's Plücker maps cost seconds, the same either way)
+    emb = pose_params_to_embedding(np.asarray(rows, np.float32), geo.width,
+                                   geo.height)
+
+    def cam_call(p, timings):
+        return p.camera_to_video(
+            prompt, rows if timings is not None else emb,
+            negative_prompt=geo.negative_prompt,
+            height=geo.height, width=geo.width, num_frames=VARIANT_FRAMES,
+            num_inference_steps=VARIANT_STEPS, guidance_scale=VARIANT_GUIDANCE,
+            shift=VARIANT_SHIFT, seed=SEED, output_latents=True,
+            timings=timings)
+
+    per = cfg.num_layers * VARIANT_STEPS
+    rec_cam = variant_run("camera", card, cpipe, cam_call, counters, want, {
+        (2, L, L, None): per, (2, L, TEXT_TOKENS, None): per})
+    rec_cam["tokens"] = L
+    del cpipe, base, parts, vace, adapter
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the entry on a published-layout VACE directory
+    root = SCRATCH / "wan21_vace"
+    root.mkdir(parents=True, exist_ok=True)
+    small = WAN21_T2V_1_3B.replace(num_layers=CLI_LAYERS)
+    t0 = time.perf_counter()
+    dit = init_wan_dit(small, gen, bf16, dev)
+    branch = live_vace(init_vace_params(small, gen, stride=2,
+                                        vace_in_dim=vace_in, dtype=bf16,
+                                        device=dev), gen)
+    nbytes = checkpoint.save_dit_checkpoint_dir(
+        str(root), dit, small,
+        extra=export_vace_state_dict(branch.state_dict(), small, 2))
+    for name in (factory.VAE_SUBPATH, factory.T5_SUBPATH):
+        (root / name).symlink_to(SHARED_DIR / name)
+    write_s = time.perf_counter() - t0
+    del dit, branch
+    gc.collect()
+    torch.cuda.empty_cache()
+    clip = write_clip("VACE entry", geo)
+    argv = ["--model_name", str(root), "--control_video", str(clip),
+            "--control_mask", str(clip), "--prompt", prompt, "--output_dir",
+            str(SCRATCH / "vace_out"), "--num_frames", str(VARIANT_FRAMES),
+            "--vace_scale", "0.8", "--shift", str(VARIANT_SHIFT), "--seed",
+            str(SEED)]
+    rec_vace["entry"] = variant_cli(
+        "VACE entry", geo, argv, counters,
+        2 * (CLI_LAYERS + 1) * VARIANT_STEPS,
+        lambda p: None if isinstance(p, VacePipeline) and p.vace.stride == 2
+        else "is no VacePipeline of stride 2")
+    rec_vace["entry"].update(write_s=write_s, bytes=nbytes)
+    shutil.rmtree(SCRATCH, ignore_errors=True)
+    shutil.rmtree(SHARED_DIR, ignore_errors=True)
+    log("[VACE] " + json.dumps(rec_vace))
+    log("[camera] " + json.dumps(rec_cam))
+    return rec_vace, rec_cam
+
+
+def s2v_phase(card, geo, gen, prompt, counters):
+    """Speech-to-video at the 14B's width and depth (`factory.load_pipeline(
+    "", random_init=True, dit_cfg=WAN21_T2V_14B)` and `init_s2v_params`,
+    audio_dim 1024, 4 audio tokens, injected at layer 0 with a live output
+    projection): `speech_to_video` of seeded audio features [1, 9, 1024]:
+    40 x steps self and cross B1 calls, and the audio injection's B1 calls
+    at batch 2 x 9 latent frames over 4 keys, against the naive backend.
+    Returns the phase's record."""
+    import numpy as np
+    import torch
+    from videocof_torch import factory
+    from videocof_torch.configs import WAN21_T2V_14B
+    from videocof_torch.models.wan_dit_s2v import init_s2v_params
+    from videocof_torch.pipeline import S2VPipeline
+    lat, L, per_frame = variant_tokens(geo)
+    t0 = time.perf_counter()
+    base = factory.load_pipeline("", random_init=True, dit_cfg=WAN21_T2V_14B,
+                                 seed=SEED + 5)
+    s2v = init_s2v_params(WAN21_T2V_14B, gen, audio_dim=AUDIO_DIM,
+                          num_audio_token=AUDIO_TOKENS, inject_layers=(0,),
+                          dtype=torch.bfloat16, device=gen.device)
+    with torch.no_grad():
+        o = s2v.audio_injector.layers["0"].o.weight
+        o.copy_(torch.randn(o.shape, generator=gen, device=gen.device)
+                * 0.1 / o.shape[1] ** 0.5)
+    pipe = S2VPipeline(base.dit, base.vae, base.t5, base.tokenizer, s2v=s2v)
+    build_s = time.perf_counter() - t0
+    del base
+    audio = np.random.default_rng(SEED).standard_normal(
+        (1, lat, AUDIO_DIM)).astype(np.float32)
+
+    def call(p, timings):
+        return p.speech_to_video(
+            prompt, audio, negative_prompt=geo.negative_prompt,
+            height=geo.height, width=geo.width, num_frames=VARIANT_FRAMES,
+            num_inference_steps=VARIANT_STEPS, guidance_scale=VARIANT_GUIDANCE,
+            shift=VARIANT_SHIFT, seed=SEED, output_latents=True,
+            timings=timings)
+
+    per = WAN21_T2V_14B.num_layers * VARIANT_STEPS
+    audio_shape = (2 * lat, per_frame, AUDIO_TOKENS, None)
+    record = variant_run("S2V", card, pipe, call, counters,
+                         (1, 3, VARIANT_FRAMES, geo.height, geo.width), {
+                             (2, L, L, None): per,
+                             (2, L, TEXT_TOKENS, None): per,
+                             audio_shape: VARIANT_STEPS})
+    record.update(build_s=build_s, tokens=L,
+                  b1_launches={"s2v audio": VARIANT_STEPS})
+    del pipe, s2v
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("[S2V] " + json.dumps(record))
+    return record
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -4039,6 +4517,7 @@ def main() -> int:
             fail(f"{kernel}'s SASS lacks one of {opcodes}: {sass}")
 
     # ----------------------------------------------------- 2. kernels vs plain
+    log(f"[smoke] phase 2 starts at {time.perf_counter() - t_start:.1f} s")
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
     def randn(*shape, dtype=bf16):
@@ -4084,6 +4563,17 @@ def main() -> int:
              "A14B t2v cross": ((2, Lt2v, Lt), WAN22_T2V_A14B.num_heads)}
     log(f"[geometry] TI2V-5B edit at {TI2V_HW[0]}x{TI2V_HW[1]}: {L5} DiT "
         f"tokens; A14B text-to-video, {T2V_FRAMES} frames: {Lt2v} tokens")
+    # B1's shapes on the other Wan variants (phases 22-25): the i2v 14B's
+    # self, text and image cross-attention under batched CFG, and S2V's
+    # audio injection (batch 2 x latent frames, a frame's tokens, 4 keys)
+    lat_v, Lv, frame_v = variant_tokens(geo)
+    b1_var = {"i2v self": ((2, Lv, Lv), WAN21_T2V_14B.num_heads),
+              "i2v text cross": ((2, Lv, Lt), WAN21_T2V_14B.num_heads),
+              "i2v image cross": ((2, Lv, 257), WAN21_T2V_14B.num_heads),
+              "s2v audio": ((2 * lat_v, frame_v, AUDIO_TOKENS),
+                            WAN21_T2V_14B.num_heads)}
+    log(f"[geometry] the variants' {VARIANT_FRAMES} frames: {lat_v} latent "
+        f"frames, {Lv} DiT tokens, {frame_v} a frame")
 
     def ragged_mask(lengths, Lk):
         if lengths is None:
@@ -4300,6 +4790,19 @@ def main() -> int:
         note("flash_attention_fwd", err22[label])
         del q, k, v, out
         torch.cuda.empty_cache()
+    # B1 at the variants' shapes: 257 keys (one valid key in the third
+    # 128-key tile) and 4 keys (far below one tile: TMA's zero rows and the
+    # Pallas wrapper's 124 padded keys) at the 14B's 40 heads
+    err_var = {}
+    for label, ((B, Lq, Lk), Nh) in b1_var.items():
+        q, k, v = qkv(B, Lq, Lk, Nh, D)
+        out = fa.flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        err_var[label] = compare(f"B1 {label} {(B, Lq, Lk, Nh, D)} bfloat16",
+                                 out, fa.flash_attention_reference(q, k, v))
+        note("flash_attention_fwd", err_var[label])
+        del q, k, v, out
+        torch.cuda.empty_cache()
     # B3 at lengths on and beside its 64-row q tiles and 128-key tiles (TMA's
     # zero rows, the masked keys of the ragged key tile, dQ rows past Lq
     # dropped by the reduce-add, lse and delta rows padded to 16 bytes)
@@ -4485,6 +4988,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---------------------------------------------------------- 3. timing
+    log(f"[smoke] phase 3 starts at {time.perf_counter() - t_start:.1f} s")
     F = torch.nn.functional
 
     def time_flash(Nh, kernels, plain_runs_self, shapes=None,
@@ -4563,9 +5067,9 @@ def main() -> int:
             torch.cuda.empty_cache()
         return timing
 
-    timing = time_flash(N, names, 3)
+    timing = time_flash(N, names, 1)
     # B2 and B3 at the 14B's 40 heads (its LoRA training step, phase 20)
-    timing14_train = time_flash(N14, names[1:], 1)
+    timing14_train = time_flash(N14, names[1:], 1, plain_warmup=0)
     # B1, B2 and B3 at the parallel paths' shapes (phase 21)
     timing_sp = time_flash(N, names, 1, shapes=[
         (label, shape, 1, Nh) for label, (shape, Nh, backward)
@@ -4575,7 +5079,7 @@ def main() -> int:
 
     # B1 at the 14B's 40 heads: kernel, plain version, SDPA and the bound
     timing14 = {}
-    for shape_name, (B, Lq, Lk), plain_runs in (("self", (1, L, L), 3),
+    for shape_name, (B, Lq, Lk), plain_runs in (("self", (1, L, L), 1),
                                                 ("cross", (1, L, Lt), 10)):
         q, k, v = qkv(B, Lq, Lk, N14, D)
         qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
@@ -4653,13 +5157,14 @@ def main() -> int:
 
     # B1 at the Wan2.2 paths' shapes: kernel, plain version, SDPA, bound
     timing22 = {}
-    for label, ((B, Lq, Lk), Nh) in b1_22.items():
+    for label, ((B, Lq, Lk), Nh) in {**b1_22, **b1_var}.items():
         q, k, v = qkv(B, Lq, Lk, Nh, D)
         qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
         work = kernel_work(B, Lq, Lk, Nh, D)["flash_attention_fwd"]
         ms = cuda_ms(lambda: fa.flash_attention(q, k, v), runs=10)
         plain_ms = cuda_ms(lambda: fa.flash_attention_reference(q, k, v),
-                           runs=1 if Lk > 1000 else 5, warmup=1)
+                           runs=1 if Lk > 1000 else 5,
+                           warmup=0 if Lk > 1000 else 1)
         library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt), runs=10)
         bound_ms, bound_by = bound(*work)
@@ -4667,7 +5172,8 @@ def main() -> int:
             shape=f"B={B} Lq={Lq} Lk={Lk} N={Nh} D={D} bf16", ms=ms,
             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
             library_ms=library_ms, tflops=work[0] / ms / 1e9,
-            max_abs_err=err22[label][0], max_rel_l2_err=err22[label][1])
+            max_abs_err={**err22, **err_var}[label][0],
+            max_rel_l2_err={**err22, **err_var}[label][1])
         log(f"[timing] flash_attention_fwd {label} "
             f"{timing22[label]['shape']}: kernel_ms {ms:.4f} bound_ms "
             f"{bound_ms:.4f} ({bound_by}) plain_ms {plain_ms:.4f} "
@@ -4683,7 +5189,7 @@ def main() -> int:
     # PyTorch call computes int8 attention); B1 at the same shapes says
     # whether the int8 QK^T pays
     timing8 = {}
-    for shape_name, (B, Lq, Lk), plain_runs in (("self", (2, L, L), 3),
+    for shape_name, (B, Lq, Lk), plain_runs in (("self", (2, L, L), 1),
                                                 ("cross", (2, L, Lt), 10)):
         q, k, v = qkv(B, Lq, Lk, N, D)
         mean = i8.k_mean(k)
@@ -4729,6 +5235,7 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     # ----------------------------------------------------------- 4. the edit
+    log(f"[smoke] phase 4 starts at {time.perf_counter() - t_start:.1f} s")
     t0 = time.perf_counter()
     t5 = init_t5_encoder(T5Config(), gen, bf16, dev)
     vae = init_wan_vae(vcfg, gen, bf16, dev)
@@ -4799,9 +5306,11 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ------------------------------------------------ 5. the standard edit
+    log(f"[smoke] phase 5 starts at {time.perf_counter() - t_start:.1f} s")
     std = GenerationConfig(num_inference_steps=STD_STEPS, guidance_scale=5.0,
                            enable_teacache=True)
-    pipe = WanPipeline(dit, vae, t5, dtype=bf16, attn_backend="int8")
+    pipe = WanPipeline(first_layers(dit, STD_LAYERS), vae, t5, dtype=bf16,
+                       attn_backend="int8")
     sched = get_scheduler(std.sampler)
     sched.set_timesteps(std.num_inference_steps, shift=std.shift)
     coeffs = get_teacache_coefficients("wan2.1-t2v-1.3b")
@@ -4835,8 +5344,8 @@ def main() -> int:
     std_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     computed = plan.count(False)
     want_std = dict(dict.fromkeys(names, 0),
-                    int8_quantize_k=2 * dcfg.num_layers * computed,
-                    int8_attention_fwd=2 * dcfg.num_layers * computed)
+                    int8_quantize_k=2 * STD_LAYERS * computed,
+                    int8_attention_fwd=2 * STD_LAYERS * computed)
     vid = out.videos
     log(f"[standard edit] output {vid.shape} min {vid.min():.4f} max "
         f"{vid.max():.4f}")
@@ -4855,10 +5364,9 @@ def main() -> int:
         f"{k} {v:.3f}" for k, v in std_timings.items()))
     log(f"[standard edit] seconds per edit {std_wall:.3f}; peak device memory "
         f"{std_peak_gb:.2f} GB; launches {std_launches}; {computed} computed "
-        f"steps, median {statistics.median(computed_walls):.3f} s (batch 2, "
-        f"{2 * step_flops:.3e} FLOP, "
-        f"{2 * step_flops / statistics.median(computed_walls) / 1e12:.1f} "
-        f"TFLOP/s); {len(skipped)} skipped steps, median "
+        f"steps of {STD_LAYERS} layers, median "
+        f"{statistics.median(computed_walls):.3f} s (batch 2); "
+        f"{len(skipped)} skipped steps, median "
         f"{statistics.median(skipped):.3f} s; the 50 steps {sum(walls):.3f} s")
     log("[standard edit] " + json.dumps({
         "card": card, "seconds_per_edit": std_wall, "stages_s": std_timings,
@@ -4883,6 +5391,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # --------------------------------------------------------- 6. training
+    log(f"[smoke] phase 6 starts at {time.perf_counter() - t_start:.1f} s")
     tcfg = TrainerConfig(lora_rank=16)
     base = {name: p.detach().clone() for name, p in dit.named_parameters()}
     trainer = CoFTrainer(dit, vae, t5, None, tcfg)
@@ -4947,6 +5456,7 @@ def main() -> int:
             lambda: trainer.train(samples, total_steps=1)))
 
     # ------------------------------------------------ 7. the entry at 1.3B
+    log(f"[smoke] phase 7 starts at {time.perf_counter() - t_start:.1f} s")
     shutil.rmtree(SCRATCH, ignore_errors=True)
     read_gbps = round_trip_phase(dit)
     del trainer, dit, vae, t5, samples
@@ -4958,6 +5468,7 @@ def main() -> int:
     log("[entry] " + json.dumps(dict(entry, dit_read_gb_per_s=read_gbps)))
 
     # ------------------------------------------------------ 8. the 14B edit
+    log(f"[smoke] phase 8 starts at {time.perf_counter() - t_start:.1f} s")
     launches14, latents14, lora14 = edit_14b_phase(
         card, WAN21_T2V_14B, geo, gen, video, prompt, want_shape,
         want_launches, counters)
@@ -4965,6 +5476,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ------------------------------------- 9-12. the long and ragged paths
+    log(f"[smoke] phase 9-12 starts at {time.perf_counter() - t_start:.1f} s")
     # on random 1.3B weights drawn by the factory from the seed
     from videocof_torch import factory
     t0 = time.perf_counter()
@@ -4986,15 +5498,19 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ------------------------------------------------- 13. the standard CLI
-    rec_infer = infer_phase(card, geo, prompt, counters)
+    log(f"[smoke] phase 13 starts at {time.perf_counter() - t_start:.1f} s")
+    with shallow_1_3b(STD_LAYERS):
+        rec_infer = infer_phase(card, geo, prompt, counters)
 
     # ------------------------------- 14. fp8 and runtime LoRA on the 14B
+    log(f"[smoke] phase 14 starts at {time.perf_counter() - t_start:.1f} s")
     rec_fp8 = fp8_14b_phase(card, WAN21_T2V_14B, geo, gen, video, prompt,
                             want_shape, counters, lora14, latents14)
     gc.collect()
     torch.cuda.empty_cache()
 
     # ------------------------------------- 15-16. the Wan2.2 A14B, edit, t2v
+    log(f"[smoke] phase 15-16 starts at {time.perf_counter() - t_start:.1f} s")
     pipe, rec_a14b = a14b_edit_phase(card, geo, gen, video, prompt,
                                      want_shape, counters)
     rec_t2v = a14b_t2v_phase(card, pipe, geo, prompt, counters)
@@ -5003,16 +5519,19 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ------------------------------ 17. the TI2V-5B with the Wan2.2 VAE
+    log(f"[smoke] phase 17 starts at {time.perf_counter() - t_start:.1f} s")
     rec_5b = ti2v_phase(card, geo, prompt, counters)
     gc.collect()
     torch.cuda.empty_cache()
 
     # ---------------------------------------- 18. the entries on Wan2.2
+    log(f"[smoke] phase 18 starts at {time.perf_counter() - t_start:.1f} s")
     rec_entry22 = wan22_entries_phase(card, geo, gen, prompt, counters)
     gc.collect()
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------- 19. serving
+    log(f"[smoke] phase 19 starts at {time.perf_counter() - t_start:.1f} s")
     t_serve = time.perf_counter()
     clip = write_clip("serving", geo)
     rec_serve = serving_14b_phase(card, WAN21_T2V_14B, geo, prompt, counters,
@@ -5030,10 +5549,12 @@ def main() -> int:
     log(f"[serving] phase 19 in {time.perf_counter() - t_serve:.1f} s")
 
     # --------------------------------------------- 20. training from files
+    log(f"[smoke] phase 20 starts at {time.perf_counter() - t_start:.1f} s")
     t_train = time.perf_counter()
-    rec_train, train_json, cli_launches = train_files_phase(
-        card, dcfg, geo, prompt, video, want_shape, want_launches, counters,
-        idle_synthetic)
+    with shallow_1_3b(TRAIN_LAYERS) as tcfg:
+        rec_train, train_json, cli_launches = train_files_phase(
+            card, tcfg, geo, prompt, video, want_shape, want_launches,
+            counters, idle_synthetic)
     gc.collect()
     torch.cuda.empty_cache()
     rec_14b = train_14b_phase(card, WAN21_T2V_14B, geo, train_json,
@@ -5044,20 +5565,32 @@ def main() -> int:
     log(f"[train files] phase 20 in {time.perf_counter() - t_train:.1f} s")
 
     # ------------------------------------------------------ 21. parallelism
+    log(f"[smoke] phase 21 starts at {time.perf_counter() - t_start:.1f} s")
     t_par = time.perf_counter()
     probes = start_probes()           # they run beside the world-1 edits
-    rec_sp = sp_edit_phase(card, geo, video, prompt, counters,
-                           lambda: finish_probes(probes))
+    with shallow_1_3b(SP_LAYERS):
+        rec_sp = sp_edit_phase(card, geo, video, prompt, counters,
+                               lambda: finish_probes(probes))
     rec_ring = sp_ring_phase(card, geo, prompt, ref4, counters)
     del ref4
-    rec_sp_train = sp_train_phase(card, geo)
+    with shallow_1_3b(SP_LAYERS):
+        rec_sp_train = sp_train_phase(card, geo)
     shutil.rmtree(SCRATCH, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
     log(f"[parallel] phase 21 in {time.perf_counter() - t_par:.1f} s (two "
         f"ranks share the card's SMs: no multi-GPU speed)")
 
-    # ----------------------------------------------------------- 21. report
+    # -------------------------------------- 22-25. the other Wan variants
+    log(f"[smoke] phase 22-25 starts at {time.perf_counter() - t_start:.1f} s")
+    t_var = time.perf_counter()
+    rec_i2v = i2v_phase(card, geo, gen, prompt, counters)
+    rec_vace, rec_cam = vace_camera_phase(card, geo, gen, prompt, counters)
+    rec_s2v = s2v_phase(card, geo, gen, prompt, counters)
+    log(f"[variants] phases 22-25 in {time.perf_counter() - t_var:.1f} s")
+
+    # ----------------------------------------------------------- 26. report
+    log(f"[smoke] phase 26 starts at {time.perf_counter() - t_start:.1f} s")
     sources = {"flash_attention_fwd": "flash_attention_fwd.cu",
                "flash_attention_fwd_lse": "flash_attention_fwd.cu",
                "flash_attention_bwd": "flash_attention_bwd.cu"}
@@ -5217,6 +5750,21 @@ def main() -> int:
             "tpu_kernel": replaces["flash_attention_fwd"][1],
             "launches": rec["b1_launches"][label], "launches_on": on,
             "shape_label": label, **timing22[label]})
+    # B1 at the variants' shapes, with the launches counted on them
+    # (phases 22 and 25)
+    for label, (on, rec) in (("i2v self", ("i2v 14B", rec_i2v)),
+                             ("i2v text cross", ("i2v 14B", rec_i2v)),
+                             ("i2v image cross", ("i2v 14B", rec_i2v)),
+                             ("s2v audio", ("S2V 14B", rec_s2v))):
+        rows.append({
+            "name": "flash_attention_fwd", "route": "cuda",
+            "source": f"videocof_torch/csrc/{sources['flash_attention_fwd']}",
+            "replaces": "videocof_tpu/ops/flash_attention.py:41",
+            "tpu_kernel": replaces["flash_attention_fwd"][1],
+            "launches": rec["b1_launches"][label], "launches_on": on,
+            "shape_label": label, **timing22[label]})
+    log("[variants] " + json.dumps({"i2v": rec_i2v, "vace": rec_vace,
+                                    "camera": rec_cam, "s2v": rec_s2v}))
     log("[wan2.2] " + json.dumps({"fp8_14b": rec_fp8, "a14b_edit": rec_a14b,
                                   "a14b_t2v": rec_t2v, "ti2v_5b": rec_5b,
                                   "entries": rec_entry22}))
@@ -5227,7 +5775,7 @@ def main() -> int:
                                  "lora_14b": rec_14b}, default=str))
     log("[parallel] " + json.dumps({"edits": rec_sp, "ring": rec_ring,
                                     "train": rec_sp_train}, default=str))
-    log(f"[smoke] phases 1-21 in {time.perf_counter() - t_start:.1f} s")
+    log(f"[smoke] phases 1-25 in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -330,9 +330,7 @@ def test_factory_unported_options_raise(kw):
         factory.load_pipeline("", random_init=True, device="cpu", **kw)
 
 
-@pytest.mark.parametrize("argv", [["--start_image", "a.png"],
-                                  ["--control_video", "c.mp4"],
-                                  ["--precompile_hw", "480", "832"],
+@pytest.mark.parametrize("argv", [["--precompile_hw", "480", "832"],
                                   ["--attention", "xla"]])
 def test_cli_unported_modes_stop(tmp_path, argv):
     with pytest.raises(SystemExit, match="--"):

@@ -75,6 +75,19 @@ def test_kernel_matches_plain(cuda, Lq, Lk, D, dtype):
     _run(*_qkv(cuda, 2, Lq, Lk, 3, D, dtype))
 
 
+# the other Wan variants' shapes at the 14B's 40 heads: i2v's image
+# cross-attention (257 keys, one valid key in the third 128-key tile) under
+# batched CFG at 14,040 tokens, and S2V's audio injection (4 keys, far
+# below one tile, at batch 2 x 9 latent frames of 1,560 tokens)
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Lq,Lk", [(2, 14040, 257), (18, 1560, 4)])
+def test_kernel_matches_plain_at_the_variants_shapes(cuda, B, Lq, Lk):
+    q, k, v = _qkv(cuda, B, Lq, Lk, 40, 128)
+    got = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    _close(got, flash_attention_reference(q, k, v))
+
+
 @pytest.mark.cuda
 def test_kernel_key_mask_with_fully_masked_row(cuda):
     q, k, v = _qkv(cuda, 2, 256, 130, 3, 64)

@@ -75,6 +75,13 @@ def test_new_modules_are_covered():
             "videocof_torch/parallel/ulysses.py",
             "videocof_torch/parallel/ring.py",
             "videocof_torch/parallel/sharding.py",
+            "videocof_torch/models/clip_vision.py",
+            "videocof_torch/models/wan_dit_vace.py",
+            "videocof_torch/models/camera_adapter.py",
+            "videocof_torch/models/wan_dit_s2v.py",
+            "videocof_torch/pipeline/vace_pipeline.py",
+            "videocof_torch/pipeline/camera_pipeline.py",
+            "videocof_torch/pipeline/s2v_pipeline.py",
             "tests/_torch_parallel_ranks.py"} <= names
 
 

@@ -85,7 +85,7 @@ def test_guards():
     _, pipe = _pipelines(DCFG, None, None)
     video = np.zeros((1, 3, 9, 32, 32), np.uint8)
     # DDIM (CogVideoX's sampler) is not ported; it waits with CogVideoX
-    with pytest.raises(NotImplementedError, match="A.10"):
+    with pytest.raises(NotImplementedError, match="A.4"):
         pipe(video, "x", source_frames=9, guidance_scale=5.0, sampler="ddim")
     with pytest.raises(ValueError):
         pipe(video, ["a", "b"], source_frames=9)

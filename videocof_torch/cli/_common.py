@@ -5,12 +5,14 @@ Counterpart of `videocof_tpu/cli/_common.py` for the chain-of-frames edit
 resume by skipping finished outputs, items strided over processes
 (``pending[rank::world]``), the CoT prompt, and the reason+edit, edit-only
 and side-by-side outputs with an ``_info.txt`` prompt record; ``--t2v``
-items (text-to-video, with ``--guidance_scale_2`` on a Wan2.2 MoE) write
-the video and its prompt record. ``--quantize fp8`` and ``--offload_t5``
-reach the factory, which also finds Wan2.2 MoE and Wan2.2-VAE directories.
-Every flag of the JAX CLI parses, so the reference's scripts do; the modes
-the port does not carry (image-to-video, VACE control, ahead-of-time
-compilation) stop with an error naming their ROADMAP.md item.
+items (text-to-video, with ``--guidance_scale_2`` on a Wan2.2 MoE),
+``--start_image`` items (image-to-video on an i2v checkpoint, its CLIP
+tower encoding the start image) and ``--control_video`` items (VACE
+control-to-video on a VACE checkpoint) write the video and its prompt
+record. ``--quantize fp8`` and ``--offload_t5`` reach the factory, which
+also finds Wan2.2 MoE, Wan2.2-VAE, i2v and VACE directories. Every flag of
+the JAX CLI parses, so the reference's scripts do; ahead-of-time
+compilation, which the port does not carry, stops with an error.
 """
 
 from __future__ import annotations
@@ -28,10 +30,8 @@ from ..data.instructions import build_cot_prompt
 from ..utils.video_io import (load_video_frames, save_results,
                               save_side_by_side)
 
-# flag -> why it stops (value: the ROADMAP.md item)
+# flag -> why it stops
 _UNPORTED_FLAGS = {
-    "start_image": "image-to-video (ROADMAP.md §A.10)",
-    "control_video": "VACE control-to-video (ROADMAP.md §A.10)",
     "precompile_hw": "the JAX package's ahead-of-time fused sampler (not "
                      "ported on purpose: the port runs the sampler stepwise)",
 }
@@ -64,17 +64,20 @@ def add_common_args(parser: argparse.ArgumentParser) -> None:
                         choices=(1, 2, 3),
                         help="UniPC/DPM++ multistep order (default 2)")
     parser.add_argument("--start_image", type=str, default=None,
-                        help="image-to-video (not ported)")
+                        help="image-to-video from this image and --prompt "
+                             "(needs an i2v checkpoint with its CLIP tower)")
     parser.add_argument("--end_image", type=str, default=None,
-                        help="last-frame pin of --start_image (not ported)")
+                        help="last-frame pin of --start_image")
     parser.add_argument("--t2v", action="store_true",
                         help="text-to-video from --prompt")
     parser.add_argument("--control_video", type=str, default=None,
-                        help="VACE control-to-video (not ported)")
+                        help="VACE control-to-video: generate --prompt under "
+                             "this control clip (needs a VACE checkpoint)")
     parser.add_argument("--control_mask", type=str, default=None,
-                        help="region mask of --control_video (not ported)")
+                        help="region-mask clip of --control_video (bright = "
+                             "generate; omitted: full generation)")
     parser.add_argument("--vace_scale", type=float, default=1.0,
-                        help="control-hint strength (not ported)")
+                        help="control-hint strength (context_scale)")
     parser.add_argument("--cfg_sequential", action="store_true",
                         help="run CFG as two batch-1 forwards instead of "
                              "one batch-2 forward (half the activations)")
@@ -130,13 +133,23 @@ def collect_items(args) -> List[Tuple[str, Dict]]:
         return [(os.path.basename(args.video_path),
                  {"source_video_path": args.video_path,
                   "edit_instruction": args.prompt})]
+    if getattr(args, "start_image", None) and args.prompt:
+        return [(os.path.basename(args.start_image),
+                 {"start_image_path": args.start_image,
+                  "end_image_path": getattr(args, "end_image", None),
+                  "edit_instruction": args.prompt})]
+    if getattr(args, "control_video", None) and args.prompt:
+        return [(os.path.basename(args.control_video),
+                 {"control_video_path": args.control_video,
+                  "control_mask_path": getattr(args, "control_mask", None),
+                  "edit_instruction": args.prompt})]
     if getattr(args, "t2v", False) and args.prompt:
         slug = "".join(c if c.isalnum() else "_"
                        for c in args.prompt.lower())[:48] or "t2v"
         return [(f"{slug}.mp4", {"t2v": True,
                                  "edit_instruction": args.prompt})]
-    raise SystemExit("provide --test_json, or --video_path plus --prompt, "
-                     "or --t2v --prompt")
+    raise SystemExit("provide --test_json, --video_path/--start_image/"
+                     "--control_video plus --prompt, or --t2v --prompt")
 
 
 def process_rank() -> Tuple[int, int]:
@@ -189,7 +202,7 @@ def edit_frames(pipe, args, video: np.ndarray, prompt: str, rank: int, *,
             "source": video}
 
 
-def t2v_frames(pipe, args, prompt: str, rank: int, *,
+def t2v_frames(pipe, args, item: Dict, prompt: str, rank: int, *,
                num_inference_steps: int, guidance_scale: float,
                negative_prompt: str) -> Dict[str, np.ndarray]:
     """One ``--t2v`` item: the pipeline's `text_to_video` at the flags'
@@ -206,6 +219,62 @@ def t2v_frames(pipe, args, prompt: str, rank: int, *,
         guidance_scale=guidance_scale, shift=args.shift,
         sampler=args.sampler, solver_order=args.solver_order,
         seed=args.seed + rank, **kw)
+    return {"video": out.videos}
+
+
+def i2v_frames(pipe, args, item: Dict, prompt: str, rank: int, *,
+               num_inference_steps: int, guidance_scale: float,
+               negative_prompt: str) -> Dict[str, np.ndarray]:
+    """One ``--start_image`` item: `image_to_video` with the pipeline's CLIP
+    tower at the image's aspect ratio over the area of the ``--height`` x
+    ``--width`` flags, both sides a multiple of 16 -> its ``video``."""
+    from PIL import Image
+    from ..utils.video_io import size_from_base_resolution
+    if getattr(pipe, "clip", None) is None:
+        raise SystemExit("--start_image needs an i2v checkpoint with its "
+                         "CLIP tower (the factory reads it from the i2v "
+                         "directory)")
+    with Image.open(item["start_image_path"]) as im:
+        w0, h0 = im.size
+    base = int(round((args.height * args.width) ** 0.5))
+    h0, w0 = size_from_base_resolution(h0, w0, base)
+    out = pipe.image_to_video(
+        item["start_image_path"], prompt, end_image=item.get("end_image_path"),
+        num_frames=args.num_frames, height=(h0 // 16) * 16,
+        width=(w0 // 16) * 16, negative_prompt=negative_prompt,
+        num_inference_steps=num_inference_steps,
+        guidance_scale=guidance_scale, shift=args.shift,
+        sampler=args.sampler, solver_order=args.solver_order,
+        seed=args.seed + rank, clip=pipe.clip)
+    return {"video": out.videos}
+
+
+def vace_frames(pipe, args, item: Dict, prompt: str, rank: int, *,
+                num_inference_steps: int, guidance_scale: float,
+                negative_prompt: str) -> Dict[str, np.ndarray]:
+    """One ``--control_video`` item: `control_to_video` under the control
+    clip's ``--num_frames`` frames and, where given, the mask clip's (the
+    same frame indices; bright = generate) -> its ``video``."""
+    from ..pipeline import VacePipeline
+    if not isinstance(pipe, VacePipeline):
+        raise SystemExit("--control_video needs a VACE checkpoint (the "
+                         "factory detects vace_* keys in the DiT's)")
+    # one fixed generator: the mask clip samples the control clip's frames
+    ctrl, _, _ = load_video_frames(item["control_video_path"],
+                                   args.num_frames,
+                                   rng=np.random.default_rng(0))
+    mask = None
+    if item.get("control_mask_path"):
+        m, _, _ = load_video_frames(item["control_mask_path"],
+                                    args.num_frames,
+                                    rng=np.random.default_rng(0))
+        mask = (m.mean(axis=1, keepdims=True) > 127.5).astype(np.float32)
+    out = pipe.control_to_video(
+        prompt, ctrl, mask=mask, negative_prompt=negative_prompt,
+        num_inference_steps=num_inference_steps,
+        guidance_scale=guidance_scale, context_scale=args.vace_scale,
+        shift=args.shift, sampler=args.sampler,
+        solver_order=args.solver_order, seed=args.seed + rank)
     return {"video": out.videos}
 
 
@@ -226,6 +295,13 @@ def save_item(output_dir: str, base: str, arrays: Dict[str, np.ndarray],
     return out_path
 
 
+# the items that write one video: the item key that marks each, in the
+# order JAX's run_items tries them, and its helper; the rest are
+# chain-of-frames edits
+_ITEM_MODES = {"t2v": t2v_frames, "control_video_path": vace_frames,
+               "start_image_path": i2v_frames}
+
+
 def run_items(pipe, args, subset, rank: int, *, num_inference_steps: int,
               guidance_scale: float, negative_prompt: str,
               gen_kwargs: Optional[Dict] = None
@@ -239,13 +315,14 @@ def run_items(pipe, args, subset, rank: int, *, num_inference_steps: int,
     results = {}
     for fname, item in subset:
         base = os.path.splitext(fname)[0]
-        if item.get("t2v"):
+        mode = next((m for m in _ITEM_MODES if item.get(m)), None)
+        if mode is not None:
             prompt = item.get("edit_instruction", "")
-            print(f"[proc {rank}] t2v {fname}: {prompt}", file=sys.stderr)
-            arrays = t2v_frames(pipe, args, prompt, rank,
-                                num_inference_steps=num_inference_steps,
-                                guidance_scale=guidance_scale,
-                                negative_prompt=negative_prompt)
+            print(f"[proc {rank}] {mode} {fname}: {prompt}", file=sys.stderr)
+            arrays = _ITEM_MODES[mode](pipe, args, item, prompt, rank,
+                                       num_inference_steps=num_inference_steps,
+                                       guidance_scale=guidance_scale,
+                                       negative_prompt=negative_prompt)
             out_path = os.path.join(args.output_dir, f"gen_{base}.mp4")
             save_results(arrays["video"], out_path, args.fps)
             with open(os.path.join(args.output_dir, f"gen_{base}_info.txt"),
@@ -254,11 +331,6 @@ def run_items(pipe, args, subset, rank: int, *, num_inference_steps: int,
             results[fname] = arrays
             print(f"[proc {rank}] wrote {out_path}", file=sys.stderr)
             continue
-        if "source_video_path" not in item:
-            raise NotImplementedError(
-                f"{fname}: only the chain-of-frames edit of a source video "
-                f"and text-to-video are ported (image-to-video and VACE "
-                f"items: ROADMAP.md §A.10)")
         prompt, _ = item_prompt(item)
         print(f"[proc {rank}] {fname}: {prompt}", file=sys.stderr)
         video, _, _ = load_video_frames(

@@ -3,7 +3,7 @@
 The same frozen dataclasses and published geometries as
 `videocof_tpu/configs.py` (and the Wan2.2 VAE's config of
 `videocof_tpu/models/wan_vae22.py`), minus the fields whose behaviour the
-port does not carry yet (i2v, FFN chunking).
+port does not carry (FFN chunking).
 """
 
 from __future__ import annotations
@@ -15,8 +15,11 @@ from typing import Tuple
 
 @dataclass(frozen=True)
 class WanDiTConfig:
-    """Wan2.1 3D diffusion-transformer geometry (t2v)."""
+    """Wan2.1 3D diffusion-transformer geometry. ``model_type`` "i2v" adds
+    the image branch (the CLIP-feature MLP ``img_emb`` and each block's
+    image keys and values in its cross-attention)."""
 
+    model_type: str = "t2v"
     patch_size: Tuple[int, int, int] = (1, 2, 2)
     text_len: int = 512
     in_dim: int = 16
@@ -54,6 +57,8 @@ class WanDiTConfig:
 
 WAN21_T2V_1_3B = WanDiTConfig(dim=1536, ffn_dim=8960, num_heads=12, num_layers=30)
 WAN21_T2V_14B = WanDiTConfig(dim=5120, ffn_dim=13824, num_heads=40, num_layers=40)
+WAN21_I2V_14B = WanDiTConfig(model_type="i2v", in_dim=36, dim=5120,
+                             ffn_dim=13824, num_heads=40, num_layers=40)
 # Wan2.2 transformers are the t2v DiT with plain cross-attention; the A14B
 # MoE runs two of these experts, the TI2V-5B one DiT over the Wan2.2 VAE's
 # 48 latent channels.

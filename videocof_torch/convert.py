@@ -5,7 +5,8 @@ arrays (``jax.tree.map(np.asarray, params)``) and returns a ``state_dict``
 for the port's module. The JAX trees stack the per-layer block parameters on
 a leading axis (``params["blocks"]``); here they are unstacked into
 ``blocks.<i>.*``. Linear kernels are [din, dout] in JAX and are transposed to
-``nn.Linear``'s [dout, din]; VAE conv kernels are already [O, I, ...].
+``nn.Linear``'s [dout, din]; VAE conv kernels are already [O, I, ...], and
+so are the CLIP tower's patch conv and the camera adapter's convs.
 """
 
 from __future__ import annotations
@@ -40,17 +41,22 @@ def _flatten(tree: Any, prefix: str = "") -> Iterator[Tuple[str, np.ndarray]]:
         yield prefix[:-1], np.asarray(tree)
 
 
-def _linear_tree(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """Flatten a tree of linear layers, unstacking ``blocks`` and turning
-    each [din, dout] ``kernel`` into a [dout, din] ``weight``."""
+def _linear_tree(params: Dict[str, Any], stacked: Tuple[str, ...] = (
+        "blocks",), convs: Tuple[str, ...] = ()) -> Dict[str, torch.Tensor]:
+    """Flatten a tree of linear layers, unstacking the leaves under the
+    ``stacked`` keys (a leading layer axis) and turning each [din, dout]
+    ``kernel`` into a [dout, din] ``weight``; the kernels of ``convs``
+    (already [O, I, ...]) are renamed only."""
     out: Dict[str, torch.Tensor] = {}
     for key, arr in _flatten(params):
         if key.endswith(".kernel"):
-            key, arr = key[:-len("kernel")] + "weight", np.swapaxes(arr, -1, -2)
-        if key.startswith("blocks."):
-            rest = key[len("blocks."):]
+            if not key.startswith(convs):
+                arr = np.swapaxes(arr, -1, -2)
+            key = key[:-len("kernel")] + "weight"
+        top, _, rest = key.partition(".")
+        if top in stacked:
             for i in range(arr.shape[0]):
-                out[f"blocks.{i}.{rest}"] = torch.tensor(arr[i])
+                out[f"{top}.{i}.{rest}"] = torch.tensor(arr[i])
         else:
             out[key] = torch.tensor(arr)
     return out
@@ -70,8 +76,35 @@ def jax_param_path(name: str) -> str:
 
 
 def dit_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """`videocof_tpu.models.wan_dit` params -> `WanDiT` state dict."""
+    """The JAX package's DiT params -> `WanDiT` state dict (an i2v tree's
+    ``img_emb`` and blocks' ``k_img``/``v_img``/``norm_k_img``
+    included)."""
     return _linear_tree(params)
+
+
+def clip_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX package's CLIP tower params -> `ClipVision` state dict (its
+    blocks are a list, not stacked)."""
+    return _linear_tree(params, stacked=(), convs=("patch_embed.",))
+
+
+def vace_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX package's VACE branch params (`init_vace_params`) ->
+    `WanVace` state dict."""
+    return _linear_tree(params, stacked=("vace_blocks", "after_proj"))
+
+
+def camera_adapter_from_jax(params: Dict[str, Any]
+                            ) -> Dict[str, torch.Tensor]:
+    """The JAX package's camera adapter params -> `CameraAdapter` state
+    dict."""
+    return _linear_tree(params, stacked=(), convs=("conv.", "res."))
+
+
+def s2v_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX package's S2V params (`init_s2v_params`) -> `WanS2V` state
+    dict."""
+    return _linear_tree(params, stacked=())
 
 
 def t5_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:

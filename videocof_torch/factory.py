@@ -9,9 +9,14 @@ Counterpart of the Wan branches of `videocof_tpu/factory.py`
 directory per expert, ``low_noise_model/`` and ``high_noise_model/``), the
 VAE (``Wan2.1_VAE.pth``, or the TI2V-5B's ``Wan2.2_VAE.pth``), the umT5
 encoder ``models_t5_umt5-xxl-enc-bf16.pth`` and the tokenizer under
-``google/umt5-xxl``. LoRA files are merged into every DiT in order, on the
-device, and then ``quantize="fp8"`` stores each DiT's matmul weights in
-fp8 (`utils/fp8.py`), one expert after the other. ``offload_t5`` keeps
+``google/umt5-xxl``; an i2v directory (``model_type`` "i2v") also the CLIP
+tower ``models_clip_open-clip-xlm-roberta-large-vit-huge-14.pth``. A DiT
+whose keys hold the VACE branch (``vace_patch_embedding``,
+``vace_blocks.*``) gives a `VacePipeline`, one with a camera adapter
+(``control_adapter.*``) a `CameraPipeline`. LoRA files are merged into
+every DiT in order, on the device, and then ``quantize="fp8"`` stores
+each DiT's matmul weights in fp8 (`utils/fp8.py`), one expert after the
+other. ``offload_t5`` keeps
 the umT5 weights in host memory (pinned when CUDA is present) and ships
 them to the device for each prompt encoding only. The non-Wan families
 and ``precompile`` raise `NotImplementedError` naming their ROADMAP.md
@@ -21,6 +26,7 @@ item; `detect_family` names a checkpoint's family.
 from __future__ import annotations
 
 import json
+import math
 import os
 from typing import Optional, Sequence, Tuple, Union
 
@@ -30,12 +36,19 @@ from .configs import (T5Config, WAN21_T2V_1_3B, Wan22VAEConfig, WanDiTConfig,
                       WanVAEConfig)
 from .data.tokenizer import WanTokenizer
 from .models import weights
+from .models.clip_vision import (CLIP_FILE, CLIP_VIT_H_14, ClipVision,
+                                 convert_clip_state_dict, init_clip_vision)
 from .models.lora import merge_lora
 from .models.t5_encoder import T5Encoder, init_t5_encoder
 from .models.wan_dit import WanDiT, init_wan_dit
 from .models.wan_vae import WanVAE, init_wan_vae
+from .models.wan_dit_vace import (WanVace, convert_vace_state_dict,
+                                  vace_stride)
 from .models.wan_vae22 import Wan22VAE, init_wan22_vae
-from .pipeline import Wan22Pipeline, WanPipeline
+from .pipeline import (CameraPipeline, VacePipeline, Wan22Pipeline,
+                       WanPipeline)
+from .pipeline.camera_pipeline import (camera_adapter_from_state_dict,
+                                       convert_camera_adapter_state_dict)
 from .pipeline.wan_pipeline import _resolve_device
 from .utils.fp8 import quantize_dit_fp8
 
@@ -101,7 +114,7 @@ def _refuse_unported_layout(model_name: str) -> None:
     if family != "wan":
         raise NotImplementedError(
             f"{model_name} is a {family} checkpoint; the other model "
-            f"families are not ported (ROADMAP.md §A.10)")
+            f"families are not ported (ROADMAP.md §A.4)")
 
 
 def _from_state_dict(module_cls, cfg, sd, dtype, device):
@@ -122,10 +135,41 @@ def _finish_dit(dit: WanDiT, lora_paths, quantize: Optional[str]
     return dit
 
 
-def _read_dit(model_dir: str, cfg: WanDiTConfig, dtype, device) -> WanDiT:
-    sd = weights.convert_dit_state_dict(weights.load_state_dict(model_dir),
-                                        cfg, dtype)
-    return _from_state_dict(WanDiT, cfg, sd, dtype, device)
+def _read_dit(model_dir: str, cfg: WanDiTConfig, dtype, device
+              ) -> Tuple[WanDiT, dict]:
+    """The DiT of ``model_dir`` and the branches its keys hold: {"vace":
+    `WanVace`} (JAX's `factory.py:234-245`) and {"camera":
+    `CameraAdapter`} (`:247-253`)."""
+    raw = weights.load_state_dict(model_dir)
+    branches = {}
+    if any(k.startswith("vace_patch_embedding") for k in raw):
+        stride = vace_stride(raw, cfg)
+        sd, vsd = convert_vace_state_dict(raw, cfg, stride, dtype)
+        in_dim = vsd["vace_patch_embed.weight"].shape[1] // math.prod(
+            cfg.patch_size)
+        vace = WanVace(cfg, stride, in_dim, dtype, "meta")
+        vace.load_state_dict(vsd, strict=True, assign=True)
+        branches["vace"] = vace.to(device)
+    else:
+        sd = weights.convert_dit_state_dict(raw, cfg, dtype)
+    if any(k.startswith("control_adapter.") for k in raw):
+        branches["camera"] = camera_adapter_from_state_dict(
+            convert_camera_adapter_state_dict(raw, dtype), dtype, device)
+    del raw
+    return _from_state_dict(WanDiT, cfg, sd, dtype, device), branches
+
+
+def _read_clip(model_name: str, dtype, device) -> ClipVision:
+    """The CLIP tower an i2v directory must hold (``visual.*`` keys of the
+    published file, read with ``torch.load(weights_only=True)``)."""
+    path = os.path.join(model_name, CLIP_FILE)
+    if not os.path.isfile(path):
+        raise FileNotFoundError(
+            f"{model_name} holds an i2v DiT but not its CLIP tower {CLIP_FILE}"
+            f": image-to-video needs the start image's CLIP features")
+    sd = convert_clip_state_dict(weights.load_state_dict(path),
+                                 CLIP_VIT_H_14, dtype)
+    return _from_state_dict(ClipVision, CLIP_VIT_H_14, sd, dtype, device)
 
 
 def load_pipeline(
@@ -161,6 +205,10 @@ def load_pipeline(
     matmul weights in fp8 (`utils/fp8.py`). ``offload_t5``: umT5 stays
     in host memory and streams to the device per prompt encoding
     (`WanPipeline`). ``device``: CUDA unless the caller asks for the CPU.
+    An i2v DiT (``dit_cfg`` or the directory's ``model_type``) comes with
+    the CLIP tower as ``pipe.clip``: read from the directory (which must
+    hold it), or drawn after umT5 with ``random_init``. A VACE or camera
+    directory gives a `VacePipeline` or a `CameraPipeline`.
     ``random_init`` draws one DiT, so it raises ``ValueError`` with
     ``high_noise_model`` rather than ignore it; ``precompile`` (the JAX
     package's ahead-of-time fused sampler) raises
@@ -182,7 +230,7 @@ def load_pipeline(
     vae22 = isinstance(vae_cfg, Wan22VAEConfig)
     t5_cfg = t5_cfg or T5Config()
 
-    dit_2 = None
+    dit_2, clip, branches = None, None, {}
     if random_init:
         dit_cfg = dit_cfg or WAN21_T2V_1_3B
         gen = torch.Generator(device=device).manual_seed(seed)
@@ -190,6 +238,8 @@ def load_pipeline(
         vae = (init_wan22_vae if vae22 else init_wan_vae)(vae_cfg, gen, dtype,
                                                           device)
         t5 = init_t5_encoder(t5_cfg, gen, dtype, device)
+        if dit_cfg.model_type == "i2v":
+            clip = init_clip_vision(CLIP_VIT_H_14, gen, dtype, device)
         tokenizer = WanTokenizer(vocab_size=t5_cfg.vocab)
         _finish_dit(dit, lora_paths, quantize)
     else:
@@ -200,11 +250,13 @@ def load_pipeline(
             high_noise_model = os.path.join(model_name, HIGH_NOISE_SUBPATH)
         dit_cfg = dit_cfg or weights.dit_config_from_checkpoint(dit_dir)
         # one expert at a time: merged and quantized before the next is read
-        dit = _finish_dit(_read_dit(dit_dir, dit_cfg, dtype, device),
-                          lora_paths, quantize)
+        dit, branches = _read_dit(dit_dir, dit_cfg, dtype, device)
+        _finish_dit(dit, lora_paths, quantize)
         if high_noise_model:
             dit_2 = _finish_dit(_read_dit(high_noise_model, dit_cfg, dtype,
-                                          device), lora_paths, quantize)
+                                          device)[0], lora_paths, quantize)
+        if dit_cfg.model_type == "i2v":
+            clip = _read_clip(model_name, dtype, device)
         vae_path = os.path.join(model_name,
                                 VAE22_SUBPATH if vae22 else VAE_SUBPATH)
         vae = _from_state_dict(Wan22VAE if vae22 else WanVAE, vae_cfg,
@@ -227,6 +279,12 @@ def load_pipeline(
                              attn_backend=attn_backend, device=device,
                              offload_t5=offload_t5, dit_2=dit_2,
                              boundary=boundary)
-    return WanPipeline(dit, vae, t5, tokenizer, dtype=dtype,
-                       attn_backend=attn_backend, device=device,
-                       offload_t5=offload_t5)
+    kw = dict(dtype=dtype, attn_backend=attn_backend, device=device,
+              offload_t5=offload_t5, clip=clip)
+    if "vace" in branches:
+        return VacePipeline(dit, vae, t5, tokenizer, vace=branches["vace"],
+                            **kw)
+    if "camera" in branches:
+        return CameraPipeline(dit, vae, t5, tokenizer,
+                              camera=branches["camera"], **kw)
+    return WanPipeline(dit, vae, t5, tokenizer, **kw)

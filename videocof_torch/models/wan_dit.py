@@ -1,4 +1,4 @@
-"""Wan2.1 3D diffusion transformer (t2v), PyTorch.
+"""Wan2.1 3D diffusion transformer (t2v, and i2v's image branch), PyTorch.
 
 Counterpart of `videocof_tpu/models/wan_dit.py` (`wan_dit_forward`). The
 precision islands are the same: the residual stream is stored in
@@ -17,6 +17,15 @@ store its weight in fp8 (`utils/fp8.py`): it is dequantized to bf16 at its
 use and computes in bf16, as JAX's `_kernel` does. Runtime LoRA adapters
 attached as ``runtime_lora`` (`WanPipeline.set_runtime_lora`) are fused into
 each block's weights inside that block's call when ``lora=`` is not given.
+
+An i2v model (``cfg.model_type == "i2v"``) takes the conditioning latents
+``y`` concatenated to ``x`` on the channel axis and the CLIP features
+``clip_fea``, embedded by ``img_emb`` and put before the text context; its
+cross-attention attends the shared q to the first 257 (image) tokens
+through ``k_img``/``v_img`` and to the text through ``k``/``v``, and sums
+the two before ``o``. It raises without ``clip_fea``, where JAX's would take
+the first 257 text tokens as image tokens. ``y_camera`` (camera control) is
+added onto the patch embeddings.
 """
 
 from __future__ import annotations
@@ -78,6 +87,11 @@ def _linear(x, lin: nn.Linear, dtype=None, weight=None):
 
 def _gelu_tanh(x):
     return F.gelu(x, approximate="tanh")
+
+
+# context tokens of the i2v image stream (CLIP's CLS + 16 x 16 patches)
+IMAGE_TOKENS = 257
+CLIP_DIM = 1280
 
 
 # ------------------------------------------------------------------- remat
@@ -176,12 +190,16 @@ def _lin(din, dout, dtype, device):
 
 
 class Attention(nn.Module):
-    def __init__(self, d, dtype, device):
+    def __init__(self, d, dtype, device, image: bool = False):
         super().__init__()
         self.q, self.k = _lin(d, d, dtype, device), _lin(d, d, dtype, device)
         self.v, self.o = _lin(d, d, dtype, device), _lin(d, d, dtype, device)
         self.norm_q = _Weight(d, dtype, device)
         self.norm_k = _Weight(d, dtype, device)
+        if image:        # i2v's image keys and values
+            self.k_img = _lin(d, d, dtype, device)
+            self.v_img = _lin(d, d, dtype, device)
+            self.norm_k_img = _Weight(d, dtype, device)
 
     def forward(self, x_in, num_heads, eps, kv_in=None, rope_cs=None,
                 kv_mask=None, backend=None, rope_dtype=None, weights=None):
@@ -210,6 +228,30 @@ class Attention(nn.Module):
             out = attention(q, k, v, mask=kv_mask, backend=backend)
         return _linear(out.reshape(B, L, D), self.o, weight=w.get("o"))
 
+    def forward_i2v(self, x_in, num_heads, eps, ctx_img, ctx_txt,
+                    backend=None, weights=None):
+        """i2v's cross-attention: one q against the image stream (``k_img``,
+        ``v_img``, ``norm_k_img``) and the text stream, the two outputs
+        summed before ``o`` (JAX's `_i2v_cross_attn`)."""
+        B, L, D = x_in.shape
+        hd = D // num_heads
+        w = weights or {}
+        q = _rms_norm(_linear(x_in, self.q, weight=w.get("q")),
+                      self.norm_q.weight, eps).view(B, L, num_heads, hd)
+
+        def kv(ctx, k_lin, v_lin, norm, kw, vw):
+            k = _rms_norm(_linear(ctx, k_lin, weight=kw), norm.weight, eps)
+            v = _linear(ctx, v_lin, weight=vw)
+            return (k.view(B, -1, num_heads, hd), v.view(B, -1, num_heads, hd))
+
+        k_t, v_t = kv(ctx_txt, self.k, self.v, self.norm_k, w.get("k"),
+                      w.get("v"))
+        k_i, v_i = kv(ctx_img, self.k_img, self.v_img, self.norm_k_img, None,
+                      None)
+        out = (attention(q, k_t, v_t, backend=backend)
+               + attention(q, k_i, v_i, backend=backend))
+        return _linear(out.reshape(B, L, D), self.o, weight=w.get("o"))
+
 
 class FFN(nn.Module):
     def __init__(self, d, f, dtype, device):
@@ -227,7 +269,8 @@ class WanBlock(nn.Module):
         d = cfg.dim
         self.cfg = cfg
         self.self_attn = Attention(d, dtype, device)
-        self.cross_attn = Attention(d, dtype, device)
+        self.cross_attn = Attention(d, dtype, device,
+                                    image=cfg.model_type == "i2v")
         self.ffn = FFN(d, cfg.ffn_dim, dtype, device)
         self.modulation = nn.Parameter(
             torch.zeros(6, d, dtype=torch.float32, device=device))
@@ -267,11 +310,16 @@ class WanBlock(nn.Module):
             nx = _layer_norm(x, eps, self.norm3.scale, self.norm3.bias)
         else:
             nx = x
-        y = self.cross_attn(nx.to(context.dtype), cfg.num_heads, eps,
-                            kv_in=context,
-                            backend=(None if callable(attn_backend)
-                                     else attn_backend),
-                            weights=fused["cross_attn"])
+        xattn_backend = None if callable(attn_backend) else attn_backend
+        if hasattr(self.cross_attn, "k_img"):
+            y = self.cross_attn.forward_i2v(
+                nx.to(context.dtype), cfg.num_heads, eps,
+                context[:, :IMAGE_TOKENS], context[:, IMAGE_TOKENS:],
+                backend=xattn_backend, weights=fused["cross_attn"])
+        else:
+            y = self.cross_attn(nx.to(context.dtype), cfg.num_heads, eps,
+                                kv_in=context, backend=xattn_backend,
+                                weights=fused["cross_attn"])
         if tag_names:
             y = checkpoint_name(y, "xattn_out")
         x = (x.float() + y.float()).to(sdt)
@@ -302,6 +350,24 @@ class _TimeProj(nn.Module):
     def __init__(self, d, device):
         super().__init__()
         self.fc = _lin(d, 6 * d, torch.float32, device)
+
+
+class _ImageEmbed(nn.Module):
+    """i2v's CLIP-feature MLP: LayerNorm, linear, exact GELU, linear,
+    LayerNorm (`wan_transformer3d.py:551-563`)."""
+
+    def __init__(self, d, dtype, device):
+        super().__init__()
+        self.ln1 = _ScaleBias(CLIP_DIM, dtype, device)
+        self.fc1 = _lin(CLIP_DIM, CLIP_DIM, dtype, device)
+        self.fc2 = _lin(CLIP_DIM, d, dtype, device)
+        self.ln2 = _ScaleBias(d, dtype, device)
+
+    def forward(self, clip_fea, compute_dtype):
+        h = _layer_norm(clip_fea, 1e-5, self.ln1.scale, self.ln1.bias)
+        h = F.gelu(_linear(h.to(compute_dtype), self.fc1), approximate="none")
+        h = _linear(h, self.fc2)
+        return _layer_norm(h, 1e-5, self.ln2.scale, self.ln2.bias)
 
 
 # -------------------------------------------------------------------- patchify
@@ -352,17 +418,61 @@ class WanDiT(nn.Module):
         self.time_mlp = _MLP2(cfg.freq_dim, d, torch.float32, device)
         self.time_proj = _TimeProj(d, device)
         self.head = _Head(d, pt * ph * pw * cfg.out_dim, dtype, device)
+        if cfg.model_type == "i2v":
+            self.img_emb = _ImageEmbed(d, dtype, device)
         self.blocks = nn.ModuleList(WanBlock(cfg, dtype, device)
                                     for _ in range(cfg.num_layers))
         # (LoRAAdapters, scale) fused per block when forward's lora is None
         self.runtime_lora = None
+
+    # the pieces around the block stack, shared with the VACE and S2V
+    # forwards
+    def embed_time(self, t: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Timesteps [B] -> (e [B, D], e0 [B, 6, D]), fp32."""
+        cfg = self.cfg
+        e = sinusoidal_embedding_1d(cfg.freq_dim, t.float())
+        e = _linear(e, self.time_mlp.fc1, torch.float32)
+        e = _linear(F.silu(e), self.time_mlp.fc2, torch.float32)
+        e0 = _linear(F.silu(e), self.time_proj.fc, torch.float32)
+        return e, e0.view(e0.shape[0], 6, cfg.dim)
+
+    def embed_text(self, context: torch.Tensor,
+                   clip_fea: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """umT5 embeddings -> the blocks' context [B, Lt, D]; an i2v model's
+        image tokens (``img_emb`` of ``clip_fea``) go first, and without
+        ``clip_fea`` it raises."""
+        compute_dtype = _kernel_dtype(self.patch_embed)
+        ctx = _linear(context.to(compute_dtype), self.text_mlp.fc1)
+        ctx = _linear(_gelu_tanh(ctx), self.text_mlp.fc2)
+        if hasattr(self, "img_emb"):
+            if clip_fea is None:
+                raise ValueError(
+                    "an i2v DiT needs clip_fea (the CLIP features of the "
+                    "start image, [B, 257, 1280]): without them its "
+                    "cross-attention would take the first 257 text tokens "
+                    "as image tokens")
+            img = self.img_emb(clip_fea, compute_dtype)
+            ctx = torch.cat([img.to(ctx.dtype), ctx], dim=1)
+        return ctx
+
+    def head_out(self, stream: torch.Tensor, e: torch.Tensor
+                 ) -> torch.Tensor:
+        """The head with its 2-way modulation: stream [B, L, D] -> patch
+        tokens [B, L, pt*ph*pw*out_dim] in the compute dtype."""
+        hm = self.head.modulation[None].float() + e[:, None, :]
+        he0, he1 = hm[:, 0][:, None, :], hm[:, 1][:, None, :]
+        out = _layer_norm(stream, self.cfg.eps) * (1.0 + he1) + he0
+        return _linear(out.to(_kernel_dtype(self.patch_embed)), self.head.fc)
 
     def forward(self, x: torch.Tensor, t: torch.Tensor, context: torch.Tensor,
                 rope_cos: torch.Tensor, rope_sin: torch.Tensor,
                 attn_backend: Optional[str] = None, lora=None,
                 remat_blocks: Union[bool, str] = False,
                 seq_lens: Optional[torch.Tensor] = None,
-                sp=None) -> torch.Tensor:
+                sp=None, clip_fea: Optional[torch.Tensor] = None,
+                y: Optional[torch.Tensor] = None,
+                y_camera: Optional[torch.Tensor] = None) -> torch.Tensor:
         """``lora`` = (`LoRAAdapters`, scale) fuses each block's adapters into
         its weights inside that block's call, as the JAX scan does, so only
         one block's fused weights exist at a time; without it the attached
@@ -386,10 +496,16 @@ class WanDiT(nn.Module):
         and text context), every block runs on them, and the head's output
         is all-gathered before the padding is dropped. Each rank returns
         the whole velocity. ``attn_backend`` is then the sequence-parallel
-        self-attention (`make_ulysses_attention`, `make_ring_attention`)."""
+        self-attention (`make_ulysses_attention`, `make_ring_attention`).
+
+        ``y`` [B, C', F, H, W] is concatenated to ``x`` on the channel axis
+        and ``clip_fea`` [B, 257, 1280] embedded before the text context
+        (i2v); ``y_camera`` [B, D, f, h, w] is added onto the patch
+        embeddings (camera control)."""
         return self._run(x, t, context, rope_cos, rope_sin, attn_backend,
                          lora=lora, remat_blocks=remat_blocks,
-                         seq_lens=seq_lens, sp=sp)[0]
+                         seq_lens=seq_lens, sp=sp, clip_fea=clip_fea, y=y,
+                         y_camera=y_camera)[0]
 
     def forward_with_residual(self, x: torch.Tensor, t: torch.Tensor,
                               context: torch.Tensor, rope_cos: torch.Tensor,
@@ -398,7 +514,9 @@ class WanDiT(nn.Module):
                               residual: Optional[torch.Tensor] = None,
                               skip_blocks: bool = False,
                               seq_lens: Optional[torch.Tensor] = None,
-                              sp=None
+                              sp=None, clip_fea: Optional[torch.Tensor] = None,
+                              y: Optional[torch.Tensor] = None,
+                              y_camera: Optional[torch.Tensor] = None
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
         """The forward that exposes TeaCache's token-stream residual
         (`wan_dit_forward_with_residual` with a Python-bool skip): returns
@@ -406,33 +524,35 @@ class WanDiT(nn.Module):
         output stream minus its input; with ``skip_blocks`` the stack is
         bypassed, ``residual`` (of an earlier computed step) is added to the
         embedded stream and returned as it is, and the head still runs.
-        ``seq_lens`` and ``sp`` as in `forward`; under ``sp`` the residual
-        is this rank's shard of the stream, and so is the one it takes."""
+        ``seq_lens``, ``sp``, ``clip_fea``, ``y`` and ``y_camera`` as in
+        `forward`; under ``sp`` the residual is this rank's shard of the
+        stream, and so is the one it takes."""
         if skip_blocks and residual is None:
             raise ValueError("skip_blocks needs a cached residual")
         return self._run(x, t, context, rope_cos, rope_sin, attn_backend,
                          residual=residual, skip_blocks=skip_blocks,
-                         want_residual=True, seq_lens=seq_lens, sp=sp)
+                         want_residual=True, seq_lens=seq_lens, sp=sp,
+                         clip_fea=clip_fea, y=y, y_camera=y_camera)
 
     def _run(self, x, t, context, rope_cos, rope_sin, attn_backend, lora=None,
              remat_blocks=False, residual=None, skip_blocks=False,
-             want_residual=False, seq_lens=None, sp=None):
+             want_residual=False, seq_lens=None, sp=None, clip_fea=None,
+             y=None, y_camera=None):
         cfg = self.cfg
         remat = remat_policy(remat_blocks)
         if lora is None:
             lora = self.runtime_lora
         compute_dtype = _kernel_dtype(self.patch_embed)
+        if y is not None:
+            x = torch.cat([x, y.to(x.dtype)], dim=1)
         tokens, grid = patchify(x.to(compute_dtype), cfg.patch_size)
         hseq = _linear(tokens, self.patch_embed)
+        if y_camera is not None:
+            cam = y_camera.reshape(y_camera.shape[0], y_camera.shape[1], -1)
+            hseq = hseq + cam.transpose(1, 2).to(hseq.dtype)
 
-        e = sinusoidal_embedding_1d(cfg.freq_dim, t.float())
-        e = _linear(e, self.time_mlp.fc1, torch.float32)
-        e = _linear(F.silu(e), self.time_mlp.fc2, torch.float32)    # [B, D]
-        e0 = _linear(F.silu(e), self.time_proj.fc, torch.float32)
-        e0 = e0.view(e0.shape[0], 6, cfg.dim)
-
-        ctx = _linear(context.to(compute_dtype), self.text_mlp.fc1)
-        ctx = _linear(_gelu_tanh(ctx), self.text_mlp.fc2)          # [B, Lt, D]
+        e, e0 = self.embed_time(t)                       # [B, D], [B, 6, D]
+        ctx = self.embed_text(context, clip_fea)         # [B, Lt, D]
 
         # pad tokens to the kernel tile and the seq axis (the tables, [L,
         # D/2] or per sample [B, L, D/2], with the identity rotation);
@@ -485,10 +605,7 @@ class WanDiT(nn.Module):
         else:
             residual_out = stream - stream0 if want_residual else None
 
-        hm = self.head.modulation[None].float() + e[:, None, :]
-        he0, he1 = hm[:, 0][:, None, :], hm[:, 1][:, None, :]
-        out = _layer_norm(stream, cfg.eps) * (1.0 + he1) + he0
-        out = _linear(out.to(compute_dtype), self.head.fc)
+        out = self.head_out(stream, e)
         if sp_on:
             out = sp.gather(out)         # the head-exit all-gather
         out = out[:, :L_real]

@@ -18,7 +18,12 @@ numpy). The converters map the published keys straight onto the port's
 ``state_dict`` names: linear weights stay [out, in], the patch-embedding
 conv weight [O, I, 1, 2, 2] becomes the linear [O, I * 4], the modulations
 [1, 6, d] become [6, d] fp32, and the time layers are fp32, as JAX keeps
-them.
+them. An i2v DiT's image branch (``img_emb.proj.*``, each block's
+``cross_attn.k_img``/``v_img``/``norm_k_img``) maps onto the port's i2v
+modules; the VACE branch (`wan_dit_vace.convert_vace_state_dict`) and the
+camera adapter (`camera_pipeline.convert_camera_adapter_state_dict`) are
+read by their own converters, which the factory calls where a checkpoint
+holds them.
 """
 
 from __future__ import annotations
@@ -43,8 +48,6 @@ SAFETENSORS_DTYPES = {
     "BOOL": torch.bool,
 }
 DIT_INDEX = "diffusion_pytorch_model.safetensors.index.json"
-# the published branches the port does not carry (ROADMAP.md §A.10)
-_UNPORTED_DIT_KEYS = ("img_emb.", "vace_", "control_adapter.")
 
 
 # ---------------------------------------------------------------- file reading
@@ -138,25 +141,28 @@ def read_checkpoint_config(model_dir: str) -> Dict[str, Any]:
 
 
 def dit_config_from_checkpoint(model_dir: str) -> WanDiTConfig:
-    """The port's `WanDiTConfig` of a checkpoint directory. Only the t2v
-    DiT with q/k RMSNorm is ported (Wan2.1 t2v, either Wan2.2 A14B expert,
-    the TI2V-5B, whose ``model_type`` is ``ti2v``): another ``model_type``
-    or ``qk_norm: false`` raises (ROADMAP.md §A.10)."""
+    """The port's `WanDiTConfig` of a checkpoint directory: the t2v DiT
+    (Wan2.1 t2v and VACE, either Wan2.2 A14B expert, the TI2V-5B, whose
+    ``model_type`` is ``ti2v``) or the i2v one, with q/k RMSNorm. Another
+    ``model_type`` raises ``ValueError``; ``qk_norm: false`` raises
+    ``NotImplementedError``: no published Wan checkpoint has it."""
     raw = read_checkpoint_config(model_dir)
-    if raw.get("model_type", "t2v") not in ("t2v", "ti2v"):
-        raise NotImplementedError(
-            f"{model_dir}: model_type {raw['model_type']!r}; only the t2v "
-            f"DiT is ported (ROADMAP.md §A.10)")
+    model_type = raw.get("model_type", "t2v")
+    if model_type not in ("t2v", "ti2v", "i2v"):
+        raise ValueError(f"{model_dir}: model_type {model_type!r}; the Wan "
+                         f"DiT is t2v, ti2v or i2v")
     if not raw.get("qk_norm", True):
         raise NotImplementedError(
             f"{model_dir}: qk_norm false; the port's DiT always normalizes "
-            f"q and k (ROADMAP.md §A.10)")
+            f"q and k")
     keep = {k: raw[k] for k in (
         "text_len", "in_dim", "dim", "ffn_dim", "freq_dim", "text_dim",
         "out_dim", "num_heads", "num_layers", "cross_attn_norm", "eps")
         if k in raw}
     if "patch_size" in raw:
         keep["patch_size"] = tuple(raw["patch_size"])
+    if model_type == "i2v":
+        keep["model_type"] = "i2v"
     return WanDiTConfig(**keep)
 
 
@@ -178,20 +184,47 @@ DIT_BLOCK_NAMES = {
     "ffn.2": "ffn.fc2",
 }
 _FP32_TOP = ("time_embedding.", "time_projection.")
+# i2v's CLIP-feature MLP (Sequential(LN, Linear, GELU, Linear, LN)) and each
+# block's image keys and values
+DIT_IMG_EMB_NAMES = {"img_emb.proj.0": ("img_emb.ln1", "scale"),
+                     "img_emb.proj.1": ("img_emb.fc1", "weight"),
+                     "img_emb.proj.3": ("img_emb.fc2", "weight"),
+                     "img_emb.proj.4": ("img_emb.ln2", "scale")}
+DIT_IMG_BLOCK_NAMES = ("cross_attn.k_img", "cross_attn.v_img")
+
+
+def convert_block_state_dict(sd: StateDict, src: str, dst: str,
+                             cfg: WanDiTConfig, dtype: torch.dtype
+                             ) -> StateDict:
+    """One `WanAttentionBlock`'s published keys under ``src`` (``blocks.3.``
+    or ``vace_blocks.0.``) -> `WanBlock` keys under ``dst``."""
+    out: StateDict = {}
+    for a, b in DIT_BLOCK_NAMES.items():
+        out[dst + b + ".weight"] = sd[src + a + ".weight"].to(dtype)
+        out[dst + b + ".bias"] = sd[src + a + ".bias"].to(dtype)
+    for a in ("self_attn", "cross_attn"):
+        for n in ("norm_q", "norm_k"):
+            out[f"{dst}{a}.{n}.weight"] = sd[f"{src}{a}.{n}.weight"].to(dtype)
+    out[dst + "modulation"] = sd[src + "modulation"].reshape(6, -1).to(
+        torch.float32)
+    if cfg.cross_attn_norm:
+        out[dst + "norm3.scale"] = sd[src + "norm3.weight"].to(dtype)
+        out[dst + "norm3.bias"] = sd[src + "norm3.bias"].to(dtype)
+    if cfg.model_type == "i2v":
+        for n in DIT_IMG_BLOCK_NAMES:
+            out[dst + n + ".weight"] = sd[src + n + ".weight"].to(dtype)
+            out[dst + n + ".bias"] = sd[src + n + ".bias"].to(dtype)
+        out[dst + "cross_attn.norm_k_img.weight"] = sd[
+            src + "cross_attn.norm_k_img.weight"].to(dtype)
+    return out
 
 
 def convert_dit_state_dict(sd: StateDict, cfg: WanDiTConfig,
                            dtype: torch.dtype = torch.float32) -> StateDict:
     """Wan DiT published keys -> `WanDiT` state dict in ``dtype`` (the time
-    layers and the modulations fp32). The i2v image branch, VACE and the
-    camera adapter raise (ROADMAP.md §A.10)."""
-    extra = sorted(k for k in sd if k.startswith(_UNPORTED_DIT_KEYS)
-                   or ".k_img." in k or ".v_img." in k or "norm_k_img" in k)
-    if extra:
-        raise NotImplementedError(
-            f"the checkpoint holds a branch the port does not carry (i2v "
-            f"image embedding, VACE or camera control; ROADMAP.md §A.10): "
-            f"{extra[:4]}")
+    layers and the modulations fp32); an i2v ``cfg`` takes the image
+    branch too. The keys of the VACE branch and the camera adapter are
+    left to their own converters."""
     f32 = torch.float32
     pe = sd["patch_embedding.weight"]                 # [O, I, kt, kh, kw]
     out: StateDict = {
@@ -203,18 +236,13 @@ def convert_dit_state_dict(sd: StateDict, cfg: WanDiTConfig,
         dt = f32 if src.startswith(_FP32_TOP) else dtype
         out[dst + ".weight"] = sd[src + ".weight"].to(dt)
         out[dst + ".bias"] = sd[src + ".bias"].to(dt)
+    if cfg.model_type == "i2v":
+        for src, (dst, w) in DIT_IMG_EMB_NAMES.items():
+            out[f"{dst}.{w}"] = sd[src + ".weight"].to(dtype)
+            out[dst + ".bias"] = sd[src + ".bias"].to(dtype)
     for i in range(cfg.num_layers):
-        b = f"blocks.{i}."
-        for src, dst in DIT_BLOCK_NAMES.items():
-            out[b + dst + ".weight"] = sd[b + src + ".weight"].to(dtype)
-            out[b + dst + ".bias"] = sd[b + src + ".bias"].to(dtype)
-        for a in ("self_attn", "cross_attn"):
-            for n in ("norm_q", "norm_k"):
-                out[f"{b}{a}.{n}.weight"] = sd[f"{b}{a}.{n}.weight"].to(dtype)
-        out[b + "modulation"] = sd[b + "modulation"].reshape(6, -1).to(f32)
-        if cfg.cross_attn_norm:
-            out[b + "norm3.scale"] = sd[b + "norm3.weight"].to(dtype)
-            out[b + "norm3.bias"] = sd[b + "norm3.bias"].to(dtype)
+        out.update(convert_block_state_dict(sd, f"blocks.{i}.",
+                                            f"blocks.{i}.", cfg, dtype))
     return out
 
 

@@ -26,15 +26,36 @@ from .int8_attention import int8_flash_attention
 BACKENDS = ("flash", "int8", "naive")
 
 
+# rows of q per chunk of the naive backend: keeps its fp32 logits near 1 GiB
+_NAIVE_LOGIT_BYTES = 1 << 30
+
+
 def _naive_attention(q, k, v, mask=None, scale=None):
-    d = q.shape[-1]
+    """fp32 softmax attention, q's rows taken in chunks whose logits stay
+    near 1 GiB (each row's softmax is its own: the chunks change nothing);
+    K and V are laid out for the batched products once."""
+    B, Lq, N, d = q.shape
     scale = d ** -0.5 if scale is None else scale
-    logits = torch.einsum("bqnd,bknd->bnqk", q.float(), k.float()) * scale
-    if mask is not None:
-        neg = torch.finfo(torch.float32).min
-        logits = logits.masked_fill(~mask.bool()[:, None, None, :], neg)
-    probs = torch.softmax(logits, dim=-1)
-    return torch.einsum("bnqk,bknd->bqnd", probs, v.float()).to(q.dtype)
+    Lk = k.shape[1]
+    # [B*N, D, Lk] and [B*N, Lk, D]
+    kt = k.float().permute(0, 2, 3, 1).reshape(B * N, d, Lk)
+    vf = v.float().permute(0, 2, 1, 3).reshape(B * N, Lk, d)
+    masked = None if mask is None else ~mask.bool()[:, None, None, :]
+    rows = max(1, _NAIVE_LOGIT_BYTES // (4 * B * N * max(Lk, 1)))
+    outs = []
+    for r0 in range(0, Lq, rows):
+        qc = q[:, r0:r0 + rows].float().permute(0, 2, 1, 3)   # [B, N, r, D]
+        r = qc.shape[2]
+        # the logits scaled in the product's epilogue: (q . k) * scale
+        logits = torch.baddbmm(torch.zeros(1, 1, 1, device=q.device),
+                               qc.reshape(B * N, r, d), kt, beta=0.0,
+                               alpha=scale).view(B, N, r, Lk)
+        if masked is not None:
+            logits.masked_fill_(masked, torch.finfo(torch.float32).min)
+        probs = torch.softmax(logits, dim=-1).view(B * N, r, Lk)
+        outs.append(torch.bmm(probs, vf).view(B, N, r, d).transpose(1, 2)
+                    .to(q.dtype))
+    return torch.cat(outs, dim=1)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

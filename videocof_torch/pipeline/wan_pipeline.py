@@ -27,8 +27,10 @@ of them, which die with the call (JAX's host-resident umT5 that streams to
 the device per `encode_prompt`).
 
 `text_to_video` denoises pure noise with standard RoPE and no source
-freeze (JAX's stepwise t2v branch); `set_runtime_lora` attaches LoRA files
-as runtime adapters, the LoRA path over fp8 weights. The VAE's type picks
+freeze (JAX's stepwise t2v branch); `image_to_video` animates a start image
+with an i2v DiT (JAX's stepwise i2v branch), the CLIP tower run on the
+start image in [-1, 1] (JAX's hands the tower [0, 1]); `set_runtime_lora`
+attaches LoRA files as runtime adapters, the LoRA path over fp8 weights. The VAE's type picks
 the streaming module: the Wan2.2 VAE (`Wan22VAEConfig`) streams through
 `wan_vae22_streaming`, the Wan2.1 one through `wan_vae_streaming`.
 
@@ -111,10 +113,12 @@ class WanPipeline:
                  tokenizer: Optional[WanTokenizer] = None,
                  dtype: torch.dtype = torch.bfloat16,
                  attn_backend: Optional[str] = None, device=None,
-                 offload_t5: bool = False):
+                 offload_t5: bool = False, clip=None):
         self.device = _resolve_device(device)
         self.dit = dit.to(self.device)
         self.vae = vae.to(self.device)
+        # the CLIP vision tower of an i2v checkpoint (`models/clip_vision`)
+        self.clip = None if clip is None else clip.to(self.device)
         self.offload_t5 = offload_t5
         self.t5 = _to_host(t5) if offload_t5 else t5.to(self.device)
         self.tokenizer = tokenizer or WanTokenizer(vocab_size=t5.cfg.vocab)
@@ -304,38 +308,55 @@ class WanPipeline:
                          dim=2)
 
     # ------------------------------------------------------------------ step
-    def _dit(self, dit, x, t_i, context, cos, sin, residual, skip,
-             cfg: bool = False):
-        """One forward of ``dit``; ``cfg``: ``x`` is the doubled batch of a
-        CFG step (split over the data ranks under CFG parallelism)."""
-        t = torch.full((x.shape[0],), t_i, dtype=torch.float32,
-                       device=self.device)
+    def _velocity(self, dit, x, t, context, cos, sin, residual, skip, sp,
+                  cond):
+        """The default velocity model of a step: ``dit``'s forward with its
+        TeaCache residual, ``cond`` its per-row conditioning (i2v's
+        ``clip_fea`` and ``y``, camera control's ``y_camera``). The VACE and
+        S2V pipelines hand `_t2v_denoise` their own forwards."""
         return dit.forward_with_residual(
             x.to(self.dtype), t, context, cos, sin,
             attn_backend=self.attn_backend, residual=residual,
-            skip_blocks=skip, sp=self._sp_for(cfg))
+            skip_blocks=skip, sp=sp, **cond)
+
+    def _dit(self, dit, x, t_i, context, cos, sin, residual, skip,
+             cfg: bool = False, cond=None, velocity=None):
+        """One forward of ``dit`` (through ``velocity``, default
+        `_velocity`); ``cfg``: ``x`` is the doubled batch of a CFG step
+        (split over the data ranks under CFG parallelism)."""
+        t = torch.full((x.shape[0],), t_i, dtype=torch.float32,
+                       device=self.device)
+        return (velocity or self._velocity)(
+            dit, x, t, context, cos, sin, residual, skip, self._sp_for(cfg),
+            cond or {})
 
     def _denoise_step(self, dit, latents, t_i, context, cos, sin, cfg: bool,
                       guidance_scale: float, condition_count: int,
-                      residual=None, skip: bool = False):
+                      residual=None, skip: bool = False, cond=None,
+                      velocity=None):
         """One step's velocity and ``dit``'s TeaCache residual: with ``cfg``
-        the latents are doubled against ``context`` = [uncond | cond] and
-        combined as ``vu + g (vc - vu)``; then the source freeze. With
-        ``cfg_sequential`` the two halves run as two batch-B forwards (the
-        freeze is linear, so it commutes with the combine) and the residual
-        is [uncond | cond] as the batched one."""
+        the latents (and the rows of ``cond``) are doubled against
+        ``context`` = [uncond | cond] and combined as ``vu + g (vc - vu)``;
+        then the source freeze. With ``cfg_sequential`` the two halves run
+        as two batch-B forwards (the freeze is linear, so it commutes with
+        the combine) and the residual is [uncond | cond] as the batched
+        one."""
+        cond = cond or {}
         if cfg and self.cfg_sequential:
             B = latents.shape[0]
             res = (None, None) if residual is None else residual.split(B)
             vu, res_u = self._dit(dit, latents, t_i, context[:B], cos, sin,
-                                  res[0], skip)
+                                  res[0], skip, cond=cond, velocity=velocity)
             vc, res_c = self._dit(dit, latents, t_i, context[B:], cos, sin,
-                                  res[1], skip)
-            v, res = vu + guidance_scale * (vc - vu), torch.cat([res_u, res_c])
+                                  res[1], skip, cond=cond, velocity=velocity)
+            v = vu + guidance_scale * (vc - vu)
+            res = None if res_u is None else torch.cat([res_u, res_c])
         else:
             x = torch.cat([latents, latents]) if cfg else latents
+            if cfg:
+                cond = {k: torch.cat([c, c]) for k, c in cond.items()}
             v, res = self._dit(dit, x, t_i, context, cos, sin, residual,
-                               skip, cfg)
+                               skip, cfg, cond, velocity)
             if cfg:
                 vu, vc = v.chunk(2)
                 v = vu + guidance_scale * (vc - vu)
@@ -429,14 +450,17 @@ class WanPipeline:
     def _t2v_denoise(self, latents, context, cos, sin, sched, do_cfg: bool,
                      guidance_scale: float, skips: Sequence[bool],
                      cfg_off: int, condition_count: int = 0,
-                     tick: Optional[Callable[[str], None]] = None
-                     ) -> torch.Tensor:
+                     tick: Optional[Callable[[str], None]] = None,
+                     cond: Optional[Dict[str, torch.Tensor]] = None,
+                     velocity: Optional[Callable] = None) -> torch.Tensor:
         """The stepwise trajectory from ``latents`` (JAX's stepwise branch of
         `_t2v_denoise` and of `__call__`): each step's DiT and guidance
         from `_expert_plan`, CFG until ``cfg_off``, TeaCache's cached
         residual replayed where ``skips``, the first ``condition_count``
         latent frames frozen (0: text-to-video). ``tick`` labels each
-        step's wall time."""
+        step's wall time; ``cond`` is the step-invariant conditioning of
+        the velocity model (``velocity``, default `_velocity`), one row per
+        latent row."""
         state = sched.init_state(latents)
         residual, res_split = None, False
         for i, (dit, g) in enumerate(self._expert_plan(sched,
@@ -457,7 +481,8 @@ class WanPipeline:
                 res_in = residual[-need:]   # cfg-skip keeps the cond rows
             v, res = self._denoise_step(
                 dit, latents, float(sched.timesteps[i]), ctx_i, cos, sin,
-                step_cfg, g, condition_count, res_in, skips[i])
+                step_cfg, g, condition_count, res_in, skips[i], cond,
+                velocity)
             if not skips[i]:
                 residual = res
                 res_split = step_cfg and self.cfg_parallel and \
@@ -635,10 +660,7 @@ class WanPipeline:
         gen = torch.Generator(device=self.device).manual_seed(seed)
         latents = self._noise(shape, gen, noise)
         ph, pw = self.dit.cfg.patch_size[1:]
-        cos, sin = wan_dit.make_rope_for_geometry(
-            self.dit.cfg, (shape[2], shape[3] // ph, shape[4] // pw))
-        cos = torch.as_tensor(cos, device=self.device)
-        sin = torch.as_tensor(sin, device=self.device)
+        cos, sin = self._rope((shape[2], shape[3] // ph, shape[4] // pw))
         tick("latents")
         sched = self._scheduler(sampler, num_inference_steps, shift,
                                 solver_order)
@@ -648,6 +670,115 @@ class WanPipeline:
             teacache_forced_plan, do_cfg, cfg_skip_ratio)
         latents = self._t2v_denoise(latents, context, cos, sin, sched, do_cfg,
                                     guidance_scale, skips, cfg_off, 0, tick)
+        return self._decode_whole(latents, output_latents, tick)
+
+    # ------------------------------------------------------------------ i2v
+    @torch.no_grad()
+    def prepare_i2v_conditioning(self, video01, mask255) -> torch.Tensor:
+        """(video [B, 3, T, H, W] in [0, 1], mask [B, 1, T, H, W], 255 =
+        generate) -> y [B, tc + z, Tl, h, w] fp32, the Wan-i2v channels the
+        i2v DiT takes after the latents (in_dim = z + tc + z): the keep
+        mask, the first frame's flag repeated ``tc`` times and folded into
+        the temporal compression, then the VAE mode of the conditioning
+        video with its generated frames zeroed (0 in [-1, 1])."""
+        video01 = torch.as_tensor(video01, dtype=torch.float32,
+                                  device=self.device)
+        mask255 = torch.as_tensor(mask255, dtype=torch.float32,
+                                  device=self.device)
+        B, _, T, H, W = video01.shape
+        vcfg = self.vae.cfg
+        tc = vcfg.temporal_compression_ratio
+        sc = vcfg.spatial_compression_ratio
+        Tl, h, w = latent_frame_count(T, tc), H // sc, W // sc
+        keep = 1.0 - mask255 / 255.0                     # 1 = conditioned
+        y_lat = self.vae_encode((video01 * 2.0 - 1.0) * keep).float()
+        flags = keep[:, 0].amax(dim=(2, 3))              # [B, T]
+        flags = torch.cat([flags[:, :1].repeat(1, tc), flags[:, 1:]], dim=1)
+        msk = flags.reshape(B, Tl, tc).transpose(1, 2)   # [B, tc, Tl]
+        msk = msk[:, :, :, None, None].expand(B, tc, Tl, h, w)
+        return torch.cat([msk, y_lat], dim=1)
+
+    @torch.no_grad()
+    def encode_image(self, clip, image_u8: np.ndarray) -> torch.Tensor:
+        """An HWC uint8 image -> its CLIP features [1, 257, 1280] in
+        self.dtype, the image handed to `preprocess_frames` in [-1, 1]
+        (its contract; JAX's `image_to_video` hands it [0, 1])."""
+        from ..models.clip_vision import preprocess_frames
+        frames = torch.tensor(np.asarray(image_u8), device=self.device)
+        frames = frames.permute(2, 0, 1)[None].float() * (2.0 / 255.0) - 1.0
+        return clip(preprocess_frames(frames, clip.cfg)).to(self.dtype)
+
+    @torch.no_grad()
+    def image_to_video(self, start_image, prompt: Union[str, Sequence[str]],
+                       *, end_image=None, num_frames: int = 33,
+                       height: int = 480, width: int = 832,
+                       negative_prompt: str = "",
+                       num_inference_steps: int = 40,
+                       guidance_scale: float = 5.0, shift: float = 5.0,
+                       sampler: str = "unipc", seed: int = 0,
+                       max_sequence_length: int = 512, clip=None,
+                       clip_fea=None, noise=None,
+                       output_latents: bool = False,
+                       solver_order: Optional[int] = None,
+                       timings: Optional[Dict[str, float]] = None
+                       ) -> WanPipelineOutput:
+        """Image-to-video with JAX's defaults: animate ``start_image`` (a
+        path, HWC uint8 array or PIL image; ``end_image`` pins the last
+        frame) with an i2v DiT (model_type "i2v": the conditioning `y`
+        concatenated on the channels, the CLIP image tokens before the
+        text). ``clip_fea`` [1, 257, 1280] may be given; else ``clip`` (a
+        `ClipVision`, the factory's ``pipe.clip``) encodes the start image.
+        Without either the DiT raises (JAX's runs its image cross-attention
+        on text tokens). One prompt a call; noise [1, z, Tl, H/8, W/8] from
+        ``seed`` (or ``noise``); standard RoPE; CFG against
+        ``negative_prompt`` when ``guidance_scale > 1``; the stepwise
+        sampler; the clip decoded to uint8. ``timings`` receives the stage
+        walls as `__call__`'s does."""
+        from ..utils import video_io as vio
+        tick = self._stage_timer(timings)
+        prompts = [prompt] if isinstance(prompt, str) else list(prompt)
+        if len(prompts) != 1:
+            raise ValueError(f"image_to_video takes exactly one prompt per "
+                             f"call, got {len(prompts)}")
+        video01, mask255, clip_img = vio.get_image_to_video_latent(
+            start_image, end_image, num_frames, (height, width))
+        do_cfg = guidance_scale > 1.0
+        context = self._context(prompts, do_cfg, negative_prompt,
+                                max_sequence_length, None, None)
+        tick("text")
+        if clip_fea is None and clip is not None and clip_img is not None:
+            clip_fea = self.encode_image(clip, clip_img)
+        tick("clip")
+        y = self.prepare_i2v_conditioning(video01, mask255)
+        _, _, Tl, h, w = y.shape
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        latents = self._noise((1, self.vae.cfg.z_dim, Tl, h, w), gen, noise)
+        cond = {"y": y}
+        if clip_fea is not None:
+            cond["clip_fea"] = torch.as_tensor(clip_fea, device=self.device
+                                               ).to(self.dtype)
+        ph, pw = self.dit.cfg.patch_size[1:]
+        cos, sin = self._rope((Tl, h // ph, w // pw))
+        tick("encode+latents")
+        sched = self._scheduler(sampler, num_inference_steps, shift,
+                                solver_order)
+        latents = self._t2v_denoise(latents, context, cos, sin, sched, do_cfg,
+                                    guidance_scale,
+                                    [False] * num_inference_steps,
+                                    num_inference_steps, 0, tick, cond)
+        return self._decode_whole(latents, output_latents, tick)
+
+    # ------------------------------------------------- shared by the variants
+    def _rope(self, grid) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Standard RoPE tables of a latent grid, on the device."""
+        cos, sin = wan_dit.make_rope_for_geometry(self.dit.cfg, grid)
+        return (torch.as_tensor(cos, device=self.device),
+                torch.as_tensor(sin, device=self.device))
+
+    def _decode_whole(self, latents, output_latents: bool,
+                      tick: Callable[[str], None]) -> WanPipelineOutput:
+        """The whole clip decoded to uint8 (streamed above the threshold)
+        and handed to the host in [0, 1]."""
         host = self.decode_to_u8(latents).cpu().numpy().astype(
             np.float32) / 255.0
         tick("decode")

@@ -49,7 +49,7 @@ def get_scheduler(name: str, **kwargs):
     if key == "ddim":
         raise NotImplementedError(f"scheduler {name!r} (DDIM, CogVideoX's "
                                   f"sampler) is not ported (ROADMAP.md "
-                                  f"§A.10, with CogVideoX)")
+                                  f"§A.4, with CogVideoX)")
     if key not in SCHEDULERS:
         raise ValueError(f"unknown scheduler {name!r}; have "
                          f"{sorted(SCHEDULERS)}")

@@ -10,7 +10,7 @@ pipeline, and attached as runtime adapters to fp8 experts (`merge_lora`
 refuses fp8 weights). A weight swap copies a checkpoint into the resident
 DiT tensor by tensor, re-quantizing fp8 experts on the way in, so the card
 never holds a second model. The non-Wan families (`generate_media`, a swap
-to a CogVideoX, Flux or QwenImage checkpoint) wait for ROADMAP.md §A.10.
+to a CogVideoX, Flux or QwenImage checkpoint) wait for ROADMAP.md §A.4.
 """
 
 from __future__ import annotations
@@ -122,7 +122,7 @@ class VideoCoFController:
         if family != "wan":
             raise NotImplementedError(
                 f"{path} is a {family} checkpoint; the other model families "
-                f"are not ported (ROADMAP.md §A.10)")
+                f"are not ported (ROADMAP.md §A.4)")
         dit_2 = getattr(pipe, "dit_2", None)
         if is_wan22_moe_dir(path):
             if dit_2 is None:
@@ -280,7 +280,7 @@ class VideoCoFController:
     def generate_media(self, *args, **kwargs) -> Dict[str, Any]:
         """The CogVideoX, Flux and QwenImage generation of the JAX
         controller: this controller holds a Wan pipeline, so it raises (as
-        JAX's does on Wan); the families wait for ROADMAP.md §A.10."""
+        JAX's does on Wan); the families wait for ROADMAP.md §A.4."""
         raise RuntimeError(
             "generate_media serves the CogVideoX/Flux/QwenImage families; "
             "this controller holds a Wan pipeline — use generate/"

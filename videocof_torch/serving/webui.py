@@ -10,7 +10,7 @@ negative prompt, LoRA path and weight, TeaCache, cfg-skip, the MoE's
 second guidance, text-to-video) and the model switch. The same form fields
 post to the same JSON endpoints; the embeddings-in mode of the non-Wan
 families is answered by the API's 400 until they are ported (ROADMAP.md
-§A.10).
+§A.4).
 """
 
 INDEX_HTML = """<!doctype html>

@@ -29,7 +29,8 @@ import torch
 from torch.distributed.tensor import DTensor
 
 from ..configs import T5Config, Wan22VAEConfig, WanDiTConfig
-from ..models.weights import (DIT_BLOCK_NAMES, DIT_INDEX, DIT_TOP_NAMES,
+from ..models.weights import (DIT_BLOCK_NAMES, DIT_IMG_BLOCK_NAMES,
+                              DIT_IMG_EMB_NAMES, DIT_INDEX, DIT_TOP_NAMES,
                               SAFETENSORS_DTYPES, AnyKey, t5_key_map,
                               vae_key_map)
 
@@ -163,18 +164,36 @@ def export_dit_state_dict(sd: Mapping[str, torch.Tensor], cfg: WanDiTConfig
     for dst, src in DIT_TOP_NAMES.items():
         out[dst + ".weight"] = sd[src + ".weight"]
         out[dst + ".bias"] = sd[src + ".bias"]
+    if cfg.model_type == "i2v":
+        for dst, (src, w) in DIT_IMG_EMB_NAMES.items():
+            out[dst + ".weight"] = sd[f"{src}.{w}"]
+            out[dst + ".bias"] = sd[src + ".bias"]
     for i in range(cfg.num_layers):
-        b = f"blocks.{i}."
-        for dst, src in DIT_BLOCK_NAMES.items():
-            out[b + dst + ".weight"] = sd[b + src + ".weight"]
-            out[b + dst + ".bias"] = sd[b + src + ".bias"]
-        for a in ("self_attn", "cross_attn"):
-            for n in ("norm_q", "norm_k"):
-                out[f"{b}{a}.{n}.weight"] = sd[f"{b}{a}.{n}.weight"]
-        out[b + "modulation"] = sd[b + "modulation"].float()[None]
-        if cfg.cross_attn_norm:
-            out[b + "norm3.weight"] = sd[b + "norm3.scale"]
-            out[b + "norm3.bias"] = sd[b + "norm3.bias"]
+        out.update(export_block_state_dict(sd, f"blocks.{i}.", f"blocks.{i}.",
+                                           cfg))
+    return out
+
+
+def export_block_state_dict(sd: Mapping[str, torch.Tensor], src: str,
+                            dst: str, cfg: WanDiTConfig) -> StateDict:
+    """One `WanBlock`'s keys under ``src`` -> the published block keys
+    under ``dst`` (the inverse of `weights.convert_block_state_dict`)."""
+    out: StateDict = {}
+    for a, b in DIT_BLOCK_NAMES.items():
+        out[dst + a + ".weight"] = sd[src + b + ".weight"]
+        out[dst + a + ".bias"] = sd[src + b + ".bias"]
+    for a in ("self_attn", "cross_attn"):
+        for n in ("norm_q", "norm_k"):
+            out[f"{dst}{a}.{n}.weight"] = sd[f"{src}{a}.{n}.weight"]
+    out[dst + "modulation"] = sd[src + "modulation"].float()[None]
+    if cfg.cross_attn_norm:
+        out[dst + "norm3.weight"] = sd[src + "norm3.scale"]
+        out[dst + "norm3.bias"] = sd[src + "norm3.bias"]
+    if cfg.model_type == "i2v":
+        for n in DIT_IMG_BLOCK_NAMES + ("cross_attn.norm_k_img",):
+            out[dst + n + ".weight"] = sd[src + n + ".weight"]
+            if n != "cross_attn.norm_k_img":
+                out[dst + n + ".bias"] = sd[src + n + ".bias"]
     return out
 
 
@@ -187,8 +206,9 @@ def save_dit_safetensors(path: str, dit: torch.nn.Module,
 
 
 def dit_checkpoint_config(cfg: WanDiTConfig) -> Dict[str, object]:
-    """The ``config.json`` of a published Wan2.1 t2v DiT for ``cfg``."""
-    return {"_class_name": "WanModel", "model_type": "t2v",
+    """The ``config.json`` of a published Wan2.1 t2v or i2v DiT for
+    ``cfg``."""
+    return {"_class_name": "WanModel", "model_type": cfg.model_type,
             "patch_size": list(cfg.patch_size), "text_len": cfg.text_len,
             "in_dim": cfg.in_dim, "dim": cfg.dim, "ffn_dim": cfg.ffn_dim,
             "freq_dim": cfg.freq_dim, "text_dim": cfg.text_dim,
@@ -198,13 +218,17 @@ def dit_checkpoint_config(cfg: WanDiTConfig) -> Dict[str, object]:
 
 
 def save_dit_checkpoint_dir(model_dir: str, dit: torch.nn.Module,
-                            cfg: WanDiTConfig, num_shards: int = 2) -> int:
+                            cfg: WanDiTConfig, num_shards: int = 2,
+                            extra: Optional[Mapping[str, torch.Tensor]] = None
+                            ) -> int:
     """A checkpoint directory in the published layout: ``config.json``,
     ``num_shards`` safetensors shards of about equal size and their
     ``diffusion_pytorch_model.safetensors.index.json``; returns the bytes of
-    the shards."""
+    the shards. ``extra`` holds published keys written beside the DiT's
+    (a VACE branch, a camera adapter)."""
     os.makedirs(model_dir, exist_ok=True)
     sd = export_dit_state_dict(dit.state_dict(), cfg)
+    sd.update(extra or {})
     total = sum(t.numel() * t.element_size() for t in sd.values())
     shards = [dict() for _ in range(num_shards)]
     filled = 0

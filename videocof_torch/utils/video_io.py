@@ -7,6 +7,10 @@ package's native libav runtime (`videocof_tpu/runtime/`) is not ported
 (`fast_infer.py:43-92`), from a start drawn by the caller's numpy generator,
 and the last frame repeats when the clip runs short. Outputs are mp4 (cv2's
 ``mp4v``), or a PNG sequence where no mp4 writer opens.
+
+Image-to-video conditioning (`get_image_to_video_latent`) reads and resizes
+its images through PIL with its default resample (BICUBIC), as JAX's and
+the reference's do.
 """
 
 from __future__ import annotations
@@ -164,3 +168,65 @@ def save_side_by_side(input_video: np.ndarray, sample: np.ndarray, path: str,
     w = min(a.shape[3], b.shape[3])
     save_video(np.concatenate([a[:, :t, :h, :w], b[:, :t, :h, :w]], axis=3),
                path, fps)
+
+
+def _read_image_rgb(img, size: Optional[Tuple[int, int]] = None
+                    ) -> np.ndarray:
+    """-> HWC uint8 RGB. ``img``: a path, an HWC array or a PIL image;
+    ``size`` = (H, W) resizes through PIL's ``Image.resize`` with its
+    default resample (BICUBIC), as the reference does
+    (`videox_fun/utils/utils.py:148-162`)."""
+    from PIL import Image
+    if isinstance(img, str):
+        with Image.open(img) as im:
+            a = np.asarray(im.convert("RGB"), np.uint8)
+    else:
+        a = np.asarray(img, np.uint8)
+    if size is not None and a.shape[:2] != tuple(size):
+        a = np.asarray(Image.fromarray(a).resize((size[1], size[0])),
+                       np.uint8)
+    return a
+
+
+def get_image_to_video_latent(image_start, image_end, video_length: int,
+                              sample_size: Tuple[int, int]):
+    """The image-to-video conditioning (the reference's
+    `get_image_to_video_latent`, `videox_fun/utils/utils.py:145-242`).
+
+    ``image_start``/``image_end``: a path, HWC array or PIL image, a list of
+    those, or None -> ``(video [1, 3, T, H, W] float in [0, 1], mask
+    [1, 1, T, H, W] 0/255, clip_image HWC uint8 or None)``: the start
+    frame(s) fill the head (mask 0 = keep), the rest repeats the first
+    start frame under mask 255 (= generate); end frame(s) overwrite the
+    tail with mask 0."""
+    H, W = sample_size
+    if image_start is None:
+        video = np.zeros((1, 3, video_length, H, W), np.float32)
+        mask = np.full((1, 1, video_length, H, W), 255.0, np.float32)
+        return video, mask, None
+    starts = image_start if isinstance(image_start, list) else [image_start]
+    starts = [_read_image_rgb(s, (H, W)) for s in starts]
+    clip_image = starts[0]
+    head = np.stack(starts).transpose(3, 0, 1, 2)[None]   # [1, 3, k, H, W]
+    video = np.tile(head[:, :, :1], (1, 1, video_length, 1, 1))
+    video[:, :, :len(starts)] = head
+    mask = np.zeros((1, 1, video_length, H, W), np.float32)
+    mask[:, :, len(starts):] = 255.0
+    if image_end is not None:
+        ends = image_end if isinstance(image_end, list) else [image_end]
+        ends = [_read_image_rgb(e, (H, W)) for e in ends]
+        video[:, :, -len(ends):] = np.stack(ends).transpose(3, 0, 1, 2)[None]
+        mask[:, :, -len(ends):] = 0.0
+    return video.astype(np.float32) / 255.0, mask, clip_image
+
+
+def size_from_base_resolution(height: int, width: int,
+                              base_resolution: int = 512
+                              ) -> Tuple[int, int]:
+    """(H, W) scaled so that H * W is about base_resolution ** 2 at the
+    input's aspect ratio (the reference's
+    `get_width_and_height_from_image_and_base_resolution`,
+    `videox_fun/utils/utils.py:23-29`)."""
+    ratio = (float(base_resolution) ** 2 / (float(width) * float(height))
+             ) ** 0.5
+    return round(height * ratio), round(width * ratio)
