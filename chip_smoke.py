@@ -244,7 +244,7 @@ Phases, each of which fails the run (non-zero exit) on any fault:
      at the 14B's 40 heads.
   21. parallelism on `torch.distributed` at the 1.3B's full width, two
      ranks sharing the one card, the edits and training runs on its first
-     8 of 30 layers (the script's time limit; the ring edit on all 30):
+     4 of 30 layers (the script's time limit; the ring edit on all 30):
      (a) the probe of the collectives on CUDA tensors of two ranks on
      cuda:0 (NCCL's one all_reduce; gloo's all_reduce, all_to_all_single,
      all_gather_into_tensor, reduce_scatter_tensor and batch_isend_irecv),
@@ -253,8 +253,8 @@ Phases, each of which fails the run (non-zero exit) on any fault:
      same edit at guidance 5 with one guidance branch per data rank (data
      2), each rank's final latents against the world-1 edit of the same
      factory weights and seed within 2e-2 relative L2, the uint8
-     difference, each rank's B1 calls by shape (Ulysses: 32 self over 6
-     of 12 heads and 32 cross over 14,820 tokens), stage walls and peak
+     difference, each rank's B1 calls by shape (Ulysses: 16 self over 6
+     of 12 heads and 16 cross over 14,820 tokens), stage walls and peak
      beside world 1's; (c) ring attention on the 4x edit at world 1 under
      NCCL (gloo carries no point-to-point on CUDA tensors): 120 B2 and 120
      cross B1, against phase 9's 4x edit within 2e-2; (e)
@@ -277,9 +277,11 @@ Phases, each of which fails the run (non-zero exit) on any fault:
      stage walls, peak memory, B1 calls by shape (exactly those the path
      implies, nothing else) and its final latents against the same call
      through the naive attention backend (relative L2 <= 2e-2, the DiT
-     gate): (22) image-to-video at WAN21_I2V_14B with the CLIP ViT-H/14
-     tower on the card (`factory.load_pipeline("", random_init=True,
-     dit_cfg=WAN21_I2V_14B)`, `image_to_video` of a uint8 start image:
+     gate): (22) image-to-video at WAN21_I2V_14B's width on its first 10
+     of 40 layers (the script's time limit, since phases 26-28) with the
+     CLIP ViT-H/14 tower on the card (`factory.load_pipeline("",
+     random_init=True, dit_cfg=...)`, `image_to_video` of a uint8 start
+     image:
      self, text cross and 257-key image cross B1 calls), then
      `fast_infer.main(["--start_image", png, ...])` on a published-layout
      i2v directory (2 layers, full width, the CLIP file); (23) VACE at
@@ -289,12 +291,45 @@ Phases, each of which fails the run (non-zero exit) on any fault:
      ...])` on a published-layout VACE directory (2 layers and their hint
      block); (24) camera control at 1.3B (the adapter 24 -> 1536 on
      `pose_params_to_embedding` of 33 pose rows); (25) speech-to-video at
-     the 14B's width and depth with seeded audio features (audio_dim 1024,
+     the 14B's width on 10 of its 40 layers with seeded audio features
+     (audio_dim 1024,
      4 tokens a latent frame, injected at layer 0: B1 at batch 18 over 4
      keys). B1 is also held against its plain version (phase 2) and timed
      (phase 3) at the i2v shapes (self, text cross and image cross at 40
      heads, batch 2, 14,040 tokens) and the audio injection's.
-  26. a `kernels` JSON line and, last, the device JSON line.
+  26-28. the other model families at full width and depth, random bf16
+     weights from the seed, each with its B1 calls by shape (exactly those
+     the path implies, nothing else), its DiT forwards' and decode's walls,
+     its peak memory, the output's shape, finiteness and spread, and one
+     DiT forward of its geometry on its first FAMILY_NAIVE_LAYERS blocks at
+     full width against the naive backend (relative L2 <= 2e-2, the DiT
+     gate): (26) CogVideoX-5B (42 blocks of 48 heads of 64) with its causal
+     3D VAE, `CogVideoXPipeline` at 480x720, 49 frames, 226 text tokens,
+     CFG 6 (batch 2, 17,776 joint tokens), 4 DDIM steps: 168 B1 calls, the
+     whole-clip decode's peak; (27) Flux-dev (19 double- and 38
+     single-stream blocks) with its KL VAE, `FluxPipeline` at 1024x1024
+     with 512 text tokens (4,608 joint tokens) and guidance 3.5, 4 steps,
+     in bf16 and again after `quantize_dit_fp8` with `FLUX_FP8_EXCLUDE`:
+     228 B1 calls each, one fp8 forward against bf16 within JAX's bound
+     (phase 14's); (28) QwenImage (60 blocks) with its Wan2.1-layout VAE,
+     `QwenImagePipeline` at 1024x1024 with a 256-token prompt (4,352 joint
+     tokens), true CFG 4, 4 steps: 480 B1 calls. Then the families'
+     serving path: a 1.3B Wan controller (the load arguments of
+     `serving.api --random_init`) behind the API's handler, each family's
+     published-layout directory (full width, 2 layers of each kind, its
+     VAE; `save_family_checkpoint_dir`) switched in by the update endpoint,
+     one embeddings-in request each with an `embeddings_path` .npz inside
+     the allowlist (an mp4 of 9 frames at 480x720 for CogVideoX, a
+     1024x1024 png for the image families, decoded and checked, B1's
+     launches counted), the switch back to Wan and one edit; and Flux at
+     full width on its first 2 blocks of each kind under Ulysses at two
+     gloo ranks sharing the card (2 steps), each rank's latents against
+     world 1's within 2e-2 and B1's calls over 12 of the 24 heads. B1 is
+     also held against its plain version (phase 2) and timed (phase 3) at
+     the three families' joint shapes and at QwenImage's with a text mask
+     (batch 2, row 0's text padded past 192 of its 256 tokens: the
+     key-masked path, which a text mask takes).
+  29. a `kernels` JSON line and, last, the device JSON line.
 
 B1 is also held against its plain version (phase 2) and timed (phase 3) at
 the 14B's 40 heads, at the self and cross shapes, and at the shapes of
@@ -424,9 +459,10 @@ TRAIN_14B_RANK = 32            # the 14B LoRA steps
 TRAIN_14B_STEPS = 2
 SP_DEGREE = 2                  # phase 21: two ranks share the one card
 # phase 21's edits and training runs: the 1.3B cut to these of its 30
-# layers at full width (the script's time limit); its ring edit keeps all
-# 30, held against phase 9's 4x edit
-SP_LAYERS = 8
+# layers at full width (the script's time limit: 8 in PR 13, 4 since
+# phases 26-28); its ring edit keeps all 30, held against phase 9's 4x
+# edit
+SP_LAYERS = 4
 SP_TRAIN_STEPS = 2             # ... its training runs' steps
 SP_TIMEOUT_S = 600             # ... the deadline of its spawned ranks
 # an SP edit's final latents vs world 1's (the DiT gate: the ranks' linears
@@ -448,6 +484,34 @@ VARIANT_SHIFT = 5.0
 AUDIO_DIM = 1024
 AUDIO_TOKENS = 4
 CLI_LAYERS = 2
+# ... and the i2v and S2V paths at the 14B's width run on its first 10 of
+# 40 layers, their naive-backend runs too (the script's time limit, since
+# phases 26-28)
+VARIANT_14B_LAYERS = 10
+# phases 26-28, the other model families at full width and depth, random
+# bf16 weights from the seed: CogVideoX-5B's clip and text (the
+# reference's 480x720, 49 frames, 226 T5 tokens, CFG 6, DDIM), the image
+# families' 1024x1024 with Flux-dev's 512 text tokens and guidance 3.5 and
+# QwenImage's 256-token prompt under true CFG 4; the steps of each; the
+# naive-backend gate on each DiT's first blocks at full width; the serving
+# path's published directories (full width, this many layers of each kind)
+# and its requests; the Flux Ulysses run's blocks of each kind
+COG_HW = (480, 720)
+COG_FRAMES = 49
+COG_TEXT = 226
+COG_GUIDANCE = 6.0
+COG_STEPS = 4
+FAMILY_HW = (1024, 1024)
+FAMILY_STEPS = 4
+FLUX_TEXT = 512
+FLUX_GUIDANCE = 3.5
+QWEN_TEXT = 256
+QWEN_CFG = 4.0
+FAMILY_NAIVE_LAYERS = 4
+FAMILY_DIR_LAYERS = 2
+SERVE_COG_FRAMES = 9
+SERVE_FAMILY_STEPS = 2
+FAMILY_SP_LAYERS = 2
 
 
 def log(*args):
@@ -2197,6 +2261,672 @@ def wan22_entries_phase(card, geo, gen, prompt, counters):
     shutil.rmtree(SCRATCH, ignore_errors=True)
     record = {"card": card, "write_s": write_s, "bytes": nbytes, **records}
     log("[entry 2.2] " + json.dumps(record))
+    return record
+
+
+# ------------------------------------------------------- 26-28: the families
+
+def family_geometry():
+    """{family: (batch, joint tokens, heads, head dim)} of B1's one call
+    shape on each family's phase: CogVideoX-5B's self-attention over 226
+    text + 13 x 30 x 45 video tokens under batched CFG, Flux-dev's 512 + 64
+    x 64, QwenImage's 256 + 64 x 64 (run once per guidance branch)."""
+    from videocof_torch.models.cogvideox import COGVIDEOX_5B
+    from videocof_torch.models.flux import FLUX_DEV
+    from videocof_torch.models.qwenimage import QWENIMAGE
+    h, w = COG_HW
+    f_lat = (COG_FRAMES - 1) // 4 + 1
+    p = COGVIDEOX_5B.patch_size
+    cog_L = COG_TEXT + f_lat * (h // 8 // p) * (w // 8 // p)
+    img_L = (FAMILY_HW[0] // 16) * (FAMILY_HW[1] // 16)
+    return {"cogvideox": (2, cog_L, COGVIDEOX_5B.num_attention_heads,
+                          COGVIDEOX_5B.attention_head_dim),
+            "flux": (1, FLUX_TEXT + img_L, FLUX_DEV.num_attention_heads,
+                     FLUX_DEV.attention_head_dim),
+            "qwenimage": (1, QWEN_TEXT + img_L, QWENIMAGE.num_attention_heads,
+                          QWENIMAGE.attention_head_dim)}
+
+
+@contextlib.contextmanager
+def timed_calls(owner, name):
+    """While the block runs, ``owner.name`` (a module's function or an
+    object's method) synchronizes the device around each call and records
+    into the yielded list its wall seconds, and into the list's ``peaks``
+    (GB) the device memory peak during the call and into ``before`` the
+    peak before it (the peak statistics restart with each call)."""
+    import torch
+    real = getattr(owner, name)
+    walls = type("Walls", (list,), {})()
+    walls.peaks, walls.before = [], []
+
+    def timed(*args, **kw):
+        torch.cuda.synchronize()
+        walls.before.append(torch.cuda.max_memory_allocated() / 1e9)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = real(*args, **kw)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        walls.peaks.append(torch.cuda.max_memory_allocated() / 1e9)
+        return out
+    setattr(owner, name, timed)
+    try:
+        yield walls
+    finally:
+        setattr(owner, name, real)
+
+
+def family_cut(model, n, n_single=None):
+    """A family DiT holding ``model``'s first ``n`` blocks (and, for Flux,
+    its first ``n_single`` single-stream blocks): the same tensors."""
+    from torch import nn
+    cut = nn.Module.__new__(type(model))
+    cut.__dict__ = dict(model.__dict__, _modules=dict(model._modules))
+    cut.blocks = nn.ModuleList(model.blocks[:n])
+    kw = {"num_layers": n}
+    if n_single is not None:
+        cut.single_blocks = nn.ModuleList(model.single_blocks[:n_single])
+        kw["num_single_layers"] = n_single
+    cut.cfg = model.cfg.replace(**kw)
+    return cut
+
+
+def naive_gate(tag, forward, layers_note):
+    """``forward(backend)`` through B1 and through the naive backend: fail
+    unless finite and within DIT_REL_TOL relative L2. Returns the error."""
+    import torch
+    with torch.no_grad():
+        got = forward(None)
+        want = forward("naive")
+    rel = ((got.float() - want.float()).norm() / want.float().norm()).item()
+    ok = bool(torch.isfinite(got).all()) and rel <= DIT_REL_TOL
+    log(f"[{tag}] one DiT forward ({layers_note}) through B1 vs the naive "
+        f"backend: relative L2 {rel:.3e} (tol {DIT_REL_TOL}): "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"the {tag} DiT through B1 disagrees with the naive backend")
+    return rel
+
+
+def check_media(tag, out, want_shape, lo=0.0):
+    """Fail unless ``out`` has ``want_shape``, finite values in [lo, 1] and
+    is not constant."""
+    import numpy as np
+    log(f"[{tag}] output {out.shape} min {out.min():.4f} max {out.max():.4f}"
+        f" std {out.std():.4f}")
+    if out.shape != want_shape:
+        fail(f"{tag} output shape {out.shape} != {want_shape}")
+    if not (np.isfinite(out).all() and out.min() >= lo and out.max() <= 1.0
+            and out.std() > 0):
+        fail(f"{tag} output not finite, outside [{lo}, 1] or constant")
+
+
+def family_run(tag, card, counters, call, want_b1, forward_mod, forward_name,
+               decode_owner, decode_name):
+    """``call()`` through the kernels: exactly ``want_b1`` B1 calls
+    ({(batch, Lq, Lk, None): calls}) and nothing else, the DiT forwards'
+    walls (``forward_mod.forward_name``), the decode's wall and peak
+    (``decode_owner.decode_name``), the call's wall and peak. Returns
+    (output, record)."""
+    import torch
+    launch_counts, reset_launch_counts = counters
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with b1_calls() as seen, \
+            timed_calls(forward_mod, forward_name) as steps, \
+            timed_calls(decode_owner, decode_name) as decodes:
+        out = call()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    shapes = b1_shapes(seen)
+    peaks = decodes.peaks
+    peak = max([torch.cuda.max_memory_allocated() / 1e9, *steps.peaks,
+                *steps.before, *peaks, *decodes.before])
+    record = {"card": card, "seconds": wall, "forward_s": list(steps),
+              "decode_s": list(decodes), "decode_peak_gb": peaks,
+              "peak_memory_gb": peak, "launches": launches,
+              "b1_calls": {str(k): n for k, n in shapes.items()}}
+    log(f"[{tag}] {wall:.3f} s, peak {peak:.2f} GB; DiT forwards (s) "
+        + ", ".join(f"{s:.3f}" for s in steps)
+        + f"; decode {', '.join(f'{s:.3f}' for s in decodes)} s at a peak "
+        f"of {', '.join(f'{p:.2f}' for p in peaks)} GB; launches "
+        f"{launches}; B1 calls by (batch, Lq, Lk, mask): {shapes}")
+    check_launches(tag, launches, dict(dict.fromkeys(launches, 0),
+                                       flash_attention_fwd=sum(
+                                           want_b1.values())))
+    if shapes != want_b1:
+        fail(f"the {tag}'s B1 calls {shapes} != {want_b1}")
+    return out, record
+
+
+def cogvideox_phase(card, gen, counters):
+    """CogVideoX-5B (42 blocks of 48 heads of 64) with its causal 3D VAE,
+    random bf16 weights from the seed: `CogVideoXPipeline` at 480x720, 49
+    frames, 226 text tokens, CFG 6 (batch 2), COG_STEPS DDIM steps: 42 x
+    steps B1 calls at [2, 17,776] and nothing else; the whole-clip decode's
+    wall and peak; one forward of the first FAMILY_NAIVE_LAYERS blocks at
+    the call's geometry against the naive backend. Returns the record."""
+    import torch
+    from videocof_torch.models import cogvideox as cog
+    from videocof_torch.models.cogvideox_vae import (COGVIDEOX_VAE,
+                                                     init_cogvideox_vae)
+    from videocof_torch.pipeline import CogVideoXPipeline
+    bf16, dev = torch.bfloat16, gen.device
+    t0 = time.perf_counter()
+    dit = cog.init_cogvideox(cog.COGVIDEOX_5B, gen, bf16)
+    vae = init_cogvideox_vae(COGVIDEOX_VAE, gen, bf16)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    pipe = CogVideoXPipeline(dit, vae, dtype=bf16)
+    cfg = dit.cfg
+    emb = torch.randn(1, COG_TEXT, cfg.text_embed_dim, generator=gen,
+                      device=dev)
+    neg = torch.randn(1, COG_TEXT, cfg.text_embed_dim, generator=gen,
+                      device=dev)
+    B, L, _, _ = family_geometry()["cogvideox"]
+    h, w = COG_HW
+
+    def call():
+        return pipe(emb, neg, height=h, width=w, num_frames=COG_FRAMES,
+                    num_inference_steps=COG_STEPS,
+                    guidance_scale=COG_GUIDANCE, seed=SEED)
+
+    out, record = family_run(
+        "CogVideoX-5B", card, counters, call,
+        {(B, L, L, None): cfg.num_layers * COG_STEPS}, cog,
+        "cogvideox_forward", vae, "decode")
+    check_media("CogVideoX-5B", out, (1, 3, COG_FRAMES, h, w))
+    f_lat = (COG_FRAMES - 1) // 4 + 1
+    x = torch.randn(2, f_lat, cfg.in_channels, h // 8, w // 8, generator=gen,
+                    device=dev)
+    ctx = torch.cat([neg, emb])
+    t = torch.full((2,), 937.0, device=dev)
+    cut = family_cut(dit, FAMILY_NAIVE_LAYERS)
+    rel = naive_gate("CogVideoX-5B", lambda b: cog.cogvideox_forward(
+        cut, x, ctx, t, attn_backend=b),
+        f"the first {FAMILY_NAIVE_LAYERS} of {cfg.num_layers} blocks, batch "
+        f"2, {L} tokens")
+    record.update(draw_s=draw_s, tokens=L, rel_l2_vs_naive=rel,
+                  naive_layers=FAMILY_NAIVE_LAYERS,
+                  b1_launches={"cogvideox self": cfg.num_layers * COG_STEPS})
+    del pipe, dit, vae, cut, out, x
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("[CogVideoX-5B] " + json.dumps(record))
+    return record
+
+
+def fp8_forward_error(v_fp8, v_bf16):
+    """(mean |err|, bound) of an fp8 forward against the bf16 one."""
+    err = (v_fp8.float() - v_bf16.float()).abs().mean().item()
+    return err, FP8_ERR_REL * v_bf16.float().abs().mean().item() + \
+        FP8_ERR_ABS
+
+
+def flux_phase(card, gen, counters):
+    """Flux-dev (19 double-stream and 38 single-stream blocks of 24 heads
+    of 128, the guidance embedding) with its KL VAE, random bf16 weights
+    from the seed: `FluxPipeline` at 1024x1024, 512 text tokens, guidance
+    3.5, FAMILY_STEPS steps, in bf16 and again after `quantize_dit_fp8`
+    with `FLUX_FP8_EXCLUDE`: each 57 x steps B1 calls at [1, 4,608] and
+    nothing else; one forward of the first FAMILY_NAIVE_LAYERS double and
+    single blocks against the naive backend; one whole fp8 forward against
+    the bf16 one within JAX's bound. Returns the record."""
+    import torch
+    from videocof_torch.models import flux as flux_lib
+    from videocof_torch.models import kl_vae
+    from videocof_torch.pipeline import FluxPipeline
+    from videocof_torch.utils.fp8 import fp8_bytes, quantize_dit_fp8
+    bf16, dev = torch.bfloat16, gen.device
+    t0 = time.perf_counter()
+    dit = flux_lib.init_flux(flux_lib.FLUX_DEV, gen, bf16)
+    vae = kl_vae.init_kl_vae_decoder(kl_vae.FLUX_KL_VAE, gen, bf16)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    decode = kl_vae.make_decode_fn(vae, compute_dtype=bf16)
+    pipe = FluxPipeline(dit, decode_fn=decode, dtype=bf16)
+    cfg = dit.cfg
+    emb = torch.randn(1, FLUX_TEXT, cfg.joint_attention_dim, generator=gen,
+                      device=dev)
+    pooled = torch.randn(1, cfg.pooled_projection_dim, generator=gen,
+                         device=dev)
+    B, L, _, _ = family_geometry()["flux"]
+    h, w = FAMILY_HW
+    per = (cfg.num_layers + cfg.num_single_layers) * FAMILY_STEPS
+
+    def call():
+        return pipe(emb, pooled, height=h, width=w,
+                    num_inference_steps=FAMILY_STEPS, guidance=FLUX_GUIDANCE,
+                    seed=SEED)
+
+    # one forward at the call's geometry: its inputs, for the naive gate
+    # and the fp8 bound
+    Li = L - FLUX_TEXT
+    x = torch.randn(1, Li, cfg.in_channels, generator=gen, device=dev)
+    yy, xx = torch.meshgrid(torch.arange(h // 16), torch.arange(w // 16),
+                            indexing="ij")
+    img_ids = torch.stack([torch.zeros_like(yy), yy, xx], -1).reshape(
+        Li, 3).float().to(dev)
+    txt_ids = torch.zeros(FLUX_TEXT, 3, device=dev)
+    tt = torch.full((1,), 0.9, device=dev)
+    g = torch.full((1,), FLUX_GUIDANCE, device=dev)
+
+    def forward(model, backend=None):
+        return flux_lib.flux_forward(model, x, emb, pooled, tt, img_ids,
+                                     txt_ids, guidance=g,
+                                     attn_backend=backend)
+
+    records = {}
+    for mode in ("bf16", "fp8"):
+        if mode == "fp8":
+            before = fp8_bytes(dit)
+            t0 = time.perf_counter()
+            quantize_dit_fp8(dit, exclude=flux_lib.FLUX_FP8_EXCLUDE)
+            torch.cuda.synchronize()
+            quant_s = time.perf_counter() - t0
+            with torch.no_grad():
+                v_fp8 = forward(dit)
+            err, lim = fp8_forward_error(v_fp8, v_bf16)
+            log(f"[Flux-dev fp8] quantize_dit_fp8 {quant_s:.2f} s: DiT "
+                f"{before / 1e9:.2f} -> {fp8_bytes(dit) / 1e9:.2f} GB; one "
+                f"forward against bf16: mean |err| {err:.4e} (bound "
+                f"{lim:.4e}): {'ok' if err < lim else 'FAIL'}")
+            if not err < lim:
+                fail("Flux-dev in fp8 strays from bf16 beyond JAX's bound")
+        out, rec = family_run(
+            f"Flux-dev {mode}", card, counters, call,
+            {(B, L, L, None): per}, flux_lib, "flux_forward", pipe,
+            "decode_fn")
+        # the pipeline returns decode_fn's pixels in [-1, 1], as JAX's
+        check_media(f"Flux-dev {mode}", out, (1, 3, h, w), lo=-1.0)
+        if mode == "bf16":
+            image_bf16 = out
+            with torch.no_grad():
+                v_bf16 = forward(dit)
+            cut = family_cut(dit, FAMILY_NAIVE_LAYERS, FAMILY_NAIVE_LAYERS)
+            rec["rel_l2_vs_naive"] = naive_gate(
+                "Flux-dev", lambda b: forward(cut, b),
+                f"the first {FAMILY_NAIVE_LAYERS} of {cfg.num_layers} double"
+                f" and {FAMILY_NAIVE_LAYERS} of {cfg.num_single_layers} "
+                f"single blocks, {L} tokens")
+            del cut
+        else:
+            rec.update(fp8_forward_mean_err=err, fp8_bound=lim,
+                       quantize_s=quant_s, dit_gb_bf16=before / 1e9,
+                       dit_gb_fp8=fp8_bytes(dit) / 1e9,
+                       image_rel_l2_vs_bf16=_rel_l2(out, image_bf16))
+            log(f"[Flux-dev fp8] image against the bf16 run: relative L2 "
+                f"{rec['image_rel_l2_vs_bf16']:.3e}")
+        records[mode] = rec
+    record = {"draw_s": draw_s, "tokens": L, **records,
+              "b1_launches": {"flux joint": per}}
+    del pipe, dit, vae, decode, out, image_bf16, x, v_fp8, v_bf16
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("[Flux-dev] " + json.dumps(record))
+    return record
+
+
+def qwenimage_phase(card, gen, counters):
+    """QwenImage (60 blocks of 24 heads of 128) with its VAE (the Wan2.1
+    VAE, one frame), random bf16 weights from the seed: `QwenImagePipeline`
+    at 1024x1024, a 256-token prompt, true CFG 4, FAMILY_STEPS steps: 60 x
+    2 x steps B1 calls at [1, 4,352] and nothing else; one forward of the
+    first FAMILY_NAIVE_LAYERS blocks against the naive backend. Returns the
+    record."""
+    import torch
+    from videocof_torch.models import qwenimage as qwen_lib
+    from videocof_torch.models.qwenimage_vae import QWENIMAGE_VAE_CONFIG
+    from videocof_torch.models.wan_vae import init_wan_vae
+    from videocof_torch.pipeline import QwenImagePipeline
+    bf16, dev = torch.bfloat16, gen.device
+    t0 = time.perf_counter()
+    dit = qwen_lib.init_qwenimage(qwen_lib.QWENIMAGE, gen, bf16)
+    vae = init_wan_vae(QWENIMAGE_VAE_CONFIG, gen, bf16, dev)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    pipe = QwenImagePipeline(dit, vae, dtype=bf16)
+    cfg = dit.cfg
+    emb = torch.randn(1, QWEN_TEXT, cfg.joint_attention_dim, generator=gen,
+                      device=dev)
+    neg = torch.randn(1, QWEN_TEXT, cfg.joint_attention_dim, generator=gen,
+                      device=dev)
+    B, L, _, _ = family_geometry()["qwenimage"]
+    h, w = FAMILY_HW
+    per = cfg.num_layers * 2 * FAMILY_STEPS
+
+    def call():
+        return pipe(emb, neg, height=h, width=w,
+                    num_inference_steps=FAMILY_STEPS,
+                    true_cfg_scale=QWEN_CFG, seed=SEED)
+
+    out, record = family_run(
+        "QwenImage", card, counters, call, {(B, L, L, None): per}, qwen_lib,
+        "qwenimage_forward", vae, "decode")
+    check_media("QwenImage", out, (1, 3, h, w))
+    Li = L - QWEN_TEXT
+    x = torch.randn(1, Li, cfg.in_channels, generator=gen, device=dev)
+    ii, ti = (a.to(dev) for a in qwen_lib.qwen_position_ids(
+        (1, h // 16, w // 16), QWEN_TEXT))
+    tt = torch.full((1,), 0.9, device=dev)
+    cut = family_cut(dit, FAMILY_NAIVE_LAYERS)
+    rel = naive_gate("QwenImage", lambda b: qwen_lib.qwenimage_forward(
+        cut, x, emb, tt, ii, ti, attn_backend=b),
+        f"the first {FAMILY_NAIVE_LAYERS} of {cfg.num_layers} blocks, {L} "
+        f"tokens")
+    record.update(draw_s=draw_s, tokens=L, rel_l2_vs_naive=rel,
+                  naive_layers=FAMILY_NAIVE_LAYERS,
+                  b1_launches={"qwenimage joint": per})
+    del pipe, dit, vae, cut, out, x
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("[QwenImage] " + json.dumps(record))
+    return record
+
+
+def write_family_dirs(root, gen):
+    """Published-layout (diffusers) pipeline directories of the three
+    families at full width and FAMILY_DIR_LAYERS layers (Flux: as many of
+    each kind), random bf16 weights, with their VAEs, written by the port's
+    `save_family_checkpoint_dir`. Returns {family: path}."""
+    import torch
+    from videocof_torch.models import cogvideox as cog
+    from videocof_torch.models import flux as flux_lib
+    from videocof_torch.models import kl_vae
+    from videocof_torch.models import qwenimage as qwen_lib
+    from videocof_torch.models.cogvideox_vae import (COGVIDEOX_VAE,
+                                                     init_cogvideox_vae)
+    from videocof_torch.models.qwenimage_vae import QWENIMAGE_VAE_CONFIG
+    from videocof_torch.models.wan_vae import init_wan_vae
+    from videocof_torch.utils.checkpoint import save_family_checkpoint_dir
+    bf16, n = torch.bfloat16, FAMILY_DIR_LAYERS
+    makers = {
+        "cogvideox": lambda: (
+            cog.init_cogvideox(cog.COGVIDEOX_5B.replace(num_layers=n), gen,
+                               bf16),
+            init_cogvideox_vae(COGVIDEOX_VAE, gen, bf16)),
+        "flux": lambda: (
+            flux_lib.init_flux(flux_lib.FLUX_DEV.replace(
+                num_layers=n, num_single_layers=n), gen, bf16),
+            kl_vae.init_kl_vae_decoder(kl_vae.FLUX_KL_VAE, gen, bf16)),
+        "qwenimage": lambda: (
+            qwen_lib.init_qwenimage(qwen_lib.QWENIMAGE.replace(num_layers=n),
+                                    gen, bf16),
+            init_wan_vae(QWENIMAGE_VAE_CONFIG, gen, bf16, gen.device))}
+    paths = {}
+    for family, make in makers.items():
+        dit, vae = make()
+        paths[family] = save_family_checkpoint_dir(str(root / family), dit,
+                                                   vae)
+        del dit, vae
+    torch.cuda.empty_cache()
+    return paths
+
+
+def family_serving_phase(card, geo, prompt, clip, gen, counters,
+                         out_frames):
+    """The serving path of the families: a 1.3B Wan controller (random
+    weights, its load arguments those of ``serving.api --random_init``)
+    behind `serving.api`'s handler; for each family, the update endpoint on
+    its published-layout directory (`write_family_dirs`), the switch
+    checked (the resident family, B1's launches of the request), and one
+    embeddings-in request with an ``embeddings_path`` .npz inside the
+    allowlist (VIDEOCOF_MODEL_DIRS and VIDEOCOF_ASSET_DIRS): an mp4 for
+    CogVideoX, a png for the image families, decoded and checked; then the
+    switch back to Wan and one edit of the serving clip. Returns the
+    record."""
+    import base64
+    import io
+    import numpy as np
+    import torch
+    from PIL import Image
+    from videocof_torch import factory
+    from videocof_torch.serving import VideoCoFController, api
+    from videocof_torch.utils import video_io
+    launch_counts, reset_launch_counts = counters
+    models = SCRATCH / "family_models"
+    models.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    paths = write_family_dirs(models, gen)
+    write_s = time.perf_counter() - t0
+    env = {k: os.environ.get(k) for k in ("VIDEOCOF_MODEL_DIRS",
+                                          "VIDEOCOF_ASSET_DIRS")}
+    os.environ["VIDEOCOF_MODEL_DIRS"] = str(models)
+    os.environ["VIDEOCOF_ASSET_DIRS"] = str(models)
+    wan_kwargs = dict(random_init=True, seed=SEED)
+    controller = VideoCoFController(factory.load_pipeline("", **wan_kwargs),
+                                    wan_load_kwargs=wan_kwargs)
+    from videocof_torch.models.cogvideox import COGVIDEOX_5B
+    from videocof_torch.models.flux import FLUX_DEV
+    from videocof_torch.models.qwenimage import QWENIMAGE
+    dims = {"cogvideox": (COGVIDEOX_5B.text_embed_dim, None),
+            "flux": (FLUX_DEV.joint_attention_dim,
+                     FLUX_DEV.pooled_projection_dim),
+            "qwenimage": (QWENIMAGE.joint_attention_dim, None)}
+    n = FAMILY_DIR_LAYERS
+    requests = {
+        "cogvideox": dict(height=COG_HW[0], width=COG_HW[1],
+                          num_frames=SERVE_COG_FRAMES,
+                          sample_step_slider=SERVE_FAMILY_STEPS),
+        "flux": dict(height=FAMILY_HW[0], width=FAMILY_HW[1],
+                     sample_step_slider=SERVE_FAMILY_STEPS),
+        "qwenimage": dict(height=FAMILY_HW[0], width=FAMILY_HW[1],
+                          sample_step_slider=SERVE_FAMILY_STEPS)}
+    b1 = {"cogvideox": n * SERVE_FAMILY_STEPS,
+          "flux": 2 * n * SERVE_FAMILY_STEPS,
+          "qwenimage": n * 2 * SERVE_FAMILY_STEPS}
+    text_len = {"cogvideox": COG_TEXT, "flux": FLUX_TEXT,
+                "qwenimage": QWEN_TEXT}
+    rng = np.random.default_rng(SEED)
+    records = {}
+    try:
+        with http_server(controller) as url:
+            for family, path in paths.items():
+                t0 = time.perf_counter()
+                code, reply = http_call(url, api.UPDATE_ENDPOINT, {
+                    "diffusion_transformer_path": path})
+                switch_s = time.perf_counter() - t0
+                if (code, reply.get("message")) != (200, "Success") or \
+                        controller.family != family:
+                    fail(f"switch to {family}: {code} {reply}, resident "
+                         f"{controller.family}")
+                dim, pooled = dims[family]
+                arrays = {"text_embeddings": rng.standard_normal(
+                    (1, text_len[family], dim)).astype(np.float32)}
+                if family != "flux":
+                    arrays["negative_embeddings"] = rng.standard_normal(
+                        (1, text_len[family], dim)).astype(np.float32)
+                else:
+                    arrays["pooled_projections"] = rng.standard_normal(
+                        (1, pooled)).astype(np.float32)
+                npz = models / f"{family}_embeds.npz"
+                np.savez(npz, **arrays)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                reset_launch_counts()
+                t0 = time.perf_counter()
+                code, reply = http_call(url, api.ENDPOINT, dict(
+                    requests[family], embeddings_path=str(npz),
+                    seed_textbox=SEED))
+                request_s = time.perf_counter() - t0
+                launches = launch_counts()
+                if code != 200 or reply.get("family") != family:
+                    fail(f"the {family} request: {code} {reply}")
+                check_launches(f"{family} request", launches, dict(
+                    dict.fromkeys(launches, 0),
+                    flash_attention_fwd=b1[family]))
+                if family == "cogvideox":
+                    mp4 = SCRATCH / "cogvideox_reply.mp4"
+                    mp4.write_bytes(base64.b64decode(
+                        reply["base64_encoding"]))
+                    got = video_io.video_info(str(mp4))[:3]
+                    want = (SERVE_COG_FRAMES, *COG_HW)
+                else:
+                    img = Image.open(io.BytesIO(base64.b64decode(
+                        reply["base64_image"])))
+                    got, want = (img.height, img.width), FAMILY_HW
+                if tuple(got) != tuple(want):
+                    fail(f"the {family} reply holds {got}, expected {want}")
+                records[family] = {
+                    "switch_s": switch_s, "request_s": request_s,
+                    "launches": launches, "reply": list(got),
+                    "peak_memory_gb":
+                        torch.cuda.max_memory_allocated() / 1e9}
+                log(f"[family serving] {family}: switch {switch_s:.2f} s, "
+                    f"request {request_s:.2f} s, reply {got}, launches "
+                    f"{launches}, peak "
+                    f"{records[family]['peak_memory_gb']:.2f} GB")
+            wan_dir = models / "wan"
+            wan_dir.mkdir(exist_ok=True)
+            t0 = time.perf_counter()
+            code, reply = http_call(url, api.UPDATE_ENDPOINT, {
+                "diffusion_transformer_path": str(wan_dir)})
+            back_s = time.perf_counter() - t0
+            if (code, reply.get("message")) != (200, "Success") or \
+                    controller.family != "wan":
+                fail(f"switch back to Wan: {code} {reply}")
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            code, reply = http_call(url, api.ENDPOINT, edit_payload(
+                geo, prompt, b64_file(clip)))
+            edit_s = time.perf_counter() - t0
+            if code != 200:
+                fail(f"the edit after the switch back: {code} {reply}")
+            reply_video("family serving", reply, geo, out_frames,
+                        "wan_reply.mp4")
+            check_launches("edit after the switch back", launch_counts(),
+                           dict(dict.fromkeys(launch_counts(), 0),
+                                flash_attention_fwd=2 * factory.
+                                WAN21_T2V_1_3B.num_layers
+                                * geo.num_inference_steps))
+            log(f"[family serving] back to Wan {back_s:.2f} s; an edit "
+                f"{edit_s:.2f} s: ok")
+    finally:
+        for k, v in env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    record = {"card": card, "write_s": write_s, **records,
+              "back_to_wan_s": back_s, "wan_edit_s": edit_s}
+    del controller
+    shutil.rmtree(models, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("[family serving] " + json.dumps(record))
+    return record
+
+
+def _family_sp_rank(rank, world, init_file, out_dir, inputs):
+    """One rank of the Flux Ulysses run on cuda:0 beside the other, in a
+    gloo world: Flux-dev at full width cut to FAMILY_SP_LAYERS double and
+    single blocks, drawn from the seed, `enable_sequence_parallel(seq=
+    world)`, the generation of ``inputs``; the output, B1's launches and
+    calls, the seconds, into ``out_dir/rank<r>.pt``."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT))
+    from videocof_torch.models import flux as flux_lib
+    from videocof_torch.ops import flash_attention as fa
+    from videocof_torch.parallel import rank_device
+    from videocof_torch.pipeline import FluxPipeline
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            world_size=world, rank=rank)
+    dev = rank_device()
+    torch.cuda.set_device(dev)
+    pipe = family_sp_pipeline(FluxPipeline, flux_lib, dev)
+    pipe.enable_sequence_parallel(seq=world, mode="ulysses")
+    dist.barrier()
+    fa.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with b1_calls() as seen:
+        out = pipe(**inputs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    res = {"out": out, "launches": fa.launch_counts(),
+           "b1": {str(k): v for k, v in _b1_by_shape(seen).items()},
+           "seconds": wall}
+    dist.barrier()
+    dist.destroy_process_group()
+    torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+def family_sp_pipeline(pipeline_cls, flux_lib, dev):
+    """The Flux pipeline of the SP run: Flux-dev's width cut to
+    FAMILY_SP_LAYERS blocks of each kind, bf16 from the seed, latents
+    out."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    cfg = flux_lib.FLUX_DEV.replace(num_layers=FAMILY_SP_LAYERS,
+                                    num_single_layers=FAMILY_SP_LAYERS)
+    return pipeline_cls(flux_lib.init_flux(cfg, gen, torch.bfloat16),
+                        dtype=torch.bfloat16, device=dev)
+
+
+def family_sp_phase(card, counters):
+    """Flux at full width under Ulysses at two gloo ranks sharing the card
+    (FAMILY_SP_LAYERS double and single blocks, 1024x1024, 512 text
+    tokens, 2 steps), each rank's latents against world 1's run of the
+    same weights and seed within SP_REL_TOL, B1's calls by shape (each
+    rank: half of the 24 heads over all 4,608 tokens). Returns the
+    record."""
+    import numpy as np
+    import torch
+    from videocof_torch.models import flux as flux_lib
+    from videocof_torch.ops import flash_attention as fa
+    from videocof_torch.parallel import rank_device
+    from videocof_torch.pipeline import FluxPipeline
+    dev = rank_device()
+    rng = np.random.default_rng(SEED)
+    cfg = flux_lib.FLUX_DEV
+    inputs = dict(
+        text_embeddings=rng.standard_normal(
+            (1, FLUX_TEXT, cfg.joint_attention_dim)).astype(np.float32),
+        pooled_projections=rng.standard_normal(
+            (1, cfg.pooled_projection_dim)).astype(np.float32),
+        height=FAMILY_HW[0], width=FAMILY_HW[1], num_inference_steps=2,
+        guidance=FLUX_GUIDANCE, seed=SEED)
+    pipe = family_sp_pipeline(FluxPipeline, flux_lib, dev)
+    fa.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = pipe(**inputs)
+    world1_s = time.perf_counter() - t0
+    world1_b1 = fa.launch_counts()["flash_attention_fwd"]
+    del pipe
+    torch.cuda.empty_cache()
+    out = SCRATCH / "family_sp"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    t0 = time.perf_counter()
+    _spawn_ranks(_family_sp_rank, SP_DEGREE, (str(out / "rdzv"), str(out),
+                                              inputs), "family SP")
+    spawn_s = time.perf_counter() - t0
+    B, L, N, D = family_geometry()["flux"]
+    per = 2 * FAMILY_SP_LAYERS * 2
+    ranks = []
+    for r in range(SP_DEGREE):
+        res = torch.load(out / f"rank{r}.pt", weights_only=False)
+        rel = _rel_l2(res["out"], want)
+        ranks.append({"rel_l2_vs_world1": rel, "seconds": res["seconds"],
+                      "launches": res["launches"], "b1": res["b1"]})
+        log(f"[family SP] rank {r}: {res['seconds']:.2f} s, latents vs "
+            f"world 1 relative L2 {rel:.3e} (tol {SP_REL_TOL}); launches "
+            f"{res['launches']}; B1 calls {res['b1']}")
+        want_b1 = {str((1, L, L, N // SP_DEGREE, False)): per}
+        if not rel <= SP_REL_TOL or res["b1"] != want_b1:
+            fail(f"family SP rank {r}: relative L2 {rel:.3e}, B1 "
+                 f"{res['b1']} (expected {want_b1})")
+    shutil.rmtree(out, ignore_errors=True)
+    record = {"card": card, "world1_s": world1_s, "world1_b1": world1_b1,
+              "spawn_s": spawn_s, "ranks": ranks}
+    log("[family SP] " + json.dumps(record))
     return record
 
 
@@ -4151,11 +4881,12 @@ def variant_cli(tag, geo, cli_argv, counters, want_b1, check_pipe):
 
 
 def i2v_phase(card, geo, gen, prompt, counters):
-    """Image-to-video at WAN21_I2V_14B (40 blocks of 5120) with the CLIP
-    ViT-H/14 tower, both drawn by `factory.load_pipeline("",
-    random_init=True, dit_cfg=WAN21_I2V_14B)`: `image_to_video` of a
-    480x832 uint8 start image with the tower run on the card (stage
-    "clip"), 40 x steps B1 calls each of self (batch 2, 14,040 tokens),
+    """Image-to-video at WAN21_I2V_14B's width on its first
+    VARIANT_14B_LAYERS of 40 blocks of 5120 with the CLIP ViT-H/14 tower,
+    both drawn by `factory.load_pipeline("", random_init=True,
+    dit_cfg=...)`: `image_to_video` of a 480x832 uint8 start image with the
+    tower run on the card (stage "clip"), layers x steps B1 calls each of
+    self (batch 2, 14,040 tokens),
     text cross (512 keys) and image cross (257 keys), against the naive
     backend. Then the entry: a published-layout i2v directory (the DiT at
     full width and CLI_LAYERS layers, its config's model_type "i2v", the
@@ -4175,7 +4906,8 @@ def i2v_phase(card, geo, gen, prompt, counters):
     from videocof_torch.utils import checkpoint
     lat, L, _ = variant_tokens(geo)
     t0 = time.perf_counter()
-    pipe = factory.load_pipeline("", random_init=True, dit_cfg=WAN21_I2V_14B,
+    cfg_i2v = WAN21_I2V_14B.replace(num_layers=VARIANT_14B_LAYERS)
+    pipe = factory.load_pipeline("", random_init=True, dit_cfg=cfg_i2v,
                                  seed=SEED)
     build_s = time.perf_counter() - t0
     image = np.random.default_rng(SEED).integers(
@@ -4189,7 +4921,7 @@ def i2v_phase(card, geo, gen, prompt, counters):
             shift=VARIANT_SHIFT, seed=SEED, clip=p.clip, output_latents=True,
             timings=timings)
 
-    per = WAN21_I2V_14B.num_layers * VARIANT_STEPS
+    per = cfg_i2v.num_layers * VARIANT_STEPS
     shapes = {(2, L, L, None): per, (2, L, TEXT_TOKENS, None): per,
               (2, L, 257, None): per}
     log(f"[i2v] WAN21_I2V_14B and CLIP ViT-H/14 drawn in {build_s:.1f} s; "
@@ -4380,11 +5112,12 @@ def vace_camera_phase(card, geo, gen, prompt, counters):
 
 
 def s2v_phase(card, geo, gen, prompt, counters):
-    """Speech-to-video at the 14B's width and depth (`factory.load_pipeline(
-    "", random_init=True, dit_cfg=WAN21_T2V_14B)` and `init_s2v_params`,
-    audio_dim 1024, 4 audio tokens, injected at layer 0 with a live output
-    projection): `speech_to_video` of seeded audio features [1, 9, 1024]:
-    40 x steps self and cross B1 calls, and the audio injection's B1 calls
+    """Speech-to-video at the 14B's width on its first VARIANT_14B_LAYERS
+    of 40 layers (`factory.load_pipeline("", random_init=True,
+    dit_cfg=...)` and `init_s2v_params`, audio_dim 1024, 4 audio tokens,
+    injected at layer 0 with a live output projection): `speech_to_video`
+    of seeded audio features [1, 9, 1024]: layers x steps self and cross
+    B1 calls, and the audio injection's B1 calls
     at batch 2 x 9 latent frames over 4 keys, against the naive backend.
     Returns the phase's record."""
     import numpy as np
@@ -4395,9 +5128,10 @@ def s2v_phase(card, geo, gen, prompt, counters):
     from videocof_torch.pipeline import S2VPipeline
     lat, L, per_frame = variant_tokens(geo)
     t0 = time.perf_counter()
-    base = factory.load_pipeline("", random_init=True, dit_cfg=WAN21_T2V_14B,
+    cfg_s2v = WAN21_T2V_14B.replace(num_layers=VARIANT_14B_LAYERS)
+    base = factory.load_pipeline("", random_init=True, dit_cfg=cfg_s2v,
                                  seed=SEED + 5)
-    s2v = init_s2v_params(WAN21_T2V_14B, gen, audio_dim=AUDIO_DIM,
+    s2v = init_s2v_params(cfg_s2v, gen, audio_dim=AUDIO_DIM,
                           num_audio_token=AUDIO_TOKENS, inject_layers=(0,),
                           dtype=torch.bfloat16, device=gen.device)
     with torch.no_grad():
@@ -4418,7 +5152,7 @@ def s2v_phase(card, geo, gen, prompt, counters):
             shift=VARIANT_SHIFT, seed=SEED, output_latents=True,
             timings=timings)
 
-    per = WAN21_T2V_14B.num_layers * VARIANT_STEPS
+    per = cfg_s2v.num_layers * VARIANT_STEPS
     audio_shape = (2 * lat, per_frame, AUDIO_TOKENS, None)
     record = variant_run("S2V", card, pipe, call, counters,
                          (1, 3, VARIANT_FRAMES, geo.height, geo.width), {
@@ -4574,6 +5308,18 @@ def main() -> int:
                             WAN21_T2V_14B.num_heads)}
     log(f"[geometry] the variants' {VARIANT_FRAMES} frames: {lat_v} latent "
         f"frames, {Lv} DiT tokens, {frame_v} a frame")
+    # B1's shapes on the other families (phases 26-28): (batch, joint
+    # tokens, heads, head dim) and, for QwenImage's key-masked path (a text
+    # mask folded into the joint key mask), the valid keys of each row
+    fam = family_geometry()
+    fam_text = {"cogvideox": COG_TEXT, "flux": FLUX_TEXT,
+                "qwenimage": QWEN_TEXT}
+    b1_fam = {f"{name} joint": (geo_f, None) for name, geo_f in fam.items()}
+    qB, qL, qN, qD = fam["qwenimage"]
+    b1_fam["qwenimage joint, text mask"] = (
+        (2, qL, qN, qD), (qL - QWEN_TEXT // 4, qL))
+    log("[geometry] the families' joint sequences (batch, tokens, heads, "
+        "head dim): " + json.dumps(fam))
 
     def ragged_mask(lengths, Lk):
         if lengths is None:
@@ -4802,6 +5548,34 @@ def main() -> int:
                                  out, fa.flash_attention_reference(q, k, v))
         note("flash_attention_fwd", err_var[label])
         del q, k, v, out
+        torch.cuda.empty_cache()
+    # B1 at the families' shapes: CogVideoX-5B's head dim 64 at 17,776
+    # tokens (138 whole 128-key tiles and 112 keys: the ragged edge in the
+    # kernel), Flux-dev's and QwenImage's 24 heads of 128, and QwenImage's
+    # joint key mask with row 0's text padded past 3/4 of its tokens
+    err_fam = {}
+
+    def fam_mask_text(lengths, Bm, Lk, Lt_f):
+        """The joint mask [text | image] of a text mask: row i's text keys
+        past its length masked, every image key kept."""
+        if lengths is None:
+            return None
+        keys = torch.arange(Lk, device=dev)[None]
+        txt_len = torch.tensor([n - (Lk - Lt_f) for n in lengths],
+                               device=dev)[:, None]
+        return (keys >= Lt_f) | (keys < txt_len)
+
+    for label, ((Bf, Lf, Nf, Df), lengths) in b1_fam.items():
+        q, k, v = qkv(Bf, Lf, Lf, Nf, Df)
+        mask = fam_mask_text(lengths, Bf, Lf, QWEN_TEXT)
+        out = fa.flash_attention(q, k, v, kv_mask=mask)
+        torch.cuda.synchronize()
+        err_fam[label] = compare(
+            f"B1 {label} {(Bf, Lf, Lf, Nf, Df)} bfloat16"
+            + (f", row keys {lengths}" if lengths else ""), out,
+            fa.flash_attention_reference(q, k, v, kv_mask=mask))
+        note("flash_attention_fwd", err_fam[label])
+        del q, k, v, out, mask
         torch.cuda.empty_cache()
     # B3 at lengths on and beside its 64-row q tiles and 128-key tiles (TMA's
     # zero rows, the masked keys of the ragged key tile, dQ rows past Lq
@@ -5181,6 +5955,44 @@ def main() -> int:
             f"; {work[0] / ms / 1e9:.1f} TFLOP/s, library "
             f"{work[0] / library_ms / 1e9:.1f})")
         del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
+
+    # B1 at the families' shapes: kernel, plain version, SDPA (its
+    # memory-efficient backend under the key mask), bound
+    timing_fam = {}
+    for label, ((Bf, Lf, Nf, Df), lengths) in b1_fam.items():
+        q, k, v = qkv(Bf, Lf, Lf, Nf, Df)
+        mask = fam_mask_text(lengths, Bf, Lf, QWEN_TEXT)
+        qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+        ms = cuda_ms(lambda: fa.flash_attention(q, k, v, kv_mask=mask),
+                     runs=10)
+        plain_ms = cuda_ms(lambda: fa.flash_attention_reference(
+            q, k, v, kv_mask=mask), runs=1, warmup=0)
+        if mask is None:
+            library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt), runs=10)
+        else:
+            bias = mask[:, None, None, :]
+            with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+                library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=bias), runs=10)
+        flops, nbytes = kernel_work(Bf, Lf, Lf, Nf, Df)["flash_attention_fwd"]
+        bound_ms, bound_by = bound(flops, nbytes + (
+            0 if mask is None else mask.numel()))
+        timing_fam[label] = dict(
+            shape=f"B={Bf} Lq={Lf} Lk={Lf} N={Nf} D={Df} bf16"
+            + (f" row keys {list(lengths)}" if lengths else ""), ms=ms,
+            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=library_ms, tflops=flops / ms / 1e9,
+            max_abs_err=err_fam[label][0],
+            max_rel_l2_err=err_fam[label][1])
+        log(f"[timing] flash_attention_fwd {label} "
+            f"{timing_fam[label]['shape']}: kernel_ms {ms:.4f} bound_ms "
+            f"{bound_ms:.4f} ({bound_by}) plain_ms {plain_ms:.4f} "
+            f"library_ms {library_ms:.4f} (share of bound {bound_ms / ms:.1%}"
+            f"; {flops / ms / 1e9:.1f} TFLOP/s, library "
+            f"{flops / library_ms / 1e9:.1f})")
+        del q, k, v, qt, kt, vt, mask
         torch.cuda.empty_cache()
 
     # B4 at the standard edit's shapes (batched CFG: batch 2): the whole of
@@ -5589,8 +6401,23 @@ def main() -> int:
     rec_s2v = s2v_phase(card, geo, gen, prompt, counters)
     log(f"[variants] phases 22-25 in {time.perf_counter() - t_var:.1f} s")
 
-    # ----------------------------------------------------------- 26. report
+    # ------------------------------------------- 26-28. the other families
     log(f"[smoke] phase 26 starts at {time.perf_counter() - t_start:.1f} s")
+    t_fam = time.perf_counter()
+    rec_cog = cogvideox_phase(card, gen, counters)
+    log(f"[smoke] phase 27 starts at {time.perf_counter() - t_start:.1f} s")
+    rec_flux = flux_phase(card, gen, counters)
+    log(f"[smoke] phase 28 starts at {time.perf_counter() - t_start:.1f} s")
+    rec_qwen = qwenimage_phase(card, gen, counters)
+    clip = write_clip("family_serving", geo)
+    rec_fam_serve = family_serving_phase(card, geo, prompt, clip, gen,
+                                         counters, out_frames)
+    rec_fam_sp = family_sp_phase(card, counters)
+    shutil.rmtree(SCRATCH, ignore_errors=True)
+    log(f"[families] phases 26-28 in {time.perf_counter() - t_fam:.1f} s")
+
+    # ----------------------------------------------------------- 29. report
+    log(f"[smoke] phase 29 starts at {time.perf_counter() - t_start:.1f} s")
     sources = {"flash_attention_fwd": "flash_attention_fwd.cu",
                "flash_attention_fwd_lse": "flash_attention_fwd.cu",
                "flash_attention_bwd": "flash_attention_bwd.cu"}
@@ -5763,6 +6590,28 @@ def main() -> int:
             "tpu_kernel": replaces["flash_attention_fwd"][1],
             "launches": rec["b1_launches"][label], "launches_on": on,
             "shape_label": label, **timing22[label]})
+    # B1 at the families' shapes, with the launches counted on their paths
+    # (phases 26-28; QwenImage's masked shape is held and timed in phases 2
+    # and 3 only: its pipeline passes no text mask, as JAX's)
+    for label, (on, launches_fam) in (
+            ("cogvideox joint", ("CogVideoX-5B, 4 DDIM steps",
+                                 rec_cog["b1_launches"]["cogvideox self"])),
+            ("flux joint", ("Flux-dev, 4 steps, bf16 and again fp8",
+                            rec_flux["b1_launches"]["flux joint"])),
+            ("qwenimage joint", ("QwenImage, 4 steps, true CFG",
+                                 rec_qwen["b1_launches"]["qwenimage joint"])),
+            ("qwenimage joint, text mask", ("phases 2-3 only", 0))):
+        rows.append({
+            "name": "flash_attention_fwd", "route": "cuda",
+            "source": f"videocof_torch/csrc/{sources['flash_attention_fwd']}",
+            "replaces": "videocof_tpu/ops/flash_attention.py:41",
+            "tpu_kernel": replaces["flash_attention_fwd"][1],
+            "launches": launches_fam, "launches_on": on,
+            "shape_label": label, **timing_fam[label]})
+    log("[families] " + json.dumps({"cogvideox": rec_cog, "flux": rec_flux,
+                                    "qwenimage": rec_qwen,
+                                    "serving": rec_fam_serve,
+                                    "sp": rec_fam_sp}, default=str))
     log("[variants] " + json.dumps({"i2v": rec_i2v, "vace": rec_vace,
                                     "camera": rec_cam, "s2v": rec_s2v}))
     log("[wan2.2] " + json.dumps({"fp8_14b": rec_fp8, "a14b_edit": rec_a14b,
@@ -5775,7 +6624,7 @@ def main() -> int:
                                  "lora_14b": rec_14b}, default=str))
     log("[parallel] " + json.dumps({"edits": rec_sp, "ring": rec_ring,
                                     "train": rec_sp_train}, default=str))
-    log(f"[smoke] phases 1-25 in {time.perf_counter() - t_start:.1f} s")
+    log(f"[smoke] phases 1-28 in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -403,3 +403,49 @@ def _trainer(p, offload_t5=False, bands=None, **kw):
 
 def _samples(p):
     return iter(p["samples"])
+
+
+# ------------------------------------------------- the non-Wan families
+
+def _family_module(entry):
+    from videocof_torch.models import cogvideox, flux, qwenimage
+    cls = {"cogvideox": cogvideox.CogVideoX, "flux": flux.Flux,
+           "qwenimage": qwenimage.QwenImage}[entry["family"]]
+    m = cls(entry["cfg"])
+    m.load_state_dict(entry["sd"])
+    return m
+
+
+def case_family_forwards(p, world):
+    """Each family's whole forward sequence-parallel over the world, in
+    both modes, at stream lengths that do not divide the seq axis
+    (QwenImage with a ragged text mask too)."""
+    from videocof_torch.parallel import (SPContext, make_ring_attention,
+                                         make_ulysses_attention)
+    mesh = _mesh(1, world)
+    res = {}
+    for name, entry in p["families"].items():
+        m = _family_module(entry)
+        args = [torch.from_numpy(a) for a in entry["args"]]
+        kw = {k: torch.from_numpy(v) for k, v in entry["kw"].items()}
+        for mode, maker in (("ulysses", make_ulysses_attention),
+                            ("ring", make_ring_attention)):
+            with torch.no_grad():
+                res[(name, mode)] = _np(m(*args, attn_backend=maker(mesh),
+                                          sp=SPContext(mesh), **kw))
+    return res
+
+
+def case_family_pipeline(p, world):
+    """The Flux pipeline with `enable_sequence_parallel` (each mode), from
+    the given start latents; and after `disable_sequence_parallel`."""
+    from videocof_torch.pipeline import FluxPipeline
+    entry = p["flux_pipe"]
+    pipe = FluxPipeline(_family_module(entry), device="cpu")
+    res = {}
+    for mode in ("ulysses", "ring"):
+        pipe.enable_sequence_parallel(seq=world, mode=mode)
+        res[mode] = pipe(*entry["args"], **entry["kw"])
+        pipe.disable_sequence_parallel()
+    res["local"] = pipe(*entry["args"], **entry["kw"])
+    return res

@@ -82,11 +82,14 @@ def test_scheduler_matches_jax(name, kw, steps):
 
 
 def test_scheduler_table():
-    assert set(SCHEDULERS) == {"euler", "unipc", "dpm++"}
-    with pytest.raises(NotImplementedError):
-        get_scheduler("ddim")
-    with pytest.raises(NotImplementedError):
-        get_scheduler("cogvideox_ddim")
+    from videocof_tpu.schedulers import SCHEDULERS as JAX_SCHEDULERS
+    assert set(SCHEDULERS) == set(JAX_SCHEDULERS) == {"euler", "unipc",
+                                                       "dpm++", "ddim"}
+    # DDIM (CogVideoX's sampler) by both names, its grid JAX's
+    for name in ("ddim", "cogvideox_ddim"):
+        a, b = get_scheduler(name), jax_get_scheduler(name)
+        assert type(a).__name__ == type(b).__name__ == "DDIMScheduler"
+        np.testing.assert_array_equal(a.set_timesteps(7), b.set_timesteps(7))
     with pytest.raises(ValueError):
         get_scheduler("nope")
     with pytest.raises(ValueError):

@@ -1099,3 +1099,76 @@ def test_parallel_attention_on_shards_matches_whole(cuda, tmp_path, mode):
                 else {"flash_attention_fwd_lse": world})
         assert {k: res["counts"][k] for k in want} == want, res["counts"]
         torch.testing.assert_close(res["got"], res["want"], **BF16_TOL)
+
+
+# B1 at the other families' shapes: CogVideoX-5B's joint self-attention
+# (batched CFG, 226 + 13 x 30 x 45 tokens, 48 heads of 64: 138 whole
+# 128-key tiles and 112 keys), Flux-dev's 512 + 64 x 64 tokens and
+# QwenImage's 256 + 64 x 64 (24 heads of 128), unmasked and with
+# QwenImage's joint key mask (a text mask folded in)
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L,N,D,masked", [(2, 17776, 48, 64, False),
+                                            (1, 4608, 24, 128, False),
+                                            (1, 4352, 24, 128, False),
+                                            (2, 4352, 24, 128, True)])
+def test_kernel_matches_plain_at_the_families_shapes(cuda, B, L, N, D,
+                                                     masked):
+    q, k, v = _qkv(cuda, B, L, L, N, D)
+    mask = None
+    if masked:     # row 0's text padded past its 200th of 256 tokens
+        mask = torch.ones(B, L, dtype=torch.bool, device=cuda)
+        mask[0, 200:256] = False
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, kv_mask=mask)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    _close(got, flash_attention_reference(q, k, v, kv_mask=mask))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["cogvideox", "flux", "qwenimage"])
+def test_family_forward_through_the_kernel_matches_naive(cuda, family):
+    """One tiny-depth forward of each family at head dim 64 (CogVideoX) or
+    128 in bf16 on the card: through B1 (its launches counted) against the
+    naive backend, relative L2 within 2e-2 (the DiT gate)."""
+    from videocof_torch.models import cogvideox, flux, qwenimage
+    g = torch.Generator(device=cuda).manual_seed(0)
+    bf16 = torch.bfloat16
+    if family == "cogvideox":
+        cfg = cogvideox.COGVIDEOX_5B.replace(num_layers=2,
+                                             num_attention_heads=4)
+        m = cogvideox.init_cogvideox(cfg, g, bf16)
+        args = (torch.randn(2, 3, 16, 16, 24, generator=g, device=cuda),
+                torch.randn(2, 20, 4096, generator=g, device=cuda),
+                torch.full((2,), 500.0, device=cuda))
+        launches = 2
+    elif family == "flux":
+        cfg = flux.FLUX_DEV.replace(num_layers=1, num_single_layers=1,
+                                    num_attention_heads=2)
+        m = flux.init_flux(cfg, g, bf16)
+        img_ids = torch.stack([torch.zeros(64), torch.arange(64) // 8,
+                               torch.arange(64) % 8], -1).to(cuda)
+        args = (torch.randn(1, 64, 64, generator=g, device=cuda),
+                torch.randn(1, 20, 4096, generator=g, device=cuda),
+                torch.randn(1, 768, generator=g, device=cuda),
+                torch.full((1,), 0.7, device=cuda), img_ids,
+                torch.zeros(20, 3, device=cuda))
+        launches = 2
+    else:
+        cfg = qwenimage.QWENIMAGE.replace(num_layers=2,
+                                          num_attention_heads=2)
+        m = qwenimage.init_qwenimage(cfg, g, bf16)
+        ii, ti = (a.to(cuda) for a in qwenimage.qwen_position_ids(
+            (1, 8, 8), 20))
+        args = (torch.randn(1, 64, 64, generator=g, device=cuda),
+                torch.randn(1, 20, 3584, generator=g, device=cuda),
+                torch.full((1,), 0.7, device=cuda), ii, ti)
+        launches = 2
+    with torch.no_grad():
+        before = flash_attention.launches
+        got = m(*args)
+        ran = flash_attention.launches - before
+        want = m(*args, attn_backend="naive")
+    assert ran == launches and torch.isfinite(got).all()
+    rel = ((got - want).float().norm() / want.float().norm()).item()
+    assert rel <= 2e-2, rel

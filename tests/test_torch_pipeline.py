@@ -82,11 +82,19 @@ def test_cot_edit_matches_jax(monkeypatch, dcfg, steps, jax_backend,
 
 
 def test_guards():
-    _, pipe = _pipelines(DCFG, None, None)
+    jpipe, pipe = _pipelines(DCFG, None, None)
     video = np.zeros((1, 3, 9, 32, 32), np.uint8)
-    # DDIM (CogVideoX's sampler) is not ported; it waits with CogVideoX
-    with pytest.raises(NotImplementedError, match="A.4"):
-        pipe(video, "x", source_frames=9, guidance_scale=5.0, sampler="ddim")
+    # DDIM (CogVideoX's sampler) runs in the port's Wan edit; JAX's raises
+    # there (its stepwise loop jits DDIM's step over a state that is no
+    # pytree: `test_torch_ddim.py::test_departure_wan_edit_with_ddim`)
+    noise = np.random.default_rng(0).standard_normal(
+        (1, J_VAE.z_dim, latent_frame_count(9) + 1, 4, 4)).astype(np.float32)
+    kw = dict(source_frames=9, guidance_scale=5.0, sampler="ddim",
+              num_inference_steps=2, noise=noise, output_latents=True)
+    with pytest.raises(TypeError):
+        jpipe(video, "x", fused_sampling=False, **kw)
+    out = pipe(video, "x", **kw)
+    assert np.isfinite(out.latents).all()
     with pytest.raises(ValueError):
         pipe(video, ["a", "b"], source_frames=9)
     if not torch.cuda.is_available():

@@ -10,7 +10,6 @@ factory, the embeddings and the CLIs' flag. JAX runs its stepwise loop
 (``VIDEOCOF_STEPWISE=1``, ``fused_sampling=False``)."""
 
 import dataclasses
-import json
 import sys
 
 import jax
@@ -277,16 +276,19 @@ def test_wrong_checkpoint_raises_and_leaves_the_weights(tmp_path):
         c.update_diffusion_transformer(ckpt)
     for k, v in pipe.dit.state_dict().items():
         assert torch.equal(v, before[k]), k
-    # a checkpoint of another family: not ported
-    flux = tmp_path / "flux"
-    flux.mkdir()
-    (flux / "config.json").write_text(json.dumps(
-        {"_class_name": "FluxTransformer2DModel"}))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        c.update_diffusion_transformer(str(flux))
+    # a checkpoint of another family: both controllers switch to its
+    # pipeline (`test_torch_family_serving.py` holds what it generates)
+    from _family_models import flux as tiny_flux
+    flux = checkpoint.save_family_checkpoint_dir(str(tmp_path / "flux"),
+                                                 tiny_flux(True)[1])
     from videocof_tpu.factory import detect_family as jdetect
-    assert factory.detect_family(str(flux)) == jdetect(str(flux)) == "flux"
+    assert factory.detect_family(flux) == jdetect(flux) == "flux"
     assert factory.detect_family(str(tmp_path)) == "wan"
+    jc = JController(jpipe)
+    jc.update_diffusion_transformer(flux)
+    c.update_diffusion_transformer(flux)
+    assert c.family == jc.family == "flux"
+    assert type(c.pipeline).__name__ == type(jc.pipeline).__name__
 
 
 # --------------------------------------------------------- request knobs

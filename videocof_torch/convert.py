@@ -66,9 +66,9 @@ def jax_param_path(name: str) -> str:
     """The JAX tree path of the port's linear weight ``name``, the inverse
     of `_linear_tree`'s map: ``blocks.3.self_attn.q.weight`` ->
     ``blocks/self_attn/q/kernel`` (block weights are one stacked leaf
-    there)."""
+    there, and so are Flux's ``single_blocks``)."""
     parts = name.split(".")
-    if parts[0] == "blocks":
+    if parts[0] in ("blocks", "single_blocks"):
         del parts[1]
     if parts[-1] == "weight":
         parts[-1] = "kernel"
@@ -105,6 +105,39 @@ def s2v_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """The JAX package's S2V params (`init_s2v_params`) -> `WanS2V` state
     dict."""
     return _linear_tree(params, stacked=())
+
+
+def cogvideox_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX package's CogVideoX params -> `CogVideoX` state dict."""
+    return _linear_tree(params)
+
+
+def flux_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX package's Flux params (double-stream ``blocks`` and
+    single-stream ``single_blocks``, both stacked) -> `Flux` state dict."""
+    return _linear_tree(params, stacked=("blocks", "single_blocks"))
+
+
+def qwenimage_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX package's QwenImage params -> `QwenImage` state dict."""
+    return _linear_tree(params)
+
+
+def cogvideox_vae_from_jax(params: Dict[str, Any]
+                           ) -> Dict[str, torch.Tensor]:
+    """The JAX package's CogVideoX VAE params (conv kernels already
+    [O, I, ...], its lists of stages and blocks) -> `CogVideoXVAE` state
+    dict."""
+    return _linear_tree(params, stacked=(), convs=("encoder.", "decoder."))
+
+
+def kl_vae_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX package's 2D KL-VAE decoder params -> `KLVAEDecoder` state
+    dict: convs renamed only, the mid-block attention's [in, out]
+    projections transposed to ``nn.Linear``'s."""
+    return _linear_tree(params, stacked=(), convs=(
+        "conv_in.", "conv_out.", "mid_resnet", "up_blocks.",
+        "post_quant_conv."))
 
 
 def t5_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:

@@ -18,9 +18,14 @@ every DiT in order, on the device, and then ``quantize="fp8"`` stores
 each DiT's matmul weights in fp8 (`utils/fp8.py`), one expert after the
 other. ``offload_t5`` keeps
 the umT5 weights in host memory (pinned when CUDA is present) and ships
-them to the device for each prompt encoding only. The non-Wan families
-and ``precompile`` raise `NotImplementedError` naming their ROADMAP.md
-item; `detect_family` names a checkpoint's family.
+them to the device for each prompt encoding only. ``precompile`` raises
+`NotImplementedError` naming its ROADMAP.md item.
+
+`detect_family` names a checkpoint's family; a CogVideoX, Flux or
+QwenImage directory (diffusers layout: a bare transformer directory, or a
+pipeline directory with ``transformer/`` and ``vae/``) is read by
+`load_family_pipeline` (JAX's `factory.py:70-103`), which `load_pipeline`
+hands it to.
 """
 
 from __future__ import annotations
@@ -107,22 +112,40 @@ def detect_family(model_name: str) -> str:
     return "wan"
 
 
-def _refuse_unported_layout(model_name: str) -> None:
-    """Raise for the checkpoint layouts of the JAX factory's other
-    branches: the non-Wan families."""
-    family = detect_family(model_name)
-    if family != "wan":
-        raise NotImplementedError(
-            f"{model_name} is a {family} checkpoint; the other model "
-            f"families are not ported (ROADMAP.md §A.4)")
-
-
-def _from_state_dict(module_cls, cfg, sd, dtype, device):
-    """``module_cls(cfg)`` holding the tensors of ``sd`` (built on the meta
-    device, so no weights are drawn only to be overwritten), on ``device``."""
-    module = module_cls(cfg, dtype=dtype, device="meta")
-    module.load_state_dict(sd, strict=True, assign=True)
-    return module.to(device)
+def load_family_pipeline(model_name: str, dtype: torch.dtype = torch.bfloat16,
+                         family: Optional[str] = None,
+                         quantize: Optional[str] = None, device=None):
+    """A `CogVideoXPipeline`, `FluxPipeline` or `QwenImagePipeline` from a
+    diffusers-layout directory: a bare transformer directory, or a pipeline
+    directory with ``transformer/`` and ``vae/`` (CogVideoX needs its VAE;
+    without one Flux and QwenImage return latents). ``quantize="fp8"``
+    stores the DiT's matmul weights in fp8 with the family's exclusions.
+    The pipelines take precomputed text embeddings (the text encoders are
+    out of scope, as in JAX). ``device``: CUDA unless the caller asks for
+    the CPU."""
+    from .pipeline import (CogVideoXPipeline, FluxPipeline,
+                           QwenImagePipeline)
+    family = family or detect_family(model_name)
+    tdir = model_name
+    if os.path.isfile(os.path.join(model_name, "transformer",
+                                   "config.json")):
+        tdir = os.path.join(model_name, "transformer")
+    vdir = os.path.join(model_name, "vae")
+    has_vae = os.path.isfile(os.path.join(vdir, "config.json"))
+    kw = dict(dtype=dtype, quantize=quantize, device=device)
+    if family == "cogvideox":
+        if not has_vae:
+            raise ValueError(
+                f"CogVideoX checkpoint {model_name!r} needs a vae/ subdir "
+                "(AutoencoderKLCogVideoX) to decode videos")
+        return CogVideoXPipeline.from_pretrained(tdir, vdir, **kw)
+    if family == "qwenimage":
+        return QwenImagePipeline.from_pretrained(
+            tdir, vae_path=vdir if os.path.isdir(vdir) else None, **kw)
+    if family == "flux":
+        return FluxPipeline.from_pretrained(
+            tdir, vae_path=vdir if has_vae else None, **kw)
+    raise ValueError(f"unknown model family {family!r} for {model_name!r}")
 
 
 def _finish_dit(dit: WanDiT, lora_paths, quantize: Optional[str]
@@ -156,7 +179,8 @@ def _read_dit(model_dir: str, cfg: WanDiTConfig, dtype, device
         branches["camera"] = camera_adapter_from_state_dict(
             convert_camera_adapter_state_dict(raw, dtype), dtype, device)
     del raw
-    return _from_state_dict(WanDiT, cfg, sd, dtype, device), branches
+    return (weights.module_from_state_dict(WanDiT, cfg, sd, dtype, device),
+            branches)
 
 
 def _read_clip(model_name: str, dtype, device) -> ClipVision:
@@ -169,7 +193,8 @@ def _read_clip(model_name: str, dtype, device) -> ClipVision:
             f": image-to-video needs the start image's CLIP features")
     sd = convert_clip_state_dict(weights.load_state_dict(path),
                                  CLIP_VIT_H_14, dtype)
-    return _from_state_dict(ClipVision, CLIP_VIT_H_14, sd, dtype, device)
+    return weights.module_from_state_dict(ClipVision, CLIP_VIT_H_14, sd,
+                                          dtype, device)
 
 
 def load_pipeline(
@@ -224,6 +249,9 @@ def load_pipeline(
         raise ValueError("random_init draws one DiT; high_noise_model names "
                          "a checkpoint directory, which it would ignore")
     device = _resolve_device(device)
+    if not random_init and detect_family(model_name) != "wan":
+        # a CogVideoX, Flux or QwenImage directory, as JAX's factory routes it
+        return load_family_pipeline(model_name, dtype=dtype, device=device)
     if vae_cfg is None:
         vae_cfg = (Wan22VAEConfig() if not random_init
                    and is_vae22_dir(model_name) else WanVAEConfig())
@@ -243,7 +271,6 @@ def load_pipeline(
         tokenizer = WanTokenizer(vocab_size=t5_cfg.vocab)
         _finish_dit(dit, lora_paths, quantize)
     else:
-        _refuse_unported_layout(model_name)
         dit_dir = model_name
         if high_noise_model is None and is_wan22_moe_dir(model_name):
             dit_dir = os.path.join(model_name, LOW_NOISE_SUBPATH)
@@ -259,14 +286,14 @@ def load_pipeline(
             clip = _read_clip(model_name, dtype, device)
         vae_path = os.path.join(model_name,
                                 VAE22_SUBPATH if vae22 else VAE_SUBPATH)
-        vae = _from_state_dict(Wan22VAE if vae22 else WanVAE, vae_cfg,
-                               weights.load_vae_state_dict(vae_path, vae_cfg,
-                                                           dtype),
-                               dtype, device)
+        vae = weights.module_from_state_dict(
+            Wan22VAE if vae22 else WanVAE, vae_cfg,
+            weights.load_vae_state_dict(vae_path, vae_cfg, dtype), dtype,
+            device)
         sd = weights.convert_t5_state_dict(weights.load_state_dict(
             os.path.join(model_name, T5_SUBPATH)), t5_cfg, dtype)
-        t5 = _from_state_dict(T5Encoder, t5_cfg, sd, dtype,
-                              "cpu" if offload_t5 else device)
+        t5 = weights.module_from_state_dict(T5Encoder, t5_cfg, sd, dtype,
+                                            "cpu" if offload_t5 else device)
         del sd
         # a real checkpoint demands a real tokenizer: the hash fallback
         # would silently corrupt production prompts

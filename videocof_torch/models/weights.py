@@ -379,3 +379,22 @@ def convert_t5_state_dict(sd: StateDict, cfg: T5Config,
     return {dst: sd[src].to(torch.float32 if dst.endswith("pos_emb")
                             else dtype)
             for src, dst in t5_key_map(cfg).items()}
+
+
+def module_from_state_dict(module_cls, cfg, sd: StateDict, dtype, device,
+                           quantize=None, exclude=None):
+    """``module_cls(cfg)`` holding the tensors of ``sd`` (built on the meta
+    device: no weights drawn only to be overwritten) on ``device``. With
+    ``quantize="fp8"`` each matmul weight is shipped and stored in fp8 one
+    at a time (`utils.fp8.quantize_dit_fp8`, JAX's exclusions or
+    ``exclude``) before the rest moves, so the bf16 model never exists on
+    the card."""
+    if quantize not in (None, "fp8"):
+        raise ValueError(f"unknown quantize mode {quantize!r}")
+    module = module_cls(cfg, dtype=dtype, device="meta")
+    module.load_state_dict(sd, strict=True, assign=True)
+    if quantize == "fp8":
+        from ..utils.fp8 import DEFAULT_EXCLUDE, quantize_dit_fp8
+        quantize_dit_fp8(module, exclude=exclude or DEFAULT_EXCLUDE,
+                         device=device)
+    return module.to(device)

@@ -148,3 +148,16 @@ def joint_pad_masks(B: int, lt_real, lt_pad: int, li_real: int, li_pad: int
             B, lt_pad)
     imask = (torch.arange(li_pad, device=device) < li_real).expand(B, li_pad)
     return torch.cat([tmask, imask], dim=1)
+
+
+def rank_major_mask(mask: torch.Tensor, lt_pad: int, size: int
+                    ) -> torch.Tensor:
+    """A joint key mask [B, lt_pad + li_pad] (text first, each stream padded
+    to the seq axis) in the order the keys take in the port's parallel
+    attention: each rank concatenates ITS text shard and ITS image shard,
+    so the gathered keys run rank by rank, [text_0 | image_0 | text_1 |
+    image_1 | ...] (JAX concatenates the logical streams instead, and
+    needs no reordering)."""
+    t = mask[:, :lt_pad].chunk(size, dim=1)
+    i = mask[:, lt_pad:].chunk(size, dim=1)
+    return torch.cat([part for pair in zip(t, i) for part in pair], dim=1)

@@ -17,6 +17,11 @@ def shift_sigma(sigmas: np.ndarray, shift: float) -> np.ndarray:
     return shift * sigmas / (1.0 + (shift - 1.0) * sigmas)
 
 
+def time_shift_mu(sigmas: np.ndarray, mu: float, s: float = 1.0) -> np.ndarray:
+    """The dynamic (resolution-aware) shift: e^mu / (e^mu + (1/t - 1)^s)."""
+    return np.exp(mu) / (np.exp(mu) + (1.0 / sigmas - 1.0) ** s)
+
+
 def flow_shift_sigmas(num_inference_steps: int, shift: float = 1.0,
                       num_train_timesteps: int = 1000
                       ) -> Tuple[np.ndarray, np.ndarray]:
@@ -39,17 +44,13 @@ def lam(sigma) -> np.ndarray:
 
 def get_scheduler(name: str, **kwargs):
     """A sampler by name (aliases as in the JAX package: "flow" is "euler",
-    "flow_unipc" "unipc", "flow_dpm++" "dpm++"). DDIM ("ddim",
-    "cogvideox_ddim") is not ported and raises."""
+    "flow_unipc" "unipc", "flow_dpm++" "dpm++", "cogvideox_ddim"
+    "ddim")."""
     from . import SCHEDULERS
     aliases = {"flow": "euler", "flow_unipc": "unipc", "flow_dpm++": "dpm++",
                "cogvideox_ddim": "ddim"}
     key = name.lower()
     key = aliases.get(key, key)
-    if key == "ddim":
-        raise NotImplementedError(f"scheduler {name!r} (DDIM, CogVideoX's "
-                                  f"sampler) is not ported (ROADMAP.md "
-                                  f"§A.4, with CogVideoX)")
     if key not in SCHEDULERS:
         raise ValueError(f"unknown scheduler {name!r}; have "
                          f"{sorted(SCHEDULERS)}")

@@ -18,6 +18,15 @@ Request json:
 Response json:
   {"message": "Success", "prompt": str, "base64_encoding": <base64 mp4>}
 
+With a CogVideoX, Flux or QwenImage pipeline resident (after a switch by
+the update endpoint) the request carries precomputed text embeddings:
+  {"text_embeddings": <base64 .npy>, "negative_embeddings": ...,
+   "pooled_projections": ... (Flux)} or {"embeddings_path": <.npz inside
+   the asset allowlist>}, with "height", "width", "num_frames"
+   (CogVideoX), "seed_textbox", "sample_step_slider", "cfg_scale_slider";
+and the reply carries "base64_encoding" (an mp4, CogVideoX),
+"base64_image" (a png) or "base64_latents" (.npy, no VAE resident).
+
 Run on the card:
     python -m videocof_torch.serving.api --random_init --port 8188
 """
@@ -208,6 +217,103 @@ def make_handler(controller: VideoCoFController, lock: threading.Lock,
                 self._reply(200, {"message":
                                   f"Error. error information is {e}"})
 
+        def _infer_media(self, req: dict, t0: float):
+            """Generation of the non-Wan families (controller.family
+            'cogvideox', 'flux' or 'qwenimage') from precomputed text
+            embeddings: base64 .npy fields (``text_embeddings``,
+            ``negative_embeddings``, ``pooled_projections``) or an ``.npz``
+            with those keys at ``embeddings_path``, read only inside the
+            asset allowlist (403 outside). Replies ``base64_encoding`` (an
+            mp4) for video, ``base64_image`` (a png) for a decoded image,
+            ``base64_latents`` (.npy) when no VAE is resident."""
+            import io
+
+            import numpy as np
+
+            def npy(s):
+                return np.load(io.BytesIO(base64.b64decode(s)),
+                               allow_pickle=False)
+
+            try:
+                emb = neg = pooled = None
+                if req.get("embeddings_path"):
+                    if not _inside(str(req["embeddings_path"]),
+                                   _allowed_roots()):
+                        metrics.observe(0.0, ok=False)
+                        self._reply(403, {"message":
+                                          "embeddings_path outside the "
+                                          "allowed asset directories"})
+                        return
+                    with np.load(os.path.realpath(req["embeddings_path"]),
+                                 allow_pickle=False) as z:
+                        emb = z["text_embeddings"]
+                        neg = (z["negative_embeddings"]
+                               if "negative_embeddings" in z else None)
+                        pooled = (z["pooled_projections"]
+                                  if "pooled_projections" in z else None)
+                if req.get("text_embeddings"):
+                    emb = npy(req["text_embeddings"])
+                if req.get("negative_embeddings"):
+                    neg = npy(req["negative_embeddings"])
+                if req.get("pooled_projections"):
+                    pooled = npy(req["pooled_projections"])
+                if emb is None:
+                    metrics.observe(0.0, ok=False)
+                    self._reply(400, {"message":
+                                      "missing text_embeddings (base64 "
+                                      ".npy) or embeddings_path (.npz)"})
+                    return
+                family = controller.family
+                kwargs = dict(
+                    text_embeddings=emb, negative_embeddings=neg,
+                    seed=int(req.get("seed_textbox", 0)),
+                    num_inference_steps=int(req["sample_step_slider"])
+                    if "sample_step_slider" in req else None,
+                    guidance_scale=float(req["cfg_scale_slider"])
+                    if "cfg_scale_slider" in req else None)
+                if family == "flux":
+                    kwargs["pooled_projections"] = pooled
+                for k in ("height", "width"):
+                    if k in req:
+                        kwargs[k] = int(req[k])
+                if family == "cogvideox":
+                    if "num_frames" in req:
+                        kwargs["num_frames"] = int(req["num_frames"])
+                    if "sampler_dropdown" in req:
+                        kwargs["scheduler"] = "ddim"   # the one it serves
+                with metrics._lock:
+                    metrics.busy += 1
+                try:
+                    with lock:
+                        with metrics._lock:
+                            metrics.generating_since = time.time()
+                        try:
+                            result = controller.generate_media(**kwargs)
+                        finally:
+                            with metrics._lock:
+                                metrics.generating_since = None
+                finally:
+                    with metrics._lock:
+                        metrics.busy -= 1
+                reply = {"message": "Success", "family": family}
+                if result.get("videos") is not None:
+                    reply["base64_encoding"] = \
+                        controller.encode_video_base64(result["videos"])
+                else:
+                    img = np.asarray(result["images"])
+                    if img.ndim >= 3 and img.shape[-3] == 3:
+                        reply["base64_image"] = \
+                            controller.encode_image_base64(img)
+                    else:     # latents: no VAE resident
+                        reply["base64_latents"] = \
+                            controller.encode_array_base64(img)
+                metrics.observe(time.time() - t0, ok=True)
+                self._reply(200, reply)
+            except Exception as e:
+                traceback.print_exc()
+                metrics.observe(time.time() - t0, ok=False)
+                self._reply(500, {"message": f"error: {e}"})
+
         def do_POST(self):
             if self.path in (UPDATE_ENDPOINT, LEGACY_UPDATE_ENDPOINT):
                 self._update_transformer()
@@ -220,8 +326,12 @@ def make_handler(controller: VideoCoFController, lock: threading.Lock,
             if req is None:
                 return
             t0 = time.time()
+            if controller.family != "wan":
+                # CogVideoX, Flux, QwenImage: the embeddings-in contract
+                self._infer_media(req, t0)
+                return
             if req.get("embeddings_path") or req.get("text_embeddings"):
-                # the embeddings-in contract of the non-Wan families: name
+                # the embeddings-in contract against a Wan pipeline: name
                 # the mismatch rather than fail on the missing video
                 self._reply(400, {"message": "embeddings-in payload but the "
                                   "resident pipeline is Wan; switch to a "
@@ -385,11 +495,14 @@ def main(argv=None):
     args = p.parse_args(argv)
 
     from ..factory import load_pipeline
-    pipe = load_pipeline(args.model_name or "", random_init=args.random_init,
-                         quantize=args.quantize, offload_t5=args.offload_t5,
-                         high_noise_model=args.high_noise_model,
-                         boundary=args.boundary)
-    serve(VideoCoFController(pipe, model_name=args.model_name),
+    load_kwargs = dict(random_init=args.random_init, quantize=args.quantize,
+                       offload_t5=args.offload_t5,
+                       high_noise_model=args.high_noise_model,
+                       boundary=args.boundary)
+    pipe = load_pipeline(args.model_name or "", **load_kwargs)
+    # a switch back to Wan from another family rebuilds with these
+    serve(VideoCoFController(pipe, model_name=args.model_name,
+                             wan_load_kwargs=load_kwargs),
           host=args.host, port=args.port)
 
 

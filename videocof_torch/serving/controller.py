@@ -4,13 +4,15 @@ prompt, runs the edit and encodes the result for transport.
 
 Counterpart of `videocof_tpu/serving/controller.py` (the reference's
 `Wan_Controller` / `VideoCoF_Controller`, `videox_fun/ui/wan_ui.py:43-147`,
-`examples/app.py:157-349`) for the Wan pipelines, the only family the port
-carries. LoRA files are merged in place into every expert of a bf16 or fp32
-pipeline, and attached as runtime adapters to fp8 experts (`merge_lora`
-refuses fp8 weights). A weight swap copies a checkpoint into the resident
-DiT tensor by tensor, re-quantizing fp8 experts on the way in, so the card
-never holds a second model. The non-Wan families (`generate_media`, a swap
-to a CogVideoX, Flux or QwenImage checkpoint) wait for ROADMAP.md §A.4.
+`examples/app.py:157-349`). LoRA files are merged in place into every
+expert of a bf16 or fp32 Wan pipeline, and attached as runtime adapters to
+fp8 experts (`merge_lora` refuses fp8 weights). A weight swap within Wan
+copies a checkpoint into the resident DiT tensor by tensor, re-quantizing
+fp8 experts on the way in, so the card never holds a second model. A swap
+to a CogVideoX, Flux or QwenImage checkpoint (or from one, back to Wan)
+replaces the pipeline through the factory, the old one released first
+(`_switch_family_pipeline`); those families then answer `generate_media`
+from precomputed text embeddings.
 """
 
 from __future__ import annotations
@@ -45,10 +47,26 @@ class VideoCoFController:
     # request without the knob gets it back, so no setting leaks into the
     # next request
     _cfg_seq_default: Optional[bool] = None
+    # `factory.load_pipeline` keyword arguments the resident Wan pipeline
+    # was built with (quantize, offload_t5, random_init, ...): a switch back
+    # to Wan from another family rebuilds with them
+    wan_load_kwargs: Dict[str, Any] = field(default_factory=dict)
+    # fp8 inferred from the resident Wan weights when wan_load_kwargs names
+    # no quantize: it carries to a Wan round trip and to Flux and QwenImage
+    # (as JAX's controller carries it), not to CogVideoX
+    _inferred_quantize: Optional[str] = None
 
     @property
     def family(self) -> str:
-        """The resident pipeline's model family: always 'wan' in the port."""
+        """The resident pipeline's model family: 'wan' (every Wan
+        pipeline), 'cogvideox', 'flux' or 'qwenimage'."""
+        from ..pipeline import (CogVideoXPipeline, FluxPipeline,
+                                QwenImagePipeline)
+        for cls, name in ((CogVideoXPipeline, "cogvideox"),
+                          (FluxPipeline, "flux"),
+                          (QwenImagePipeline, "qwenimage")):
+            if isinstance(self.pipeline, cls):
+                return name
         return "wan"
 
     def _wan_pipeline(self):
@@ -112,17 +130,18 @@ class VideoCoFController:
         single-expert path swaps the base expert, after unmerging fused
         LoRA files so the other expert is left pristine. Runtime adapters
         are detached and the LoRA tracker cleared: the new weights are
-        plain."""
+        plain. A checkpoint of another family (or a Wan one while another
+        family is resident) replaces the pipeline
+        (`_switch_family_pipeline`)."""
         if not path or path == "none":
             return
         from ..factory import (HIGH_NOISE_SUBPATH, LOW_NOISE_SUBPATH,
                                detect_family, is_wan22_moe_dir)
+        target = detect_family(path)
+        if target != "wan" or self.family != "wan":
+            self._switch_family_pipeline(path, target)
+            return
         pipe = self._wan_pipeline()
-        family = detect_family(path)
-        if family != "wan":
-            raise NotImplementedError(
-                f"{path} is a {family} checkpoint; the other model families "
-                f"are not ported (ROADMAP.md §A.4)")
         dit_2 = getattr(pipe, "dit_2", None)
         if is_wan22_moe_dir(path):
             if dit_2 is None:
@@ -142,6 +161,50 @@ class VideoCoFController:
             _copy_into(dit, sd)
         pipe.set_runtime_lora(None)
         self._merged_loras.clear()
+
+    def _switch_family_pipeline(self, path: str, target_family: str) -> None:
+        """Replace the resident pipeline with one loaded for ``path``'s
+        family (Wan too, on the way back). The old pipeline is released
+        before the load (its DiTs dropped, the allocator's cache emptied),
+        so the card holds one model at a time, as JAX deletes the old
+        DiT's buffers first. The new one goes on the old one's device in
+        its dtype; Wan is rebuilt with ``wan_load_kwargs``."""
+        import gc
+        old = self.pipeline
+        if (self.family == "wan" and self._params_quantized()
+                and "quantize" not in self.wan_load_kwargs):
+            self._inferred_quantize = "fp8"
+        dtype = getattr(old, "dtype", None) or torch.bfloat16
+        device = getattr(old, "device", None)
+        for attr in ("dit", "dit_2"):
+            if getattr(old, attr, None) is not None:
+                setattr(old, attr, None)
+        self.pipeline = old = None
+        gc.collect()
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()
+        if target_family == "wan":
+            from ..factory import load_pipeline
+            kw = dict(self.wan_load_kwargs)
+            if "quantize" not in kw and self._inferred_quantize:
+                kw["quantize"] = self._inferred_quantize
+            kw.setdefault("device", device)
+            self.pipeline = load_pipeline(path, dtype=dtype, **kw)
+        else:
+            from ..factory import load_family_pipeline
+            quantize = self.wan_load_kwargs.get("quantize")
+            if (quantize is None and self._inferred_quantize
+                    and target_family in ("flux", "qwenimage")):
+                quantize = self._inferred_quantize
+                print(f"[controller] applying inferred quantize="
+                      f"{quantize!r} to {target_family} load (no explicit "
+                      f"--quantize)", flush=True)
+            self.pipeline = load_family_pipeline(
+                path, dtype=dtype, family=target_family, quantize=quantize,
+                device=device)
+        self.model_name = path
+        self._merged_loras.clear()
+        self._cfg_seq_default = None
 
     def _staged_state(self, dit, path: str) -> Dict[str, torch.Tensor]:
         """The checkpoint at ``path`` as ``dit``'s state dict, still on the
@@ -277,19 +340,63 @@ class VideoCoFController:
         return {"prompt": prompt, "videos": out.videos,
                 "ground_videos": None, "edit_videos": out.edit_videos}
 
-    def generate_media(self, *args, **kwargs) -> Dict[str, Any]:
-        """The CogVideoX, Flux and QwenImage generation of the JAX
-        controller: this controller holds a Wan pipeline, so it raises (as
-        JAX's does on Wan); the families wait for ROADMAP.md §A.4."""
-        raise RuntimeError(
-            "generate_media serves the CogVideoX/Flux/QwenImage families; "
-            "this controller holds a Wan pipeline — use generate/"
-            "generate_t2v")
+    def generate_media(
+        self,
+        text_embeddings: np.ndarray,
+        negative_embeddings: Optional[np.ndarray] = None,
+        pooled_projections: Optional[np.ndarray] = None,
+        num_inference_steps: Optional[int] = None,
+        guidance_scale: Optional[float] = None,
+        seed: Optional[int] = None,
+        **gen_kwargs,
+    ) -> Dict[str, Any]:
+        """Generation of the CogVideoX, Flux and QwenImage pipelines from
+        precomputed text embeddings (their encoders are out of scope, as
+        in JAX): {'videos': [B, 3, F, H, W]} for CogVideoX, {'images': [B,
+        3, H, W] or latents} for the image families. Unset knobs: the
+        defaults' steps and seed, guidance 6 (CogVideoX), true CFG 4
+        (QwenImage) or guidance 3.5 (Flux, whose pooled projections are
+        zeros when not given). On a Wan pipeline it raises, as JAX's."""
+        fam = self.family
+        if fam == "wan":
+            raise RuntimeError(
+                "generate_media serves the CogVideoX/Flux/QwenImage "
+                "families; this controller holds a Wan pipeline — use "
+                "generate/generate_t2v")
+        d = self.defaults
+        steps = num_inference_steps or d.num_inference_steps
+        seed = seed if seed is not None else d.seed
+        if fam == "cogvideox":
+            videos = self.pipeline(
+                text_embeddings, negative_embeddings,
+                num_inference_steps=steps,
+                guidance_scale=(guidance_scale
+                                if guidance_scale is not None else 6.0),
+                seed=seed, **gen_kwargs)
+            return {"videos": videos, "images": None}
+        if fam == "qwenimage":
+            images = self.pipeline(
+                text_embeddings, negative_embeddings,
+                num_inference_steps=steps,
+                true_cfg_scale=(guidance_scale
+                                if guidance_scale is not None else 4.0),
+                seed=seed, **gen_kwargs)
+            return {"videos": None, "images": images}
+        if pooled_projections is None:
+            pooled_projections = np.zeros(
+                (np.asarray(text_embeddings).shape[0],
+                 self.pipeline.dit_cfg.pooled_projection_dim), np.float32)
+        images = self.pipeline(
+            text_embeddings, pooled_projections, num_inference_steps=steps,
+            guidance=(guidance_scale if guidance_scale is not None else 3.5),
+            seed=seed, **gen_kwargs)
+        return {"videos": None, "images": images}
 
     # --------------------------------------------------------------- encode
     @staticmethod
     def encode_image_base64(image: np.ndarray) -> str:
-        """PNG bytes as base64 of one image ([3, H, W] float in [0, 1])."""
+        """PNG bytes as base64 of one decoded image ([3, H, W], or the first
+        of [B, 3, H, W], float in [0, 1]): the image families' reply."""
         from PIL import Image
         arr = np.asarray(image, np.float32)
         if arr.ndim == 4:

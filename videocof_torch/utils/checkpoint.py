@@ -299,3 +299,94 @@ def save_wan_checkpoint_dir(model_dir: str, dit: torch.nn.Module,
         torch.save(sd, os.path.join(model_dir, path))
         written += sum(v.numel() * v.element_size() for v in sd.values())
     return written
+
+
+# ------------------------------------------- the non-Wan families' layouts
+
+class _Src:
+    """A stand-in tensor that remembers the published key it was read
+    under (the converters' ``.to``, ``.float`` and ``.reshape`` keep it)."""
+
+    shape = (1,)
+
+    def __init__(self, key: str):
+        self.key = key
+
+    def to(self, *args, **kwargs):
+        return self
+
+    def float(self):
+        return self
+
+    def reshape(self, *args):
+        return self
+
+
+class _Probe(dict):
+    """A state dict holding every key: a converter run over it maps each of
+    the port's names to the published one it reads."""
+
+    def __getitem__(self, key):
+        return _Src(key)
+
+    def __contains__(self, key) -> bool:
+        return True
+
+
+def export_family_state_dict(module: torch.nn.Module, converter, cfg
+                             ) -> StateDict:
+    """``module``'s weights under the published (diffusers) names that
+    ``converter`` (a family's ``convert_*_state_dict``) reads, in their
+    stored dtype: the converter's inverse, taken from the converter
+    itself."""
+    names = {dst: src.key for dst, src in converter(_Probe(), cfg).items()}
+    sd = module.state_dict()
+    missing = sorted(set(sd) - set(names))
+    if missing:
+        raise ValueError(f"no published name for {missing[:4]}")
+    return {names[k]: v for k, v in sd.items()}
+
+
+def _family_tables():
+    from ..models import cogvideox, cogvideox_vae, flux, kl_vae, qwenimage
+    from ..models.qwenimage_vae import convert_qwenimage_vae_state_dict
+    from ..models.wan_vae import WanVAE
+    return {
+        cogvideox.CogVideoX: ("CogVideoXTransformer3DModel",
+                              cogvideox.convert_cogvideox_state_dict),
+        flux.Flux: ("FluxTransformer2DModel", flux.convert_flux_state_dict),
+        qwenimage.QwenImage: ("QwenImageTransformer2DModel",
+                              qwenimage.convert_qwenimage_state_dict),
+        cogvideox_vae.CogVideoXVAE: (
+            "AutoencoderKLCogVideoX",
+            cogvideox_vae.convert_cogvideox_vae_state_dict),
+        kl_vae.KLVAEDecoder: ("AutoencoderKL",
+                              kl_vae.convert_kl_vae_state_dict),
+        WanVAE: ("AutoencoderKLQwenImage", convert_qwenimage_vae_state_dict),
+    }
+
+
+def _save_family_module(path: str, module: torch.nn.Module) -> None:
+    import dataclasses
+    cls_name, converter = _family_tables()[type(module)]
+    os.makedirs(path, exist_ok=True)
+    write_safetensors(os.path.join(path, "diffusion_pytorch_model"
+                                   ".safetensors"),
+                      export_family_state_dict(module, converter, module.cfg))
+    config = {"_class_name": cls_name, **dataclasses.asdict(module.cfg)}
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(config, f, indent=1)
+
+
+def save_family_checkpoint_dir(model_dir: str, dit: torch.nn.Module,
+                               vae: Optional[torch.nn.Module] = None) -> str:
+    """Write a CogVideoX, Flux or QwenImage pipeline directory in the
+    diffusers layout that `factory.load_family_pipeline` (and JAX's) reads:
+    ``transformer/`` and, with ``vae`` (a `CogVideoXVAE`, a
+    `KLVAEDecoder` or QwenImage's `WanVAE`), ``vae/``, each a
+    ``config.json`` with its ``_class_name`` and one safetensors file.
+    Returns ``model_dir``."""
+    _save_family_module(os.path.join(model_dir, "transformer"), dit)
+    if vae is not None:
+        _save_family_module(os.path.join(model_dir, "vae"), vae)
+    return model_dir

@@ -11,14 +11,19 @@ umT5-XXL beside them.
 JAX stacks the block weights on a layer axis and gives them one scale per
 layer; here each block's weight is its own tensor with its own scale, the
 same numbers. The weights quantized are JAX's: linear weights whose JAX
-path (`convert.jax_param_path`) holds none of ``DEFAULT_EXCLUDE``.
-Quantization runs on the weight's device, one tensor after another, so no
-fp32 copy of a whole model ever exists.
+path (`convert.jax_param_path`) holds none of the exclusions, by default
+``DEFAULT_EXCLUDE``; the Flux and QwenImage loaders pass their families'
+lists (`models.flux.FLUX_FP8_EXCLUDE`, `models.qwenimage.QWEN_FP8_EXCLUDE`),
+which quantize the AdaLN linears JAX's default keeps. Quantization runs on
+the weight's device, one tensor after another, so no fp32 copy of a whole
+model ever exists; a loader that names a ``device`` ships each weight there
+just before it is quantized, so no bf16 copy of a whole model reaches the
+card either.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import torch
 from torch import nn
@@ -61,19 +66,23 @@ def compute_dtype(lin: nn.Module) -> torch.dtype:
 
 
 @torch.no_grad()
-def quantize_dit_fp8(dit: nn.Module) -> nn.Module:
+def quantize_dit_fp8(dit: nn.Module, exclude: Sequence[str] = DEFAULT_EXCLUDE,
+                     device=None) -> nn.Module:
     """Store ``dit``'s matmul weights in fp8 in place, one tensor at a time
-    on its device: each quantized linear's ``weight`` becomes the fp8
-    tensor and its new buffer ``weight_scale`` the fp32 scale. Returns
-    ``dit``."""
+    on its device (on ``device`` when given: each weight is moved there
+    first): each quantized linear's ``weight`` becomes the fp8 tensor and
+    its new buffer ``weight_scale`` the fp32 scale. A linear whose JAX path
+    holds one of ``exclude`` keeps its weight. Returns ``dit``."""
     from ..convert import jax_param_path    # convert imports models.lora
     for name, mod in dit.named_modules():
         if not isinstance(mod, nn.Linear) or is_fp8(mod):
             continue
         path = jax_param_path(f"{name}.weight")
-        if any(p in path for p in DEFAULT_EXCLUDE):
+        if any(p in path for p in exclude):
             continue
-        q, scale = quantize_weight(mod.weight)
+        w = mod.weight if device is None else mod.weight.to(device)
+        q, scale = quantize_weight(w)
+        del w
         mod.weight = nn.Parameter(q, requires_grad=False)
         mod.register_buffer("weight_scale", scale)
     return dit
