@@ -55,7 +55,7 @@ Phases, each of which fails the run (non-zero exit) on any fault:
      output and that B1 ran exactly 2 x layers x steps times and no other
      kernel ran; then one DiT step of the edit's geometry under
      torch.profiler (device time by kernel, idle share).
-  5. the standard edit: the same models (the DiT's first 10 of its 30
+  5. the standard edit: the same models (the DiT's first 5 of its 30
      layers: the script's time limit) and video through
      `WanPipeline(attn_backend="int8")` in 50 Flow-UniPC steps at shift 3,
      guidance 5 against the default negative prompt, TeaCache with Wan2.1
@@ -93,7 +93,8 @@ Phases, each of which fails the run (non-zero exit) on any fault:
      33 + 4-frame edit (output, exactly 320 B1 launches and no other
      kernel, stage walls, peak memory); one DiT step under torch.profiler.
   9. the 4x length-extrapolation edit at 1.3B (random weights drawn by
-     `factory.load_pipeline("", random_init=True)`, full width and depth):
+     `factory.load_pipeline("", random_init=True)`, full width, its first
+     10 of 30 layers in phases 9-12: the script's time limit):
      a uint8 clip of 133 frames (4x the 33-frame clip, 34 latent frames)
      with 4 reasoning frames, 4 Flow-UniPC steps, repeat RoPE and RIFLEx
      (k 6, the default L_test), the VAE streamed: 34 + 1 + 34 latent
@@ -117,7 +118,7 @@ Phases, each of which fails the run (non-zero exit) on any fault:
      streamed VAE in fp32 within 1e-4 relative L2 (mu and decoded frames),
      and the streamed one in bf16 no further from it than 1.5x the whole
      one in bf16.
-  13. the standard CLI (on the DiT's first 10 of 30 layers, as phase 5):
+  13. the standard CLI (on the DiT's first 5 of 30 layers, as phase 5):
      `videocof_torch.cli.infer.main()` in this process
      (--random_init --repeat_rope, its defaults: 50 steps, CFG 5 against
      the default negative prompt, TeaCache with Wan2.1 T2V 14B's
@@ -166,14 +167,16 @@ Phases, each of which fails the run (non-zero exit) on any fault:
      with fp8 experts, the files, the launches, the seconds (the
      directory has no tokenizer: the factory gets
      ``require_real_tokenizer=False``).
-  19. serving, at full width: (a) the Wan2.1 14B in fp8 with umT5
+  19. serving, at full width: (a) the Wan2.1 14B in fp8 on its first 10
+     of 40 layers (the script's time limit, since phase 29) with umT5
      offloaded (`factory.load_pipeline(random_init=True, quantize="fp8",
      offload_t5=True)`) behind `VideoCoFController` and `serving.api`'s
      handler on a thread, four POSTs of the cv2 clip as a base64 mp4 (4
-     steps, guidance 1, one seed) with phase 8's LoRA files as runtime
-     adapters per request: FusionX, VideoCoF, none, FusionX; every reply
-     "Success" with an mp4 cv2 reads at 34 frames of 480x832; 160 self and
-     160 cross B1 calls at 40 heads a request and nothing else; the
+     steps, guidance 1, one seed) with two rank-32 LoRA files for those
+     layers as runtime adapters per request: FusionX, VideoCoF, none,
+     FusionX; every reply "Success" with an mp4 cv2 reads at 34 frames of
+     480x832; 40 self and 40 cross B1 calls at 40 heads a request and
+     nothing else; the
      adapters detached after "none"; the edits of requests 1-3 pairwise
      different and request 4 equal to request 1 bit for bit; the allocated
      memory between requests below the fp8 DiT, the VAE, the adapters and
@@ -199,7 +202,7 @@ Phases, each of which fails the run (non-zero exit) on any fault:
      healthy and two mapped requests, `VideoCoFClient.post_to_host` writing
      an mp4, exit within 30 s of SIGTERM. (d) `init_distributed` on NCCL,
      a world of 1: an all_reduce, then `destroy_process_group`.
-  20. training from files, at full width (the 1.3B runs on its first 10
+  20. training from files, at full width (the 1.3B runs on its first 5
      of 30 layers: the script's time limit): (a) a triplet JSON of four
      triplets of 40-frame cv2 clips (source, grounded with a gray
      rectangle, edited), three at 480x832 and one at 512x512, which
@@ -244,7 +247,8 @@ Phases, each of which fails the run (non-zero exit) on any fault:
      at the 14B's 40 heads.
   21. parallelism on `torch.distributed` at the 1.3B's full width, two
      ranks sharing the one card, the edits and training runs on its first
-     4 of 30 layers (the script's time limit; the ring edit on all 30):
+     4 of 30 layers (the script's time limit; the ring edit on 10, as
+     phase 9's):
      (a) the probe of the collectives on CUDA tensors of two ranks on
      cuda:0 (NCCL's one all_reduce; gloo's all_reduce, all_to_all_single,
      all_gather_into_tensor, reduce_scatter_tensor and batch_isend_irecv),
@@ -277,21 +281,23 @@ Phases, each of which fails the run (non-zero exit) on any fault:
      stage walls, peak memory, B1 calls by shape (exactly those the path
      implies, nothing else) and its final latents against the same call
      through the naive attention backend (relative L2 <= 2e-2, the DiT
-     gate): (22) image-to-video at WAN21_I2V_14B's width on its first 10
-     of 40 layers (the script's time limit, since phases 26-28) with the
+     gate): (22) image-to-video at WAN21_I2V_14B's width on its first 5
+     of 40 layers (the script's time limit, since phase 29) with the
      CLIP ViT-H/14 tower on the card (`factory.load_pipeline("",
      random_init=True, dit_cfg=...)`, `image_to_video` of a uint8 start
      image:
      self, text cross and 257-key image cross B1 calls), then
      `fast_infer.main(["--start_image", png, ...])` on a published-layout
      i2v directory (2 layers, full width, the CLIP file); (23) VACE at
-     Wan2.1 1.3B with 15 hint blocks (stride 2, live projections),
+     Wan2.1 1.3B's first 10 of 30 layers with 5 hint blocks (stride 2,
+     live projections),
      `control_to_video` of a uint8 control clip under a region mask, then
      `fast_infer.main(["--control_video", clip, "--control_mask", clip,
      ...])` on a published-layout VACE directory (2 layers and their hint
-     block); (24) camera control at 1.3B (the adapter 24 -> 1536 on
+     block); (24) camera control at 1.3B on 10 layers (the adapter 24 ->
+     1536 on
      `pose_params_to_embedding` of 33 pose rows); (25) speech-to-video at
-     the 14B's width on 10 of its 40 layers with seeded audio features
+     the 14B's width on 5 of its 40 layers with seeded audio features
      (audio_dim 1024,
      4 tokens a latent frame, injected at layer 0: B1 at batch 18 over 4
      keys). B1 is also held against its plain version (phase 2) and timed
@@ -329,7 +335,39 @@ Phases, each of which fails the run (non-zero exit) on any fault:
      the three families' joint shapes and at QwenImage's with a text mask
      (batch 2, row 0's text padded past 192 of its 256 tokens: the
      key-masked path, which a text mask takes).
-  29. a `kernels` JSON line and, last, the device JSON line.
+  29. tensor, pipeline and expert parallelism on `torch.distributed`, in
+     gloo worlds of 2 and 4 ranks sharing the card (the probe of phase 21
+     also holds `all_to_all_single` with uneven splits and `all_reduce`
+     on uint8 bytes, which this phase needs), each rank against world 1
+     in this process on the same layers and inputs: (a) the 4-step
+     480x832 33 + 4-frame CoF edit at WAN21_T2V_14B's width on its first
+     4 of 40 layers, fp8 with two runtime rank-32 LoRA files, at tp 2
+     (`enable_sequence_parallel(model=2)`): latents within 2e-2 relative
+     L2, B1 at 20 of 40 heads (16 self and 16 cross calls a rank), each
+     rank's share of the blocks' bytes at most 0.51, the all-reduces'
+     count, bytes and seconds; (b) Flux-dev (2 double and 2 single
+     blocks at 1024x1024, 512 text tokens), QwenImage (2 blocks, 256) and
+     CogVideoX-5B (2 blocks, 17,776 joint tokens at batch 2) forwards at
+     tp 2 within 2e-2, B1 at half the heads; (c) the TP x FSDP full
+     fine-tuning step at data 2 x model 2 (4 ranks) at the 1.3B's width on
+     2 layers, a 29,640-token row a data rank: the loss within 2e-2, the
+     gradients (FSDP-gathered) within 5e-2 relative L2 of world 1's cut
+     to the rank's TP shard, AdamW's moves within 0.3, the q weight's
+     shard [768, 768]; (d) GPipe (`pp_scan_blocks`) over the 1.3B's 30
+     blocks at full depth, 29,640 tokens, batch 2, 2 stages and 2
+     microbatches, within 2e-2 of the sequential blocks, and its backward
+     through the first 4 blocks (the blocks' and the stream's gradients
+     within 5e-2); (e) two WAN22_T2V_A14B-width fp8 experts of 2 layers,
+     one a rank (`ep_param_shardings`): `select_expert(k)` for k in {0,
+     1} run through `torch.func.functional_call` on a shell on the meta
+     device equal bit for bit to the owner's own forward; (f)
+     xlm-roberta-large with its CLIP head at full size, fp32: shapes,
+     finiteness, the padded row against the row alone within 1e-4. B1,
+     B2 and B3 are also held against their plain versions (phase 2) and
+     timed (phase 3) at the head-local shapes: the 14B's 20 heads (self
+     and cross), the 1.3B's 6 (self and cross, B2 and B3) and 3 (tp 4),
+     Flux's and QwenImage's 12, CogVideoX-5B's 24 of 64.
+  30. a `kernels` JSON line and, last, the device JSON line.
 
 B1 is also held against its plain version (phase 2) and timed (phase 3) at
 the 14B's 40 heads, at the self and cross shapes, and at the shapes of
@@ -394,9 +432,9 @@ SASS_OPCODES_INT8 = ("IGMMA", "HGMMA", "UTMALDG")
 SEED = 0
 TRAIN_STEPS = 3
 STD_STEPS = 50                 # the standard edit (the reference's inference.py)
-STD_LAYERS = 10                # ... and the standard CLI (phase 13) on the
+STD_LAYERS = 5                 # ... and the standard CLI (phase 13) on the
                                # first of the 1.3B's 30 layers (the
-                               # script's time limit)
+                               # script's time limit: 10 in PR 13-14)
 TEACACHE_PIN = 0.4             # pinned TeaCache skip rate (bench.py's)
 LORA_RANK = 32                 # the entry phases' synthetic LoRA files
 LORA_ALPHA = 16.0              # ... the kohya file's alpha (scale 0.5)
@@ -423,6 +461,9 @@ ENTRY22_LAYERS = 2             # layers per expert of the entries' checkpoint
 # the serving phase: the 14B server's LoRA file per request (runtime
 # adapters over fp8 weights; request 4 repeats request 1)
 SERVE_LORAS = ("fusionx", "videocof", "none", "fusionx")
+# ... its DiT at the 14B's width on its first 10 of 40 layers, with LoRA
+# files written for those (the script's time limit, since phase 29)
+SERVE_14B_LAYERS = 10
 SERVE_MEM_SLACK = 1e9          # allocated between requests over DiT + VAE +
                                # adapters (umT5's 11.4 GB are not resident)
 SWAP_MEM_SLACK = 64e6          # allocated after a weight swap vs before
@@ -442,8 +483,9 @@ TRAIN_INSTRUCTIONS = ("remove the red car", "replace the dog with a cat",
 TRAIN_OTHER_HW = (512, 512)
 TRAIN_MODES = ("plain", "gradual", "overlay", "plain")
 # phase 20's 1.3B runs on the first of its 30 layers (the script's time
-# limit; phase 6 trains all 30, and the 14B steps keep their 40)
-TRAIN_LAYERS = 10
+# limit, 10 in PR 13-14; phase 6 trains all 30, and the 14B steps keep
+# their 40)
+TRAIN_LAYERS = 5
 TRAIN_CLI_RANK = 16            # the CLI's LoRA rank, steps and saves
 TRAIN_CLI_STEPS = 4
 TRAIN_SAVE_EVERY = 2
@@ -460,8 +502,8 @@ TRAIN_14B_STEPS = 2
 SP_DEGREE = 2                  # phase 21: two ranks share the one card
 # phase 21's edits and training runs: the 1.3B cut to these of its 30
 # layers at full width (the script's time limit: 8 in PR 13, 4 since
-# phases 26-28); its ring edit keeps all 30, held against phase 9's 4x
-# edit
+# phases 26-28); its ring edit runs on LONG_LAYERS, held against phase
+# 9's 4x edit
 SP_LAYERS = 4
 SP_TRAIN_STEPS = 2             # ... its training runs' steps
 SP_TIMEOUT_S = 600             # ... the deadline of its spawned ranks
@@ -484,10 +526,16 @@ VARIANT_SHIFT = 5.0
 AUDIO_DIM = 1024
 AUDIO_TOKENS = 4
 CLI_LAYERS = 2
-# ... and the i2v and S2V paths at the 14B's width run on its first 10 of
-# 40 layers, their naive-backend runs too (the script's time limit, since
-# phases 26-28)
-VARIANT_14B_LAYERS = 10
+# ... and the i2v and S2V paths at the 14B's width run on its first 5 of
+# 40 layers, their naive-backend runs too (the script's time limit: 10
+# since phases 26-28, 5 since phase 29); VACE and camera control on the
+# 1.3B's first 10 of 30
+VARIANT_14B_LAYERS = 5
+VARIANT_1_3B_LAYERS = 10
+# phases 9-12 (the 4x, ragged and paired edits) and phase 21's ring edit,
+# held against phase 9's 4x edit, on the 1.3B's first 10 of 30 layers (the
+# script's time limit, since phase 29)
+LONG_LAYERS = 10
 # phases 26-28, the other model families at full width and depth, random
 # bf16 weights from the seed: CogVideoX-5B's clip and text (the
 # reference's 480x720, 49 frames, 226 T5 tokens, CFG 6, DDIM), the image
@@ -512,6 +560,28 @@ FAMILY_DIR_LAYERS = 2
 SERVE_COG_FRAMES = 9
 SERVE_FAMILY_STEPS = 2
 FAMILY_SP_LAYERS = 2
+# phase 29, tensor, pipeline and expert parallelism at gloo worlds of 2 and
+# 4 ranks on the one card: the TP edit at the Wan2.1 14B's width on its
+# first 4 of 40 layers; the families' TP forwards on 2 blocks of each kind;
+# the pipeline over the 1.3B's 30 blocks at batch 2 in 2 microbatches, its
+# backward through the first 4; the two fp8 A14B-width experts of 2
+# layers; the TP x FSDP step at the 1.3B's width on 2 layers, at AdamW's
+# lr 1e-2 (bf16 weights: smaller moves round away); the TP ranks' share of
+# the blocks' bytes at most 0.51 (the norms, modulations and row biases
+# stay whole); AdamW's moves within 0.3 relative L2 of world 1's (each
+# about lr in size: a gradient within the ranks' rounding of 0 may turn
+# its move's sign)
+TP_EDIT_LAYERS = 4
+TP_FAMILY_LAYERS = 2
+PP_BATCH = 2
+PP_MICRO = 2
+PP_GRAD_BLOCKS = 4
+EP_LAYERS = 2
+TP_TRAIN_LAYERS = 2
+TP_TRAIN_LR = 1e-2
+TP_FSDP_MIN = 2 ** 16          # FSDP's smallest sharded tensor (JAX's)
+TP_BYTES_SHARE = 0.51
+TP_UPDATE_TOL = 0.3
 
 
 def log(*args):
@@ -3609,7 +3679,13 @@ def nccl_phase(card):
 # ranks on the one card (a pair of processes per backend and collective, so
 # that one that crashes or hangs takes no other probe with it).
 PROBE_OPS = ("all_reduce", "all_to_all_single", "all_gather_into_tensor",
-             "reduce_scatter_tensor", "batch_isend_irecv")
+             "reduce_scatter_tensor", "batch_isend_irecv",
+             # phase 29's: the pipeline's hop (`_collectives.ppermute`, every
+             # split empty but the neighbour's) and the experts' bytes
+             "all_to_all_single_uneven", "all_reduce_uint8",
+             # and FSDP's reduce-scatter of a bf16 full fine-tune's
+             # gradients
+             "reduce_scatter_tensor_bf16")
 PROBE_TIMEOUT_S = 120
 
 
@@ -3641,11 +3717,30 @@ def _probe_worker(rank, world, init_file, backend, op, out_path):
             want = torch.cat([torch.arange(4 * world, device=dev).float() + s
                               for s in range(world)])
             x = out
-        elif op == "reduce_scatter_tensor":
-            out = torch.empty(4, device=dev)
-            dist.reduce_scatter_tensor(out, x)
+        elif op == "all_to_all_single_uneven":
+            # rank i sends its 4 * world values to rank i + 1 alone
+            out = torch.empty_like(x)
+            recv = [0] * world
+            send = [0] * world
+            recv[(rank - 1) % world] = x.numel()
+            send[(rank + 1) % world] = x.numel()
+            dist.all_to_all_single(out, x, recv, send)
+            want = torch.arange(4 * world, device=dev).float() + (
+                (rank - 1) % world)
+            x = out
+        elif op == "all_reduce_uint8":
+            # the owner's bytes, the zeros of the others
+            x = (torch.arange(4 * world, device=dev) % 251 + 1).to(
+                torch.uint8) * (rank == 0)
+            dist.all_reduce(x)
+            want = (torch.arange(4 * world, device=dev) % 251 + 1).to(
+                torch.uint8)
+        elif op.startswith("reduce_scatter_tensor"):
+            dtype = torch.bfloat16 if op.endswith("bf16") else torch.float32
+            out = torch.empty(4, device=dev, dtype=dtype)
+            dist.reduce_scatter_tensor(out, x.to(dtype))
             want = (torch.arange(4 * rank, 4 * rank + 4, device=dev) * world
-                    + sum(range(world))).float()
+                    + sum(range(world))).to(dtype)
             x = out
         else:
             out = torch.empty_like(x)
@@ -4987,12 +5082,14 @@ def live_vace(vace, gen):
 
 def vace_camera_phase(card, geo, gen, prompt, counters):
     """VACE and camera control at Wan2.1 1.3B (`factory.load_pipeline("",
-    random_init=True)`): (a) `VacePipeline` with 15 hint blocks (stride 2,
-    control context of 96 channels, live projections) generating under a
-    uint8 control clip and a region mask: (30 + 15) x steps self and cross
-    B1 calls; (b) `CameraPipeline` with the adapter (24 -> 1536) on
-    `pose_params_to_embedding` of VARIANT_FRAMES pose rows (a dolly with a
-    pan): 30 x steps each; both against the naive backend; (c) the entry:
+    random_init=True)`, cut to its first VARIANT_1_3B_LAYERS layers by
+    the caller): (a) `VacePipeline` with a hint block every 2 layers
+    (stride 2, control context of 96 channels, live projections)
+    generating under a uint8 control clip and a region mask: (layers +
+    hint blocks) x steps self and cross B1 calls; (b) `CameraPipeline`
+    with the adapter (24 -> 1536) on `pose_params_to_embedding` of
+    VARIANT_FRAMES pose rows (a dolly with a pan): layers x steps each;
+    both against the naive backend; (c) the entry:
     a published-layout VACE directory (CLI_LAYERS base layers and their
     hint block, the VAE and umT5 files phase 18 wrote) read by
     `fast_infer.main([..., "--control_video", clip, "--control_mask",
@@ -5166,6 +5263,706 @@ def s2v_phase(card, geo, gen, prompt, counters):
     torch.cuda.empty_cache()
     log("[S2V] " + json.dumps(record))
     return record
+
+
+# ------------------------- phase 29: tensor, pipeline, expert parallelism
+# gloo worlds of 2 and 4 ranks sharing the one card (NCCL refuses two ranks
+# on one device), each rank's result held against world 1 on the same
+# layers in this process. Weights and inputs are drawn from the seed, the
+# same on every rank; a rank's results go to ``out_dir/rank<r>.pt``.
+
+def _p29_init(rank, world, init_file):
+    """A rank of a phase-29 world: gloo, its card, TF32 off; a fault's
+    traceback to stderr."""
+    import faulthandler
+    import torch
+    import torch.distributed as dist
+    faulthandler.enable()
+    sys.path.insert(0, str(ROOT))
+    from videocof_torch.parallel import rank_device
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            world_size=world, rank=rank)
+    dev = rank_device()
+    torch.cuda.set_device(dev)
+    return dev
+
+
+@contextlib.contextmanager
+def gloo_sums():
+    """While the block runs: the all-reduces of the parallel collectives
+    (`_collectives._sum`: TP's row-parallel sums, its q/k norms' sums of
+    squares, the pipeline's output), each synchronized and timed, into the
+    yielded dict's "calls", "bytes" and "seconds"."""
+    import torch
+    from videocof_torch.parallel import _collectives as col
+    real, rec = col._sum, {"calls": 0, "bytes": 0, "seconds": 0.0}
+
+    def timed(x, group):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(x, group)
+        torch.cuda.synchronize()
+        rec["calls"] += 1
+        rec["bytes"] += x.numel() * x.element_size()
+        rec["seconds"] += time.perf_counter() - t0
+        return out
+    col._sum = timed
+    try:
+        yield rec
+    finally:
+        col._sum = real
+
+
+def stack_bytes(*stacks):
+    """Bytes of the blocks of ``stacks`` (parameters and buffers, as
+    stored)."""
+    from videocof_torch.utils.fp8 import fp8_bytes
+    return sum(fp8_bytes(b) for s in stacks for b in s)
+
+
+def tp_edit_pipeline(dev, lora_paths):
+    """Phase 29 (a)'s pipeline: the factory's draw at WAN21_T2V_14B's width
+    cut to its first TP_EDIT_LAYERS layers, fp8, the two LoRA files as
+    runtime adapters; umT5 at T5_TINY (the edit is given the prompt's
+    embeddings)."""
+    from videocof_torch import factory
+    from videocof_torch.configs import T5_TINY, WAN21_T2V_14B
+    from videocof_torch.models.lora import load_runtime_lora
+    cfg = WAN21_T2V_14B.replace(num_layers=TP_EDIT_LAYERS)
+    pipe = factory.load_pipeline("", random_init=True, seed=SEED,
+                                 dit_cfg=cfg, t5_cfg=T5_TINY, quantize="fp8",
+                                 device=dev)
+    runtime, _ = load_runtime_lora([(p, 1.0) for p in lora_paths], cfg)
+    pipe.set_runtime_lora(runtime)
+    return pipe
+
+
+def tp_edit_run(pipe, inputs):
+    """The 4-step edit of ``inputs`` on ``pipe``: latents, B1 calls by
+    shape, launches, stage walls, seconds, peak, the all-reduces."""
+    import torch
+    from videocof_torch.ops import flash_attention as fa
+    fa.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    timings = {}
+    t0 = time.perf_counter()
+    with b1_calls() as seen, gloo_sums() as sums:
+        out = pipe(inputs["video"], "", prompt_embeds=inputs["embeds"],
+                   output_latents=True, timings=timings, **inputs["kw"])
+    torch.cuda.synchronize()
+    return {"latents": out.latents, "b1": _b1_by_shape(seen),
+            "launches": fa.launch_counts(), "stages_s": timings,
+            "seconds": time.perf_counter() - t0, "all_reduce": sums,
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "block_bytes": stack_bytes(pipe.dit.blocks)}
+
+
+def tp_family_models(dev):
+    """Phase 29 (b)'s DiTs at full width, bf16 from the seed, with their
+    inputs: Flux-dev cut to TP_FAMILY_LAYERS blocks of each kind at
+    1024x1024 with 512 text tokens, QwenImage cut to TP_FAMILY_LAYERS
+    blocks with 256, CogVideoX-5B cut to TP_FAMILY_LAYERS blocks on the
+    480x720 49-frame clip with 226 tokens under batched CFG."""
+    import torch
+    from videocof_torch.models import cogvideox as cog
+    from videocof_torch.models import flux as flux_lib
+    from videocof_torch.models import qwenimage as qwen_lib
+    n, bf16 = TP_FAMILY_LAYERS, torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(SEED + 29)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    fcfg = flux_lib.FLUX_DEV.replace(num_layers=n, num_single_layers=n)
+    qcfg = qwen_lib.QWENIMAGE.replace(num_layers=n)
+    ccfg = cog.COGVIDEOX_5B.replace(num_layers=n)
+    side = FAMILY_HW[0] // 16
+    rows, cols = torch.meshgrid(torch.arange(side), torch.arange(side),
+                                indexing="ij")
+    iids = torch.stack([torch.zeros_like(rows), rows, cols], -1).reshape(
+        side * side, 3).float().to(dev)
+    qi, qt = qwen_lib.qwen_position_ids((1, side, side), QWEN_TEXT)
+    f_lat = (COG_FRAMES - 1) // 4 + 1
+    return {
+        "flux": (flux_lib.init_flux(fcfg, gen, bf16), (
+            randn(1, side * side, fcfg.in_channels),
+            randn(1, FLUX_TEXT, fcfg.joint_attention_dim),
+            randn(1, fcfg.pooled_projection_dim),
+            torch.tensor([0.7], device=dev), iids,
+            torch.zeros(FLUX_TEXT, 3, device=dev),
+            torch.tensor([FLUX_GUIDANCE], device=dev))),
+        "qwenimage": (qwen_lib.init_qwenimage(qcfg, gen, bf16), (
+            randn(1, side * side, qcfg.in_channels),
+            randn(1, QWEN_TEXT, qcfg.joint_attention_dim),
+            torch.tensor([0.7], device=dev), qi.to(dev), qt.to(dev))),
+        "cogvideox": (cog.init_cogvideox(ccfg, gen, bf16), (
+            randn(2, f_lat, ccfg.in_channels, COG_HW[0] // 8,
+                  COG_HW[1] // 8),
+            randn(2, COG_TEXT, ccfg.text_embed_dim),
+            torch.tensor([500.0, 500.0], device=dev)))}
+
+
+def tp_family_run(models, mesh=None):
+    """Each family's forward, tensor-parallel over ``mesh``'s model axis
+    when given: output, B1 calls, seconds, the blocks' bytes."""
+    import torch
+    from videocof_torch.parallel import (apply_tp, make_tp_attention,
+                                         validate_tp)
+    res = {}
+    for name, (model, args) in models.items():
+        attn = None
+        if mesh is not None:
+            validate_tp(model.cfg, mesh)
+            apply_tp(model, mesh)
+            attn = make_tp_attention(mesh)
+        stacks = [model.blocks] + ([model.single_blocks]
+                                   if hasattr(model, "single_blocks") else [])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad(), b1_calls() as seen:
+            out = model(*args, attn_backend=attn)
+        torch.cuda.synchronize()
+        res[name] = {"out": out.float().cpu(), "b1": _b1_by_shape(seen),
+                     "seconds": time.perf_counter() - t0,
+                     "block_bytes": stack_bytes(*stacks)}
+    return res
+
+
+def pp_setup(dev, geo):
+    """Phase 29 (d): the Wan2.1 1.3B's 30 blocks at full width, bf16 from
+    the seed, and a batch of PP_BATCH at the edit's 29,640 tokens: the fp32
+    stream, e0, the bf16 context, the CoF RoPE tables."""
+    import torch
+    from videocof_torch.configs import WAN21_T2V_1_3B
+    from videocof_torch.models.wan_dit import (init_wan_dit,
+                                               make_rope_for_geometry)
+    from videocof_torch.pipeline import latent_frame_count
+    cfg = WAN21_T2V_1_3B
+    gen = torch.Generator(device=dev).manual_seed(SEED + 30)
+    blocks = list(init_wan_dit(cfg, gen, torch.bfloat16, dev).blocks)
+    cond = latent_frame_count(geo.source_frames)
+    ground = latent_frame_count(geo.reasoning_frames)
+    grid = (2 * cond + ground, geo.height // 16, geo.width // 16)
+    L = grid[0] * grid[1] * grid[2]
+    cos, sin = make_rope_for_geometry(cfg, grid, f_src=cond, f_ground=ground)
+    x = torch.randn(PP_BATCH, L, cfg.dim, generator=gen, device=dev)
+    e0 = 0.1 * torch.randn(PP_BATCH, 6, cfg.dim, generator=gen, device=dev)
+    ctx = torch.randn(PP_BATCH, TEXT_TOKENS, cfg.dim, generator=gen,
+                      device=dev).to(torch.bfloat16)
+    rope = tuple(torch.as_tensor(a, device=dev) for a in (cos, sin))
+    return blocks, (x, e0, ctx), rope
+
+
+def pp_grads(blocks, offset=0):
+    """{"<block index>.<name>": its gradient on the CPU} of ``blocks``
+    (the first at ``offset``), the gradients then dropped."""
+    out = {f"{offset + i}.{k}": p.grad.float().cpu()
+           for i, blk in enumerate(blocks) for k, p in blk.named_parameters()}
+    for blk in blocks:
+        blk.zero_grad(set_to_none=True)
+    return out
+
+
+def ep_setup(dev):
+    """Phase 29 (e): two Wan2.2 A14B-width experts of EP_LAYERS layers from
+    two seeds, each quantized to fp8 as it is drawn, a shell of their
+    structure on the meta device, and a 14,040-token input (9 latent
+    frames at 480x832) with 512 text tokens."""
+    import torch
+    from videocof_torch.configs import WAN22_T2V_A14B
+    from videocof_torch.models.wan_dit import (WanDiT, init_wan_dit,
+                                               make_rope_for_geometry)
+    from videocof_torch.utils.fp8 import quantize_dit_fp8
+    cfg = WAN22_T2V_A14B.replace(num_layers=EP_LAYERS)
+    experts = [quantize_dit_fp8(init_wan_dit(
+        cfg, torch.Generator(device=dev).manual_seed(SEED + 40 + s),
+        torch.bfloat16, dev)) for s in (1, 2)]
+    shell = quantize_dit_fp8(WanDiT(cfg, torch.bfloat16, "meta"))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 43)
+    grid = (9, 30, 52)
+    cos, sin = make_rope_for_geometry(cfg, grid)
+    args = (torch.randn(1, cfg.in_dim, 9, 60, 104, generator=gen, device=dev),
+            torch.tensor([900.0], device=dev),
+            torch.randn(1, TEXT_TOKENS, cfg.text_dim, generator=gen,
+                        device=dev),
+            *(torch.as_tensor(a, device=dev) for a in (cos, sin)))
+    return experts, shell, args
+
+
+def _p29_rank2(rank, world, init_file, out_dir, lora_paths, edit_inputs,
+               geo):
+    """One rank of phase 29's world of 2: (a) the TP edit, (b) the TP
+    family forwards, (d) the pipeline over the 1.3B's blocks and its
+    backward, (e) the experts one a rank."""
+    import torch
+    from torch.func import functional_call
+    from videocof_torch.ops import flash_attention as fa
+    from videocof_torch.parallel import (ep_param_shardings, make_mesh,
+                                         pp_param_shardings, pp_scan_blocks,
+                                         select_expert, stack_experts)
+    dev = _p29_init(rank, world, init_file)
+    res = {"device": str(dev)}
+    t0 = time.perf_counter()
+    # (a) the CoF edit at the 14B's width, tp 2
+    pipe = tp_edit_pipeline(dev, lora_paths)
+    whole = stack_bytes(pipe.dit.blocks)
+    pipe.enable_sequence_parallel(model=world)
+    res["edit"] = dict(tp_edit_run(pipe, edit_inputs), whole_bytes=whole)
+    del pipe
+    torch.cuda.empty_cache()
+    # (b) the families' forwards, tp 2
+    mesh = make_mesh(model=world)
+    res["families"] = tp_family_run(tp_family_models(dev), mesh)
+    torch.cuda.empty_cache()
+    # (d) GPipe over the 1.3B's 30 blocks, S = 2, M = PP_MICRO; then the
+    # backward through the first PP_GRAD_BLOCKS blocks
+    blocks, (x, e0, ctx), rope = pp_setup(dev, geo)
+    mesh = make_mesh(seq=world)
+    stage = pp_param_shardings(mesh, blocks)
+    grad_stage = pp_param_shardings(mesh, blocks[:PP_GRAD_BLOCKS])
+    first = blocks.index(grad_stage[0])
+    del blocks
+
+    def block_fn(blk, h, cond):
+        return blk(h, cond[0], cond[1], rope)
+
+    fa.reset_launch_counts()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    with torch.no_grad(), gloo_sums() as sums:
+        out = pp_scan_blocks(mesh, block_fn, stage, x, (e0, ctx),
+                             microbatches=PP_MICRO)
+    torch.cuda.synchronize()
+    pp = {"out": out.float().cpu(), "seconds": time.perf_counter() - t1,
+          "launches": fa.launch_counts(), "all_reduce": sums,
+          "block_bytes": stack_bytes(stage)}
+    del out, stage
+    fa.reset_launch_counts()
+    xg = x.clone().requires_grad_()
+    t1 = time.perf_counter()
+    out = pp_scan_blocks(mesh, block_fn, grad_stage, xg, (e0, ctx),
+                         microbatches=PP_MICRO)
+    out.float().square().mean().backward()
+    torch.cuda.synchronize()
+    pp.update(grad_seconds=time.perf_counter() - t1,
+              grad_launches=fa.launch_counts(),
+              grads=pp_grads(grad_stage, first),
+              grad_x=xg.grad.float().cpu())
+    res["pp"] = pp
+    del out, xg, grad_stage, x, e0, ctx
+    torch.cuda.empty_cache()
+    # (e) two fp8 experts, one a rank
+    experts, shell, args = ep_setup(dev)
+    mesh = make_mesh(data=world)
+    stack = ep_param_shardings(mesh, stack_experts(*experts))
+    own = experts[rank]
+    del experts
+    torch.cuda.empty_cache()
+    ep = {"owner_of": rank,
+          "resident_bytes": sum(t.numel() * t.element_size()
+                                for t in stack.local.values())}
+    with torch.no_grad():
+        ep["own"] = own(*args).float().cpu()
+        for k in range(2):
+            t1 = time.perf_counter()
+            sel = select_expert(stack, k)
+            torch.cuda.synchronize()
+            ep[f"select_s_{k}"] = time.perf_counter() - t1
+            ep[k] = functional_call(shell, sel, args).float().cpu()
+            del sel
+    res["ep"] = ep
+    res["seconds"] = time.perf_counter() - t0
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+    torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+def tp_train_setup(dev, geo):
+    """Phase 29 (c): the Wan2.1 1.3B at full width cut to TP_TRAIN_LAYERS
+    layers, bf16 from the seed, and a batch of 2 at the edit's 29,640
+    tokens (the CoF frame mask, 512 text tokens) with its noise."""
+    import torch
+    from videocof_torch.configs import WAN21_T2V_1_3B
+    from videocof_torch.models.wan_dit import (init_wan_dit,
+                                               make_rope_for_geometry)
+    from videocof_torch.pipeline import latent_frame_count
+    cfg = WAN21_T2V_1_3B.replace(num_layers=TP_TRAIN_LAYERS)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 31)
+    dit = init_wan_dit(cfg, gen, torch.bfloat16, dev)
+    cond = latent_frame_count(geo.source_frames)
+    ground = latent_frame_count(geo.reasoning_frames)
+    grid = (2 * cond + ground, geo.height // 16, geo.width // 16)
+    cos, sin = make_rope_for_geometry(cfg, grid, f_src=cond, f_ground=ground)
+    shape = (2, cfg.in_dim, grid[0], 2 * grid[1], 2 * grid[2])
+    mask = torch.ones(grid[0], device=dev)
+    mask[:cond] = 0.0
+    batch = {"x0": torch.randn(shape, generator=gen, device=dev),
+             "context": torch.randn(2, TEXT_TOKENS, cfg.text_dim,
+                                    generator=gen, device=dev),
+             "rope_cos": torch.as_tensor(cos, device=dev),
+             "rope_sin": torch.as_tensor(sin, device=dev),
+             "timesteps": torch.tensor([300, 800], device=dev),
+             "frame_mask": mask}
+    noise = torch.randn(shape, generator=gen, device=dev)
+    return dit, batch, noise
+
+
+def tp_train_step(dit, batch, noise, mesh=None, rows=slice(None)):
+    """One full fine-tuning step (AdamW at TP_TRAIN_LR, the default remat)
+    on ``batch``'s ``rows``: the loss, the parameters before it (off a
+    mesh), the gradients AdamW took and the parameters after it (FSDP
+    shards gathered), on the CPU; launches, seconds, peak."""
+    import torch
+    from videocof_torch.ops import flash_attention as fa
+    from videocof_torch.training.train_step import adamw, make_train_step
+    from videocof_torch.utils.checkpoint import whole_state
+    before = (None if mesh is not None else
+              {k: v.float().cpu() for k, v in dit.state_dict().items()})
+    init_fn, step_fn = make_train_step(
+        dit, adamw(TP_TRAIN_LR, 0.0), mesh=mesh, fsdp_min_size=TP_FSDP_MIN)
+    state = init_fn()
+    log(f"[tp train] the step's state made (mesh: {mesh is not None})")
+    grads, real = {}, state.optimizer.adamw.step
+
+    def recording(*a, **kw):
+        for name, p in state.params.named_parameters():
+            grads[name] = whole_state(p.grad).float().cpu()
+        return real(*a, **kw)
+    state.optimizer.adamw.step = recording
+    qw = state.params.blocks[0].self_attn.q.weight
+    q_local = tuple((qw.to_local() if hasattr(qw, "to_local") else qw).shape)
+    fa.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    b = {k: (v[rows] if k in ("x0", "context", "timesteps") else v)
+         for k, v in batch.items()}
+    state, loss = step_fn(state, b, noise=noise[rows])
+    torch.cuda.synchronize()
+    return {"loss": float(loss), "before": before, "grads": grads,
+            "q_local": q_local,
+            "params": {k: whole_state(v).float().cpu()
+                       for k, v in state.params.state_dict().items()},
+            "launches": fa.launch_counts(),
+            "seconds": time.perf_counter() - t0,
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def _p29_rank4(rank, world, init_file, out_dir, geo):
+    """One rank of phase 29's world of 4: (c) the TP x FSDP step over data
+    2 x model 2, this rank's data row."""
+    import torch
+    from videocof_torch.parallel import make_mesh, tp_param_shardings
+    dev = _p29_init(rank, world, init_file)
+    dit, batch, noise = tp_train_setup(dev, geo)
+    mesh = make_mesh(data=2, model=2)
+    log(f"[tp train] rank {rank}: drawn, mesh made")
+    dims = tp_param_shardings(mesh, dit)
+    d = mesh.get_local_rank("data")
+    res = tp_train_step(dit, batch, noise, mesh, slice(d, d + 1))
+    log(f"[tp train] rank {rank}: stepped")
+    res.update(dims=dims, model_rank=mesh.get_local_rank("model"),
+               data_rank=d)
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+    torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+def _cat_rel_l2(pairs):
+    """Relative L2 of the concatenation of (got, want) pairs."""
+    import numpy as np
+    num = sum(float(np.square(np.asarray(g, np.float64)
+                              - np.asarray(w, np.float64)).sum())
+              for g, w in pairs)
+    den = sum(float(np.square(np.asarray(w, np.float64)).sum())
+              for _, w in pairs)
+    return (num / den) ** 0.5
+
+
+def xlm_phase():
+    """Phase 29 (f): xlm-roberta-large with its CLIP head at full size, fp32
+    from the seed, on two prompts of 77 ids (row 1 padded past 40): the
+    hidden states' and the embedding's shape and finiteness, row 1 alone
+    against row 1 in the batch (the padding keys masked, mean-pooled
+    away), seconds."""
+    import torch
+    from videocof_torch.models import xlm_roberta as xr
+    from videocof_torch.parallel import rank_device
+    dev = rank_device()
+    cfg = xr.XLMR_LARGE
+    t0 = time.perf_counter()
+    model = xr.init_xlm_roberta(cfg, torch.Generator(device=dev).manual_seed(
+        SEED + 50))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    ids = torch.randint(2, cfg.vocab_size, (2, 77), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(
+                            SEED + 51))
+    ids[1, 40:] = cfg.pad_id
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        hidden = xr.xlm_roberta_encode(model, ids)
+        emb = xr.xlm_roberta_clip_text(model, ids)
+        alone = xr.xlm_roberta_clip_text(model, ids[1:, :40])
+    torch.cuda.synchronize()
+    rel = _rel_l2(alone.cpu().numpy(), emb[1:].cpu().numpy())
+    rec = {"config": "XLMR_LARGE", "params": sum(p.numel() for p in
+                                                 model.parameters()),
+           "build_s": build_s, "forward_s": time.perf_counter() - t0,
+           "hidden": list(hidden.shape), "embedding": list(emb.shape),
+           "padded_row_vs_alone_rel_l2": rel}
+    log("[xlm-roberta] " + json.dumps(rec))
+    if (list(hidden.shape) != [2, 77, cfg.dim]
+            or list(emb.shape) != [2, cfg.out_dim]
+            or not torch.isfinite(hidden).all()
+            or not torch.isfinite(emb).all() or rel > 1e-4):
+        fail(f"xlm-roberta-large: {rec}")
+    return rec
+
+
+def tp_train_phase(geo):
+    """Phase 29 (c): the TP x FSDP step over data 2 x model 2 (a world of
+    4), each rank against world 1's step in this process, its gradients
+    and AdamW's moves cut to the rank's TP shard. Returns the record."""
+    import torch
+    from videocof_torch.parallel import rank_device
+    from videocof_torch.parallel.tp import shard_param
+    base = SCRATCH / "tp_train"
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    dit, batch, noise = tp_train_setup(rank_device(), geo)
+    w1_train = tp_train_step(dit, batch, noise)
+    del dit, batch, noise
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    _spawn_ranks(_p29_rank4, 4, (str(base / "rdzv4"), str(base), geo),
+                 "phase 29, world 4")
+    world4_s = time.perf_counter() - t0
+    r4 = [torch.load(base / f"rank{r}.pt", weights_only=False)
+          for r in range(4)]
+    shutil.rmtree(base, ignore_errors=True)
+    rec = {"world4_s": world4_s,
+           "world1": {k: w1_train[k] for k in (
+               "loss", "seconds", "peak_memory_gb", "launches")},
+           "ranks": []}
+    d_model = w1_train["params"]["blocks.0.self_attn.q.weight"].shape[0]
+    for r, got in enumerate(r4):
+        m = got["model_rank"]
+
+        def cut(tree, k):
+            return shard_param(k, tree[k], got["dims"][k], 2, m).numpy()
+
+        grel = _cat_rel_l2([(got["grads"][k].numpy(),
+                             cut(w1_train["grads"], k))
+                            for k in got["grads"]])
+        # AdamW's moves against world 1's (each about lr in size; a
+        # gradient within the ranks' rounding of 0 may turn its sign)
+        urel = _cat_rel_l2([
+            (got["params"][k].numpy() - cut(w1_train["before"], k),
+             cut(w1_train["params"], k) - cut(w1_train["before"], k))
+            for k in got["params"]])
+        lrel = abs(got["loss"] - w1_train["loss"]) / abs(w1_train["loss"])
+        row = {"loss": got["loss"], "loss_rel": lrel, "grad_rel_l2": grel,
+               "moves_rel_l2": urel, "q_local": got["q_local"],
+               **{k: got[k] for k in ("seconds", "peak_memory_gb",
+                                      "launches")}}
+        rec["ranks"].append(row)
+        log(f"[tp train] rank {r} (data {got['data_rank']}, model {m}): "
+            f"loss {got['loss']:.6f} (world 1 {w1_train['loss']:.6f}, "
+            f"relative {lrel:.3e}, gate {SP_LOSS_TOL}); gradients "
+            f"{grel:.3e} relative L2 from world 1's shard (gate "
+            f"{SP_GRAD_TOL}); AdamW's moves {urel:.3e} from world 1's "
+            f"(gate {TP_UPDATE_TOL}); q weight {got['q_local']}; "
+            f"{got['seconds']:.2f} s (world 1 {w1_train['seconds']:.2f} s),"
+            f" peak {got['peak_memory_gb']:.2f} GB (world 1 "
+            f"{w1_train['peak_memory_gb']:.2f} GB); launches "
+            f"{got['launches']}")
+        if (lrel > SP_LOSS_TOL or grel > SP_GRAD_TOL or urel > TP_UPDATE_TOL
+                or got["q_local"] != (d_model // 2, d_model // 2)):
+            fail(f"phase 29 TP x FSDP rank {r}: {row}")
+    log(f"[tp train] world 4 in {world4_s:.1f} s")
+    return rec
+
+
+def tp_phase(card, geo, video, probed):
+    """Phase 29 (a)-(f) (module docstring): world 1 in this process, then
+    the world of 2, then the world of 4. Fails on a collective the probe
+    found refused, on a rank that fails or disagrees with world 1, on
+    wrong B1 calls, on a TP rank holding more than TP_BYTES_SHARE of the
+    blocks' bytes. Returns the record."""
+    import numpy as np
+    import torch
+    from videocof_torch.configs import WAN21_T2V_14B
+    from videocof_torch.parallel import rank_device
+    for op in ("all_reduce", "all_reduce_uint8", "all_to_all_single",
+               "all_to_all_single_uneven", "all_gather_into_tensor",
+               "reduce_scatter_tensor_bf16"):
+        if not probed["gloo"][op]["ok"]:
+            fail(f"gloo {op} on CUDA tensors: {probed['gloo'][op]}")
+    dev = rank_device()
+    t_phase = time.perf_counter()
+    base = SCRATCH / "tp"
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    cfg14 = WAN21_T2V_14B.replace(num_layers=TP_EDIT_LAYERS)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 28)
+    lora_paths, _ = write_lora_files(cfg14, gen, base / "lora")
+    edit_inputs = {"video": video, "kw": _edit_kw(geo),
+                   "embeds": torch.randn(1, TEXT_TOKENS, cfg14.text_dim,
+                                         generator=gen, device=dev).cpu()}
+    # world 1
+    t0 = time.perf_counter()
+    pipe = tp_edit_pipeline(dev, lora_paths)
+    w1_edit = tp_edit_run(pipe, edit_inputs)
+    del pipe
+    w1_fam = tp_family_run(tp_family_models(dev))
+    torch.cuda.empty_cache()
+    blocks, (x, e0, ctx), rope = pp_setup(dev, geo)
+    with torch.no_grad():
+        h = x
+        t1 = time.perf_counter()
+        for blk in blocks:
+            h = blk(h, e0, ctx, rope)
+        torch.cuda.synchronize()
+    w1_pp = {"out": h.float().cpu(), "seconds": time.perf_counter() - t1}
+    xg = x.clone().requires_grad_()
+    h = xg
+    for blk in blocks[:PP_GRAD_BLOCKS]:
+        h = blk(h, e0, ctx, rope)
+    h.float().square().mean().backward()
+    w1_pp.update(grads=pp_grads(blocks[:PP_GRAD_BLOCKS]),
+                 grad_x=xg.grad.float().cpu())
+    del blocks, x, e0, ctx, h, xg
+    gc.collect()
+    torch.cuda.empty_cache()
+    world1_s = time.perf_counter() - t0
+    # the world of 2, then the world of 4
+    t0 = time.perf_counter()
+    _spawn_ranks(_p29_rank2, 2, (str(base / "rdzv2"), str(base), lora_paths,
+                                 edit_inputs, geo), "phase 29, world 2")
+    spawn2_s = time.perf_counter() - t0
+    r2 = [torch.load(base / f"rank{r}.pt", weights_only=False)
+          for r in range(2)]
+    for r in range(2):
+        (base / f"rank{r}.pt").unlink()
+    rec = {"card": card, "backend": "gloo", "world1_s": world1_s,
+           "world2_s": spawn2_s}
+    log(f"[tp] world 1 in {world1_s:.1f} s, the world of 2 in "
+        f"{spawn2_s:.1f} s")
+
+    # (a) the TP edit
+    L = sp_tokens(cfg14, geo, geo.source_frames)
+    steps, n14 = geo.num_inference_steps, cfg14.num_heads
+    want_b1 = {str((1, L, L, n14 // 2, False)): TP_EDIT_LAYERS * steps,
+               str((1, L, TEXT_TOKENS, n14 // 2, False)):
+               TP_EDIT_LAYERS * steps}
+    rec["edit"] = {"world1": {k: w1_edit[k] for k in (
+        "seconds", "stages_s", "peak_memory_gb", "block_bytes", "b1")},
+        "ranks": []}
+    for r, got in enumerate(r2):
+        g = got["edit"]
+        rel = _rel_l2(g["latents"], w1_edit["latents"])
+        share = g["block_bytes"] / g["whole_bytes"]
+        row = {"latents_rel_l2": rel, "block_bytes_share": share,
+               **{k: g[k] for k in ("seconds", "stages_s", "peak_memory_gb",
+                                    "block_bytes", "b1", "launches",
+                                    "all_reduce")}}
+        rec["edit"]["ranks"].append(row)
+        log(f"[tp edit] rank {r}: latents relative L2 {rel:.3e} from world "
+            f"1's (gate {SP_REL_TOL}); {g['seconds']:.2f} s (world 1 "
+            f"{w1_edit['seconds']:.2f} s); blocks {g['block_bytes'] / 1e9:.3f}"
+            f" of {g['whole_bytes'] / 1e9:.3f} GB ({share:.4f}); peak "
+            f"{g['peak_memory_gb']:.2f} GB (world 1 "
+            f"{w1_edit['peak_memory_gb']:.2f} GB); all-reduces "
+            f"{g['all_reduce']['calls']} of {g['all_reduce']['bytes'] / 1e9:.2f}"
+            f" GB in {g['all_reduce']['seconds']:.2f} s; B1 calls {g['b1']}")
+        if not np.isfinite(g["latents"]).all() or rel > SP_REL_TOL:
+            fail(f"phase 29 TP edit rank {r}: {rel:.3e} from world 1")
+        if g["b1"] != want_b1 or share > TP_BYTES_SHARE:
+            fail(f"phase 29 TP edit rank {r}: B1 {g['b1']} (expected "
+                 f"{want_b1}), block bytes share {share:.4f}")
+
+    # (b) the families
+    fam = family_geometry()
+    rec["families"] = {}
+    for name, w1 in w1_fam.items():
+        B, Lf, N, _ = fam[name]
+        want = {str((B, Lf, Lf, N // 2, False)):
+                TP_FAMILY_LAYERS * (2 if name == "flux" else 1)}
+        rows = []
+        for r, got in enumerate(r2):
+            g = got["families"][name]
+            rel = _rel_l2(g["out"].numpy(), w1["out"].numpy())
+            share = g["block_bytes"] / w1["block_bytes"]
+            rows.append({"rel_l2": rel, "seconds": g["seconds"],
+                         "b1": g["b1"], "block_bytes_share": share})
+            log(f"[tp {name}] rank {r}: relative L2 {rel:.3e} from world "
+                f"1's (gate {SP_REL_TOL}); {g['seconds']:.3f} s (world 1 "
+                f"{w1['seconds']:.3f} s); block bytes {share:.4f} of world "
+                f"1's; B1 calls {g['b1']}")
+            if not rel <= SP_REL_TOL or g["b1"] != want \
+                    or share > TP_BYTES_SHARE:
+                fail(f"phase 29 TP {name} rank {r}: {rows[-1]} (B1 "
+                     f"expected {want})")
+        rec["families"][name] = {"world1_s": w1["seconds"], "ranks": rows}
+
+    # (d) the pipeline
+    rec["pp"] = {"world1_s": w1_pp["seconds"], "ranks": []}
+    for r, got in enumerate(r2):
+        g = got["pp"]
+        rel = _rel_l2(g["out"].numpy(), w1_pp["out"].numpy())
+        grel = _cat_rel_l2([(v.numpy(), w1_pp["grads"][k].numpy())
+                            for k, v in g["grads"].items()])
+        xrel = _rel_l2(g["grad_x"].numpy(), w1_pp["grad_x"].numpy())
+        row = {"rel_l2": rel, "grad_rel_l2": grel, "grad_x_rel_l2": xrel,
+               **{k: g[k] for k in ("seconds", "grad_seconds", "launches",
+                                    "grad_launches", "all_reduce",
+                                    "block_bytes")}}
+        rec["pp"]["ranks"].append(row)
+        log(f"[pp] rank {r}: 30 blocks over 2 stages, {PP_MICRO} "
+            f"microbatches: relative L2 {rel:.3e} from the sequential "
+            f"blocks' (gate {SP_REL_TOL}), {g['seconds']:.2f} s (world 1 "
+            f"{w1_pp['seconds']:.2f} s); the backward through "
+            f"{PP_GRAD_BLOCKS} blocks: its blocks' gradients {grel:.3e}, "
+            f"the stream's {xrel:.3e} (gate {SP_GRAD_TOL}), "
+            f"{g['grad_seconds']:.2f} s; launches {g['launches']}, "
+            f"backward {g['grad_launches']}")
+        if not rel <= SP_REL_TOL or not max(grel, xrel) <= SP_GRAD_TOL:
+            fail(f"phase 29 PP rank {r}: {row}")
+        if len(g["grads"]) * 2 != len(w1_pp["grads"]):
+            fail(f"phase 29 PP rank {r}: gradients of {len(g['grads'])} "
+                 f"tensors, world 1 {len(w1_pp['grads'])}")
+
+    # (e) the experts
+    own = {got["ep"]["owner_of"]: got["ep"]["own"] for got in r2}
+    rec["ep"] = {"ranks": []}
+    for r, got in enumerate(r2):
+        g = got["ep"]
+        same = [bool(torch.equal(g[k], own[k])) for k in range(2)]
+        rec["ep"]["ranks"].append({
+            "resident_bytes": g["resident_bytes"], "bit_for_bit": same,
+            "select_s": [g["select_s_0"], g["select_s_1"]]})
+        log(f"[ep] rank {r} (owner of expert {g['owner_of']}, "
+            f"{g['resident_bytes'] / 1e9:.3f} GB resident): select_expert "
+            f"k = 0, 1 in {g['select_s_0']:.2f}, {g['select_s_1']:.2f} s; "
+            f"the forward equal to the owner's bit for bit: {same}")
+        if not all(same):
+            fail(f"phase 29 EP rank {r}: the selected expert's forward "
+                 f"differs from its owner's")
+
+    shutil.rmtree(base, ignore_errors=True)
+    rec["train"] = tp_train_phase(geo)
+    rec["xlm_roberta"] = xlm_phase()
+    rec["seconds"] = time.perf_counter() - t_phase
+    log(f"[tp] phase 29 in {rec['seconds']:.1f} s (world 1 {world1_s:.1f} "
+        f"s, world 2 {spawn2_s:.1f} s, world 4 {rec['train']['world4_s']:.1f}"
+        f" s; the ranks "
+        f"share the card's SMs: no multi-GPU speed)")
+    return rec
 
 
 def main() -> int:
@@ -5577,6 +6374,39 @@ def main() -> int:
         note("flash_attention_fwd", err_fam[label])
         del q, k, v, out, mask
         torch.cuda.empty_cache()
+    # B1, B2 and B3 at the head-local shapes of tensor parallelism (phase
+    # 29): the 14B edit's 20 of 40 heads at tp 2 (B1), the 1.3B's 6 of 12
+    # in the TP x FSDP step (B2, B3), its 3 at tp 4 (all three; phases 2-3
+    # only), the image families' 12 of 24 and CogVideoX-5B's 24 of 48 heads
+    # of 64 (B1)
+    b1_only = ("flash_attention_fwd",)
+    tp_shapes = {
+        "tp 14B self": ((1, L, L), N14 // 2, D, b1_only),
+        "tp 14B cross": ((1, L, Lt), N14 // 2, D, b1_only),
+        "tp 1.3B self": ((1, L, L), N // 2, D, tuple(names)),
+        "tp 1.3B cross": ((1, L, Lt), N // 2, D, tuple(names)),
+        "tp4 1.3B self": ((1, L, L), N // 4, D, tuple(names))}
+    for name in ("flux", "qwenimage", "cogvideox"):
+        Bf, Lf, Nf, Df = fam[name]
+        tp_shapes[f"tp {name} joint"] = ((Bf, Lf, Lf), Nf // 2, Df, b1_only)
+    err_tp = {}
+    for label, ((B, Lq, Lk), Nh, Dh, kernels) in tp_shapes.items():
+        q, k, v = qkv(B, Lq, Lk, Nh, Dh)
+        tag = f"{label} {(B, Lq, Lk, Nh, Dh)} bfloat16"
+
+        def check_tp():
+            if kernels == b1_only:
+                out = fa.flash_attention(q, k, v)
+                torch.cuda.synchronize()
+                note("flash_attention_fwd", compare(
+                    f"B1 {tag}", out, fa.flash_attention_reference(q, k, v)))
+            else:
+                qs, ref, ref_lse = check_forward(tag, q, k, v, None)
+                check_backward(tag, qs, k, v, ref, ref_lse)
+
+        err_tp[label] = shape_errs(check_tp, keys=names)
+        del q, k, v
+        torch.cuda.empty_cache()
     # B3 at lengths on and beside its 64-row q tiles and 128-key tiles (TMA's
     # zero rows, the masked keys of the ragged key tile, dQ rows past Lq
     # dropped by the reduce-add, lse and delta rows padded to 16 bytes)
@@ -5775,10 +6605,11 @@ def main() -> int:
         if shapes is None:
             shapes = (("self", (1, L, L), plain_runs_self, Nh),
                       ("cross", (1, L, Lt), 10, Nh))
-        for shape_name, (B, Lq, Lk), plain_runs, Nh in shapes:
-            q, k, v = qkv(B, Lq, Lk, Nh, D)
-            qs = q * fa._rounded(D ** -0.5, bf16)
-            do = randn(B, Lq, Nh, D)
+        for shape_name, (B, Lq, Lk), plain_runs, Nh, *head_dim in shapes:
+            Dh = head_dim[0] if head_dim else D
+            q, k, v = qkv(B, Lq, Lk, Nh, Dh)
+            qs = q * fa._rounded(Dh ** -0.5, bf16)
+            do = randn(B, Lq, Nh, Dh)
             out, lse = fa.flash_fwd_lse(qs, k, v)
             delta = fa.flash_bwd_delta(out, do)
             runs = {
@@ -5815,8 +6646,8 @@ def main() -> int:
                 "flash_attention_bwd": lambda: torch.autograd.grad(
                     sdpa_out, (lq, lk, lv), dot, retain_graph=True),
             }
-            work = kernel_work(B, Lq, Lk, Nh, D)
-            shape = f"B={B} Lq={Lq} Lk={Lk} N={Nh} D={D} bf16"
+            work = kernel_work(B, Lq, Lk, Nh, Dh)
+            shape = f"B={B} Lq={Lq} Lk={Lk} N={Nh} D={Dh} bf16"
             timing[shape_name] = {}
             for kname in kernels:
                 kernel_fn, plain_fn = runs[kname]
@@ -5850,6 +6681,16 @@ def main() -> int:
         in sp_shapes.items() if backward])
     timing_sp.update(time_flash(N, ["flash_attention_fwd_lse"], 1, shapes=[
         ("ring 4x", sp_shapes["ring 4x"][0], 1, N)], plain_warmup=0))
+
+    # B1, B2 and B3 at tensor parallelism's head-local shapes (phase 29)
+    timing_tp = {}
+    for label, ((B, Lq, Lk), Nh, Dh, kernels) in tp_shapes.items():
+        timing_tp.update(time_flash(Nh, list(kernels), 1, shapes=[
+            (label, (B, Lq, Lk), 1, Nh, Dh)], plain_warmup=0))
+        for kname in kernels:
+            timing_tp[label][kname].update(
+                max_abs_err=err_tp[label][kname][0],
+                max_rel_l2_err=err_tp[label][kname][1])
 
     # B1 at the 14B's 40 heads: kernel, plain version, SDPA and the bound
     timing14 = {}
@@ -6292,18 +7133,21 @@ def main() -> int:
     # on random 1.3B weights drawn by the factory from the seed
     from videocof_torch import factory
     t0 = time.perf_counter()
-    pipe = factory.load_pipeline("", random_init=True, seed=SEED)
+    with shallow_1_3b(LONG_LAYERS):
+        pipe = factory.load_pipeline("", random_init=True, seed=SEED)
     torch.cuda.synchronize()
-    log(f"[1.3B] factory.load_pipeline(random_init=True): "
-        f"{time.perf_counter() - t0:.1f} s")
+    log(f"[1.3B] factory.load_pipeline(random_init=True), its first "
+        f"{LONG_LAYERS} layers: {time.perf_counter() - t0:.1f} s")
+    want_long = dict(want_launches, flash_attention_fwd=(
+        2 * LONG_LAYERS * geo.num_inference_steps))
     video4, rec_4x, ref4 = extrapolation_phase(card, pipe, geo, gen, prompt,
-                                               counters, want_launches)
+                                               counters, want_long)
     rec_ragged, latents0 = ragged_phase(
         card, pipe, geo, prompt, [video, video4[:, :, :RAGGED_FRAMES]],
-        counters, want_launches)
+        counters, want_long)
     del video4
     rec_paired = paired_phase(card, pipe, geo, video, prompt, counters,
-                              want_launches)
+                              want_long)
     rec_vae = vae_phase(card, pipe, video, latents0, cond)
     del pipe
     gc.collect()
@@ -6346,8 +7190,12 @@ def main() -> int:
     log(f"[smoke] phase 19 starts at {time.perf_counter() - t_start:.1f} s")
     t_serve = time.perf_counter()
     clip = write_clip("serving", geo)
-    rec_serve = serving_14b_phase(card, WAN21_T2V_14B, geo, prompt, counters,
-                                  lora14, clip, out_frames)
+    cfg_serve = WAN21_T2V_14B.replace(num_layers=SERVE_14B_LAYERS)
+    lora_serve, _ = write_lora_files(
+        cfg_serve, torch.Generator(device=dev).manual_seed(SEED + 19),
+        LORA_DIR / "serve")
+    rec_serve = serving_14b_phase(card, cfg_serve, geo, prompt, counters,
+                                  lora_serve, clip, out_frames)
     shutil.rmtree(LORA_DIR, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
@@ -6383,7 +7231,8 @@ def main() -> int:
     with shallow_1_3b(SP_LAYERS):
         rec_sp = sp_edit_phase(card, geo, video, prompt, counters,
                                lambda: finish_probes(probes))
-    rec_ring = sp_ring_phase(card, geo, prompt, ref4, counters)
+    with shallow_1_3b(LONG_LAYERS):
+        rec_ring = sp_ring_phase(card, geo, prompt, ref4, counters)
     del ref4
     with shallow_1_3b(SP_LAYERS):
         rec_sp_train = sp_train_phase(card, geo)
@@ -6397,7 +7246,9 @@ def main() -> int:
     log(f"[smoke] phase 22-25 starts at {time.perf_counter() - t_start:.1f} s")
     t_var = time.perf_counter()
     rec_i2v = i2v_phase(card, geo, gen, prompt, counters)
-    rec_vace, rec_cam = vace_camera_phase(card, geo, gen, prompt, counters)
+    with shallow_1_3b(VARIANT_1_3B_LAYERS):
+        rec_vace, rec_cam = vace_camera_phase(card, geo, gen, prompt,
+                                              counters)
     rec_s2v = s2v_phase(card, geo, gen, prompt, counters)
     log(f"[variants] phases 22-25 in {time.perf_counter() - t_var:.1f} s")
 
@@ -6416,8 +7267,14 @@ def main() -> int:
     shutil.rmtree(SCRATCH, ignore_errors=True)
     log(f"[families] phases 26-28 in {time.perf_counter() - t_fam:.1f} s")
 
-    # ----------------------------------------------------------- 29. report
+    # ------------------------ 29. tensor, pipeline and expert parallelism
     log(f"[smoke] phase 29 starts at {time.perf_counter() - t_start:.1f} s")
+    rec_tp = tp_phase(card, geo, video, rec_sp["probe"])
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ----------------------------------------------------------- 30. report
+    log(f"[smoke] phase 30 starts at {time.perf_counter() - t_start:.1f} s")
     sources = {"flash_attention_fwd": "flash_attention_fwd.cu",
                "flash_attention_fwd_lse": "flash_attention_fwd.cu",
                "flash_attention_bwd": "flash_attention_bwd.cu"}
@@ -6624,7 +7481,44 @@ def main() -> int:
                                  "lora_14b": rec_14b}, default=str))
     log("[parallel] " + json.dumps({"edits": rec_sp, "ring": rec_ring,
                                     "train": rec_sp_train}, default=str))
-    log(f"[smoke] phases 1-28 in {time.perf_counter() - t_start:.1f} s")
+    # B1, B2 and B3 at tensor parallelism's head-local shapes (phase 29),
+    # with the launches each rank counted: B1 on the 14B edit's and the
+    # families' forwards, B2 and B3 in the TP x FSDP step (per rank, its
+    # self and cross shapes together); tp 4 of the 1.3B in phases 2-3 only
+    tp_launches = {
+        "tp 14B self": ("TP edit, tp 2", "flash_attention_fwd", [
+            r["b1"][str((1, L, L, N14 // 2, False))]
+            for r in rec_tp["edit"]["ranks"]]),
+        "tp 14B cross": ("TP edit, tp 2", "flash_attention_fwd", [
+            r["b1"][str((1, L, Lt, N14 // 2, False))]
+            for r in rec_tp["edit"]["ranks"]]),
+        "tp4 1.3B self": ("phases 2-3 only", None, None)}
+    for name in ("flux", "qwenimage", "cogvideox"):
+        Bf, Lf, Nf, _ = fam[name]
+        tp_launches[f"tp {name} joint"] = (
+            f"{name} forward, tp 2", "flash_attention_fwd", [
+                r["b1"][str((Bf, Lf, Lf, Nf // 2, False))]
+                for r in rec_tp["families"][name]["ranks"]])
+    for label in ("tp 1.3B self", "tp 1.3B cross"):
+        tp_launches[label] = ("TP x FSDP step, data 2 x model 2", "step",
+                              None)
+    for label, (on, key, per_rank) in tp_launches.items():
+        for kname, t in timing_tp[label].items():
+            if key == "step":
+                counts = [r["launches"][kname]
+                          for r in rec_tp["train"]["ranks"]]
+            else:
+                counts = per_rank or [0]
+            line, tpu = replaces[kname]
+            rows.append({
+                "name": kname, "route": "cuda",
+                "source": f"videocof_torch/csrc/{sources[kname]}",
+                "replaces": f"videocof_tpu/ops/flash_attention.py:{line}",
+                "tpu_kernel": tpu, "launches": counts[0],
+                "launches_per_rank": counts, "launches_on": on,
+                "shape_label": label, **t})
+    log("[tp] " + json.dumps(rec_tp, default=str))
+    log(f"[smoke] phases 1-29 in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

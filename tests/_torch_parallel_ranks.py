@@ -1,5 +1,7 @@
 """The rank side of the port's parallel tests (`test_torch_parallel.py`,
-`test_torch_parallel_train.py`): `run_world` spawns a gloo world of CPU
+`test_torch_parallel_train.py`, `test_torch_image_sp.py`,
+`test_torch_tensor_parallel.py`, `test_torch_image_tp.py`,
+`test_torch_pipeline_parallel.py`): `run_world` spawns a gloo world of CPU
 processes once, each rank runs the named cases on the inputs the parent
 made (numpy arrays and the port's state dicts, carried from JAX's weights
 by `videocof_torch.convert`), and the parent gets every rank's results.
@@ -448,4 +450,267 @@ def case_family_pipeline(p, world):
         res[mode] = pipe(*entry["args"], **entry["kw"])
         pipe.disable_sequence_parallel()
     res["local"] = pipe(*entry["args"], **entry["kw"])
+    return res
+
+
+# ------------------------------------------------- tensor parallelism
+
+def _mesh3(data, seq, model):
+    from videocof_torch.parallel import make_mesh
+    return make_mesh(data=data, seq=seq, model=model)
+
+
+# the (data, seq, model) layouts of each world's TP cases, and the
+# attention each takes: "local", "ulysses" or "ring" over seq
+TP_LAYOUTS = {2: {"tp2": ((1, 1, 2), "local")},
+              4: {"tp4": ((1, 1, 4), "local"),
+                  "tp2_ulysses2": ((1, 2, 2), "ulysses"),
+                  "tp2_ring2": ((1, 2, 2), "ring"),
+                  "data2_tp2_cfg": ((2, 1, 2), "local")}}
+
+
+def case_mesh3d(p, world):
+    """This rank's (data, seq, model) coordinates in every mesh of the
+    world's size."""
+    res = {}
+    for shape in p["mesh_shapes"][world]:
+        mesh = _mesh3(*shape)
+        res[shape] = tuple(mesh.get_local_rank(a)
+                           for a in ("data", "seq", "model"))
+    return res
+
+
+def _tp_dit(p, key, mesh, quantize=False):
+    from videocof_torch.parallel import apply_tp, validate_tp
+    dit = _dit(p[key], p[key + "_cfg"])
+    if quantize:
+        from videocof_torch.utils.fp8 import quantize_dit_fp8
+        quantize_dit_fp8(dit)
+    validate_tp(dit.cfg, mesh)
+    return apply_tp(dit, mesh)
+
+
+def _tp_forward(dit, mesh, mode, args, kw=None, cfg_parallel=False):
+    from videocof_torch.parallel import (SPContext, make_ring_attention,
+                                         make_tp_attention)
+    sp = None
+    if mode == "ring":
+        attn = make_ring_attention(mesh, model_axis="model")
+    else:
+        attn = make_tp_attention(
+            mesh, seq_axis="seq" if mode == "ulysses" else None)
+    if mode != "local" or cfg_parallel:
+        sp = SPContext(mesh, cfg_parallel=cfg_parallel)
+    with torch.no_grad():
+        return _np(dit(*[torch.from_numpy(a) for a in args],
+                       attn_backend=attn, sp=sp,
+                       **{k: torch.from_numpy(v)
+                          for k, v in (kw or {}).items()}))
+
+
+def case_tp_forward(p, world):
+    """The Wan DiT forward over each TP layout of the world (the CFG layout
+    on a batch of 2, one row a data rank), the shard shapes, an i2v DiT,
+    fp8 storage and runtime LoRA adapters at tp = world."""
+    from videocof_torch.models.lora import LoRAAdapters
+    res = {}
+    for name, ((d, s, m), mode) in TP_LAYOUTS[world].items():
+        mesh = _mesh3(d, s, m)
+        dit = _tp_dit(p, "tp_dit", mesh)
+        cfgp = name.endswith("cfg")
+        res[name] = _tp_forward(dit, mesh, mode,
+                                p["tp_in2" if cfgp else "tp_in"],
+                                cfg_parallel=cfgp)
+    mesh = _mesh3(1, 1, world)
+    dit = _tp_dit(p, "tp_dit", mesh)
+    res["shapes"] = {k: tuple(v.shape) for k, v in dit.named_parameters()}
+    res["i2v"] = _tp_forward(_tp_dit(p, "i2v_dit", mesh), mesh, "local",
+                             p["i2v_in"], p["i2v_kw"])
+    q = _tp_dit(p, "tp_dit", mesh, quantize=True)
+    lin = q.blocks[0].self_attn.q
+    res["fp8_q"] = (str(lin.weight.dtype), tuple(lin.weight.shape),
+                    float(lin.weight_scale))
+    res["fp8"] = _tp_forward(q, mesh, "local", p["tp_in"])
+    ad = LoRAAdapters(p["tp_dit_cfg"], 1, 1.0, ranks=p["lora_ranks"])
+    ad.load_state_dict(p["lora"])
+    dit = _tp_dit(p, "tp_dit", mesh)
+    dit.runtime_lora = (ad, p["lora_scale"])
+    res["lora"] = _tp_forward(dit, mesh, "local", p["tp_in"])
+    return res
+
+
+def _tp_pipeline(p, moe, mesh_shape, cfg_parallel=False):
+    pipe = _pipeline(p, "wan22" if moe else "dit")
+    d, s, m = mesh_shape
+    pipe.enable_sequence_parallel(data=d, seq=s, model=m,
+                                  cfg_parallel=cfg_parallel)
+    return pipe
+
+
+def case_tp_edits(p, world):
+    """The CoF edit and the Wan2.2 edit under `enable_sequence_parallel`
+    with a model axis (seq 2 x model 2 at world 4, model 2 at world 2),
+    the CFG edit with CFG parallelism (data 2 x model 2, world 4), the
+    experts' q shard shapes, and the backend `disable_sequence_parallel`
+    gives back."""
+    shape = (1, 2, 2) if world == 4 else (1, 1, 2)
+    pipe = _tp_pipeline(p, False, shape)
+    res = {"cof": _edit(pipe, p)}
+    pipe.disable_sequence_parallel()
+    res["disabled_backend"] = pipe.attn_backend
+    pipe = _tp_pipeline(p, True, shape)
+    res["wan22"] = _edit(pipe, p, num_inference_steps=4, guidance_scale=1.0)
+    res["expert_q"] = [tuple(dit.blocks[0].self_attn.q.weight.shape)
+                       for dit in pipe._dits()]
+    if world == 4:
+        pipe = _tp_pipeline(p, False, (2, 1, 2), cfg_parallel=True)
+        res["cfg"] = _edit(pipe, p, guidance_scale=5.0,
+                           negative_prompt=p["negative_prompt"])
+        pipe = _tp_pipeline(p, True, (2, 1, 2), cfg_parallel=True)
+        res["wan22_cfg"] = _edit(pipe, p, num_inference_steps=4,
+                                 guidance_scale=5.0,
+                                 negative_prompt=p["negative_prompt"])
+    return res
+
+
+def case_tp_train(p, world):
+    """One full fine-tuning step over data world/2 x model 2: the loss,
+    this rank's parameters after it (its TP shard, FSDP-gathered), the
+    gradients AdamW took, the q weight's local shape and placements."""
+    from torch.distributed.tensor import DTensor
+    from videocof_torch.parallel import tp_param_shardings
+    from videocof_torch.training.train_step import adamw, make_train_step
+    from videocof_torch.utils.checkpoint import whole_state
+    data = world // 2
+    mesh = _mesh3(data, 1, 2)
+    dit = _dit(p["dit"], p["dit_cfg"])
+    dims = tp_param_shardings(mesh, dit)
+    init_fn, step_fn = make_train_step(
+        dit, adamw(p["lr"], 1e-3, p["full_clip"]), mesh=mesh,
+        fsdp_min_size=p["fsdp_min_size"])
+    state = init_fn()
+    qw = state.params.blocks[0].self_attn.q.weight
+    q_local = (tuple(qw.to_local().shape) if isinstance(qw, DTensor)
+               else tuple(qw.shape))
+    grads = record_grads(state)
+    d = mesh.get_local_rank("data")
+    rows = p["batch"]["x0"].shape[0] // data
+    mine = slice(d * rows, (d + 1) * rows)
+    state, loss = step_fn(state, _batch(p, mine),
+                          noise=torch.from_numpy(p["train_noise"][mine]))
+    sd = whole_state(state.params.state_dict())
+    return {"loss": float(loss), "grads": grads, "dims": dims,
+            "q_local": q_local, "model_rank": mesh.get_local_rank("model"),
+            "trained": {k: _np(v) for k, v in sd.items()}}
+
+
+# ------------------------------------- the image families under TP
+
+def case_image_tp(p, world):
+    """Each family's forward tensor-parallel over the world (tp = world),
+    and Flux's and QwenImage's over tp 2 x Ulysses seq 2 (world 4); the
+    shard of Flux's first single-block proj_out."""
+    from videocof_torch.parallel import apply_tp, validate_tp
+    layouts = {"tp": ((1, 1, world), "local")}
+    if world == 4:
+        layouts["tp2_seq2"] = ((1, 2, 2), "ulysses")
+    res = {}
+    for lname, ((d, s, m), mode) in layouts.items():
+        mesh = _mesh3(d, s, m)
+        for name, entry in p["families"].items():
+            if mode != "local" and entry["family"] == "cogvideox":
+                continue
+            mod = _family_module(entry)
+            validate_tp(mod.cfg, mesh)
+            apply_tp(mod, mesh)
+            res[(name, lname)] = _tp_forward(mod, mesh, mode, entry["args"],
+                                             entry["kw"])
+            if entry["family"] == "flux" and lname == "tp":
+                blk = mod.single_blocks[0]
+                res["flux_proj_out"] = _np(blk.proj_out.weight)
+                res["flux_shapes"] = {k: tuple(v.shape) for k, v in
+                                      mod.named_parameters()}
+    return res
+
+
+# --------------------------------- pipeline and expert parallelism
+
+def _blocks(p):
+    from videocof_torch.models.wan_dit import WanBlock
+    blocks = []
+    for sd in p["pp_blocks"]:
+        blk = WanBlock(p["pp_cfg"], torch.float32, None)
+        blk.load_state_dict(sd)
+        blocks.append(blk)
+    return blocks
+
+
+def case_pp(p, world):
+    """`pp_scan_blocks` over S = world stages at each microbatch count,
+    and the gradients of a loss through it (M = 2): this stage's blocks',
+    and the input's and the conditioning's."""
+    from videocof_torch.parallel import pp_param_shardings, pp_scan_blocks
+    mesh = _mesh3(1, world, 1)
+    blocks = _blocks(p)
+    stage = pp_param_shardings(mesh, blocks)
+    ids = [blocks.index(b) for b in stage]
+    x, e0, ctx = (torch.from_numpy(p["pp_in"][k]) for k in ("x", "e0",
+                                                           "ctx"))
+    rope = tuple(torch.from_numpy(a) for a in p["pp_rope"])
+
+    def block_fn(blk, h, cond):
+        return blk(h, cond[0], cond[1], rope)
+
+    res = {"stage_ids": ids}
+    with torch.no_grad():
+        for M in (1, 2, 4):
+            res[M] = _np(pp_scan_blocks(mesh, block_fn, stage, x, (e0, ctx),
+                                        microbatches=M))
+    x_ = x.clone().requires_grad_()
+    e0_ = e0.clone().requires_grad_()
+    out = pp_scan_blocks(mesh, block_fn, stage, x_, (e0_, ctx),
+                         microbatches=2)
+    (out ** 2).sum().backward()
+    res["grad_x"] = _np(x_.grad)
+    res["grad_e0"] = _np(e0_.grad)
+    res["grads"] = {f"{i}.{k}": _np(v.grad) for i, blk in zip(ids, stage)
+                    for k, v in blk.named_parameters()}
+    return res
+
+
+def _bytes(t):
+    return t.reshape(-1).view(torch.uint8)
+
+
+def case_ep(p, world):
+    """Two experts (tiny DiTs) one a rank of the data axis (2 ranks):
+    `select_expert(k)` on every rank, its tensors and its forward through
+    a shell `WanDiT` on the meta device, in fp32 and in fp8, and each
+    owner's forward through its own expert."""
+    from torch.func import functional_call
+    from videocof_torch.models.wan_dit import WanDiT
+    from videocof_torch.parallel import (ep_param_shardings, select_expert,
+                                         stack_experts)
+    from videocof_torch.utils.fp8 import quantize_dit_fp8
+    mesh = _mesh3(2, world // 2, 1)
+    owner = mesh.get_local_rank("data")
+    args = [torch.from_numpy(a) for a in p["tp_in"]]
+    res = {"owner": owner}
+    for kind in ("fp32", "fp8"):
+        experts = [_dit(p[k], p["tp_dit_cfg"]) for k in ("tp_dit", "dit_b")]
+        shell = WanDiT(p["tp_dit_cfg"], device="meta")
+        if kind == "fp8":
+            for e in experts + [shell]:
+                quantize_dit_fp8(e)
+        stack = ep_param_shardings(mesh, stack_experts(*experts))
+        with torch.no_grad():
+            res[(kind, "own")] = _np(experts[owner](*args))
+        for k in (0, 1):
+            sel = select_expert(stack, k)
+            want = experts[k].state_dict()
+            res[(kind, "same_bytes", k)] = all(
+                torch.equal(_bytes(sel[n]), _bytes(want[n])) for n in want)
+            with torch.no_grad():
+                res[(kind, k)] = _np(functional_call(shell, sel, tuple(args)))
+        res[(kind, "local_lead")] = next(iter(stack.local.values())).shape[0]
     return res

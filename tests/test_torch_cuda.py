@@ -1172,3 +1172,64 @@ def test_family_forward_through_the_kernel_matches_naive(cuda, family):
     assert ran == launches and torch.isfinite(got).all()
     rel = ((got - want).float().norm() / want.float().norm()).item()
     assert rel <= 2e-2, rel
+
+
+def _tp_card_rank(rank, world, init_file, out):
+    """One rank of `test_tp_forward_under_nccl_matches_whole`: the DiT's
+    forward tensor-parallel over the world (its heads and FFN shard, B1 on
+    its heads), one card a rank."""
+    import os
+    import torch.distributed as dist
+    from videocof_torch.configs import WanDiTConfig
+    from videocof_torch.models.wan_dit import make_rope_for_geometry
+    from videocof_torch.parallel import (apply_tp, make_mesh,
+                                         make_tp_attention, rank_device)
+    os.environ["LOCAL_RANK"] = str(rank)
+    dev = rank_device()
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"file://{init_file}",
+                            world_size=world, rank=rank)
+    cfg = WanDiTConfig(dim=512, ffn_dim=1024, num_heads=4, num_layers=2,
+                       text_dim=64, text_len=32, freq_dim=64)
+    dit = init_wan_dit(cfg, torch.Generator(device=dev).manual_seed(0),
+                       torch.bfloat16, dev)
+    g = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn(1, cfg.in_dim, 5, 16, 16, generator=g, device=dev)
+    ctx = torch.randn(1, cfg.text_len, cfg.text_dim, generator=g, device=dev)
+    t = torch.tensor([500.0], device=dev)
+    rope = [torch.as_tensor(a, device=dev)
+            for a in make_rope_for_geometry(cfg, (5, 8, 8))]
+    with torch.no_grad():
+        whole = dit(x, t, ctx, *rope)
+        mesh = make_mesh(model=world)
+        apply_tp(dit, mesh)
+        fa.reset_launch_counts()
+        got = dit(x, t, ctx, *rope, attn_backend=make_tp_attention(mesh))
+    torch.cuda.synchronize()
+    torch.save({"counts": fa.launch_counts(),
+                "q": tuple(dit.blocks[0].self_attn.q.weight.shape),
+                "got": got.float().cpu(), "want": whole.float().cpu()},
+               f"{out}/rank{rank}.pt")
+    dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_tp_forward_under_nccl_matches_whole(cuda, tmp_path):
+    """Tensor parallelism at one card a rank under NCCL (two cards at
+    least; NCCL refuses two ranks on one device): each rank's DiT forward
+    over its half of the heads and FFN (B1 at 2 of 4 heads of 128, the
+    row-parallel sums all-reduced) against the whole forward."""
+    import torch.multiprocessing as mp
+    world = torch.cuda.device_count()
+    if world < 2:
+        pytest.skip("needs two CUDA devices (one a rank under NCCL)")
+    world = 2
+    fa.build()              # once, before the ranks load it
+    mp.start_processes(_tp_card_rank, args=(world, str(tmp_path / "rdzv"),
+                                            str(tmp_path)),
+                       nprocs=world, join=True, start_method="spawn")
+    for r in range(world):
+        res = torch.load(tmp_path / f"rank{r}.pt")
+        assert res["q"] == (256, 512)
+        assert res["counts"]["flash_attention_fwd"] == 4
+        _close(res["got"], res["want"], rel_tol=2e-2)

@@ -82,6 +82,11 @@ def test_new_modules_are_covered():
             "videocof_torch/pipeline/vace_pipeline.py",
             "videocof_torch/pipeline/camera_pipeline.py",
             "videocof_torch/pipeline/s2v_pipeline.py",
+            "videocof_torch/parallel/tp.py",
+            "videocof_torch/parallel/pp.py",
+            "videocof_torch/parallel/ep.py",
+            "videocof_torch/utils/profiling.py",
+            "videocof_torch/models/xlm_roberta.py",
             "tests/_torch_parallel_ranks.py"} <= names
 
 
@@ -115,7 +120,12 @@ def test_pipeline_imports_without_jax():
             "import videocof_torch.data\n"
             "import videocof_torch.data.loader\n"
             "import videocof_torch.data.masks\n"
-            "import videocof_torch.cli.train\n")
+            "import videocof_torch.cli.train\n"
+            "import videocof_torch.parallel.tp\n"
+            "import videocof_torch.parallel.pp\n"
+            "import videocof_torch.parallel.ep\n"
+            "import videocof_torch.utils.profiling\n"
+            "import videocof_torch.models.xlm_roberta\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr

@@ -32,8 +32,11 @@ ATTN_TOL = dict(rtol=2e-5, atol=2e-5)
 DIT_TOL = dict(rtol=1e-4, atol=1e-4)
 LAT_TOL = dict(rtol=2e-4, atol=2e-4)
 FSDP_MIN = 1024
-CASES = ("mesh", "collectives", "attention24", "ring128", "dit", "pipeline",
-         "cfg_parallel", "wan22", "fsdp")
+# the (data, seq, model) meshes of each world whose coordinates are held
+MESH_SHAPES = {2: [(1, 1, 2), (1, 2, 1), (2, 1, 1)],
+               4: [(1, 1, 4), (1, 2, 2), (2, 1, 2), (2, 2, 1), (4, 1, 1)]}
+CASES = ("mesh", "mesh3d", "collectives", "attention24", "ring128", "dit",
+         "pipeline", "cfg_parallel", "wan22", "fsdp")
 
 
 def _as_np(tree):
@@ -102,7 +105,7 @@ def jax_side():
         "negative_prompt": NEGATIVE,
         "edit_kw": dict(source_frames=9, reasoning_frames=4,
                         num_inference_steps=2, seed=11),
-        "fsdp_min_size": FSDP_MIN,
+        "fsdp_min_size": FSDP_MIN, "mesh_shapes": MESH_SHAPES,
         "coll": rng.standard_normal((2, 8, 4, 3)).astype(np.float32),
         "coll_w": rng.standard_normal((2, 8, 4, 3)).astype(np.float32),
     }
@@ -176,10 +179,19 @@ def test_mesh_axes(ranks):
         assert "needs" in got["mesh"]["too_big"]
 
 
-def test_make_mesh_refuses_tensor_parallelism():
-    from videocof_torch.parallel import make_mesh
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §A.2"):
-        make_mesh(seq=2, model=2)
+
+
+def test_make_mesh_coordinates_match_jax(ranks):
+    """Rank r sits at (d, s, m) with r = (d * seq + s) * model + m, model
+    innermost: the position of device r in JAX's `Mesh.devices`, for every
+    mesh of the world's size (a model axis included)."""
+    from videocof_tpu.parallel import make_mesh
+    world, res = ranks
+    for shape in MESH_SHAPES[world]:
+        ids = np.vectorize(lambda d: d.id)(make_mesh(*shape).devices)
+        for r, got in enumerate(res):
+            want = tuple(int(i) for i in np.argwhere(ids == r)[0])
+            assert got["mesh3d"][shape] == want, (shape, r)
 
 
 def test_pad_helpers_match_jax():

@@ -172,3 +172,26 @@ def vae_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
             key = key[:-len("kernel")] + "weight"
         out[key] = torch.tensor(arr)
     return out
+
+
+def xlm_roberta_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """`videocof_tpu.models.xlm_roberta` params -> `XLMRoberta` state dict
+    (its blocks are a list, not stacked)."""
+    return _linear_tree(params, stacked=())
+
+
+def _index(tree: Any, i: int) -> Any:
+    if isinstance(tree, dict):
+        return {k: _index(v, i) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_index(v, i) for v in tree]
+    return np.asarray(tree)[i]
+
+
+def experts_from_jax(stacked: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """A JAX `stack_experts` tree of Wan DiTs (every leaf [E, ...]) -> the
+    port's `parallel.stack_experts` ({name: [E, ...]})."""
+    from .parallel.ep import stack_experts
+    n = np.asarray(next(v for _, v in _flatten(stacked))).shape[0]
+    return stack_experts(*(dit_from_jax(_index(stacked, e))
+                           for e in range(n)))

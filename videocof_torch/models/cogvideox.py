@@ -30,7 +30,9 @@ from torch import nn
 from ..utils.fp8 import compute_dtype as _kernel_dtype
 from . import rope as rope_lib
 from ._family import FF, MLP, attend, init_uniform_, linear
-from .wan_dit import _ScaleBias, _layer_norm, _linear
+from .flux import adaln
+from .wan_dit import (_ScaleBias, _layer_norm, _linear, _row_linear,
+                      _tp_enter, ffn_apply)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -190,10 +192,11 @@ def init_cogvideox(cfg: CogVideoXConfig, generator: torch.Generator,
 
 # ----------------------------------------------------------------- blocks
 
-def _ln_zero(m: _Mod, x_vid, x_txt, temb, eps):
+def _ln_zero(m: _Mod, x_vid, x_txt, temb, eps, tp=None):
     """CogVideoXLayerNormZero: a shared affine LayerNorm, shift, scale and
-    gate per stream."""
-    mod = _linear(F.silu(temb), m.lin, torch.float32)
+    gate per stream (under ``tp`` a column-parallel ``lin``'s output is
+    gathered first, `flux.adaln`)."""
+    mod = adaln(m, temb, tp)
     shift, scale, gate, e_shift, e_scale, e_gate = mod.chunk(6, dim=1)
     g, b = m.norm.scale, m.norm.bias
     nv = _layer_norm(x_vid, eps, g, b) * (1 + scale[:, None]) + shift[:, None]
@@ -212,16 +215,18 @@ def cog_block_apply(block: CogBlock, cfg: CogVideoXConfig, vid, txt, temb,
                     rope_cs, attn_backend=None, seq_mask=None):
     """One block on the fp32 streams ``vid`` [B, Lv, D] and ``txt`` [B, Lt,
     D]: q, k and v projected per stream (RoPE on the video tokens only),
-    joint attention over [text | video], then the joint FFN."""
-    eps = cfg.norm_eps
-    B, Lv, D = vid.shape
+    joint attention over [text | video], then the joint FFN. A block cut by
+    `parallel.apply_tp` runs its heads and FFN shard (``block.tp``)."""
+    eps, tp = cfg.norm_eps, getattr(block, "tp", None)
+    B, Lv, _ = vid.shape
     Lt = txt.shape[1]
-    N, hd = cfg.num_attention_heads, cfg.attention_head_dim
+    N = cfg.num_attention_heads // (1 if tp is None else tp.size)
+    hd = cfg.attention_head_dim
     at = block.attn
 
-    nv, nt, gate, egate = _ln_zero(block.norm1, vid, txt, temb, eps)
+    nv, nt, gate, egate = _ln_zero(block.norm1, vid, txt, temb, eps, tp)
     cdtype = _kernel_dtype(at.q)
-    nt, nv = nt.to(cdtype), nv.to(cdtype)
+    nt, nv = _tp_enter(nt.to(cdtype), tp), _tp_enter(nv.to(cdtype), tp)
 
     def heads(x, lin):
         return _linear(x, lin).view(x.shape[0], x.shape[1], N, hd)
@@ -236,15 +241,14 @@ def cog_block_apply(block: CogBlock, cfg: CogVideoXConfig, vid, txt, temb,
     q = torch.cat([q_t, q_v], dim=1)
     k = torch.cat([k_t, k_v], dim=1)
     v = torch.cat([heads(nt, at.v), heads(nv, at.v)], dim=1)
-    o = attend(q, k, v, seq_mask, attn_backend).reshape(B, Lt + Lv, D)
-    o = _linear(o, at.o).float()
+    o = attend(q, k, v, seq_mask, attn_backend).reshape(B, Lt + Lv, N * hd)
+    o = _row_linear(o, at.o, tp).float()
     txt = txt + egate * o[:, :Lt]
     vid = vid + gate * o[:, Lt:]
 
-    nv, nt, gate, egate = _ln_zero(block.norm2, vid, txt, temb, eps)
+    nv, nt, gate, egate = _ln_zero(block.norm2, vid, txt, temb, eps, tp)
     joint = torch.cat([nt, nv], dim=1).to(_kernel_dtype(block.ff.fc1))
-    h = F.gelu(_linear(joint, block.ff.fc1), approximate="tanh")
-    h = _linear(h, block.ff.fc2).float()
+    h = ffn_apply(block.ff, joint, tp).float()
     txt = txt + egate * h[:, :Lt]
     vid = vid + gate * h[:, Lt:]
     return vid, txt

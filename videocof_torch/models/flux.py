@@ -29,7 +29,8 @@ from torch import nn
 from ..utils.fp8 import compute_dtype as _kernel_dtype
 from . import rope as rope_lib
 from ._family import FF, MLP, Lin, attend, init_uniform_, linear
-from .wan_dit import _Weight, _layer_norm, _linear, _rms_norm
+from .wan_dit import (_Weight, _layer_norm, _linear, _rms_norm, _row_linear,
+                      _tp_enter, ffn_apply)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -179,8 +180,18 @@ def init_flux(cfg: FluxConfig, generator: torch.Generator,
 
 # --------------------------------------------------------------------- blocks
 
-def _ada_zero(m: Lin, temb, n_chunks):
-    return _linear(F.silu(temb), m.lin, torch.float32).chunk(n_chunks, dim=1)
+def adaln(m: nn.Module, temb, tp=None):
+    """silu(temb) through an AdaLN's linear ``m.lin``, in fp32; one that
+    `parallel.apply_tp` cut column-parallel (a contiguous slice of [shift
+    | scale | gate | ...]) is all-gathered whole before it is chunked."""
+    lin, x = m.lin, F.silu(temb)
+    if tp is None or lin.weight.shape[0] == lin.out_features:
+        return _linear(x, lin, torch.float32)
+    return tp.gather_cols(_linear(_tp_enter(x, tp), lin, torch.float32))
+
+
+def _ada_zero(m: Lin, temb, n_chunks, tp=None):
+    return adaln(m, temb, tp).chunk(n_chunks, dim=1)
 
 
 def _proj_heads(x, lin, norm, N, hd, eps):
@@ -194,20 +205,26 @@ def _mod(x, shift, scale):
     return _layer_norm(x, 1e-6) * (1 + scale[:, None]) + shift[:, None]
 
 
+def _local_heads(cfg, tp):
+    return cfg.num_attention_heads // (1 if tp is None else tp.size)
+
+
 def flux_dual_block(block: DualBlock, cfg: FluxConfig, img, txt, temb,
                     rope_cs, attn_backend=None, seq_mask=None):
-    eps = cfg.eps
-    N, hd = cfg.num_attention_heads, cfg.attention_head_dim
-    B, Li, D = img.shape
+    """One double-stream block; a block cut by `parallel.apply_tp` runs
+    its heads and MLP shard (``block.tp``)."""
+    eps, tp = cfg.eps, getattr(block, "tp", None)
+    N, hd = _local_heads(cfg, tp), cfg.attention_head_dim
+    B, Li, _ = img.shape
     Lt = txt.shape[1]
     at = block.attn
     cdtype = _kernel_dtype(at.q)
 
-    sh, sc, g_msa, sh_m, sc_m, g_mlp = _ada_zero(block.norm1, temb, 6)
+    sh, sc, g_msa, sh_m, sc_m, g_mlp = _ada_zero(block.norm1, temb, 6, tp)
     csh, csc, cg_msa, csh_m, csc_m, cg_mlp = _ada_zero(block.norm1_context,
-                                                       temb, 6)
-    ni = _mod(img, sh, sc).to(cdtype)
-    nt = _mod(txt, csh, csc).to(cdtype)
+                                                       temb, 6, tp)
+    ni = _tp_enter(_mod(img, sh, sc).to(cdtype), tp)
+    nt = _tp_enter(_mod(txt, csh, csc).to(cdtype), tp)
 
     q = torch.cat([_proj_heads(nt, at.add_q, at.norm_added_q, N, hd, eps),
                    _proj_heads(ni, at.q, at.norm_q, N, hd, eps)], dim=1)
@@ -218,41 +235,42 @@ def flux_dual_block(block: DualBlock, cfg: FluxConfig, img, txt, temb,
     if rope_cs is not None:
         q = rope_lib.apply_rope(q, *rope_cs)
         k = rope_lib.apply_rope(k, *rope_cs)
-    o = attend(q, k, v, seq_mask, attn_backend).reshape(B, Lt + Li, D)
-    o_txt = _linear(o[:, :Lt], at.add_o).float()
-    o_img = _linear(o[:, Lt:], at.o).float()
+    o = attend(q, k, v, seq_mask, attn_backend).reshape(B, Lt + Li, N * hd)
+    o_txt = _row_linear(o[:, :Lt], at.add_o, tp).float()
+    o_img = _row_linear(o[:, Lt:], at.o, tp).float()
 
     img = img + g_msa[:, None] * o_img
-    h = F.gelu(_linear(_mod(img, sh_m, sc_m).to(cdtype), block.ff.fc1),
-               approximate="tanh")
-    img = img + g_mlp[:, None] * _linear(h, block.ff.fc2).float()
-
+    img = img + g_mlp[:, None] * ffn_apply(
+        block.ff, _mod(img, sh_m, sc_m).to(cdtype), tp).float()
     txt = txt + cg_msa[:, None] * o_txt
-    h = F.gelu(_linear(_mod(txt, csh_m, csc_m).to(cdtype),
-                       block.ff_context.fc1), approximate="tanh")
-    txt = txt + cg_mlp[:, None] * _linear(h, block.ff_context.fc2).float()
+    txt = txt + cg_mlp[:, None] * ffn_apply(
+        block.ff_context, _mod(txt, csh_m, csc_m).to(cdtype), tp).float()
     return img, txt
 
 
 def flux_single_block(block: SingleBlock, cfg: FluxConfig, x, temb, rope_cs,
                       attn_backend=None, seq_mask=None):
-    eps = cfg.eps
-    N, hd = cfg.num_attention_heads, cfg.attention_head_dim
-    B, L, D = x.shape
+    """One single-stream block; under ``block.tp`` the attention features
+    and the MLP's are this rank's shards, which ``proj_out``'s split rows
+    contract (`parallel.tp`)."""
+    eps, tp = cfg.eps, getattr(block, "tp", None)
+    N, hd = _local_heads(cfg, tp), cfg.attention_head_dim
+    B, L, _ = x.shape
     at = block.attn
     cdtype = _kernel_dtype(at.q)
 
-    sh, sc, gate = _ada_zero(block.norm, temb, 3)
-    nx = _mod(x, sh, sc).to(cdtype)
+    sh, sc, gate = _ada_zero(block.norm, temb, 3, tp)
+    nx = _tp_enter(_mod(x, sh, sc).to(cdtype), tp)
     q = _proj_heads(nx, at.q, at.norm_q, N, hd, eps)
     k = _proj_heads(nx, at.k, at.norm_k, N, hd, eps)
     v = _proj_heads(nx, at.v, None, N, hd, eps)
     if rope_cs is not None:
         q = rope_lib.apply_rope(q, *rope_cs)
         k = rope_lib.apply_rope(k, *rope_cs)
-    att = attend(q, k, v, seq_mask, attn_backend).reshape(B, L, D)
+    att = attend(q, k, v, seq_mask, attn_backend).reshape(B, L, N * hd)
     mlp = F.gelu(_linear(nx, block.proj_mlp), approximate="tanh")
-    out = _linear(torch.cat([att, mlp], dim=-1), block.proj_out).float()
+    out = _row_linear(torch.cat([att, mlp], dim=-1), block.proj_out,
+                      tp).float()
     return x + gate[:, None] * out
 
 

@@ -114,13 +114,19 @@ def fuse_block_adapters(block: nn.Module, ad: nn.ModuleDict,
     for every adapted linear, as ``{parameter name: W_eff}`` for
     `torch.func.functional_call` (differentiable wrt the adapters). Over fp8
     storage ``W.float()`` is the fp32 dequantization ``q.float() * scale``
-    and ``W_eff`` is bf16, rounded once from fp32 (JAX's arithmetic)."""
+    and ``W_eff`` is bf16, rounded once from fp32 (JAX's arithmetic). On
+    a block cut by tensor parallelism (``block.tp``) each adapter is cut
+    as its base weight (`TPContext.slice_adapter`)."""
     fused = {}
+    tp = getattr(block, "tp", None)
     for mod, names in ad.items():
         for name, lin in names.items():
             base = getattr(getattr(block, mod), name)
             w = base.weight                                     # [dout, din]
-            delta = lin.up.float() @ lin.down.float()
+            up, down = lin.up, lin.down
+            if tp is not None:
+                up, down = tp.slice_adapter(name, up, down)
+            delta = up.float() @ down.float()
             if is_fp8(base):
                 w32, dtype = w.float() * base.weight_scale, torch.bfloat16
             else:

@@ -24,8 +24,10 @@ from torch import nn
 from ..utils.fp8 import compute_dtype as _kernel_dtype
 from . import rope as rope_lib
 from ._family import FF, MLP, Lin, attend, init_uniform_, linear
-from .flux import JointAttn, _embed, _proj_heads, _sincos_256, rope_from_ids
-from .wan_dit import _Weight, _layer_norm, _linear, _rms_norm
+from .flux import (JointAttn, adaln, _embed, _local_heads, _proj_heads,
+                   _sincos_256, rope_from_ids)
+from .wan_dit import (_Weight, _layer_norm, _linear, _rms_norm, _row_linear,
+                      _tp_enter, ffn_apply)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -142,20 +144,20 @@ def _modulate(x, mod, eps):
 def qwen_block_apply(block: QwenBlock, cfg: QwenImageConfig, img, txt, temb,
                      rope_cs, txt_mask=None, attn_backend=None,
                      seq_mask=None):
-    eps = cfg.eps
-    N, hd = cfg.num_attention_heads, cfg.attention_head_dim
-    B, Li, D = img.shape
+    """One dual-stream block; a block cut by `parallel.apply_tp` runs its
+    heads and MLP shard (``block.tp``), its AdaLN outputs gathered."""
+    eps, tp = cfg.eps, getattr(block, "tp", None)
+    N, hd = _local_heads(cfg, tp), cfg.attention_head_dim
+    B, Li, _ = img.shape
     Lt = txt.shape[1]
     at = block.attn
     cdtype = _kernel_dtype(at.q)
 
-    im1, im2 = _linear(F.silu(temb), block.img_mod.lin,
-                       torch.float32).chunk(2, dim=-1)
-    tm1, tm2 = _linear(F.silu(temb), block.txt_mod.lin,
-                       torch.float32).chunk(2, dim=-1)
+    im1, im2 = adaln(block.img_mod, temb, tp).chunk(2, dim=-1)
+    tm1, tm2 = adaln(block.txt_mod, temb, tp).chunk(2, dim=-1)
     ni, ig1 = _modulate(img, im1, eps)
     nt, tg1 = _modulate(txt, tm1, eps)
-    ni, nt = ni.to(cdtype), nt.to(cdtype)
+    ni, nt = _tp_enter(ni.to(cdtype), tp), _tp_enter(nt.to(cdtype), tp)
 
     q = torch.cat([_proj_heads(nt, at.add_q, at.norm_added_q, N, hd, eps),
                    _proj_heads(ni, at.q, at.norm_q, N, hd, eps)], dim=1)
@@ -171,18 +173,16 @@ def qwen_block_apply(block: QwenBlock, cfg: QwenImageConfig, img, txt, temb,
         mask = torch.cat([txt_mask.bool(),
                           torch.ones(B, Li, dtype=torch.bool,
                                      device=img.device)], dim=1)
-    o = attend(q, k, v, mask, attn_backend).reshape(B, Lt + Li, D)
-    o_txt = _linear(o[:, :Lt], at.add_o).float()
-    o_img = _linear(o[:, Lt:], at.o).float()
+    o = attend(q, k, v, mask, attn_backend).reshape(B, Lt + Li, N * hd)
+    o_txt = _row_linear(o[:, :Lt], at.add_o, tp).float()
+    o_img = _row_linear(o[:, Lt:], at.o, tp).float()
     img = img + ig1 * o_img
     txt = txt + tg1 * o_txt
 
     ni, ig2 = _modulate(img, im2, eps)
-    h = F.gelu(_linear(ni.to(cdtype), block.img_mlp.fc1), approximate="tanh")
-    img = img + ig2 * _linear(h, block.img_mlp.fc2).float()
+    img = img + ig2 * ffn_apply(block.img_mlp, ni.to(cdtype), tp).float()
     nt, tg2 = _modulate(txt, tm2, eps)
-    h = F.gelu(_linear(nt.to(cdtype), block.txt_mlp.fc1), approximate="tanh")
-    txt = txt + tg2 * _linear(h, block.txt_mlp.fc2).float()
+    txt = txt + tg2 * ffn_apply(block.txt_mlp, nt.to(cdtype), tp).float()
     return img, txt
 
 

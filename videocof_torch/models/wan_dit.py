@@ -89,6 +89,47 @@ def _gelu_tanh(x):
     return F.gelu(x, approximate="tanh")
 
 
+# ------------------------------------------------------- tensor parallelism
+# A block cut by `parallel.apply_tp` carries its `TPContext` as ``.tp``;
+# these helpers are the plain operations when it is None.
+
+def _tp_enter(x, tp):
+    """Megatron's *f* before a column-parallel linear."""
+    return x if tp is None else tp.enter(x)
+
+
+def _rms_norm_tp(x, weight, eps, tp, full_dim):
+    """`_rms_norm` of a column shard of a ``full_dim`` feature vector: the
+    sum of squares over every rank's features, each rank scaling its
+    own."""
+    if tp is None:
+        return _rms_norm(x, weight, eps)
+    xf = x.float()
+    ss = tp.sum_sq(xf.square().sum(dim=-1, keepdim=True))
+    out = xf * torch.rsqrt(ss / full_dim + eps)
+    return (out * weight.float()).to(x.dtype)
+
+
+def _row_linear(x, lin: nn.Linear, tp, weight=None):
+    """`_linear` of a row-parallel linear: the ranks' partial products
+    summed (`TPContext.reduce`, in fp32), then the bias, once."""
+    if tp is None:
+        return _linear(x, lin, weight=weight)
+    w = dequantize(lin) if weight is None else weight
+    out = tp.reduce(F.linear(x.to(w.dtype), w))
+    if lin.bias is not None:
+        out = out + lin.bias.float()
+    return out.to(w.dtype)
+
+
+def ffn_apply(ffn: nn.Module, x, tp=None, weights=None):
+    """The gelu-tanh FFN, fc1 column- and fc2 row-parallel under ``tp``;
+    ``weights`` replaces fc1's and fc2's weights (LoRA-fused)."""
+    w = weights or {}
+    h = _gelu_tanh(_linear(_tp_enter(x, tp), ffn.fc1, weight=w.get("fc1")))
+    return _row_linear(h, ffn.fc2, tp, weight=w.get("fc2"))
+
+
 # context tokens of the i2v image stream (CLIP's CLS + 16 x 16 patches)
 IMAGE_TOKENS = 257
 CLIP_DIM = 1280
@@ -202,22 +243,28 @@ class Attention(nn.Module):
             self.norm_k_img = _Weight(d, dtype, device)
 
     def forward(self, x_in, num_heads, eps, kv_in=None, rope_cs=None,
-                kv_mask=None, backend=None, rope_dtype=None, weights=None):
+                kv_mask=None, backend=None, rope_dtype=None, weights=None,
+                tp=None):
         """``backend``: a backend name, or a callable ``(q, k, v, mask)``
         (the sequence-parallel attention of `parallel`). ``weights``
-        replaces the named projections' weights ({"q": W, ...})."""
+        replaces the named projections' weights ({"q": W, ...}). ``tp``
+        (a `parallel.tp.TPContext`): the projections are this rank's
+        column (q, k, v) and row (o) shards and it runs its
+        ``num_heads / tp`` heads."""
         B, L, D = x_in.shape
-        hd = D // num_heads
-        kv_in = x_in if kv_in is None else kv_in
+        n = num_heads if tp is None else num_heads // tp.size
+        x_in = _tp_enter(x_in, tp)
+        kv_in = x_in if kv_in is None else _tp_enter(kv_in, tp)
         w = weights or {}
-        q = _rms_norm(_linear(x_in, self.q, weight=w.get("q")),
-                      self.norm_q.weight, eps)
-        k = _rms_norm(_linear(kv_in, self.k, weight=w.get("k")),
-                      self.norm_k.weight, eps)
+        q = _rms_norm_tp(_linear(x_in, self.q, weight=w.get("q")),
+                         self.norm_q.weight, eps, tp, D)
+        k = _rms_norm_tp(_linear(kv_in, self.k, weight=w.get("k")),
+                         self.norm_k.weight, eps, tp, D)
         v = _linear(kv_in, self.v, weight=w.get("v"))
-        q = q.view(B, L, num_heads, hd)
-        k = k.view(B, k.shape[1], num_heads, hd)
-        v = v.view(B, v.shape[1], num_heads, hd)
+        hd = q.shape[-1] // n
+        q = q.view(B, L, n, hd)
+        k = k.view(B, k.shape[1], n, hd)
+        v = v.view(B, v.shape[1], n, hd)
         if rope_cs is not None:
             cos, sin = rope_cs
             q = rope_lib.apply_rope(q, cos, sin, compute_dtype=rope_dtype)
@@ -226,23 +273,30 @@ class Attention(nn.Module):
             out = backend(q, k, v, mask=kv_mask)
         else:
             out = attention(q, k, v, mask=kv_mask, backend=backend)
-        return _linear(out.reshape(B, L, D), self.o, weight=w.get("o"))
+        return _row_linear(out.reshape(B, L, n * hd), self.o, tp,
+                           weight=w.get("o"))
 
     def forward_i2v(self, x_in, num_heads, eps, ctx_img, ctx_txt,
-                    backend=None, weights=None):
+                    backend=None, weights=None, tp=None):
         """i2v's cross-attention: one q against the image stream (``k_img``,
         ``v_img``, ``norm_k_img``) and the text stream, the two outputs
-        summed before ``o`` (JAX's `_i2v_cross_attn`)."""
+        summed before ``o`` (JAX's `_i2v_cross_attn`); ``tp`` as in
+        `forward`."""
         B, L, D = x_in.shape
-        hd = D // num_heads
+        n = num_heads if tp is None else num_heads // tp.size
         w = weights or {}
-        q = _rms_norm(_linear(x_in, self.q, weight=w.get("q")),
-                      self.norm_q.weight, eps).view(B, L, num_heads, hd)
+        q = _rms_norm_tp(_linear(_tp_enter(x_in, tp), self.q,
+                                 weight=w.get("q")),
+                         self.norm_q.weight, eps, tp, D)
+        hd = q.shape[-1] // n
+        q = q.view(B, L, n, hd)
 
         def kv(ctx, k_lin, v_lin, norm, kw, vw):
-            k = _rms_norm(_linear(ctx, k_lin, weight=kw), norm.weight, eps)
+            ctx = _tp_enter(ctx, tp)
+            k = _rms_norm_tp(_linear(ctx, k_lin, weight=kw), norm.weight, eps,
+                             tp, D)
             v = _linear(ctx, v_lin, weight=vw)
-            return (k.view(B, -1, num_heads, hd), v.view(B, -1, num_heads, hd))
+            return (k.view(B, -1, n, hd), v.view(B, -1, n, hd))
 
         k_t, v_t = kv(ctx_txt, self.k, self.v, self.norm_k, w.get("k"),
                       w.get("v"))
@@ -250,7 +304,8 @@ class Attention(nn.Module):
                       None)
         out = (attention(q, k_t, v_t, backend=backend)
                + attention(q, k_i, v_i, backend=backend))
-        return _linear(out.reshape(B, L, D), self.o, weight=w.get("o"))
+        return _row_linear(out.reshape(B, L, n * hd), self.o, tp,
+                           weight=w.get("o"))
 
 
 class FFN(nn.Module):
@@ -262,7 +317,10 @@ class FFN(nn.Module):
 
 class WanBlock(nn.Module):
     """One WanAttentionBlock: AdaLN-gated self-attention with RoPE, text
-    cross-attention, AdaLN-gated gelu-tanh FFN."""
+    cross-attention, AdaLN-gated gelu-tanh FFN. ``tp`` is the
+    `parallel.tp.TPContext` of a block `parallel.apply_tp` has cut."""
+
+    tp = None
 
     def __init__(self, cfg: WanDiTConfig, dtype, device):
         super().__init__()
@@ -287,6 +345,7 @@ class WanBlock(nn.Module):
         cross-attention then runs locally against the whole text context
         (the default backend), as in JAX."""
         cfg, eps = self.cfg, self.cfg.eps
+        tp = self.tp
         fused = {mod: {} for mod in ("self_attn", "cross_attn", "ffn")}
         if lora is not None:
             for key, w in fuse_block_adapters(self, *lora).items():
@@ -301,7 +360,7 @@ class WanBlock(nn.Module):
                            rope_cs=rope_cs, kv_mask=seq_mask,
                            backend=attn_backend,
                            rope_dtype=getattr(torch, cfg.rope_dtype),
-                           weights=fused["self_attn"])
+                           weights=fused["self_attn"], tp=tp)
         if tag_names:
             y = checkpoint_name(y, "attn_out")
         x = (x.float() + y.float() * e_[2]).to(sdt)
@@ -315,19 +374,17 @@ class WanBlock(nn.Module):
             y = self.cross_attn.forward_i2v(
                 nx.to(context.dtype), cfg.num_heads, eps,
                 context[:, :IMAGE_TOKENS], context[:, IMAGE_TOKENS:],
-                backend=xattn_backend, weights=fused["cross_attn"])
+                backend=xattn_backend, weights=fused["cross_attn"], tp=tp)
         else:
             y = self.cross_attn(nx.to(context.dtype), cfg.num_heads, eps,
                                 kv_in=context, backend=xattn_backend,
-                                weights=fused["cross_attn"])
+                                weights=fused["cross_attn"], tp=tp)
         if tag_names:
             y = checkpoint_name(y, "xattn_out")
         x = (x.float() + y.float()).to(sdt)
 
         tx = _layer_norm(x, eps) * (1.0 + e_[4]) + e_[3]
-        h = _gelu_tanh(_linear(tx.to(context.dtype), self.ffn.fc1,
-                               weight=fused["ffn"].get("fc1")))
-        h = _linear(h, self.ffn.fc2, weight=fused["ffn"].get("fc2"))
+        h = ffn_apply(self.ffn, tx.to(context.dtype), tp, fused["ffn"])
         return (x.float() + h.float() * e_[5]).to(sdt)
 
 

@@ -24,9 +24,9 @@ from ..configs import WanDiTConfig
 from ..ops import attention
 from ..utils.fp8 import compute_dtype as _kernel_dtype
 from . import rope as rope_lib
-from .wan_dit import (WanBlock, WanDiT, _gelu_tanh, _layer_norm, _lin,
-                      _linear, _rms_norm, _ScaleBias, _Weight, patchify,
-                      unpatchify)
+from .wan_dit import (WanBlock, WanDiT, _layer_norm, _lin,
+                      _linear, _rms_norm, _ScaleBias, _Weight, ffn_apply,
+                      patchify, unpatchify)
 
 
 def apply_rope_per_sample(x: torch.Tensor, cos: torch.Tensor,
@@ -41,23 +41,23 @@ def s2v_block_apply(block: WanBlock, cfg: WanDiTConfig, x: torch.Tensor,
                     context: torch.Tensor, rope_cs, attn_backend=None
                     ) -> torch.Tensor:
     """One S2V block on the fp32 stream x [B, L, D]: e0 [B, 6, 2, D] holds
-    each segment's modulation, gathered per token by ``seg_ids``."""
-    eps = cfg.eps
+    each segment's modulation, gathered per token by ``seg_ids``. A block
+    cut by `parallel.apply_tp` runs its heads and FFN shard."""
+    eps, tp = cfg.eps, block.tp
     e = block.modulation[None, :, None, :].float() + e0
     e_ = e[:, :, seg_ids].unbind(1)                    # 6 x [B, L, D]
     cdt = context.dtype
     tx = _layer_norm(x, eps) * (1.0 + e_[1]) + e_[0]
     y = block.self_attn(tx.to(cdt), cfg.num_heads, eps, rope_cs=rope_cs,
-                        backend=attn_backend, rope_dtype=torch.float32)
+                        backend=attn_backend, rope_dtype=torch.float32, tp=tp)
     x = x + y.float() * e_[2]
     nx = (_layer_norm(x, eps, block.norm3.scale, block.norm3.bias)
           if cfg.cross_attn_norm else x)
     y = block.cross_attn(nx.to(cdt), cfg.num_heads, eps, kv_in=context,
-                         backend=attn_backend)
+                         backend=attn_backend, tp=tp)
     x = x + y.float()
     tx = _layer_norm(x, eps) * (1.0 + e_[4]) + e_[3]
-    h = _linear(_gelu_tanh(_linear(tx.to(cdt), block.ffn.fc1)),
-                block.ffn.fc2)
+    h = ffn_apply(block.ffn, tx.to(cdt), tp)
     return x + h.float() * e_[5]
 
 

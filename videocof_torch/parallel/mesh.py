@@ -2,8 +2,8 @@
 
 Counterpart of `videocof_tpu/parallel/mesh.py`: one ('data', 'seq', 'model')
 mesh. ``data`` carries per-item data parallelism and FSDP weight sharding,
-``seq`` Ulysses or ring sequence parallelism. ``model`` (tensor
-parallelism) is not ported yet. Each process is one rank; the process group
+``seq`` Ulysses or ring sequence parallelism, ``model`` Megatron tensor
+parallelism (`parallel.tp`). Each process is one rank; the process group
 must be initialized first (`serving.multihost.init_distributed`, or
 ``torch.distributed.run``'s environment).
 """
@@ -40,15 +40,11 @@ def axis_size(mesh: DeviceMesh, axis: str) -> int:
 
 def make_mesh(data: int = 1, seq: int = 1, model: int = 1,
               device_type: Optional[str] = None) -> DeviceMesh:
-    """The ('data', 'seq', 'model') mesh over the world's ranks, ``seq``
-    inside ``data`` (ranks ``d * seq + s``). It raises ValueError unless
-    ``data * seq * model`` is the world size, and NotImplementedError for
-    ``model > 1``. ``device_type``: "cuda" when CUDA is present, else
-    "cpu"."""
-    if model > 1:
-        raise NotImplementedError(
-            "tensor parallelism (model > 1) is not ported yet: ROADMAP.md "
-            "§A.2")
+    """The ('data', 'seq', 'model') mesh over the world's ranks: rank
+    ``r = (d * seq + s) * model + m`` sits at ``(d, s, m)``, ``model``
+    innermost, as JAX's device order. It raises ValueError unless ``data *
+    seq * model`` is the world size. ``device_type``: "cuda" when CUDA is
+    present, else "cpu"."""
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs torch.distributed initialized "
                            "(serving.multihost.init_distributed)")

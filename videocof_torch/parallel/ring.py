@@ -49,11 +49,14 @@ def make_ring_attention(mesh: DeviceMesh, seq_axis: str = "seq",
     shard of it rotates with the K/V shards. JAX's ``batch_axis`` has no
     counterpart: the rows a rank is given are already its own (CFG
     parallelism).
-    ``model_axis`` (tensor parallelism) is not ported yet and raises."""
+
+    ``model_axis`` (tensor parallelism): the heads a rank is given are its
+    own model shard's [B, L/sp, N/tp, D], and the K/V shards rotate over
+    the ``seq`` ranks of this rank's model coordinate (the seq group the
+    mesh gives this rank), so the ring needs nothing more than the axis'
+    presence in the mesh."""
     if model_axis is not None:
-        raise NotImplementedError("ring attention over a model axis (tensor "
-                                  "parallelism) is not ported yet: "
-                                  "ROADMAP.md §A.2")
+        axis_size(mesh, model_axis)          # KeyError for a missing axis
     group = mesh.get_group(seq_axis)
     sp = axis_size(mesh, seq_axis)
     rank = mesh.get_local_rank(seq_axis)

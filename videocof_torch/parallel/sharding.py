@@ -50,19 +50,38 @@ def fsdp_param_sharding(mesh: DeviceMesh, module: nn.Module,
 
 
 def apply_fsdp(module: nn.Module, mesh: DeviceMesh, axis: str = "data",
-               min_size: int = 2 ** 16) -> nn.Module:
+               min_size: int = 2 ** 16,
+               dims: Optional[Dict[str, Optional[int]]] = None) -> nn.Module:
     """Shard ``module`` (a `WanDiT`) over ``axis`` with FSDP2, in place: each
     block is one ``fully_shard`` unit and the root another, each parameter
-    ``Shard(dim)`` on the dim `fsdp_param_sharding` picks; the parameters it
+    ``Shard(dim)`` on the dim `fsdp_param_sharding` picks, or on the one
+    ``dims`` ({name: dim or None}) gives; the parameters it
     replicates stay plain tensors outside FSDP (their gradients are
-    reduced by the train step). Forward calls gather a block's weights and
+    reduced by the train step), and so do those of a dtype other than the
+    one most of a unit's sharded elements have (FSDP2 takes one dtype of
+    trained parameters a unit). Forward calls gather a block's weights and
     free them after it; the backward reduce-scatters the gradients
     (averaged over ``axis``). A no-op on an axis of size 1."""
     if axis_size(mesh, axis) == 1:
         return module
-    dims = fsdp_param_sharding(mesh, module, axis, min_size)
+    if dims is None:
+        dims = fsdp_param_sharding(mesh, module, axis, min_size)
     by_param = {p: dims[name] for name, p in module.named_parameters()}
     replicated = {p for p, d in by_param.items() if d is None}
+    units = [set(b.parameters()) for b in module.blocks]
+    in_blocks = set().union(*units)
+    units.append({p for p in by_param if p not in in_blocks})
+    for unit in units:
+        # FSDP2 takes one dtype of trained parameters a unit: the others
+        # (the fp32 time MLP beside bf16 weights) stay whole, as the small
+        # ones do
+        sizes: Dict[torch.dtype, int] = {}
+        for p in unit - replicated:
+            sizes[p.dtype] = sizes.get(p.dtype, 0) + p.numel()
+        if len(sizes) > 1:
+            keep = max(sizes, key=sizes.get)
+            replicated |= {p for p in unit
+                           if p.requires_grad and p.dtype != keep}
     sub = mesh[axis]
 
     def place(p):

@@ -164,10 +164,9 @@ class WanPipeline:
         tokens, so CoF repeat-RoPE composes with it. ``mode`` is "ulysses"
         (all-to-all over heads) or "ring" (K/V rotation, kernel B2 per
         shard). Without ``mesh`` one is made over the world
-        (`parallel.make_mesh(data, seq)`, ``seq`` the world's ranks over
-        ``data`` by default); every rank of it runs each call with the same
-        arguments and seed, draws the same noise and returns the whole
-        output. The attention of the blocks becomes the parallel one (its
+        (`parallel.make_mesh(data, seq, model)`); every rank of it runs
+        each call with the same arguments and seed, draws the same noise
+        and returns the whole output. The attention of the blocks becomes the parallel one (its
         inner backend the default, as JAX's), the pipeline's own backend
         comes back with `disable_sequence_parallel`.
 
@@ -175,30 +174,46 @@ class WanPipeline:
         the cond/uncond doubled batch splits over the ``data`` axis, so each
         data rank runs one guidance branch; the branches are gathered over
         the data ranks before the guidance combine (the reference's
-        classifier_free_guidance_degree, `dist/fuser.py:35-49`). ``model >
-        1`` (tensor parallelism) is not ported yet and raises."""
-        from ..parallel import (SPContext, make_mesh, make_ring_attention,
-                                make_ulysses_attention)
+        classifier_free_guidance_degree, `dist/fuser.py:35-49`).
+
+        ``model > 1`` (or a mesh with a model axis of more than one rank):
+        the DiT, and on the MoE both experts, are also tensor-parallel over
+        ``model`` (`parallel.apply_tp` cuts each rank's heads and FFN
+        shard in place), and the attention is `make_tp_attention`
+        (Ulysses over ``seq`` on the local heads when ``seq > 1``; ``mode``
+        is then ignored, as JAX's). Without ``mesh``, ``seq`` defaults to
+        the world's ranks over ``data * model``."""
+        from ..parallel import (SPContext, apply_tp, make_mesh,
+                                make_ring_attention, make_tp_attention,
+                                make_ulysses_attention, validate_tp)
         from ..parallel.mesh import axis_size
-        if model > 1:
-            raise NotImplementedError("tensor parallelism (model > 1) is not "
-                                      "ported yet: ROADMAP.md §A.2")
         if mesh is None:
             world = torch.distributed.get_world_size()
-            seq = seq or max(1, world // data)
-            mesh = make_mesh(data=data, seq=seq)
+            seq = seq or max(1, world // (data * model))
+            mesh = make_mesh(data=data, seq=seq, model=model)
         if cfg_parallel and axis_size(mesh, "data") < 2:
             raise ValueError("cfg_parallel needs a data axis of >= 2")
-        maker = {"ulysses": make_ulysses_attention,
-                 "ring": make_ring_attention}[mode]
         if self.sp_ctx is None:
             self._local_backend = self.attn_backend
-        # under CFG parallelism too: the rows are already this rank's branch
-        self.attn_backend = maker(mesh)
+        if axis_size(mesh, "model") > 1:
+            for dit in self._dits():
+                validate_tp(dit.cfg, mesh)
+                apply_tp(dit, mesh)
+            seq_axis = "seq" if axis_size(mesh, "seq") > 1 else None
+            self.attn_backend = make_tp_attention(mesh, seq_axis=seq_axis)
+        else:
+            maker = {"ulysses": make_ulysses_attention,
+                     "ring": make_ring_attention}[mode]
+            # under CFG parallelism too: the rows are already this rank's
+            # branch
+            self.attn_backend = maker(mesh)
         self.sp_ctx = SPContext(mesh)
         self.cfg_parallel = cfg_parallel
 
     def disable_sequence_parallel(self) -> None:
+        """Back to the local attention backend. The weights a model axis
+        cut stay cut (as JAX's stay placed): a tensor-parallel DiT keeps
+        running its shard, so re-enable with the same model axis."""
         self.attn_backend = self._local_backend
         self.sp_ctx = None
         self.cfg_parallel = False

@@ -8,9 +8,9 @@ needs no dependency: upload a clip, type the edit instruction, and set
 every knob the HTTP API honors (steps, guidance, seed, frames, sampler,
 negative prompt, LoRA path and weight, TeaCache, cfg-skip, the MoE's
 second guidance, text-to-video) and the model switch. The same form fields
-post to the same JSON endpoints; the embeddings-in mode of the non-Wan
-families is answered by the API's 400 until they are ported (ROADMAP.md
-§A.4).
+post to the same JSON endpoints, the non-Wan families' embeddings-in
+mode included (an ``embeddings_path``, answered once a family is switched
+in).
 """
 
 INDEX_HTML = """<!doctype html>

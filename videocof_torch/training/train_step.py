@@ -15,7 +15,13 @@ parameters every seq rank holds whole are summed over the seq group (each
 rank's backward saw only its own tokens) and then averaged over the data
 group, and the clip takes the global norm after those reductions. A full
 fine-tune shards its parameters and AdamW moments over ``data`` with FSDP
-(`parallel.apply_fsdp`). JAX's tensor-parallel step is not ported yet.
+(`parallel.apply_fsdp`). Over a ``model`` axis of more than one rank the
+full fine-tune is also Megatron tensor-parallel (JAX's 3D layout): each
+rank's heads and FFN shard (`parallel.apply_tp`), then FSDP over ``data``
+on the dim TP left free (`parallel.tp_fsdp_param_shardings`). The *f*/*g*
+collectives of the TP forward give every model rank the whole gradient of
+the parameters it holds whole, so no gradient is reduced over ``model``;
+the clip's norm sums the squares of the TP shards over it.
 
 The optimizer is optax's ``chain(clip_by_global_norm(max_norm),
 adamw(lr, weight_decay))``: `ClipAdamW` clips as optax does (``g / ||g|| *
@@ -102,9 +108,14 @@ class _MeshReduce:
     def __init__(self, mesh):
         self.seq = mesh.get_group("seq")
         self.data = mesh.get_group("data")
+        self.model = mesh.get_group("model")
         self.seq_size = dist.get_world_size(self.seq)
         self.data_size = dist.get_world_size(self.data)
         self.data_rank = dist.get_rank(self.data)
+        # the TP-cut parameters (`tp_sharded`), and which of the gradients
+        # the clip is given are theirs
+        self.tp_sharded = frozenset()
+        self._tp_grads = []
 
     @staticmethod
     def _all_reduce(tensors, group):
@@ -121,6 +132,8 @@ class _MeshReduce:
     @torch.no_grad()
     def reduce_grads(self, params) -> None:
         grads = [p.grad for p in params if p.grad is not None]
+        self._tp_grads = [id(p) in self.tp_sharded for p in params
+                          if p.grad is not None]
         if self.seq_size > 1:
             self._all_reduce([_local(g) for g in grads], self.seq)
         plain = [g for g in grads if not isinstance(g, DTensor)]
@@ -132,19 +145,26 @@ class _MeshReduce:
     @torch.no_grad()
     def norm_sq(self, grads) -> torch.Tensor:
         """||g||^2 over the whole of every gradient: the squares of the
-        FSDP shards summed over ``data``, those of whole gradients once."""
+        FSDP shards summed over ``data``, those of the TP shards over
+        ``model``, those of whole gradients once (``grads`` in the order
+        `reduce_grads` saw them)."""
         dev = grads[0].device
-        sharded = torch.zeros((), dtype=torch.float32, device=dev)
-        whole = torch.zeros((), dtype=torch.float32, device=dev)
-        for g in grads:
-            sq = _local(g).float().square().sum()
-            if isinstance(g, DTensor):
-                sharded = sharded + sq
-            else:
-                whole = whole + sq
-        if self.data_size > 1:
-            dist.all_reduce(sharded, group=self.data)
-        return sharded + whole
+        # by [FSDP-sharded][TP-cut]: each part summed over the axes it is
+        # sharded on
+        sums = [[torch.zeros((), dtype=torch.float32, device=dev)
+                 for _ in range(2)] for _ in range(2)]
+        cut = self._tp_grads or [False] * len(grads)
+        for g, tp in zip(grads, cut):
+            sums[int(isinstance(g, DTensor))][int(tp)] += \
+                _local(g).float().square().sum()
+        for part, group in ((sums[1], self.data),
+                            ([sums[0][1], sums[1][1]], self.model)):
+            if dist.get_world_size(group) > 1:
+                flat = torch.stack(part)
+                dist.all_reduce(flat, group=group)
+                for t, v in zip(part, flat.unbind()):
+                    t.copy_(v)
+        return sum(t for row in sums for t in row)
 
     @torch.no_grad()
     def mean_loss(self, loss: torch.Tensor) -> torch.Tensor:
@@ -165,8 +185,12 @@ class ClipAdamW:
                  weight_decay: float, max_norm: Optional[float] = None):
         self.params = list(params)
         self.max_norm = max_norm
+        # FSDP shards (DTensors) beside whole parameters: AdamW's
+        # multi-tensor path takes one kind a device and dtype
+        mixed = len({isinstance(p, DTensor) for p in self.params}) > 1
         self.adamw = torch.optim.AdamW(self.params, lr=lr, betas=(0.9, 0.999),
-                                       eps=1e-8, weight_decay=weight_decay)
+                                       eps=1e-8, weight_decay=weight_decay,
+                                       foreach=False if mixed else None)
 
     def step(self, norm_sq: Optional[Callable] = None) -> None:
         """Clip and step; ``norm_sq`` (gradients -> ||g||^2) takes the
@@ -257,21 +281,27 @@ def _loss(dit, batch, x0, noise, attn_backend, remat, lora=None, sp=None):
         frame_mask=batch.get("frame_mask"), lora=lora, sp=sp)
 
 
-def _mesh_parts(mesh, attn_backend):
+def _mesh_parts(mesh, attn_backend, tensor_parallel=False):
     """(attention, SP context, reductions) of a step over ``mesh``: Ulysses
     and the SP context when ``seq > 1`` (``attn_backend`` its inner
-    backend), the reductions when the mesh has more than one rank."""
+    backend), the reductions when the mesh has more than one rank. With
+    ``tensor_parallel`` and a model axis of more than one rank the
+    attention is `make_tp_attention` (Ulysses on the local heads when
+    ``seq > 1``); otherwise the model ranks repeat the step alike (JAX's
+    LoRA step has no model axis)."""
     if mesh is None:
         return attn_backend, None, None
-    from ..parallel import SPContext, make_ulysses_attention
+    from ..parallel import (SPContext, make_tp_attention,
+                            make_ulysses_attention)
     from ..parallel.mesh import axis_size
-    if axis_size(mesh, "model") > 1:
-        raise NotImplementedError("the tensor-parallel train step is not "
-                                  "ported yet: ROADMAP.md §A.2")
     sp, attn = None, attn_backend
-    if axis_size(mesh, "seq") > 1:
+    seq = axis_size(mesh, "seq") > 1
+    if seq:
         attn = make_ulysses_attention(mesh, inner_backend=attn_backend)
         sp = SPContext(mesh)
+    if tensor_parallel and axis_size(mesh, "model") > 1:
+        attn = make_tp_attention(mesh, seq_axis="seq" if seq else None,
+                                 inner_backend=attn_backend)
     red = _MeshReduce(mesh) if mesh.size() > 1 else None
     return attn, sp, red
 
@@ -297,15 +327,29 @@ def make_train_step(dit: WanDiT, optimizer=None,
     docstring); ``batch`` and ``noise`` are then this rank's rows, and
     ``init_fn`` shards the parameters (those of at least
     ``fsdp_min_size`` elements) and so the optimizer state over ``data``
-    with FSDP. The loss returned is the global batch's."""
+    with FSDP; over a model axis it first cuts each rank's TP shard
+    (module docstring). The loss returned is the global batch's."""
     optimizer = optimizer or adamw(1e-5, weight_decay=1e-3)
-    attn, sp, red = _mesh_parts(mesh, attn_backend)
+    attn, sp, red = _mesh_parts(mesh, attn_backend, tensor_parallel=True)
 
     def init_fn() -> TrainState:
         dit.requires_grad_(True)
         if mesh is not None:
-            from ..parallel import apply_fsdp
-            apply_fsdp(dit, mesh, min_size=fsdp_min_size)
+            from ..parallel import (apply_fsdp, apply_tp,
+                                    tp_fsdp_param_shardings, validate_tp)
+            from ..parallel.mesh import axis_size
+            fsdp_dims = None
+            if axis_size(mesh, "model") > 1:
+                validate_tp(dit.cfg, mesh)
+                dims = tp_fsdp_param_shardings(mesh, dit,
+                                               min_size=fsdp_min_size)
+                fsdp_dims = {n: f for n, (_, f) in dims.items()}
+                apply_tp(dit, mesh)
+            apply_fsdp(dit, mesh, min_size=fsdp_min_size, dims=fsdp_dims)
+            if red is not None and fsdp_dims is not None:
+                red.tp_sharded = frozenset(
+                    id(p) for n, p in dit.named_parameters()
+                    if dims[n][0] is not None)
         return TrainState(dit, optimizer(dit.parameters()))
 
     def step_fn(state: TrainState, batch, noise=None, generator=None,

@@ -26,7 +26,8 @@ import shutil
 from typing import Any, Dict, Mapping, Optional
 
 import torch
-from torch.distributed.tensor import DTensor
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Shard
 
 from ..configs import T5Config, Wan22VAEConfig, WanDiTConfig
 from ..models.weights import (DIT_BLOCK_NAMES, DIT_IMG_BLOCK_NAMES,
@@ -56,11 +57,33 @@ def checkpoint_steps(path: str) -> list:
                   and os.path.isfile(os.path.join(path, d, _STATE_FILE)))
 
 
+def _whole(t: DTensor) -> torch.Tensor:
+    """A DTensor sharded on one dim of a 1-D mesh (FSDP2's) gathered whole
+    through the process group's ``all_gather_into_tensor`` (DTensor's
+    ``full_tensor`` goes through the functional collectives, which crash
+    under gloo on CUDA tensors). The shards are ``torch.chunk``'s: each
+    is padded to the first's length and the gather cut back."""
+    (place,) = t.placements
+    if not isinstance(place, Shard):
+        return t.full_tensor()
+    group = t.device_mesh.get_group()
+    world = dist.get_world_size(group)
+    d, n = place.dim, t.shape[place.dim]
+    step = -(-n // world)
+    local = t.to_local().movedim(d, 0)
+    if local.shape[0] < step:
+        local = torch.cat([local, local.new_zeros(
+            (step - local.shape[0], *local.shape[1:]))])
+    out = local.new_empty((world * step, *local.shape[1:]))
+    dist.all_gather_into_tensor(out, local.contiguous(), group=group)
+    return out[:n].movedim(0, d)
+
+
 def whole_state(tree: Any) -> Any:
     """``tree`` (nested dicts and lists) with every DTensor (an FSDP shard)
     gathered whole: a collective, which every rank of its mesh runs."""
     if isinstance(tree, DTensor):
-        return tree.full_tensor()
+        return _whole(tree)
     if isinstance(tree, dict):
         return {k: whole_state(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
