@@ -37,8 +37,10 @@ Phases, each of which fails the run (non-zero exit) on any fault:
      full-width DiT on a small latent through the kernels against the naive
      attention backend: the forward, and the gradient of its LoRA adapters
      (relative L2 error <= 2e-2 each), and the forward through B4 (<= 1e-2;
-     1.8e-3 measured on the CPU with B4's plain version); B4 under autograd
-     raises.
+     1.8e-3 measured on the CPU with B4's plain version), named as an
+     argument and again, naming no backend, routed by
+     `VIDEOCOF_ATTENTION_TYPE=int8` (the same launches of B4 and nothing
+     else); B4 under autograd raises.
   3. kernel timing at the two main-path shapes (12 heads; batch 2 for B4,
      as batched CFG runs it): each kernel, its plain version, the least time
      the card could take (bound), and one PyTorch call that computes the
@@ -53,8 +55,17 @@ Phases, each of which fails the run (non-zero exit) on any fault:
      umT5-XXL, random bf16 weights from a seed) edits a 33-frame 480x832
      uint8 video with 4 reasoning frames in 4 Flow-UniPC steps; checks the
      output and that B1 ran exactly 2 x layers x steps times and no other
-     kernel ran; then one DiT step of the edit's geometry under
-     torch.profiler (device time by kernel, idle share).
+     kernel ran; the pipeline is built under `VIDEOCOF_TIMING=1`, and the
+     edit's stderr must hold one `[pipeline] <label>: <s>s` line a stage
+     (the labels of `timings=`) and nothing else; the ported helpers:
+     `default_backend()` is "flash" on the card, `save_videos_grid` of the
+     edit's frames with the colour pin reads back through cv2 with their
+     frame count and size,
+     `get_video_to_video_latent` of a cv2 clip of the geometry's size (40
+     frames at 16 fps, taken at fps 8) gives [1, 3, 20, 480, 832] in [0,
+     1], an all-255 mask and the ref image, and `merge_video_audio`
+     raises RuntimeError without ffmpeg; then one DiT step of the edit's
+     geometry under torch.profiler (device time by kernel, idle share).
   5. the standard edit: the same models (the DiT's first 5 of its 30
      layers: the script's time limit) and video through
      `WanPipeline(attn_backend="int8")` in 50 Flow-UniPC steps at shift 3,
@@ -94,13 +105,13 @@ Phases, each of which fails the run (non-zero exit) on any fault:
      kernel, stage walls, peak memory); one DiT step under torch.profiler.
   9. the 4x length-extrapolation edit at 1.3B (random weights drawn by
      `factory.load_pipeline("", random_init=True)`, full width, its first
-     10 of 30 layers in phases 9-12: the script's time limit):
+     5 of 30 layers in phases 9-12: the script's time limit):
      a uint8 clip of 133 frames (4x the 33-frame clip, 34 latent frames)
      with 4 reasoning frames, 4 Flow-UniPC steps, repeat RoPE and RIFLEx
      (k 6, the default L_test), the VAE streamed: 34 + 1 + 34 latent
      frames, 107,640 DiT tokens; the output [1, 3, 134, 480, 832], exactly
-     240 B1 launches (120 self at 107,640 keys, 120 cross) and no other
-     kernel, stage walls, peak memory; one DiT step under torch.profiler.
+     2 B1 launches a layer and step (self at 107,640 keys, cross) and no
+     other kernel, stage walls, peak memory; one DiT step under torch.profiler.
      The whole-sequence VAE is not run at this length.
   10. the ragged batch: `batch_edit` over the 33-frame clip and the 4x
      clip's first 65 frames (29,640 and 54,600 tokens) as one batch of 2:
@@ -167,8 +178,8 @@ Phases, each of which fails the run (non-zero exit) on any fault:
      with fp8 experts, the files, the launches, the seconds (the
      directory has no tokenizer: the factory gets
      ``require_real_tokenizer=False``).
-  19. serving, at full width: (a) the Wan2.1 14B in fp8 on its first 10
-     of 40 layers (the script's time limit, since phase 29) with umT5
+  19. serving, at full width: (a) the Wan2.1 14B in fp8 on its first 5
+     of 40 layers (the script's time limit) with umT5
      offloaded (`factory.load_pipeline(random_init=True, quantize="fp8",
      offload_t5=True)`) behind `VideoCoFController` and `serving.api`'s
      handler on a thread, four POSTs of the cv2 clip as a base64 mp4 (4
@@ -247,7 +258,7 @@ Phases, each of which fails the run (non-zero exit) on any fault:
      at the 14B's 40 heads.
   21. parallelism on `torch.distributed` at the 1.3B's full width, two
      ranks sharing the one card, the edits and training runs on its first
-     4 of 30 layers (the script's time limit; the ring edit on 10, as
+     2 of 30 layers (the script's time limit; the ring edit on 5, as
      phase 9's):
      (a) the probe of the collectives on CUDA tensors of two ranks on
      cuda:0 (NCCL's one all_reduce; gloo's all_reduce, all_to_all_single,
@@ -257,11 +268,11 @@ Phases, each of which fails the run (non-zero exit) on any fault:
      same edit at guidance 5 with one guidance branch per data rank (data
      2), each rank's final latents against the world-1 edit of the same
      factory weights and seed within 2e-2 relative L2, the uint8
-     difference, each rank's B1 calls by shape (Ulysses: 16 self over 6
-     of 12 heads and 16 cross over 14,820 tokens), stage walls and peak
-     beside world 1's; (c) ring attention on the 4x edit at world 1 under
-     NCCL (gloo carries no point-to-point on CUDA tensors): 120 B2 and 120
-     cross B1, against phase 9's 4x edit within 2e-2; (e)
+     difference, each rank's B1 calls by shape (Ulysses: one self over 6
+     of 12 heads and one cross over 14,820 tokens a layer and step),
+     stage walls and peak beside world 1's; (c) ring attention on the 4x
+     edit at world 1 under NCCL (gloo carries no point-to-point on CUDA
+     tensors): one B2 and one cross B1 a layer and step, against phase 9's 4x edit within 2e-2; (e)
      `videocof_torch.cli.train` under one `torch.distributed.run
      --nproc_per_node=2` (this script's ``--train-rank`` mode runs its
      `main` twice) with --mesh_seq 2 and with --mesh_data 2 (the frozen
@@ -294,13 +305,22 @@ Phases, each of which fails the run (non-zero exit) on any fault:
      `control_to_video` of a uint8 control clip under a region mask, then
      `fast_infer.main(["--control_video", clip, "--control_mask", clip,
      ...])` on a published-layout VACE directory (2 layers and their hint
-     block); (24) camera control at 1.3B on 10 layers (the adapter 24 ->
+     block); two rank-32 LoRA files for its layers, attached as runtime
+     adapters, in one `vace_forward` of the phase's geometry (batch 1)
+     against the same files merged into a copy of the DiT (relative L2
+     <= 2e-2, the DiT gate), each at least ten times that distance from
+     the un-adapted forward, B1 exactly (layers + hint blocks) x 2 calls;
+     then the VACE pipeline with its DiT quantized to fp8 and the adapters
+     attached (`set_runtime_lora`): its final latents more than 1e-3 from
+     the un-adapted fp8 run's, its B1 calls those of (23); (24) camera
+     control at 1.3B on 10 layers (the adapter 24 ->
      1536 on
      `pose_params_to_embedding` of 33 pose rows); (25) speech-to-video at
      the 14B's width on 5 of its 40 layers with seeded audio features
      (audio_dim 1024,
      4 tokens a latent frame, injected at layer 0: B1 at batch 18 over 4
-     keys). B1 is also held against its plain version (phase 2) and timed
+     keys), with the runtime LoRA checks of (23) on `wan_s2v_forward`
+     and the fp8 S2V pipeline. B1 is also held against its plain version (phase 2) and timed
      (phase 3) at the i2v shapes (self, text cross and image cross at 40
      heads, batch 2, 14,040 tokens) and the audio injection's.
   26-28. the other model families at full width and depth, random bf16
@@ -341,9 +361,10 @@ Phases, each of which fails the run (non-zero exit) on any fault:
      on uint8 bytes, which this phase needs), each rank against world 1
      in this process on the same layers and inputs: (a) the 4-step
      480x832 33 + 4-frame CoF edit at WAN21_T2V_14B's width on its first
-     4 of 40 layers, fp8 with two runtime rank-32 LoRA files, at tp 2
-     (`enable_sequence_parallel(model=2)`): latents within 2e-2 relative
-     L2, B1 at 20 of 40 heads (16 self and 16 cross calls a rank), each
+     layer of 40 (the script's time limit), fp8 with two runtime rank-32 LoRA files,
+     at tp 2 (`enable_sequence_parallel(model=2)`): latents within 2e-2
+     relative L2, B1 at 20 of 40 heads (4 self and 4 cross calls a rank),
+     each
      rank's share of the blocks' bytes at most 0.51, the all-reduces'
      count, bytes and seconds; (b) Flux-dev (2 double and 2 single
      blocks at 1024x1024, 512 text tokens), QwenImage (2 blocks, 256) and
@@ -353,7 +374,15 @@ Phases, each of which fails the run (non-zero exit) on any fault:
      2 layers, a 29,640-token row a data rank: the loss within 2e-2, the
      gradients (FSDP-gathered) within 5e-2 relative L2 of world 1's cut
      to the rank's TP shard, AdamW's moves within 0.3, the q weight's
-     shard [768, 768]; (d) GPipe (`pp_scan_blocks`) over the 1.3B's 30
+     shard [768, 768]; then its train state saved (`save_train_state`,
+     every rank returning once the directory exists; the file at the
+     model's global shapes), a fresh TP x FSDP state restored from it
+     (each rank's shards bit for bit the saved state's), whose second
+     step takes the loss of the second step in memory bit for bit and its
+     parameters within 4e-3 relative L2 (B3 adds dq's key tiles in no
+     fixed order), and the same file restored at world 1, whose second
+     step is held to the world-1 gates against the ranks'; the save's and
+     the restores' seconds; (d) GPipe (`pp_scan_blocks`) over the 1.3B's 30
      blocks at full depth, 29,640 tokens, batch 2, 2 stages and 2
      microbatches, within 2e-2 of the sequential blocks, and its backward
      through the first 4 blocks (the blocks' and the stream's gradients
@@ -387,6 +416,7 @@ from __future__ import annotations
 
 import contextlib
 import gc
+import io
 import json
 import os
 import re
@@ -438,6 +468,10 @@ STD_LAYERS = 5                 # ... and the standard CLI (phase 13) on the
 TEACACHE_PIN = 0.4             # pinned TeaCache skip rate (bench.py's)
 LORA_RANK = 32                 # the entry phases' synthetic LoRA files
 LORA_ALPHA = 16.0              # ... the kohya file's alpha (scale 0.5)
+# the least relative L2 by which the runtime adapters move an fp8
+# pipeline's final latents (phases 23 and 25; without them the run is
+# the same arithmetic, so any adapter that is dropped shows as 0)
+LORA_MOVED_MIN = 1e-3
 CLIP_FRAMES = 40               # frames of the entry phase's synthetic clip
 EXTRAP_FRAMES = 133            # the 4x edit: 1 + 4 x 33 frames, 34 latent
 RAGGED_FRAMES = 65             # the ragged batch's long item (item 0: 33)
@@ -461,9 +495,9 @@ ENTRY22_LAYERS = 2             # layers per expert of the entries' checkpoint
 # the serving phase: the 14B server's LoRA file per request (runtime
 # adapters over fp8 weights; request 4 repeats request 1)
 SERVE_LORAS = ("fusionx", "videocof", "none", "fusionx")
-# ... its DiT at the 14B's width on its first 10 of 40 layers, with LoRA
-# files written for those (the script's time limit, since phase 29)
-SERVE_14B_LAYERS = 10
+# ... its DiT at the 14B's width on its first 5 of 40 layers, with LoRA
+# files written for those (the script's time limit)
+SERVE_14B_LAYERS = 5
 SERVE_MEM_SLACK = 1e9          # allocated between requests over DiT + VAE +
                                # adapters (umT5's 11.4 GB are not resident)
 SWAP_MEM_SLACK = 64e6          # allocated after a weight swap vs before
@@ -501,10 +535,9 @@ TRAIN_14B_RANK = 32            # the 14B LoRA steps
 TRAIN_14B_STEPS = 2
 SP_DEGREE = 2                  # phase 21: two ranks share the one card
 # phase 21's edits and training runs: the 1.3B cut to these of its 30
-# layers at full width (the script's time limit: 8 in PR 13, 4 since
-# phases 26-28); its ring edit runs on LONG_LAYERS, held against phase
+# layers at full width (the script's time limit); its ring edit runs on LONG_LAYERS, held against phase
 # 9's 4x edit
-SP_LAYERS = 4
+SP_LAYERS = 2
 SP_TRAIN_STEPS = 2             # ... its training runs' steps
 SP_TIMEOUT_S = 600             # ... the deadline of its spawned ranks
 # an SP edit's final latents vs world 1's (the DiT gate: the ranks' linears
@@ -533,9 +566,9 @@ CLI_LAYERS = 2
 VARIANT_14B_LAYERS = 5
 VARIANT_1_3B_LAYERS = 10
 # phases 9-12 (the 4x, ragged and paired edits) and phase 21's ring edit,
-# held against phase 9's 4x edit, on the 1.3B's first 10 of 30 layers (the
-# script's time limit, since phase 29)
-LONG_LAYERS = 10
+# held against phase 9's 4x edit, on the 1.3B's first 5 of 30 layers (the
+# script's time limit)
+LONG_LAYERS = 5
 # phases 26-28, the other model families at full width and depth, random
 # bf16 weights from the seed: CogVideoX-5B's clip and text (the
 # reference's 480x720, 49 frames, 226 T5 tokens, CFG 6, DDIM), the image
@@ -562,7 +595,7 @@ SERVE_FAMILY_STEPS = 2
 FAMILY_SP_LAYERS = 2
 # phase 29, tensor, pipeline and expert parallelism at gloo worlds of 2 and
 # 4 ranks on the one card: the TP edit at the Wan2.1 14B's width on its
-# first 4 of 40 layers; the families' TP forwards on 2 blocks of each kind;
+# first layer of 40 (the script's time limit); the families' TP forwards on 2 blocks of each kind;
 # the pipeline over the 1.3B's 30 blocks at batch 2 in 2 microbatches, its
 # backward through the first 4; the two fp8 A14B-width experts of 2
 # layers; the TP x FSDP step at the 1.3B's width on 2 layers, at AdamW's
@@ -571,7 +604,7 @@ FAMILY_SP_LAYERS = 2
 # stay whole); AdamW's moves within 0.3 relative L2 of world 1's (each
 # about lr in size: a gradient within the ranks' rounding of 0 may turn
 # its move's sign)
-TP_EDIT_LAYERS = 4
+TP_EDIT_LAYERS = 1
 TP_FAMILY_LAYERS = 2
 PP_BATCH = 2
 PP_MICRO = 2
@@ -582,6 +615,11 @@ TP_TRAIN_LR = 1e-2
 TP_FSDP_MIN = 2 ** 16          # FSDP's smallest sharded tensor (JAX's)
 TP_BYTES_SHARE = 0.51
 TP_UPDATE_TOL = 0.3
+# the TP x FSDP step's parameters after a restore vs the step in memory:
+# B3 adds dq's key tiles in no fixed order, and AdamW's normalised step
+# turns that into bf16 roundings of whole ulps (under 1e-3 relative L2 on
+# an H100; the restored state and the step's loss are bit for bit)
+TP_RESUME_TOL = 4e-3
 
 
 def log(*args):
@@ -5080,6 +5118,176 @@ def live_vace(vace, gen):
     return vace
 
 
+def lora_forward_check(tag, dit, forward, gen, counters, want_shapes):
+    """Two rank-32 LoRA files for ``dit``'s layers (`write_lora_files`):
+    ``forward(dit)`` (one DiT forward of the phase's geometry) with them
+    attached as runtime adapters, through B1 exactly ``want_shapes``
+    ({(batch, Lq, Lk, None): calls}) and nothing else, against the same
+    forward of a copy of ``dit`` with both merged (within DIT_REL_TOL);
+    each at least ten times that distance from the un-adapted forward.
+    Returns (the runtime adapters on the card, the record)."""
+    import copy
+    import torch
+    from videocof_torch.models.lora import load_runtime_lora, merge_lora
+    launch_counts, reset_launch_counts = counters
+    paths, _ = write_lora_files(dit.cfg, gen, SCRATCH / f"{tag}_lora")
+    runtime, left = load_runtime_lora([(p, 1.0) for p in paths], dit.cfg)
+    if runtime is None or left:
+        fail(f"{tag}: the LoRA files' runtime adapters {runtime}, left "
+             f"{sorted(left)}")
+    runtime = (runtime[0].to(gen.device), runtime[1])
+    with torch.no_grad():
+        plain = forward(dit).float()
+        dit.runtime_lora = runtime
+        reset_launch_counts()
+        with b1_calls() as seen:
+            adapted = forward(dit).float()
+            torch.cuda.synchronize()
+        launches = launch_counts()
+        dit.runtime_lora = None
+        merged_dit = copy.deepcopy(dit)
+        for path in paths:
+            merge_lora(merged_dit, path)
+        merged = forward(merged_dit).float()
+    del merged_dit
+    shutil.rmtree(SCRATCH / f"{tag}_lora", ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rel = _rel_l2(adapted.cpu().numpy(), merged.cpu().numpy())
+    moved = min(_rel_l2(a.cpu().numpy(), plain.cpu().numpy())
+                for a in (adapted, merged))
+    shapes = b1_shapes(seen)
+    rec = {"runtime_vs_merged_rel_l2": rel, "moved_rel_l2": moved,
+           "b1_calls": {str(k): n for k, n in shapes.items()},
+           "launches": launches}
+    log(f"[{tag} LoRA] one DiT forward with two rank-{LORA_RANK} files as "
+        f"runtime adapters vs merged: relative L2 {rel:.3e} (tol "
+        f"{DIT_REL_TOL}); each {moved:.3e} from the un-adapted forward "
+        f"(at least 10x); B1 calls {shapes}; launches {launches}")
+    check_launches(f"{tag} LoRA forward", launches,
+                   dict(dict.fromkeys(launches, 0), flash_attention_fwd=sum(
+                       want_shapes.values())))
+    if shapes != want_shapes:
+        fail(f"the {tag} LoRA forward's B1 calls {shapes} != {want_shapes}")
+    if not (torch.isfinite(adapted).all() and rel <= DIT_REL_TOL
+            and moved >= 10 * rel):
+        fail(f"{tag}: the runtime adapters' forward {rec}")
+    return runtime, rec
+
+
+def fp8_lora_check(tag, pipe, call, runtime, counters, want_shapes):
+    """``pipe``'s DiT quantized to fp8 in place, then ``call(pipe, None)``
+    with ``runtime`` attached (`set_runtime_lora`), through B1 exactly
+    ``want_shapes``, and without: the final latents must move by more
+    than LORA_MOVED_MIN. Returns the record."""
+    import numpy as np
+    import torch
+    from videocof_torch.utils.fp8 import quantize_dit_fp8
+    launch_counts, reset_launch_counts = counters
+    quantize_dit_fp8(pipe.dit)
+    pipe.set_runtime_lora(runtime)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with b1_calls() as seen:
+        adapted = call(pipe, None)
+        torch.cuda.synchronize()
+    adapted_s = time.perf_counter() - t0
+    launches = launch_counts()
+    pipe.set_runtime_lora(None)
+    plain = call(pipe, None)
+    moved = _rel_l2(adapted.latents, plain.latents)
+    shapes = b1_shapes(seen)
+    rec = {"seconds": adapted_s, "moved_rel_l2": moved,
+           "b1_calls": {str(k): n for k, n in shapes.items()}}
+    log(f"[{tag} LoRA] the fp8 pipeline with the runtime adapters in "
+        f"{adapted_s:.2f} s: final latents {moved:.3e} from the un-adapted "
+        f"fp8 run's (more than {LORA_MOVED_MIN}); B1 calls {shapes}")
+    check_launches(f"{tag} fp8 LoRA pipeline", launches,
+                   dict(dict.fromkeys(launches, 0), flash_attention_fwd=sum(
+                       want_shapes.values())))
+    if shapes != want_shapes:
+        fail(f"the {tag} fp8 LoRA pipeline's B1 calls {shapes} != "
+             f"{want_shapes}")
+    if not (np.isfinite(adapted.latents).all() and moved > LORA_MOVED_MIN):
+        fail(f"{tag}: the fp8 pipeline's runtime adapters {rec}")
+    return rec
+
+
+def vace_lora_phase(geo, gen, parts, vace, vace_call, counters):
+    """Phase 23's runtime LoRA: `lora_forward_check` on `vace_forward` at
+    the phase's geometry (batch 1, the base layers and the hint blocks
+    each a self and a cross B1 call), then `fp8_lora_check` on the VACE
+    pipeline of ``parts`` (its DiT quantized in place). Returns the
+    records."""
+    import torch
+    from videocof_torch.models.wan_dit import make_rope_for_geometry
+    from videocof_torch.models.wan_dit_vace import vace_forward
+    from videocof_torch.pipeline import VacePipeline
+    dev, bf16 = gen.device, torch.bfloat16
+    dit, vae = parts[0], parts[1]
+    cfg = dit.cfg
+    lat, L, _ = variant_tokens(geo)
+    grid = (lat, geo.height // 16, geo.width // 16)
+    sc = vae.cfg.spatial_compression_ratio
+    vace_in = 2 * vae.cfg.z_dim + sc * sc
+    x = torch.randn(1, vae.cfg.z_dim, lat, 2 * grid[1], 2 * grid[2],
+                    generator=gen, device=dev).to(bf16)
+    vctx = torch.randn(1, vace_in, lat, 2 * grid[1], 2 * grid[2],
+                       generator=gen, device=dev).to(bf16)
+    ctx = torch.randn(1, TEXT_TOKENS, cfg.text_dim, generator=gen,
+                      device=dev).to(bf16)
+    cos, sin = (torch.as_tensor(a, device=dev)
+                for a in make_rope_for_geometry(cfg, grid))
+    t = torch.full((1,), 937.0, device=dev)
+    blocks = cfg.num_layers + vace.n_vace
+    runtime, forward = lora_forward_check(
+        "VACE", dit, lambda d: vace_forward(d, vace, x, vctx, t, ctx, cos,
+                                            sin),
+        gen, counters, {(1, L, L, None): blocks,
+                        (1, L, TEXT_TOKENS, None): blocks})
+    del x, vctx, ctx, cos, sin
+    per = blocks * VARIANT_STEPS
+    fp8 = fp8_lora_check(
+        "VACE", VacePipeline(*parts, vace=vace), vace_call, runtime,
+        counters, {(2, L, L, None): per, (2, L, TEXT_TOKENS, None): per})
+    return {"lora_forward": forward, "lora_fp8": fp8}
+
+
+def s2v_lora_phase(geo, gen, pipe, audio, call, counters):
+    """Phase 25's runtime LoRA: `lora_forward_check` on `wan_s2v_forward`
+    at the phase's geometry (batch 1: each layer a self and a cross B1
+    call, the injection one over the audio tokens), then `fp8_lora_check`
+    on ``pipe`` (its DiT quantized in place). Returns the records."""
+    import torch
+    from videocof_torch.models.rope import build_rope_cos_sin
+    from videocof_torch.models.wan_dit_s2v import wan_s2v_forward
+    dev, cfg = gen.device, pipe.dit.cfg
+    lat, L, per_frame = variant_tokens(geo)
+    grid = (lat, geo.height // 16, geo.width // 16)
+    x = torch.randn(1, pipe.vae.cfg.z_dim, lat, 2 * grid[1], 2 * grid[2],
+                    generator=gen, device=dev).to(torch.bfloat16)
+    ctx = torch.randn(1, TEXT_TOKENS, cfg.text_dim, generator=gen,
+                      device=dev).to(torch.bfloat16)
+    cos, sin = (torch.as_tensor(a, device=dev)[None] for a in
+                build_rope_cos_sin(grid, cfg.head_dim))
+    seg = torch.zeros(L, dtype=torch.long, device=dev)
+    feats = torch.as_tensor(audio, device=dev)
+    t = torch.full((1,), 937.0, device=dev)
+    runtime, forward = lora_forward_check(
+        "S2V", pipe.dit, lambda d: wan_s2v_forward(
+            d, pipe.s2v, x, t, ctx, cos, sin, seg, audio_feats=feats),
+        gen, counters, {(1, L, L, None): cfg.num_layers,
+                        (1, L, TEXT_TOKENS, None): cfg.num_layers,
+                        (lat, per_frame, AUDIO_TOKENS, None): 1})
+    del x, ctx, cos, sin, seg, feats
+    per = cfg.num_layers * VARIANT_STEPS
+    fp8 = fp8_lora_check(
+        "S2V", pipe, call, runtime, counters, {
+            (2, L, L, None): per, (2, L, TEXT_TOKENS, None): per,
+            (2 * lat, per_frame, AUDIO_TOKENS, None): VARIANT_STEPS})
+    return {"lora_forward": forward, "lora_fp8": fp8}
+
+
 def vace_camera_phase(card, geo, gen, prompt, counters):
     """VACE and camera control at Wan2.1 1.3B (`factory.load_pipeline("",
     random_init=True)`, cut to its first VARIANT_1_3B_LAYERS layers by
@@ -5167,7 +5375,11 @@ def vace_camera_phase(card, geo, gen, prompt, counters):
     rec_cam = variant_run("camera", card, cpipe, cam_call, counters, want, {
         (2, L, L, None): per, (2, L, TEXT_TOKENS, None): per})
     rec_cam["tokens"] = L
-    del cpipe, base, parts, vace, adapter
+    del cpipe
+
+    rec_vace.update(vace_lora_phase(geo, gen, parts, vace, vace_call,
+                                     counters))
+    del base, parts, vace, adapter
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -5258,6 +5470,8 @@ def s2v_phase(card, geo, gen, prompt, counters):
                              audio_shape: VARIANT_STEPS})
     record.update(build_s=build_s, tokens=L,
                   b1_launches={"s2v audio": VARIANT_STEPS})
+
+    record.update(s2v_lora_phase(geo, gen, pipe, audio, call, counters))
     del pipe, s2v
     gc.collect()
     torch.cuda.empty_cache()
@@ -5607,23 +5821,24 @@ def tp_train_setup(dev, geo):
              "timesteps": torch.tensor([300, 800], device=dev),
              "frame_mask": mask}
     noise = torch.randn(shape, generator=gen, device=dev)
-    return dit, batch, noise
+    # the second step's, which the restored train states take
+    noise2 = torch.randn(shape, generator=gen, device=dev)
+    return dit, batch, (noise, noise2)
 
 
 def tp_train_step(dit, batch, noise, mesh=None, rows=slice(None)):
     """One full fine-tuning step (AdamW at TP_TRAIN_LR, the default remat)
     on ``batch``'s ``rows``: the loss, the parameters before it (off a
     mesh), the gradients AdamW took and the parameters after it (FSDP
-    shards gathered), on the CPU; launches, seconds, peak."""
+    shards gathered), on the CPU; launches, seconds, peak; and the state
+    and its step function."""
     import torch
     from videocof_torch.ops import flash_attention as fa
     from videocof_torch.training.train_step import adamw, make_train_step
     from videocof_torch.utils.checkpoint import whole_state
     before = (None if mesh is not None else
               {k: v.float().cpu() for k, v in dit.state_dict().items()})
-    init_fn, step_fn = make_train_step(
-        dit, adamw(TP_TRAIN_LR, 0.0), mesh=mesh, fsdp_min_size=TP_FSDP_MIN)
-    state = init_fn()
+    state, step_fn = tp_train_state(dit, mesh)
     log(f"[tp train] the step's state made (mesh: {mesh is not None})")
     grads, real = {}, state.optimizer.adamw.step
 
@@ -5642,13 +5857,97 @@ def tp_train_step(dit, batch, noise, mesh=None, rows=slice(None)):
          for k, v in batch.items()}
     state, loss = step_fn(state, b, noise=noise[rows])
     torch.cuda.synchronize()
+    state.optimizer.adamw.step = real
     return {"loss": float(loss), "before": before, "grads": grads,
             "q_local": q_local,
             "params": {k: whole_state(v).float().cpu()
                        for k, v in state.params.state_dict().items()},
             "launches": fa.launch_counts(),
             "seconds": time.perf_counter() - t0,
-            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "state": state, "step_fn": step_fn}
+
+
+def tp_train_state(dit, mesh=None):
+    """A full fine-tuning state of ``dit`` over ``mesh`` (AdamW at
+    TP_TRAIN_LR) and its step function."""
+    from videocof_torch.training.train_step import adamw, make_train_step
+    init_fn, step_fn = make_train_step(
+        dit, adamw(TP_TRAIN_LR, 0.0), mesh=mesh, fsdp_min_size=TP_FSDP_MIN)
+    return init_fn(), step_fn
+
+
+def held_state(state):
+    """Copies of every tensor of a full fine-tuning state as this rank
+    holds it (its shards): parameters, AdamW's moments and step counts."""
+    out = {}
+
+    def local(t):
+        return (t.to_local() if hasattr(t, "to_local") else t
+                ).detach().clone()
+    for k, v in state.params.state_dict().items():
+        out["params." + k] = local(v)
+    for i, st in state.optimizer.adamw.state_dict()["state"].items():
+        out.update({f"adamw.{i}.{k}": local(v) for k, v in st.items()})
+    return out
+
+
+def unequal(got, want):
+    """The names whose tensors differ in any bit (or that one side
+    lacks)."""
+    import torch
+    return sorted(k for k in set(got) | set(want)
+                  if k not in got or k not in want
+                  or got[k].dtype != want[k].dtype
+                  or not torch.equal(got[k], want[k]))
+
+
+def tp_resume(dev, geo, state, step_fn, mesh, rows, ckpt, batch, noise2):
+    """Phase 29 (c)'s train state on one rank of the TP x FSDP world (the
+    second step on ``batch``'s ``rows`` with ``noise2``'s):
+    `save_train_state` after the first step (seconds, whether the
+    directory is there as it returns), the second step from the state in
+    memory, a fresh state of the same layout restored from the file
+    (seconds; the tensors it holds that differ from the saved state's) and
+    its second step (the loss; the tensors that differ from the second
+    step in memory, and their relative L2); the whole parameters after the
+    second step in memory (rank 0)."""
+    import torch
+    from videocof_torch.utils.checkpoint import (restore_train_state,
+                                                 save_train_state,
+                                                 whole_state_dict)
+    b = {k: (v[rows] if k in ("x0", "context", "timesteps") else v)
+         for k, v in batch.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = save_train_state(ckpt, state)
+    save_s = time.perf_counter() - t0
+    there = os.path.isdir(path)
+    saved = held_state(state)
+    state, loss2 = step_fn(state, b, noise=noise2[rows])
+    after = held_state(state)
+    whole2 = {k: v.cpu() for k, v in whole_state_dict(state.params).items()}
+    del state
+    dit, _, _ = tp_train_setup(dev, geo)
+    fresh, fresh_step = tp_train_state(dit, mesh)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    restore_train_state(ckpt, fresh)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    restored = held_state(fresh)
+    fresh, loss2_restored = fresh_step(fresh, b, noise=noise2[rows])
+    after_r = held_state(fresh)
+    differ = unequal(after_r, after)
+    rel = _cat_rel_l2([(after_r[k].float().cpu().numpy(),
+                        after[k].float().cpu().numpy())
+                       for k in after if k.startswith("params.")])
+    return {"path": path, "there": there, "save_s": save_s,
+            "restore_s": restore_s, "n_held": len(saved),
+            "restored_differ": unequal(restored, saved),
+            "loss2": float(loss2), "loss2_restored": float(loss2_restored),
+            "step2_differ": len(differ), "step2_rel_l2": rel,
+            "whole2": whole2 if torch.distributed.get_rank() == 0 else None}
 
 
 def _p29_rank4(rank, world, init_file, out_dir, geo):
@@ -5657,13 +5956,19 @@ def _p29_rank4(rank, world, init_file, out_dir, geo):
     import torch
     from videocof_torch.parallel import make_mesh, tp_param_shardings
     dev = _p29_init(rank, world, init_file)
-    dit, batch, noise = tp_train_setup(dev, geo)
+    dit, batch, (noise, noise2) = tp_train_setup(dev, geo)
     mesh = make_mesh(data=2, model=2)
     log(f"[tp train] rank {rank}: drawn, mesh made")
     dims = tp_param_shardings(mesh, dit)
     d = mesh.get_local_rank("data")
     res = tp_train_step(dit, batch, noise, mesh, slice(d, d + 1))
     log(f"[tp train] rank {rank}: stepped")
+    state, step_fn = res.pop("state"), res.pop("step_fn")
+    del dit, noise
+    res["resume"] = tp_resume(dev, geo, state, step_fn, mesh,
+                              slice(d, d + 1), os.path.join(out_dir, "ckpt"),
+                              batch, noise2)
+    log(f"[tp train] rank {rank}: saved, restored, stepped again")
     res.update(dims=dims, model_rank=mesh.get_local_rank("model"),
                data_rank=d)
     torch.distributed.barrier()
@@ -5733,9 +6038,9 @@ def tp_train_phase(geo):
     base = SCRATCH / "tp_train"
     shutil.rmtree(base, ignore_errors=True)
     base.mkdir(parents=True)
-    dit, batch, noise = tp_train_setup(rank_device(), geo)
+    dit, batch, (noise, noise2) = tp_train_setup(rank_device(), geo)
     w1_train = tp_train_step(dit, batch, noise)
-    del dit, batch, noise
+    del dit, noise, w1_train["state"], w1_train["step_fn"]
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -5744,11 +6049,14 @@ def tp_train_phase(geo):
     world4_s = time.perf_counter() - t0
     r4 = [torch.load(base / f"rank{r}.pt", weights_only=False)
           for r in range(4)]
-    shutil.rmtree(base, ignore_errors=True)
     rec = {"world4_s": world4_s,
            "world1": {k: w1_train[k] for k in (
                "loss", "seconds", "peak_memory_gb", "launches")},
-           "ranks": []}
+           "ranks": [],
+           "resume": tp_resume_world1(base / "ckpt", r4, w1_train, batch,
+                                      noise2, geo)}
+    del batch, noise2
+    shutil.rmtree(base, ignore_errors=True)
     d_model = w1_train["params"]["blocks.0.self_attn.q.weight"].shape[0]
     for r, got in enumerate(r4):
         m = got["model_rank"]
@@ -5786,6 +6094,84 @@ def tp_train_phase(geo):
             fail(f"phase 29 TP x FSDP rank {r}: {row}")
     log(f"[tp train] world 4 in {world4_s:.1f} s")
     return rec
+
+
+def tp_resume_world1(ckpt, r4, w1_train, batch, noise2, geo):
+    """Phase 29 (c)'s train state after the ranks' runs: every rank
+    returned once the directory existed; a fresh state of each rank's
+    layout restored from the file held its shards bit for bit, and the
+    second step from it took the loss of the second step in memory bit for
+    bit, its parameters within TP_RESUME_TOL (B3 adds dq's key tiles in
+    no fixed order); the file holds the model's global shapes; the same
+    file restored into a world-1 state on the card, whose second step is
+    held to the world-1 gates against the ranks' (the loss within
+    SP_LOSS_TOL, AdamW's moves within TP_UPDATE_TOL). Returns the
+    record."""
+    import torch
+    from videocof_torch.parallel import rank_device
+    from videocof_torch.utils.checkpoint import restore_train_state
+    rows = []
+    for r, got in enumerate(r4):
+        res = got["resume"]
+        row = {k: res[k] for k in ("there", "save_s", "restore_s", "n_held",
+                                   "loss2", "loss2_restored",
+                                   "step2_differ", "step2_rel_l2")}
+        row["restored_differ"] = res["restored_differ"][:5]
+        rows.append(row)
+        log(f"[tp train] rank {r}: save {res['save_s']:.2f} s (directory "
+            f"there on return: {res['there']}), restore "
+            f"{res['restore_s']:.2f} s; restored tensors unequal to the "
+            f"saved ones {len(res['restored_differ'])} of {res['n_held']}; "
+            f"second step's loss {res['loss2_restored']!r} from the restored "
+            f"state, {res['loss2']!r} in memory; its tensors unequal "
+            f"{res['step2_differ']} of {res['n_held']}, parameters "
+            f"{res['step2_rel_l2']:.3e} relative L2 (gate {TP_RESUME_TOL})")
+        if (not res["there"] or res["restored_differ"]
+                or res["loss2_restored"] != res["loss2"]
+                or res["step2_rel_l2"] > TP_RESUME_TOL
+                or res["path"] != r4[0]["resume"]["path"]):
+            fail(f"phase 29 TP x FSDP train state, rank {r}: {row}")
+    t0 = time.perf_counter()
+    payload = torch.load(Path(r4[0]["resume"]["path"]) / "train_state.pt",
+                         map_location="cpu", weights_only=True)
+    load_s = time.perf_counter() - t0
+    want = {k: tuple(v.shape) for k, v in w1_train["params"].items()}
+    got = {k: tuple(v.shape) for k, v in payload["params"].items()}
+    moments = sorted(tuple(st["exp_avg"].shape)
+                     for st in payload["optimizer"]["state"].values())
+    log(f"[tp train] the file ({load_s:.2f} s to read): {len(got)} "
+        f"parameters, q weight {got.get('blocks.0.self_attn.q.weight')}, "
+        f"fc1 {got.get('blocks.0.ffn.fc1.weight')}")
+    if got != want or moments != sorted(want.values()):
+        fail(f"phase 29 TP x FSDP train state: the file's shapes are not "
+             f"the model's: {[k for k in want if got.get(k) != want[k]][:5]}")
+    dev = rank_device()
+    dit, _, _ = tp_train_setup(dev, geo)
+    state, step_fn = tp_train_state(dit)
+    t0 = time.perf_counter()
+    restore_train_state(str(ckpt), state)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    state, loss = step_fn(state, batch, noise=noise2)
+    whole2 = r4[0]["resume"]["whole2"]
+    w1 = {k: v.float() for k, v in payload["params"].items()}
+    moves = _cat_rel_l2([
+        ((v.float().cpu() - w1[k]).numpy(), (whole2[k].float() - w1[k]).numpy())
+        for k, v in state.params.state_dict().items()])
+    lrel = abs(float(loss) - r4[0]["resume"]["loss2"]) / abs(
+        r4[0]["resume"]["loss2"])
+    w1_row = {"restore_s": restore_s, "loss2": float(loss), "loss_rel": lrel,
+              "moves_rel_l2": moves}
+    log(f"[tp train] the file restored at world 1 in {restore_s:.2f} s: "
+        f"second step's loss {float(loss):.6f} ({lrel:.3e} from the ranks', "
+        f"gate {SP_LOSS_TOL}); AdamW's moves {moves:.3e} from the ranks' "
+        f"(gate {TP_UPDATE_TOL})")
+    if lrel > SP_LOSS_TOL or moves > TP_UPDATE_TOL:
+        fail(f"phase 29 TP x FSDP train state restored at world 1: {w1_row}")
+    del dit, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"ranks": rows, "file_read_s": load_s, "world1": w1_row}
 
 
 def tp_phase(card, geo, video, probed):
@@ -5963,6 +6349,76 @@ def tp_phase(card, geo, video, probed):
         f" s; the ranks "
         f"share the card's SMs: no multi-GPU speed)")
     return rec
+
+
+def check_timing_lines(text, stages):
+    """Fail unless ``text`` (the stderr of a pipeline built under
+    ``VIDEOCOF_TIMING=1``) holds one ``[pipeline] <label>: <s>s`` line a
+    stage, in order, and nothing else."""
+    lines = text.splitlines()
+    labels = [m.group(1) for m in map(re.compile(
+        r"^\[pipeline\] ([^:]+): \d+\.\d\ds$").match, lines) if m]
+    log("[timing] VIDEOCOF_TIMING=1 printed: " + " | ".join(lines))
+    if labels != stages or len(lines) != len(stages):
+        fail(f"VIDEOCOF_TIMING=1 printed {lines}, expected one line for each "
+             f"of {stages}")
+
+
+def helpers_phase(vid, geo):
+    """Phase 4's checks of the ported helpers: `default_backend` on the
+    card; `save_videos_grid` of the edit's frames with the colour pin,
+    read back by cv2 (frames and size);
+    `get_video_to_video_latent` on a cv2 clip of the geometry's size (at
+    fps 8 of its 16, and a ref image); `merge_video_audio` without
+    ffmpeg. Returns their seconds."""
+    import numpy as np
+    from videocof_torch.ops import default_backend
+    from videocof_torch.utils import (get_video_to_video_latent,
+                                      merge_video_audio, save_videos_grid)
+    from videocof_torch.utils.video_io import video_info
+    if default_backend() != "flash":
+        fail(f"default_backend() on the card is {default_backend()!r}")
+    t0 = time.perf_counter()
+    grid_path = SCRATCH / "grid.mp4"
+    SCRATCH.mkdir(parents=True, exist_ok=True)
+    save_videos_grid(vid, str(grid_path), color_transfer_post_process=True)
+    grid_s = time.perf_counter() - t0
+    T, H, W = vid.shape[2:]
+    got = video_info(str(grid_path))[:3]
+    log(f"[helpers] default_backend() {default_backend()!r}; "
+        f"save_videos_grid of {vid.shape} with the colour pin in "
+        f"{grid_s:.2f} s: cv2 reads (frames, height, width) {got}")
+    if got != (T, H, W):
+        fail(f"save_videos_grid wrote {got}, expected {(T, H, W)}")
+    clip = write_clip("helpers", geo)
+    ref = np.random.default_rng(SEED).integers(0, 256, (64, 96, 3),
+                                               dtype=np.uint8)
+    t0 = time.perf_counter()
+    video, mask, ref_out, clip_image = get_video_to_video_latent(
+        str(clip), geo.source_frames, (geo.height, geo.width), fps=8,
+        ref_image=ref)
+    v2v_s = time.perf_counter() - t0
+    want = (1, 3, CLIP_FRAMES // 2, geo.height, geo.width)
+    log(f"[helpers] get_video_to_video_latent in {v2v_s:.2f} s: video "
+        f"{video.shape} in [{video.min():.4f}, {video.max():.4f}], mask "
+        f"{mask.shape} {np.unique(mask).tolist()}, ref {ref_out.shape}")
+    if (video.shape != want or video.dtype != np.float32
+            or video.min() < 0 or video.max() > 1
+            or mask.shape != (1, 1) + want[2:] or not (mask == 255).all()
+            or ref_out.shape != (1, 3, 1, 64, 96)
+            or not np.array_equal(clip_image, ref)):
+        fail(f"get_video_to_video_latent: video {video.shape}, mask "
+             f"{mask.shape}, ref {ref_out.shape}, expected {want}")
+    audio = SCRATCH / "audio.wav"
+    audio.write_bytes(b"\0" * 64)
+    try:
+        merge_video_audio(str(grid_path), str(audio))
+    except RuntimeError as exc:
+        log(f"[helpers] merge_video_audio: RuntimeError ({exc})")
+    else:
+        fail("merge_video_audio did not raise without ffmpeg")
+    shutil.rmtree(SCRATCH, ignore_errors=True)
+    return {"grid_s": grid_s, "v2v_s": v2v_s}
 
 
 def main() -> int:
@@ -6547,6 +7003,28 @@ def main() -> int:
     if ran != dict(dict.fromkeys(names, 0), int8_quantize_k=4,
                    int8_attention_fwd=4):
         fail(f"DiT through B4 launched {ran}")
+    # the same forward naming no backend, routed to B4 by the variable
+    before = launch_counts()
+    os.environ["VIDEOCOF_ATTENTION_TYPE"] = "int8"
+    try:
+        with torch.no_grad():
+            v_env = dit_small(x.to(bf16), t, ctx, cos, sin)
+    finally:
+        del os.environ["VIDEOCOF_ATTENTION_TYPE"]
+    after = launch_counts()
+    ran = {n: after[n] - before[n] for n in after}
+    log(f"[kernel vs plain] the same forward with no backend under "
+        f"VIDEOCOF_ATTENTION_TYPE=int8: launches {ran}; equal to the int8 "
+        f"forward bit for bit: {torch.equal(v_env, v_int8)}")
+    if ran != dict(dict.fromkeys(names, 0), int8_quantize_k=4,
+                   int8_attention_fwd=4):
+        fail(f"VIDEOCOF_ATTENTION_TYPE=int8 did not route the DiT to B4: "
+             f"{ran}")
+    if ((v_env.float() - v_int8.float()).norm() / v_int8.float().norm()
+            ).item() > 1e-3:
+        fail("the DiT routed to B4 by VIDEOCOF_ATTENTION_TYPE disagrees with "
+             "its int8 forward")
+    del v_env
     try:
         leaf = torch.zeros(1, 64, 2, 128, dtype=bf16, device=dev,
                            requires_grad=True)
@@ -6893,7 +7371,12 @@ def main() -> int:
     t5 = init_t5_encoder(T5Config(), gen, bf16, dev)
     vae = init_wan_vae(vcfg, gen, bf16, dev)
     dit = init_wan_dit(dcfg, gen, bf16, dev)
-    pipe = WanPipeline(dit, vae, t5, dtype=bf16)
+    # the edit prints its stage walls to stderr (JAX's VIDEOCOF_TIMING)
+    os.environ["VIDEOCOF_TIMING"] = "1"
+    try:
+        pipe = WanPipeline(dit, vae, t5, dtype=bf16)
+    finally:
+        del os.environ["VIDEOCOF_TIMING"]
     torch.cuda.synchronize()
     log(f"[edit] random weights (seed {SEED}) on the card in "
         f"{time.perf_counter() - t0:.1f} s")
@@ -6905,14 +7388,16 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     t0 = time.perf_counter()
-    out = pipe(video, prompt, source_frames=geo.source_frames,
-               reasoning_frames=geo.reasoning_frames,
-               num_inference_steps=geo.num_inference_steps,
-               guidance_scale=geo.guidance_scale, shift=geo.shift,
-               sampler=geo.sampler, repeat_rope=geo.repeat_rope,
-               cot=geo.cot, seed=geo.seed, timings=timings)
+    with contextlib.redirect_stderr(io.StringIO()) as err:
+        out = pipe(video, prompt, source_frames=geo.source_frames,
+                   reasoning_frames=geo.reasoning_frames,
+                   num_inference_steps=geo.num_inference_steps,
+                   guidance_scale=geo.guidance_scale, shift=geo.shift,
+                   sampler=geo.sampler, repeat_rope=geo.repeat_rope,
+                   cot=geo.cot, seed=geo.seed, timings=timings)
     wall = time.perf_counter() - t0
     edit_launches = launch_counts()
+    check_timing_lines(err.getvalue(), list(timings))
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     out_frames = 1 + (ground - 1) * tc + geo.source_frames
@@ -6940,6 +7425,7 @@ def main() -> int:
         "card": card, "seconds_per_edit": wall, "stages_s": timings,
         "peak_memory_gb": peak_gb, "dit_flop_per_step": step_flops,
         "launches": edit_launches}))
+    helpers_phase(vid, geo)
     del out, vid
 
     # one DiT step of the edit's geometry under torch.profiler: device time

@@ -604,6 +604,84 @@ def case_tp_train(p, world):
             "trained": {k: _np(v) for k, v in sd.items()}}
 
 
+# the (data, seq, model) layouts of each world's train-state cases: FSDP
+# over data, TP over model, TP x FSDP
+RESUME_LAYOUTS = {2: ((2, 1, 1), (1, 1, 2)), 4: ((2, 1, 2),)}
+
+
+def full_state(p, mesh=None):
+    """A fresh full fine-tuning state of the payload's DiT over ``mesh``
+    (None: one process) and its step function."""
+    from videocof_torch.training.train_step import adamw, make_train_step
+    dit = _dit(p["dit"], p["dit_cfg"])
+    init_fn, step_fn = make_train_step(
+        dit, adamw(p["lr"], 1e-3, p["full_clip"]), mesh=mesh,
+        fsdp_min_size=p["fsdp_min_size"])
+    return init_fn(), step_fn
+
+
+def _held(state):
+    """Every tensor of a train state as this rank holds it (its shards):
+    the parameters and buffers, AdamW's moments and step counts."""
+    from torch.distributed.tensor import DTensor
+
+    def local(t):
+        return (t.to_local() if isinstance(t, DTensor) else t).detach().clone()
+    out = {"module." + k: local(v)
+           for k, v in state.params.state_dict().items()}
+    for i, st in state.optimizer.adamw.state_dict()["state"].items():
+        out.update({f"adamw.{i}.{k}": local(v) for k, v in st.items()})
+    return out
+
+
+def _unequal(got, want):
+    """The names whose tensors differ in dtype, shape or any bit (or that
+    one side lacks)."""
+    return sorted(k for k in set(got) | set(want)
+                  if k not in got or k not in want
+                  or got[k].dtype != want[k].dtype
+                  or not torch.equal(got[k], want[k]))
+
+
+def case_train_resume(p, world):
+    """In each layout of RESUME_LAYOUTS[world]: one full fine-tuning step,
+    `save_train_state` (whether the directory exists as it returns on
+    this rank), a second step from the state in memory; a fresh state of
+    the same layout restored from the file (the names of the tensors this
+    rank holds that differ from its own after step 1), and its second
+    step (the loss, and the tensors that differ from the second step in
+    memory); the whole parameters after the second step in memory."""
+    from videocof_torch.utils import checkpoint
+    res = {}
+    for shape in RESUME_LAYOUTS[world]:
+        mesh = _mesh3(*shape)
+        d = mesh.get_local_rank("data")
+        rows = p["batch"]["x0"].shape[0] // shape[0]
+        mine = slice(d * rows, (d + 1) * rows)
+        batch = _batch(p, mine)
+        n1, n2 = (torch.from_numpy(p[k][mine])
+                  for k in ("train_noise", "train_noise2"))
+        root = os.path.join(p["ckpt_root"], "x".join(map(str, shape)))
+        state, step_fn = full_state(p, mesh)
+        state, _ = step_fn(state, batch, noise=n1)
+        path = checkpoint.save_train_state(root, state)
+        there = os.path.isdir(path)
+        saved = _held(state)
+        state, loss2 = step_fn(state, batch, noise=n2)
+        fresh, fresh_step = full_state(p, mesh)
+        checkpoint.restore_train_state(root, fresh)
+        restored = _held(fresh)
+        fresh, loss2_restored = fresh_step(fresh, batch, noise=n2)
+        res[shape] = {
+            "path": path, "there": there, "n_held": len(saved),
+            "restored_differ": _unequal(restored, saved),
+            "loss2": float(loss2), "loss2_restored": float(loss2_restored),
+            "step2_differ": _unequal(_held(fresh), _held(state)),
+            "whole2": {k: _np(v) for k, v in
+                       checkpoint.whole_state_dict(state.params).items()}}
+    return res
+
+
 # ------------------------------------- the image families under TP
 
 def case_image_tp(p, world):

@@ -120,3 +120,69 @@ def test_cpu_dispatch():
     with pytest.raises(ValueError):
         attention(tq, tk, tv, backend="sdpa")
 
+
+
+def test_backend_selection_matches_jax(monkeypatch):
+    """`available_backends` and `default_backend`, JAX's counterparts:
+    ``VIDEOCOF_ATTENTION_TYPE`` (any case) decides when it is set, the
+    device otherwise; an explicit ``backend=`` wins over both; a name
+    outside the list raises ValueError with the list, on both sides."""
+    from videocof_torch.ops import available_backends, default_backend
+    from videocof_tpu.ops import available_backends as jax_available
+    from videocof_tpu.ops import default_backend as jax_default
+    monkeypatch.delenv("VIDEOCOF_ATTENTION_TYPE", raising=False)
+    assert available_backends() == ("flash", "int8", "naive")
+    assert set(available_backends()) - {"flash"} < set(jax_available())
+    assert default_backend(torch.device("cpu")) == "naive"
+    assert default_backend(torch.zeros(1)) == "naive"
+    assert default_backend("cuda") == "flash"
+    assert default_backend(torch.device("cuda", 0)) == "flash"
+    assert default_backend() == ("flash" if torch.cuda.is_available()
+                                 else "naive")
+    for name in ("int8", "naive", "INT8"):
+        monkeypatch.setenv("VIDEOCOF_ATTENTION_TYPE", name)
+        assert default_backend("cpu") == default_backend("cuda") \
+            == jax_default() == name.lower()
+    q, k, v = map(torch.from_numpy, _qkv(6, 1, 40, 33, 2, 64))
+    flash = flash_attention(q, k, v).numpy()
+    monkeypatch.setenv("VIDEOCOF_ATTENTION_TYPE", "flash")
+    assert default_backend("cpu") == "flash"
+    np.testing.assert_array_equal(attention(q, k, v).numpy(), flash)
+    naive = attention(q, k, v, backend="naive").numpy()     # explicit wins
+    monkeypatch.setenv("VIDEOCOF_ATTENTION_TYPE", "naive")
+    np.testing.assert_array_equal(attention(q, k, v).numpy(), naive)
+    np.testing.assert_array_equal(
+        attention(q, k, v, backend="flash").numpy(), flash)
+    assert not np.array_equal(naive, flash)
+    monkeypatch.setenv("VIDEOCOF_ATTENTION_TYPE", "sdpa")
+    for default in (default_backend, jax_default):
+        with pytest.raises(ValueError, match="naive"):
+            default()
+    with pytest.raises(ValueError, match="VIDEOCOF_ATTENTION_TYPE"):
+        attention(q, k, v)
+    with pytest.raises(ValueError, match="flash"):
+        attention(q, k, v, backend="sdpa")
+
+
+def test_departure_backend_names(monkeypatch):
+    """JAX's ``"pallas"`` is taken as ``"flash"`` (its kernel's
+    counterpart), in the variable and as ``backend=``; JAX's ``"xla"`` has
+    no counterpart and raises, where JAX takes it."""
+    from videocof_torch.ops import default_backend
+    from videocof_tpu.ops import default_backend as jax_default
+    q, k, v = map(torch.from_numpy, _qkv(7, 1, 24, 17, 2, 64))
+    flash = flash_attention(q, k, v).numpy()
+    monkeypatch.setenv("VIDEOCOF_ATTENTION_TYPE", "pallas")
+    assert jax_default() == "pallas"
+    assert default_backend("cpu") == default_backend("cuda") == "flash"
+    np.testing.assert_array_equal(attention(q, k, v).numpy(), flash)
+    monkeypatch.delenv("VIDEOCOF_ATTENTION_TYPE")
+    np.testing.assert_array_equal(
+        attention(q, k, v, backend="pallas").numpy(), flash)
+    monkeypatch.setenv("VIDEOCOF_ATTENTION_TYPE", "xla")
+    assert jax_default() == "xla"
+    with pytest.raises(ValueError, match="xla"):
+        default_backend("cpu")
+    monkeypatch.delenv("VIDEOCOF_ATTENTION_TYPE")
+    with pytest.raises(ValueError, match="xla"):
+        attention(q, k, v, backend="xla")

@@ -412,3 +412,22 @@ def test_fsdp_rule_matches_jax(ranks, jax_side):
             if dim is not None:
                 full[dim] //= 2
             assert local == tuple(full), k
+
+
+def test_parallel_config_matches_jax():
+    """`configs.ParallelConfig`: JAX's fields, defaults and ``world``,
+    frozen."""
+    import dataclasses
+    from videocof_torch.configs import ParallelConfig
+    from videocof_tpu.configs import ParallelConfig as JaxParallelConfig
+    fields = [(f.name, f.default) for f in dataclasses.fields(ParallelConfig)]
+    assert fields == [(f.name, f.default)
+                      for f in dataclasses.fields(JaxParallelConfig)]
+    assert fields == [("data", 1), ("seq", 1), ("seq_mode", "ulysses")]
+    for kw in ({}, {"data": 2}, {"seq": 4, "seq_mode": "ring"},
+               {"data": 2, "seq": 3}):
+        got, want = ParallelConfig(**kw), JaxParallelConfig(**kw)
+        assert (got.data, got.seq, got.seq_mode, got.world) == (
+            want.data, want.seq, want.seq_mode, want.world)
+    with pytest.raises(dataclasses.FrozenInstanceError):
+        ParallelConfig().data = 2

@@ -100,3 +100,38 @@ def test_guards():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             WanPipeline(pipe.dit, pipe.vae, pipe.t5)   # device defaults to CUDA
+
+
+def test_videocof_timing_prints_each_stage(monkeypatch, capsys):
+    """``VIDEOCOF_TIMING=1``, read when the pipeline is built: one stderr
+    line a stage in JAX's format (``[pipeline] <label>: <s>s``), with and
+    without ``timings=``; JAX's stepwise edit prints its lines in the same
+    format, among them the shared stages."""
+    import re
+    monkeypatch.setenv("VIDEOCOF_FETCH_YUV420", "0")
+    monkeypatch.setenv("VIDEOCOF_STEPWISE", "1")
+    line = re.compile(r"^\[pipeline\] ([^:]+): \d+\.\d\ds$")
+    rng = np.random.default_rng(3)
+    video = rng.integers(0, 256, (1, 3, 9, 32, 32), dtype=np.uint8)
+    kw = dict(source_frames=9, reasoning_frames=4, num_inference_steps=2)
+    stages = ["text", "encode+latents", "step0", "step1", "decode"]
+    jpipe, pipe = _pipelines(DCFG, None, None)
+    capsys.readouterr()
+    pipe(video, PROMPT, **kw)
+    assert capsys.readouterr().err == ""          # read at construction
+    monkeypatch.setenv("VIDEOCOF_TIMING", "1")
+    jpipe, pipe = _pipelines(DCFG, None, None)
+    assert pipe.verbose_timing and jpipe.verbose_timing
+    for timings in (None, {}):
+        capsys.readouterr()
+        pipe(video, PROMPT, timings=timings, **kw)
+        err = capsys.readouterr().err.splitlines()
+        assert [line.match(ln).group(1) for ln in err] == stages, err
+        if timings is not None:
+            assert list(timings) == stages
+    capsys.readouterr()
+    jpipe(video, PROMPT, fused_sampling=False, **kw)
+    jax_lines = [ln for ln in capsys.readouterr().err.splitlines()
+                 if ln.startswith("[pipeline]")]
+    labels = [line.match(ln).group(1) for ln in jax_lines]
+    assert {"text", "encode+latents", "decode"} <= set(labels), jax_lines

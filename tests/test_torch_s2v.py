@@ -2,7 +2,9 @@
 per-sample RoPE, the segment-modulated block, the audio injection (naive at
 head_dim 24, the flash backend's plain version at 128), `wan_s2v_forward`
 and `speech_to_video`, with the same weights (carried by
-`videocof_torch.convert`), audio features and noise."""
+`videocof_torch.convert`), audio features and noise; and the runtime LoRA
+adapters the port's forward fuses into each block, against JAX's forward
+on the same LoRA merged (a departure: JAX's forward skips them)."""
 
 import jax
 import jax.numpy as jnp
@@ -12,6 +14,7 @@ import torch
 
 from videocof_tpu.configs import T5_TINY as J_T5, VAE_TINY as J_VAE
 from videocof_tpu.configs import WAN_TINY as J_WAN
+from videocof_tpu.models import lora as jlora
 from videocof_tpu.models import t5_encoder as jt5, wan_dit as jdit
 from videocof_tpu.models import wan_dit_s2v as js2v
 from videocof_tpu.models import wan_vae as jvae
@@ -23,6 +26,8 @@ from videocof_torch.models.t5_encoder import T5Encoder
 from videocof_torch.models.wan_dit import WanDiT
 from videocof_torch.models.wan_vae import WanVAE
 from videocof_torch.pipeline import S2VPipeline
+
+from _lora_files import kohya_lora, runtime_lora
 
 torch.set_num_threads(1)
 
@@ -227,3 +232,40 @@ def test_init_injector_is_a_no_op(pipes):
     a = pipe.speech_to_video(PROMPT, audio, **kw)
     b = pipe.speech_to_video(PROMPT, None, **kw)
     np.testing.assert_array_equal(a.latents, b.latents)
+
+
+@pytest.mark.parametrize("inject", [(0,), (0, 1)])
+def test_departure_s2v_runtime_lora_matches_jax_merged(inject):
+    """The port's `wan_s2v_forward` fuses the DiT's ``runtime_lora`` into
+    each block (`s2v_block_apply(lora=)`); JAX's skips it. The port with
+    runtime adapters against JAX's forward on the same LoRA merged into the
+    base weights (`merge_lora`): 1e-4 relative to the velocity's scale, as
+    `test_wan_s2v_forward_matches_jax`; both far from the un-adapted
+    forward."""
+    dp, sp, dit, s2v = _pair(DCFG, 7, inject)
+    sd = kohya_lora(DCFG, 8)
+    merged = jlora.merge_lora(dp, DCFG, sd, multiplier=1.3)
+    rng = np.random.default_rng(9)
+    x = rng.standard_normal((2, J_VAE.z_dim, 3, 8, 8)).astype(np.float32)
+    ctx = rng.standard_normal((2, 16, J_T5.dim)).astype(np.float32)
+    audio = rng.standard_normal((2, 3, AUDIO_DIM)).astype(np.float32)
+    t = np.array([450.0, 900.0], np.float32)
+    cos, sin = jdit.make_rope_for_geometry(DCFG, (3, 4, 4))
+    cos, sin = np.stack([cos, cos]), np.stack([sin, sin])
+    seg = np.zeros(48, np.int64)
+    seg[32:] = 1
+    args = (x, t, ctx, cos, sin)
+    want = js2v.wan_s2v_forward(
+        merged, sp, DCFG, *(jnp.asarray(a) for a in args),
+        jnp.asarray(seg.astype(np.int32)), audio_feats=jnp.asarray(audio),
+        inject_layers=inject)
+    with torch.no_grad():
+        fwd = lambda: s2v_mod.wan_s2v_forward(  # noqa: E731
+            dit, s2v, *(torch.from_numpy(a) for a in (*args, seg)),
+            audio_feats=torch.from_numpy(audio)).numpy()
+        unadapted = fwd()
+        dit.runtime_lora = runtime_lora(sd, dit.cfg, 1.3)
+        got = fwd()
+    _close(got, want)
+    moved = np.linalg.norm(got - unadapted) / np.linalg.norm(unadapted)
+    assert moved > 1e-2, moved

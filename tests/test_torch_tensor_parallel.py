@@ -3,7 +3,10 @@ the TP forward (tp 2 and 4, tp 2 x Ulysses seq 2,
 tp 2 x ring seq 2, data 2 x tp 2 with CFG parallelism, i2v), the shard
 shapes, fp8 shards, runtime LoRA adapters cut with their weights, the CoF
 edit and the Wan2.2 edit under `enable_sequence_parallel(model=2)` (with
-and without CFG parallelism), and the TP x FSDP training step.
+and without CFG parallelism), the TP x FSDP training step, and its train
+state saved at the model's global shapes and restored into each layout
+(FSDP over data 2, TP over model 2, data 2 x model 2) and into one
+process.
 
 The port runs in gloo worlds of 2 and 4 CPU processes spawned once per
 world size (`_torch_parallel_ranks.run_world`), each rank holding only its
@@ -16,7 +19,11 @@ Tolerances: the forwards 1e-4 (JAX's `test_tp_forward_exact`); fp8 3e-2
 orders); the edits' final latents 2e-4 and their uint8 frames one level
 (`test_torch_parallel.py`); the training step's loss 1e-4 of JAX's 3D
 step, its gradients 1e-4 relative, and every updated parameter within 2e-2
-lr of the world-1 step's (`test_torch_parallel_train.py`).
+lr of the world-1 step's (`test_torch_parallel_train.py`). A step from a
+restored state equals the step from the state in memory bit for bit in the
+same layout; across layouts (restored in one process) it is held to the
+same gates: the loss against JAX's second step, the moves against the
+sharded second step's.
 """
 
 import numpy as np
@@ -39,7 +46,7 @@ FSDP_MIN = 1024
 LORA_RANKS = {("self_attn", "q"): 4, ("self_attn", "o"): 3,
               ("cross_attn", "k"): 2, ("cross_attn", "o"): 2,
               ("ffn", "fc1"): 3, ("ffn", "fc2"): 4}
-CASES = ("tp_forward", "tp_edits", "tp_train")
+CASES = ("tp_forward", "tp_edits", "tp_train", "train_resume")
 
 
 def _as_np(tree):
@@ -71,7 +78,7 @@ def _runtime_lora(cfg):
 
 
 @pytest.fixture(scope="module")
-def jax_side():
+def jax_side(tmp_path_factory):
     """JAX's weights and outputs, and the payload the ranks take."""
     import jax
     import jax.numpy as jnp
@@ -159,8 +166,13 @@ def jax_side():
     init_fn, step_fn = jstep.make_train_step(
         make_mesh(data=2, seq=2, model=2), dcfg, tx, use_ulysses=True,
         fsdp_min_size=FSDP_MIN)
-    _, loss3d = step_fn(init_fn(ep["dit"]),
-                        {k: jnp.asarray(v) for k, v in batch.items()}, key)
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    state1, loss3d = step_fn(init_fn(ep["dit"]), jbatch, key)
+    # a second step, which the restored train states take
+    key2 = jax.random.PRNGKey(8)
+    train_noise2 = np.array(jax.random.normal(key2, batch["x0"].shape,
+                                              jnp.float32))
+    _, loss3d_2 = step_fn(state1, jbatch, key2)
 
     tcfg = convert.config_from(WanDiTConfig, cfg)
     lora = _runtime_lora(tcfg)
@@ -186,13 +198,16 @@ def jax_side():
                         num_inference_steps=2, seed=11),
         "batch": batch, "train_noise": train_noise, "lr": LR,
         "full_clip": FULL_CLIP, "fsdp_min_size": FSDP_MIN,
+        "train_noise2": train_noise2,
+        "ckpt_root": str(tmp_path_factory.mktemp("train_states")),
     }
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("VIDEOCOF_FETCH_YUV420", "0")
         mp.setenv("VIDEOCOF_STEPWISE", "1")
         yield {"params": ep, "dcfg": dcfg, "cfg": cfg, "base": base,
                "base2": base2, "jtp": jtp, "i2v_base": i2v_base,
-               "loss3d": float(loss3d), "payload": payload}
+               "loss3d": float(loss3d), "loss3d_2": float(loss3d_2),
+               "payload": payload}
 
 
 @pytest.fixture(scope="module", params=WORLDS, ids=lambda w: f"world{w}")
@@ -439,3 +454,84 @@ def test_tp_replicated_grads_agree_over_model(ranks):
         for k in whole:
             np.testing.assert_allclose(a["grads"][k], b["grads"][k],
                                        rtol=1e-6, atol=1e-7, err_msg=k)
+
+
+# ------------------------------------------------------------ train states
+
+def _resumes(res):
+    """(rank, layout, record) of every layout each rank ran."""
+    return [(r, shape, rec) for r, got in enumerate(res)
+            for shape, rec in got["train_resume"].items()]
+
+
+def test_train_state_restores_into_its_layout_bit_for_bit(ranks):
+    """In each layout (data 2, model 2, data 2 x model 2) a fresh state
+    restored from the file holds exactly this rank's shards of the saved
+    state, and its next step equals the next step of the state in memory
+    bit for bit (loss, parameters, AdamW's moments and step counts)."""
+    world, res = ranks
+    from _torch_parallel_ranks import RESUME_LAYOUTS
+    assert {s for _, s, _ in _resumes(res)} == set(RESUME_LAYOUTS[world])
+    for r, shape, rec in _resumes(res):
+        assert rec["n_held"] > 0
+        assert rec["restored_differ"] == [], (r, shape)
+        assert rec["loss2_restored"] == rec["loss2"], (r, shape)
+        assert rec["step2_differ"] == [], (r, shape)
+
+
+def test_save_returns_once_the_directory_exists(ranks):
+    """Every rank returns from `save_train_state` only once rank 0's
+    directory is there (the other ranks used to return at once)."""
+    world, res = ranks
+    for r, shape, rec in _resumes(res):
+        assert rec["there"], (r, shape)
+        assert rec["path"] == res[0]["train_resume"][shape]["path"]
+
+
+def test_train_state_is_saved_at_global_shapes(ranks, one_step):
+    """The file holds every parameter and AdamW moment at the model's
+    global shape, whatever the layout (a TP state used to be written with
+    model rank 0's slices), and its parameters are the sharded step's
+    gathered whole."""
+    import os
+    world, res = ranks
+    _, _, before, _ = one_step
+    for shape, rec in res[0]["train_resume"].items():
+        payload = torch.load(os.path.join(rec["path"], "train_state.pt"),
+                             weights_only=True)
+        params = payload["params"]
+        assert set(params) == set(before)
+        for k, v in params.items():
+            assert tuple(v.shape) == before[k].shape, (shape, k)
+        moments = [st["exp_avg"] for st in payload["optimizer"]["state"]
+                   .values()]
+        assert sorted(tuple(m.shape) for m in moments) == sorted(
+            before[k].shape for k in before), shape
+
+
+def test_train_state_restores_at_world_1(ranks, jax_side):
+    """The file of each layout restored into a one-process state: its
+    second step's loss within 1e-4 of JAX's second 3D step, and every
+    parameter's move within 2e-2 lr of the sharded second step's
+    (`test_tp_fsdp_step_matches_jax_and_world_1`'s gates)."""
+    import os
+    from _torch_parallel_ranks import _batch, full_state
+    from videocof_torch.utils import checkpoint
+    world, res = ranks
+    p = jax_side["payload"]
+    for shape, rec in res[0]["train_resume"].items():
+        state, step_fn = full_state(p)
+        checkpoint.restore_train_state(os.path.dirname(rec["path"]), state)
+        saved = torch.load(os.path.join(rec["path"], "train_state.pt"),
+                           weights_only=True)["params"]
+        assert state.step == 1
+        state, loss = step_fn(state, _batch(p, slice(None)),
+                              noise=torch.from_numpy(p["train_noise2"]))
+        np.testing.assert_allclose(float(loss), jax_side["loss3d_2"],
+                                   rtol=1e-4, atol=1e-4, err_msg=str(shape))
+        for k, v in state.params.state_dict().items():
+            w1 = saved[k].numpy()
+            np.testing.assert_allclose(v.numpy() - w1,
+                                       rec["whole2"][k] - w1, rtol=0,
+                                       atol=2e-2 * LR,
+                                       err_msg=f"{shape} {k}")

@@ -3,7 +3,10 @@ the hint branch's forward at strides 1, 2 and 3, its state-dict converter,
 `patchify_mask`, the control context, `control_to_video`, the zero-init
 branch against the plain text-to-video trajectory, the factory's detection
 of a VACE checkpoint and the CLI's ``--control_video`` item, with the same
-weights (carried by `videocof_torch.convert`), inputs and noise."""
+weights (carried by `videocof_torch.convert`), inputs and noise; and the
+runtime LoRA adapters the port's forward fuses into the base blocks,
+against JAX's forward on the same LoRA merged (a departure: JAX's forward
+skips them)."""
 
 import os
 import sys
@@ -20,6 +23,7 @@ import videocof_tpu.cli.fast_infer as jcli
 import videocof_tpu.runtime as jruntime
 from videocof_tpu.configs import T5_TINY as J_T5, VAE_TINY as J_VAE
 from videocof_tpu.configs import WAN_TINY as J_WAN
+from videocof_tpu.models import lora as jlora
 from videocof_tpu.models import t5_encoder as jt5, wan_dit as jdit
 from videocof_tpu.models import wan_dit_vace as jvace
 from videocof_tpu.models import wan_vae as jvae
@@ -35,8 +39,9 @@ from videocof_torch.models.wan_dit import WanDiT
 from videocof_torch.models.wan_vae import WanVAE
 from videocof_torch.pipeline import VacePipeline
 from videocof_torch.pipeline.vace_pipeline import patchify_mask
-from videocof_torch.utils import checkpoint
+from videocof_torch.utils import checkpoint, fp8
 
+from _lora_files import kohya_lora, runtime_lora
 from _published_layouts import t5_published_name, vae_published_name
 
 torch.set_num_threads(1)
@@ -306,3 +311,75 @@ def test_cli_control_video_matches_jax(pipes, control_clip, tmp_path,
     assert got.shape == want.shape == (1, 3, 9, 32, 32)
     assert np.abs(got - want).max() * 255 <= 1.0 + 1e-3
     assert open(tmp_path / "port" / "gen_ctrl_info.txt").read() == PROMPT
+
+
+@pytest.mark.parametrize("layers,stride", [(2, 2), (6, 3)])
+def test_departure_vace_runtime_lora_matches_jax_merged(layers, stride):
+    """The port's `vace_forward` fuses the DiT's ``runtime_lora`` into each
+    base block (the hint blocks take none); JAX's skips it. The port with
+    runtime adapters against JAX's forward on the same LoRA merged into the
+    base weights (`merge_lora`): 1e-4 relative to the velocity's scale, as
+    `test_vace_forward_matches_jax`; both far from the un-adapted
+    forward."""
+    cfg = DCFG.replace(num_layers=layers)
+    tcfg = convert.config_from(WanDiTConfig, cfg)
+    dp = jdit.init_wan_dit(jax.random.PRNGKey(12), cfg)
+    cp = _live(jvace.init_vace_params(jax.random.PRNGKey(13), cfg,
+                                      stride=stride, vace_in_dim=VACE_IN), 14)
+    sd = kohya_lora(cfg, 15)
+    merged = jlora.merge_lora(dp, cfg, sd, multiplier=0.8)
+    dit = WanDiT(tcfg)
+    dit.load_state_dict(convert.dit_from_jax(as_np(dp)))
+    vace = _port_vace(cp, tcfg, stride)
+    rng = np.random.default_rng(16)
+    x = rng.standard_normal((2, J_VAE.z_dim, 3, 8, 8)).astype(np.float32)
+    vc = rng.standard_normal((2, VACE_IN, 3, 8, 8)).astype(np.float32)
+    ctx = rng.standard_normal((2, 16, J_T5.dim)).astype(np.float32)
+    t = np.array([700.0, 80.0], np.float32)
+    cos, sin = jdit.make_rope_for_geometry(cfg, (3, 4, 4))
+    args = [x, vc, t, ctx, cos, sin]
+
+    def jax_fwd(params):
+        return np.asarray(jvace.vace_forward(
+            params, cp, cfg, *(jnp.asarray(a) for a in args),
+            context_scale=0.7, stride=stride))
+
+    want, plain = jax_fwd(merged), jax_fwd(dp)
+    with torch.no_grad():
+        fwd = lambda: vace_mod.vace_forward(  # noqa: E731
+            dit, vace, *(torch.from_numpy(np.asarray(a)) for a in args),
+            context_scale=0.7).numpy()
+        unadapted = fwd()
+        dit.runtime_lora = runtime_lora(sd, tcfg, 0.8)
+        got = fwd()
+    np.testing.assert_allclose(got, want, rtol=1e-4,
+                               atol=1e-4 * np.abs(want).max())
+    np.testing.assert_allclose(unadapted, plain, rtol=1e-4,
+                               atol=1e-4 * np.abs(plain).max())
+    moved = np.linalg.norm(got - unadapted) / np.linalg.norm(unadapted)
+    assert moved > 1e-2, moved
+
+
+def test_departure_fp8_vace_pipeline_applies_runtime_lora(pipes, control):
+    """An fp8 `VacePipeline` (as the factory builds one) under
+    `set_runtime_lora`: its latents move from the plain fp8 pipeline's,
+    and go back when the adapters are detached."""
+    import copy
+    _, live = pipes
+    dit = fp8.quantize_dit_fp8(copy.deepcopy(live.dit))
+    pipe = VacePipeline(dit, live.vae, live.t5, dtype=torch.bfloat16,
+                        device="cpu", vace=copy.deepcopy(live.vace).to(
+                            torch.bfloat16))
+    noise = np.random.default_rng(17).standard_normal(
+        (1, J_VAE.z_dim, 3, 4, 4)).astype(np.float32)
+    kw = dict(num_inference_steps=2, guidance_scale=1.0, noise=noise,
+              output_latents=True, max_sequence_length=16)
+    plain = pipe.control_to_video(PROMPT, control, **kw).latents
+    pipe.set_runtime_lora(runtime_lora(kohya_lora(DCFG, 18), TDCFG, 1.0))
+    adapted = pipe.control_to_video(PROMPT, control, **kw).latents
+    assert np.isfinite(adapted).all()
+    moved = np.linalg.norm(adapted - plain) / np.linalg.norm(plain)
+    assert moved > 1e-2, moved
+    pipe.set_runtime_lora(None)
+    np.testing.assert_array_equal(
+        pipe.control_to_video(PROMPT, control, **kw).latents, plain)

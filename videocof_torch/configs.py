@@ -172,6 +172,21 @@ T5_TINY = T5Config(vocab=128, dim=32, dim_attn=32, dim_ffn=64, num_heads=4,
 
 
 @dataclass(frozen=True)
+class ParallelConfig:
+    """Mesh layout: ``data`` ranks each take their own items, ``seq`` ranks
+    split the tokens (`parallel.make_mesh`)."""
+
+    data: int = 1
+    seq: int = 1
+    # "ulysses" (head all-to-all) or "ring" (KV rotation)
+    seq_mode: str = "ulysses"
+
+    @property
+    def world(self) -> int:
+        return self.data * self.seq
+
+
+@dataclass(frozen=True)
 class GenerationConfig:
     """Knobs of a chain-of-frames edit; the defaults are the 4-step edit
     (the main path). The standard edit sets 50 steps, guidance 5 and

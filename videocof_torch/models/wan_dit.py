@@ -32,7 +32,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Optional, Tuple, Union
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -315,6 +315,18 @@ class FFN(nn.Module):
         self.fc2 = _lin(f, d, dtype, device)
 
 
+def fused_block_weights(block: nn.Module, lora) -> Dict[str, Dict]:
+    """``{"self_attn" | "cross_attn" | "ffn": {linear: fused weight}}`` of
+    ``lora`` = (this block's adapters, scale) fused into ``block``'s
+    weights for one call (`fuse_block_adapters`); empty dicts for None."""
+    fused = {mod: {} for mod in ("self_attn", "cross_attn", "ffn")}
+    if lora is not None:
+        for key, w in fuse_block_adapters(block, *lora).items():
+            mod, name, _ = key.split(".")
+            fused[mod][name] = w
+    return fused
+
+
 class WanBlock(nn.Module):
     """One WanAttentionBlock: AdaLN-gated self-attention with RoPE, text
     cross-attention, AdaLN-gated gelu-tanh FFN. ``tp`` is the
@@ -346,11 +358,7 @@ class WanBlock(nn.Module):
         (the default backend), as in JAX."""
         cfg, eps = self.cfg, self.cfg.eps
         tp = self.tp
-        fused = {mod: {} for mod in ("self_attn", "cross_attn", "ffn")}
-        if lora is not None:
-            for key, w in fuse_block_adapters(self, *lora).items():
-                mod, name, _ = key.split(".")
-                fused[mod][name] = w
+        fused = fused_block_weights(self, lora)
         e = self.modulation[None].float() + e0                  # [B, 6, D]
         e_ = [e[:, i][:, None, :] for i in range(6)]
         sdt = x.dtype

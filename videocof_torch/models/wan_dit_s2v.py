@@ -26,7 +26,7 @@ from ..utils.fp8 import compute_dtype as _kernel_dtype
 from . import rope as rope_lib
 from .wan_dit import (WanBlock, WanDiT, _layer_norm, _lin,
                       _linear, _rms_norm, _ScaleBias, _Weight, ffn_apply,
-                      patchify, unpatchify)
+                      fused_block_weights, patchify, unpatchify)
 
 
 def apply_rope_per_sample(x: torch.Tensor, cos: torch.Tensor,
@@ -38,26 +38,31 @@ def apply_rope_per_sample(x: torch.Tensor, cos: torch.Tensor,
 
 def s2v_block_apply(block: WanBlock, cfg: WanDiTConfig, x: torch.Tensor,
                     e0: torch.Tensor, seg_ids: torch.Tensor,
-                    context: torch.Tensor, rope_cs, attn_backend=None
-                    ) -> torch.Tensor:
+                    context: torch.Tensor, rope_cs, attn_backend=None,
+                    lora=None) -> torch.Tensor:
     """One S2V block on the fp32 stream x [B, L, D]: e0 [B, 6, 2, D] holds
     each segment's modulation, gathered per token by ``seg_ids``. A block
-    cut by `parallel.apply_tp` runs its heads and FFN shard."""
+    cut by `parallel.apply_tp` runs its heads and FFN shard. ``lora`` =
+    (this block's adapters, scale) fused into its weights for this call
+    (`WanBlock.forward`'s)."""
     eps, tp = cfg.eps, block.tp
+    fused = fused_block_weights(block, lora)
     e = block.modulation[None, :, None, :].float() + e0
     e_ = e[:, :, seg_ids].unbind(1)                    # 6 x [B, L, D]
     cdt = context.dtype
     tx = _layer_norm(x, eps) * (1.0 + e_[1]) + e_[0]
     y = block.self_attn(tx.to(cdt), cfg.num_heads, eps, rope_cs=rope_cs,
-                        backend=attn_backend, rope_dtype=torch.float32, tp=tp)
+                        backend=attn_backend, rope_dtype=torch.float32,
+                        weights=fused["self_attn"], tp=tp)
     x = x + y.float() * e_[2]
     nx = (_layer_norm(x, eps, block.norm3.scale, block.norm3.bias)
           if cfg.cross_attn_norm else x)
     y = block.cross_attn(nx.to(cdt), cfg.num_heads, eps, kv_in=context,
-                         backend=attn_backend, tp=tp)
+                         backend=attn_backend, weights=fused["cross_attn"],
+                         tp=tp)
     x = x + y.float()
     tx = _layer_norm(x, eps) * (1.0 + e_[4]) + e_[3]
-    h = ffn_apply(block.ffn, tx.to(cdt), tp)
+    h = ffn_apply(block.ffn, tx.to(cdt), tp, fused["ffn"])
     return x + h.float() * e_[5]
 
 
@@ -154,8 +159,12 @@ def wan_s2v_forward(dit: WanDiT, s2v: WanS2V, x: torch.Tensor,
                     attn_backend=None) -> torch.Tensor:
     """Velocity [B, out_dim, F, H, W] of the S2V model: ``rope_cos``/
     ``rope_sin`` [B, L, head_dim//2] per sample, ``audio_feats``
-    [B, F_latent, audio_dim] (None: no injection)."""
+    [B, F_latent, audio_dim] (None: no injection). The DiT's
+    ``runtime_lora`` (`LoRAAdapters`, scale) is fused into each block
+    inside its call; JAX's forward skips the runtime adapters (a
+    departure, which computes what merging the same files computes)."""
     cfg = dit.cfg
+    lora = dit.runtime_lora
     compute_dtype = _kernel_dtype(dit.patch_embed)
     tokens, grid = patchify(x.to(compute_dtype), cfg.patch_size)
     stream = _linear(tokens, dit.patch_embed).float()
@@ -173,8 +182,10 @@ def wan_s2v_forward(dit: WanDiT, s2v: WanS2V, x: torch.Tensor,
                                     s2v.num_audio_token)
     layers = s2v.audio_injector.layers
     for i, block in enumerate(dit.blocks):
-        stream = s2v_block_apply(block, cfg, stream, e0, seg_ids, ctx,
-                                 (rope_cos, rope_sin), attn_backend)
+        stream = s2v_block_apply(
+            block, cfg, stream, e0, seg_ids, ctx, (rope_cos, rope_sin),
+            attn_backend, None if lora is None else (lora[0].blocks[i],
+                                                     lora[1]))
         if audio_tokens is not None and str(i) in layers:
             stream = audio_inject(layers[str(i)], cfg, stream, audio_tokens,
                                   grid)

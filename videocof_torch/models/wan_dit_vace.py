@@ -144,8 +144,13 @@ def vace_forward(dit: WanDiT, vace: WanVace, x: torch.Tensor,
                  attn_backend=None) -> torch.Tensor:
     """Velocity [B, out_dim, F, H, W] of ``dit`` with the control hints of
     ``vace`` from ``vace_context`` [B, C_vace, F, H, W] (JAX's
-    `vace_forward`)."""
+    `vace_forward`). The DiT's ``runtime_lora`` (`LoRAAdapters`, scale) is
+    fused into each base block inside its call, as `WanDiT.forward` does;
+    the hint blocks take none (LoRA files name the base blocks only).
+    JAX's `vace_forward` skips the runtime adapters: a departure, which
+    computes what merging the same files into the base weights computes."""
     cfg, stride = dit.cfg, vace.stride
+    lora = dit.runtime_lora
     compute_dtype = _kernel_dtype(dit.patch_embed)
     tokens, grid = patchify(x.to(compute_dtype), cfg.patch_size)
     stream = _linear(tokens, dit.patch_embed).float()
@@ -162,7 +167,9 @@ def vace_forward(dit: WanDiT, vace: WanVace, x: torch.Tensor,
         hints.append(_linear(c, proj, torch.float32))
 
     for i, block in enumerate(dit.blocks):
-        stream = block(stream, e0, ctx, rope, attn_backend=attn_backend)
+        ad = None if lora is None else (lora[0].blocks[i], lora[1])
+        stream = block(stream, e0, ctx, rope, attn_backend=attn_backend,
+                       lora=ad)
         if i % stride == 0:
             stream = stream + hints[i // stride] * context_scale
     out = dit.head_out(stream, e)

@@ -1,3 +1,3 @@
-from .attention import attention
+from .attention import attention, available_backends, default_backend
 
-__all__ = ["attention"]
+__all__ = ["attention", "available_backends", "default_backend"]

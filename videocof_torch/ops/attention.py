@@ -8,6 +8,12 @@ Backends:
   * ``"naive"`` — explicit fp32 softmax attention, the twin of JAX's
     ``_naive_attention``; the default for CPU tensors.
 
+Selection, as in JAX: an explicit ``backend=`` argument, then the
+``VIDEOCOF_ATTENTION_TYPE`` environment variable, then the device
+(`default_backend`). JAX's name ``"pallas"`` is taken as ``"flash"``, its
+kernel's counterpart; JAX's ``"xla"`` has none and raises, as an unknown
+name does.
+
 Unlike JAX, which drops to XLA attention when its kernel cannot take a call
 (a head_dim that is not a multiple of 128 for ``"int8"``, one the flash
 kernel lacks for ``"pallas"``), nothing here switches path silently: what a
@@ -16,7 +22,8 @@ kernel does not take raises.
 
 from __future__ import annotations
 
-from typing import Optional
+import os
+from typing import Optional, Union
 
 import torch
 
@@ -24,6 +31,40 @@ from .flash_attention import flash_attention
 from .int8_attention import int8_flash_attention
 
 BACKENDS = ("flash", "int8", "naive")
+_ENV_VAR = "VIDEOCOF_ATTENTION_TYPE"
+# JAX's backend names that have a counterpart here
+_ALIASES = {"pallas": "flash"}
+
+
+def available_backends() -> tuple:
+    """The backend names `attention` takes."""
+    return BACKENDS
+
+
+def _canonical(name: str) -> str:
+    name = _ALIASES.get(name.lower(), name.lower())
+    if name not in BACKENDS:
+        raise ValueError(f"attention backend {name!r} not in {BACKENDS}")
+    return name
+
+
+def default_backend(device: Union[torch.device, torch.Tensor, str, None]
+                    = None) -> str:
+    """``VIDEOCOF_ATTENTION_TYPE`` when it is set (ValueError for a name
+    not in `available_backends`), else ``"flash"`` on a CUDA device and
+    ``"naive"`` on the CPU. ``device``: a device, a tensor on it, or None
+    for the card when one is present."""
+    env = os.environ.get(_ENV_VAR, "")
+    if env:
+        try:
+            return _canonical(env)
+        except ValueError:
+            raise ValueError(f"{_ENV_VAR}={env!r} not in {BACKENDS}") from None
+    if isinstance(device, torch.Tensor):
+        device = device.device
+    if device is None:
+        return "flash" if torch.cuda.is_available() else "naive"
+    return "flash" if torch.device(device).type == "cuda" else "naive"
 
 
 # rows of q per chunk of the naive backend: keeps its fp32 logits near 1 GiB
@@ -64,12 +105,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               backend: Optional[str] = None) -> torch.Tensor:
     """Multi-head attention over [B, L, N, D] tensors (heads on axis -2).
     ``mask`` is a boolean key mask [B, Lk] (True = attend)."""
-    if backend is None:
-        backend = "flash" if q.is_cuda else "naive"
+    backend = default_backend(q) if backend is None else _canonical(backend)
     if backend == "flash":
         return flash_attention(q, k, v, kv_mask=mask, scale=scale)
     if backend == "int8":
         return int8_flash_attention(q, k, v, kv_mask=mask, scale=scale)
-    if backend == "naive":
-        return _naive_attention(q, k, v, mask=mask, scale=scale)
-    raise ValueError(f"attention backend {backend!r} not in {BACKENDS}")
+    return _naive_attention(q, k, v, mask=mask, scale=scale)

@@ -139,6 +139,21 @@ def shard_param(name: str, t: torch.Tensor, dim: Optional[int], size: int,
     return _narrow(t, dim, size, rank)
 
 
+def unshard_param(name: str, shards, dim: Optional[int]) -> torch.Tensor:
+    """The whole parameter ``name`` from every model rank's shard in rank
+    order (``shards``): the inverse of `shard_param`."""
+    if dim is None or len(shards) == 1:
+        return shards[0]
+    if _is_split_rows(name):
+        d = shards[0].shape[1] // 5
+        fp8 = shards[0].dtype.itemsize == 1
+        raw = [t.view(torch.uint8) if fp8 else t for t in shards]
+        whole = torch.cat([t.narrow(1, 0, d) for t in raw]
+                          + [t.narrow(1, d, 4 * d) for t in raw], dim=1)
+        return whole.view(shards[0].dtype) if fp8 else whole
+    return torch.cat(list(shards), dim=dim)
+
+
 def _spec_for(name: str) -> Optional[int]:
     parts = [p for p in name.split(".") if not p.isdigit()]
     if not (_BLOCK_STACKS & set(parts)):
@@ -162,6 +177,12 @@ def tp_param_shardings(mesh: DeviceMesh, module: nn.Module,
     """{parameter name: the dim cut over ``axis``, or None} of the table
     in the module docstring."""
     axis_size(mesh, axis)
+    return tp_dims(module)
+
+
+def tp_dims(module: nn.Module) -> Dict[str, Optional[int]]:
+    """{parameter name: the dim `apply_tp` cuts, or None}, by name alone
+    (`tp_param_shardings` without a mesh)."""
     return {name: _spec_for(name) for name, _ in module.named_parameters()}
 
 

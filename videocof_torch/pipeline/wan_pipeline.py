@@ -44,6 +44,8 @@ umT5 run whole on every rank.
 from __future__ import annotations
 
 import dataclasses
+import os
+import sys
 import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
@@ -137,6 +139,8 @@ class WanPipeline:
         self.vae_streaming_threshold_frames = 2
         self.vae_decode_chunk = 3
         self.vae_encode_chunk = 4
+        # VIDEOCOF_TIMING=1: each stage's wall seconds to stderr, as JAX's
+        self.verbose_timing = os.environ.get("VIDEOCOF_TIMING") == "1"
 
     # --------------------------------------------------------- runtime LoRA
     def set_runtime_lora(self, runtime) -> None:
@@ -382,17 +386,24 @@ class WanPipeline:
     def _stage_timer(self, timings: Optional[Dict[str, float]]
                      ) -> Callable[[str], None]:
         """``tick(label)`` records the wall seconds since the last tick into
-        ``timings`` (synchronizing the device), a no-op without it."""
+        ``timings`` and, under ``VIDEOCOF_TIMING=1``, prints them to stderr
+        as ``[pipeline] <label>: <s>s`` (JAX's line), synchronizing the
+        device; a no-op without either."""
         t0 = time.perf_counter()
 
         def tick(label):
             nonlocal t0
+            if timings is None and not self.verbose_timing:
+                return
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            now = time.perf_counter()
             if timings is not None:
-                if self.device.type == "cuda":
-                    torch.cuda.synchronize(self.device)
-                now = time.perf_counter()
                 timings[label] = now - t0
-                t0 = now
+            if self.verbose_timing:
+                print(f"[pipeline] {label}: {now - t0:.2f}s", file=sys.stderr,
+                      flush=True)
+            t0 = now
         return tick
 
     def _context(self, prompts, do_cfg, negative_prompt, max_sequence_length,

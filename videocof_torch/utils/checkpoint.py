@@ -8,6 +8,9 @@ subdirectory per step, the latest restored by default) and write with
 ``torch.load(weights_only=True)`` reads back. They take the full
 fine-tuning `TrainState` and the `LoRATrainState`; saving the latter is a
 departure from JAX, whose save reads ``state.params`` and raises on it.
+As orbax's, the file holds the model's global shapes whatever the state's
+layout (FSDP over ``data``, tensor parallelism over ``model``, both), and
+a restore cuts them to the layout of the state it fills.
 `export_dit_state_dict` and `save_dit_safetensors` are the inverse of
 `models.weights.convert_dit_state_dict`, so that weights made or trained by
 the port load in the reference and back; and the inverses of the VAE and
@@ -34,6 +37,7 @@ from ..models.weights import (DIT_BLOCK_NAMES, DIT_IMG_BLOCK_NAMES,
                               DIT_IMG_EMB_NAMES, DIT_INDEX, DIT_TOP_NAMES,
                               SAFETENSORS_DTYPES, AnyKey, t5_key_map,
                               vae_key_map)
+from ..parallel.tp import shard_param, tp_dims, unshard_param
 
 StateDict = Dict[str, torch.Tensor]
 _DTYPE_NAMES = {v: k for k, v in SAFETENSORS_DTYPES.items()}
@@ -57,26 +61,41 @@ def checkpoint_steps(path: str) -> list:
                   and os.path.isfile(os.path.join(path, d, _STATE_FILE)))
 
 
-def _whole(t: DTensor) -> torch.Tensor:
-    """A DTensor sharded on one dim of a 1-D mesh (FSDP2's) gathered whole
-    through the process group's ``all_gather_into_tensor`` (DTensor's
-    ``full_tensor`` goes through the functional collectives, which crash
-    under gloo on CUDA tensors). The shards are ``torch.chunk``'s: each
-    is padded to the first's length and the gather cut back."""
-    (place,) = t.placements
-    if not isinstance(place, Shard):
-        return t.full_tensor()
-    group = t.device_mesh.get_group()
+def _gather_dim(local: torch.Tensor, dim: int, n: int, group) -> torch.Tensor:
+    """``local``, this rank's ``torch.chunk`` shard on ``dim`` of a tensor
+    ``n`` long there, gathered whole over ``group`` through the process
+    group's ``all_gather_into_tensor`` (DTensor's ``full_tensor`` goes
+    through the functional collectives, which crash under gloo on CUDA
+    tensors): each shard is padded to the first's length and the gather
+    cut back."""
     world = dist.get_world_size(group)
-    d, n = place.dim, t.shape[place.dim]
     step = -(-n // world)
-    local = t.to_local().movedim(d, 0)
+    local = local.movedim(dim, 0)
     if local.shape[0] < step:
         local = torch.cat([local, local.new_zeros(
             (step - local.shape[0], *local.shape[1:]))])
     out = local.new_empty((world * step, *local.shape[1:]))
     dist.all_gather_into_tensor(out, local.contiguous(), group=group)
-    return out[:n].movedim(0, d)
+    return out[:n].movedim(0, dim)
+
+
+def _whole(t: DTensor) -> torch.Tensor:
+    """A DTensor sharded on one dim of a 1-D mesh (FSDP2's) gathered
+    whole."""
+    (place,) = t.placements
+    if not isinstance(place, Shard):
+        return t.full_tensor()
+    return _gather_dim(t.to_local(), place.dim, t.shape[place.dim],
+                       t.device_mesh.get_group())
+
+
+def _chunk(t: torch.Tensor, dim: int, world: int, rank: int) -> torch.Tensor:
+    """Rank ``rank``'s ``torch.chunk`` shard of ``t`` on ``dim`` (FSDP2's;
+    empty past the last chunk)."""
+    n = t.shape[dim]
+    step = -(-n // world)
+    start = min(rank * step, n)
+    return t.narrow(dim, start, min(step, n - start))
 
 
 def whole_state(tree: Any) -> Any:
@@ -91,31 +110,122 @@ def whole_state(tree: Any) -> Any:
     return tree
 
 
+def _tp_layout(module: torch.nn.Module) -> tuple:
+    """(the `TPContext` of a module `parallel.apply_tp` cut, or None;
+    {parameter name: the dim it cut, or None})."""
+    ctx = getattr(module, "tp", None)
+    return (None, {}) if ctx is None else (ctx, tp_dims(module))
+
+
+def _whole_tensor(name: str, t: torch.Tensor, ctx, dims) -> torch.Tensor:
+    """The parameter ``name`` (or its AdamW moment) ``t`` whole: an FSDP
+    shard gathered over ``data``, then a TP shard over ``model``."""
+    if isinstance(t, DTensor):
+        t = _whole(t)
+    dim = dims.get(name)
+    if ctx is None or dim is None:
+        return t
+    out = t.new_empty((ctx.size, *t.shape))
+    dist.all_gather_into_tensor(out, t.contiguous()[None], group=ctx.group)
+    return unshard_param(name, list(out.unbind(0)), dim)
+
+
+def whole_state_dict(module: torch.nn.Module) -> StateDict:
+    """``module``'s state dict at the model's global shapes: every FSDP
+    shard gathered over ``data`` and every tensor-parallel shard over
+    ``model``. A collective, which every rank of the module's mesh
+    runs."""
+    ctx, dims = _tp_layout(module)
+    return {k: _whole_tensor(k, v, ctx, dims)
+            for k, v in module.state_dict().items()}
+
+
+def _param_names(module: torch.nn.Module, optimizer) -> list:
+    """The names of ``optimizer``'s parameters in its state's index
+    order (None for one that is not ``module``'s)."""
+    names = {id(p): n for n, p in module.named_parameters()}
+    return [names.get(id(p)) for g in optimizer.param_groups
+            for p in g["params"]]
+
+
+def _host_payload(module: torch.nn.Module, optimizer, keep: bool) -> dict:
+    """The trained module's state dict and ``optimizer``'s state, every
+    tensor whole (`_whole_tensor`, a collective) and on the host. One
+    tensor is gathered at a time and leaves the device at once, so the
+    device never holds more than one whole tensor; a rank that does not
+    ``keep`` drops each (its entries are None)."""
+    ctx, dims = _tp_layout(module)
+
+    def host(name, t):
+        whole = _whole_tensor(name, t, ctx, dims)
+        return whole.cpu() if keep else None
+    params = {k: host(k, v) for k, v in module.state_dict().items()}
+    sd = optimizer.state_dict()
+    names = _param_names(module, optimizer)
+    state = {i: {k: (host(names[i], v) if torch.is_tensor(v) and k != "step"
+                     else v)
+                 for k, v in st.items()}
+             for i, st in sd["state"].items()}
+    return {"module": params, "optimizer": {
+        "state": state, "param_groups": sd["param_groups"]}}
+
+
+def _local_piece(name: str, whole: torch.Tensor, like: torch.Tensor, ctx,
+                 dims) -> torch.Tensor:
+    """This rank's piece of the whole tensor ``whole`` laid out as ``like``
+    (a parameter, a buffer or a moment of this rank's state): its TP
+    slice (`shard_param`), then its FSDP shard when ``like`` is a
+    DTensor."""
+    dim = dims.get(name)
+    t = whole
+    if ctx is not None and dim is not None:
+        t = shard_param(name, t, dim, ctx.size, ctx.rank)
+    local = like
+    if isinstance(like, DTensor):
+        (place,) = like.placements
+        if isinstance(place, Shard):
+            mesh = like.device_mesh
+            t = _chunk(t, place.dim, mesh.size(), mesh.get_local_rank())
+        local = like.to_local()
+    if tuple(t.shape) != tuple(local.shape):
+        raise ValueError(f"{name}: the saved {tuple(whole.shape)} does not "
+                         f"cut to this rank's {tuple(local.shape)}")
+    return t
+
+
 def save_train_state(path: str, state: Any) -> str:
     """Write ``state`` (a `TrainState` or a `LoRATrainState`) to
     ``path/<step>/``: the trained module's state dict (the adapters or the
     parameters), the AdamW state (keyed by parameter index, as
-    ``torch.optim`` keys it) and the step. The directory appears whole:
-    it is written under a temporary name and renamed. Returns it.
+    ``torch.optim`` keys it) and the step, every tensor at the model's
+    global shape, whatever the layout. The directory appears whole: it is
+    written under a temporary name and renamed. Returns it.
 
-    In a `torch.distributed` world every rank calls it: FSDP-sharded
-    parameters and moments (a sharded full fine-tune) are gathered whole
-    first, and rank 0 alone writes. Restoring into a sharded state is not
-    ported."""
+    In a `torch.distributed` world every rank calls it: FSDP shards over
+    ``data`` and tensor-parallel shards over ``model`` (parameters and
+    AdamW moments) are gathered whole one tensor at a time, rank 0 moves
+    each to its host memory and alone writes, the other ranks drop theirs,
+    and every rank returns once the directory exists. Rank 0's host
+    memory, not a card's, holds the whole state."""
     root = os.path.abspath(path)
     step = int(state.step)
     kind, module = _trained(state)
-    payload = {"step": step, kind: whole_state(module.state_dict()),
-               "optimizer": whole_state(state.optimizer.adamw.state_dict())}
     final = os.path.join(root, str(step))
-    if torch.distributed.is_initialized() and torch.distributed.get_rank():
-        return final                       # rank 0 writes
-    tmp = final + ".partial"
-    shutil.rmtree(tmp, ignore_errors=True)
-    os.makedirs(tmp)
-    torch.save(payload, os.path.join(tmp, _STATE_FILE))
-    shutil.rmtree(final, ignore_errors=True)
-    os.replace(tmp, final)
+    distributed = dist.is_initialized()
+    writer = not distributed or dist.get_rank() == 0
+    whole = _host_payload(module, state.optimizer.adamw, writer)
+    payload = {"step": step, kind: whole["module"],
+               "optimizer": whole["optimizer"]}
+    if writer:
+        tmp = final + ".partial"
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.makedirs(tmp)
+        torch.save(payload, os.path.join(tmp, _STATE_FILE))
+        shutil.rmtree(final, ignore_errors=True)
+        os.replace(tmp, final)
+    del payload, whole
+    if distributed:
+        dist.barrier()
     return final
 
 
@@ -125,7 +235,14 @@ def restore_train_state(path: str, state_like: Any,
     ``state_like`` in place and return it. ``state_like`` is a state of the
     same kind built as the saved one was (the same model config, LoRA rank
     and parameter order, since the optimizer state is keyed by parameter
-    index), on the device to restore to."""
+    index), on the device to restore to, in any layout: each whole tensor
+    is cut to this rank's piece as ``state_like`` holds it, its TP slice
+    over ``model`` (`parallel.apply_tp`), then its FSDP shard over
+    ``data`` (a DTensor on the same mesh and placement), the AdamW moments
+    as their parameters. A state saved in one layout (none, FSDP, TP or
+    TP x FSDP) restores into any other. Every rank maps the file into
+    memory (``mmap``) and reads only the pieces it holds; no collective is
+    run."""
     root = os.path.abspath(path)
     if step is None:
         steps = checkpoint_steps(root)
@@ -133,14 +250,45 @@ def restore_train_state(path: str, state_like: Any,
             raise FileNotFoundError(f"no train state under {root}")
         step = steps[-1]
     kind, module = _trained(state_like)
-    # on the host: the modules and the optimizer copy to their devices (and
-    # AdamW keeps its step counts on the host)
+    # mapped, on the host: the pieces copy to their devices (and AdamW
+    # keeps its step counts on the host)
     payload = torch.load(os.path.join(root, str(step), _STATE_FILE),
-                         map_location="cpu", weights_only=True)
+                         map_location="cpu", weights_only=True, mmap=True)
     if kind not in payload:
         raise ValueError(f"step {step} under {root} holds no {kind}")
-    module.load_state_dict(payload[kind])
-    state_like.optimizer.adamw.load_state_dict(payload["optimizer"])
+    saved = payload[kind]
+    ctx, dims = _tp_layout(module)
+    tensors = module.state_dict(keep_vars=True)
+    if set(saved) != set(tensors):
+        raise ValueError(
+            f"step {step} under {root} holds other tensors than the state: "
+            f"missing {sorted(set(tensors) - set(saved))}, unexpected "
+            f"{sorted(set(saved) - set(tensors))}")
+    with torch.no_grad():
+        for k, t in tensors.items():
+            piece = _local_piece(k, saved[k], t, ctx, dims)
+            (t.to_local() if isinstance(t, DTensor) else t).copy_(piece)
+    adamw = state_like.optimizer.adamw
+    params = [p for g in adamw.param_groups for p in g["params"]]
+    names = _param_names(module, adamw)
+    opt = payload["optimizer"]
+    state = {}
+    for i, st in opt["state"].items():
+        p = params[i]
+        state[i] = {}
+        for k, v in st.items():
+            if torch.is_tensor(v) and k != "step":
+                v = _local_piece(names[i], v, p, ctx, dims).to(
+                    p.device, copy=True).contiguous()
+                if isinstance(p, DTensor):
+                    v = DTensor.from_local(v, p.device_mesh, p.placements,
+                                           run_check=False, shape=p.shape,
+                                           stride=p.stride())
+            elif torch.is_tensor(v):
+                v = v.clone()          # off the mapped file
+            state[i][k] = v
+    adamw.load_state_dict({"state": state,
+                           "param_groups": opt["param_groups"]})
     state_like.step = int(payload["step"])
     return state_like
 

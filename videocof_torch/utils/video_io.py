@@ -1,9 +1,12 @@
 """Host-side video I/O through OpenCV.
 
 Counterpart of `videocof_tpu/utils/video_io.py` (`load_video_frames`,
-`save_video`, `save_results`, `save_side_by_side`) on its cv2 path; the JAX
-package's native libav runtime (`videocof_tpu/runtime/`) is not ported
-(ROADMAP.md). Frames are stride-sampled as the reference samples them
+`save_video`, `save_results`, `save_side_by_side`, `save_videos_grid`,
+`color_transfer`, `merge_video_audio`, the i2v and v2v conditioning)
+on its cv2 path; the JAX package's native libav runtime
+(`videocof_tpu/runtime/`) is not ported (ROADMAP.md): a path handed to
+`get_video_to_video_latent` decodes and resizes as JAX's cv2 fallback
+does. Frames are stride-sampled as the reference samples them
 (`fast_infer.py:43-92`), from a start drawn by the caller's numpy generator,
 and the last frame repeats when the clip runs short. Outputs are mp4 (cv2's
 ``mp4v``), or a PNG sequence where no mp4 writer opens.
@@ -16,6 +19,8 @@ the reference's do.
 from __future__ import annotations
 
 import os
+import shutil
+import subprocess
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -170,6 +175,84 @@ def save_side_by_side(input_video: np.ndarray, sample: np.ndarray, path: str,
                path, fps)
 
 
+def color_transfer(src: np.ndarray, ref: np.ndarray) -> np.ndarray:
+    """``src``'s LAB channel statistics matched to ``ref``'s (both uint8
+    RGB [H, W, 3]): per channel ``(x - mu_s) * (sigma_r / sigma_s) +
+    mu_r`` in LAB (the reference's `color_transfer`,
+    `videox_fun/utils/utils.py:31-57`)."""
+    cv2 = _cv2()
+    s = cv2.cvtColor(src, cv2.COLOR_RGB2LAB).astype(np.float64)
+    r = cv2.cvtColor(ref, cv2.COLOR_RGB2LAB).astype(np.float64)
+    s_mean = s.reshape(-1, 3).mean(0)
+    s_std = np.maximum(s.reshape(-1, 3).std(0), 1e-6)
+    r_mean = r.reshape(-1, 3).mean(0)
+    r_std = r.reshape(-1, 3).std(0)
+    out = (s - s_mean) * (r_std / s_std) + r_mean
+    out = np.clip(np.round(out), 0, 255).astype(np.uint8)
+    return cv2.cvtColor(out, cv2.COLOR_LAB2RGB)
+
+
+def save_videos_grid(videos: np.ndarray, path: str, rescale: bool = False,
+                     n_rows: int = 6, fps: int = 12,
+                     color_transfer_post_process: bool = False) -> None:
+    """A batch [B, C, T, H, W] (or one clip [C, T, H, W]) -> one tiled
+    video, ``n_rows`` items a grid row, the last row padded with black
+    (the reference's `save_videos_grid`, `utils.py:59-83`). ``rescale``
+    maps [-1, 1] to [0, 1]; ``color_transfer_post_process`` pins every
+    frame's LAB statistics to frame 0's."""
+    v = np.asarray(videos)
+    if v.ndim == 4:
+        v = v[None]
+    if rescale:
+        v = (v + 1.0) / 2.0
+    v = np.clip(v, 0.0, 1.0)
+    B, C, T, H, W = v.shape
+    cols = min(n_rows, B)
+    rows = -(-B // cols)
+    pad = rows * cols - B
+    if pad:
+        v = np.concatenate([v, np.zeros((pad, C, T, H, W), v.dtype)])
+    # [rows, cols, C, T, H, W] -> [C, T, rows*H, cols*W]
+    grid = (v.reshape(rows, cols, C, T, H, W)
+            .transpose(2, 3, 0, 4, 1, 5)
+            .reshape(C, T, rows * H, cols * W))
+    if color_transfer_post_process and T > 1:
+        u8 = (grid * 255).astype(np.uint8).transpose(1, 2, 3, 0)  # [T,H,W,C]
+        ref = u8[0]
+        u8 = np.stack([ref] + [color_transfer(f, ref) for f in u8[1:]])
+        grid = u8.transpose(3, 0, 1, 2).astype(np.float32) / 255.0
+    save_video(grid, path, fps)
+
+
+def merge_video_audio(video_path: str, audio_path: str) -> None:
+    """Mux ``audio_path`` onto ``video_path`` in place, cut to the shorter
+    stream (the reference's `merge_video_audio`, `utils.py:85-143`: ffmpeg,
+    the video stream copied, AAC audio, ``-shortest``). FileNotFoundError
+    for a missing input; RuntimeError without ``ffmpeg`` on PATH or when it
+    fails."""
+    if not os.path.exists(video_path):
+        raise FileNotFoundError(f"video file {video_path} does not exist")
+    if not os.path.exists(audio_path):
+        raise FileNotFoundError(f"audio file {audio_path} does not exist")
+    ffmpeg = shutil.which("ffmpeg")
+    if ffmpeg is None:
+        raise RuntimeError("merge_video_audio needs ffmpeg on PATH")
+    base, ext = os.path.splitext(video_path)
+    temp_output = f"{base}_temp{ext}"
+    try:
+        result = subprocess.run(
+            [ffmpeg, "-y", "-i", video_path, "-i", audio_path,
+             "-c:v", "copy", "-c:a", "aac", "-b:a", "192k",
+             "-map", "0:v:0", "-map", "1:a:0", "-shortest", temp_output],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        if result.returncode != 0:
+            raise RuntimeError(f"ffmpeg failed: {result.stderr}")
+        shutil.move(temp_output, video_path)
+    finally:
+        if os.path.exists(temp_output):
+            os.remove(temp_output)
+
+
 def _read_image_rgb(img, size: Optional[Tuple[int, int]] = None
                     ) -> np.ndarray:
     """-> HWC uint8 RGB. ``img``: a path, an HWC array or a PIL image;
@@ -218,6 +301,57 @@ def get_image_to_video_latent(image_start, image_end, video_length: int,
         video[:, :, -len(ends):] = np.stack(ends).transpose(3, 0, 1, 2)[None]
         mask[:, :, -len(ends):] = 0.0
     return video.astype(np.float32) / 255.0, mask, clip_image
+
+
+def get_video_to_video_latent(input_video_path, video_length: int,
+                              sample_size: Tuple[int, int],
+                              fps: Optional[int] = None,
+                              validation_video_mask: Optional[str] = None,
+                              ref_image=None):
+    """The video-to-video conditioning (the reference's
+    `get_video_to_video_latent`, `videox_fun/utils/utils.py:244-300`).
+
+    -> ``(video [1, 3, T, H, W] in [0, 1] or None, mask [1, 1, T, H, W]
+    or None, ref_image [1, 3, 1, H, W] in [0, 1] or None, clip_image HWC
+    uint8 or None)``. ``input_video_path``: a path, decoded through cv2
+    with every frame resized to ``sample_size`` by ``cv2.resize``'s
+    default (bilinear), one frame in ``src_fps // fps``, at most
+    ``video_length``; or an array [T, H, W, 3] uint8, taken as it is. The
+    mask image (PIL ``'L'``, resized with PIL's default) is 0 (keep) below
+    240 and 255 (generate) from it, tiled over T; without one every frame
+    is 255. A ref image given as a path is resized to (H, W), an array is
+    not."""
+    H, W = sample_size
+    video = mask = None
+    if input_video_path is not None:
+        if isinstance(input_video_path, str):
+            cv2 = _cv2()
+            total, _, _, src_fps = video_info(input_video_path)
+            skip = 1 if fps is None else max(1, int(src_fps // fps))
+            idx = list(range(0, total, skip))[:video_length]
+            rgb = decode_frames_u8(input_video_path, idx)   # [T, h, w, 3]
+            rgb = np.stack([cv2.resize(f, (W, H)) for f in rgb])
+            dec = rgb.astype(np.float32) * (2.0 / 255.0) - 1.0
+            video = ((dec + 1.0) * 0.5).clip(0, 1).transpose(3, 0, 1, 2)[None]
+        else:
+            arr = np.asarray(input_video_path)[:video_length]  # [T,H,W,3]
+            video = arr.transpose(3, 0, 1, 2)[None].astype(np.float32) / 255.0
+        T = video.shape[2]
+        if validation_video_mask is not None:
+            from PIL import Image
+            with Image.open(validation_video_mask) as im:
+                m = np.asarray(im.convert("L").resize((W, H)))
+            m = np.where(m < 240, 0.0, 255.0).astype(np.float32)
+            mask = np.tile(m[None, None, None], (1, 1, T, 1, 1))
+        else:
+            mask = np.full((1, 1, T) + video.shape[3:], 255.0, np.float32)
+    clip_image = None if ref_image is None else _read_image_rgb(ref_image)
+    ref = None
+    if ref_image is not None:
+        r = _read_image_rgb(ref_image,
+                            (H, W) if isinstance(ref_image, str) else None)
+        ref = r.transpose(2, 0, 1)[None, :, None].astype(np.float32) / 255.0
+    return video, mask, ref, clip_image
 
 
 def size_from_base_resolution(height: int, width: int,
