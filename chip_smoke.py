@@ -29,9 +29,13 @@ Phases, each of which fails the run (non-zero exit) on any fault:
      1.5x the rounding's own size on the same inputs, about 2.6e-3 in bf16
      and 3.2e-4 in fp16), also at 32 lengths on and beside its 64-row q
      tiles and 128-key tiles (Lq 1/63/65/129 x Lk 1/127/129/512); the int8
-     kernel B4 in its two kernels, K's quantization pre-pass (at most one
-     int8 level off its plain version, in at most 1e-4 of the values) and
-     the attention on the same quantized K (B1's gates), and the whole of
+     kernel B4 in its two kernels, K's pre-pass (its K mean within 256 x
+     2^-24 x mean |k| of `k_mean`, the order of the fp32 sums; the int8 K
+     at most one level off its plain version on `k_mean`, in at most 1e-4
+     of the values; two launches bit for bit; also at 15 key lengths
+     around its stages and 780, and past what its resident CTAs' stages
+     hold) and the
+     attention on the same quantized K (B1's gates), and the whole of
      B4 against its plain version (B1's gates) and against unquantized
      attention (cosine similarity > 0.999, JAX's test). Then a 2-block
      full-width DiT on a small latent through the kernels against the naive
@@ -50,7 +54,13 @@ Phases, each of which fails the run (non-zero exit) on any fault:
      unquantized bf16 forward, not the same function); CUDA events, median
      of the runs after a warm-up; the achieved TFLOP/s of each flash
      kernel and B4's achieved TOP/s (int8 and bf16 operations together),
-     and B4 beside B1 at B4's batch-2 shapes (whether int8 QK^T pays).
+     and B4 beside B1 at B4's batch-2 shapes (whether int8 QK^T pays);
+     B4's pre-pass held by phase 2's gates on the K it times (every head:
+     24 slabs at the self shape); `k_mean` alone (the torch reduction over K that preceded the pre-pass
+     until it took the mean) and one B4 call under torch.profiler, which
+     must show `k_prepass_kernel` and `int8_attn_kernel` once each and no
+     other kernel (their device times recorded; a profile without device
+     events fails the run).
   4. the edit: `WanPipeline` at full width (Wan2.1 1.3B DiT, Wan2.1 VAE,
      umT5-XXL, random bf16 weights from a seed) edits a 33-frame 480x832
      uint8 video with 4 reasoning frames in 4 Flow-UniPC steps; checks the
@@ -74,7 +84,8 @@ Phases, each of which fails the run (non-zero exit) on any fault:
      steps; random weights would skip most steps, and the plan they give
      is printed); checks the output and that B4 ran exactly 2 x layers x
      computed steps times and no other kernel ran; then one batched-CFG
-     DiT step (batch 2) under torch.profiler.
+     DiT step (batch 2) under torch.profiler, in which each of B4's two
+     kernels runs 2 x layers times (no device events fails the run).
   6. training: `CoFTrainer` on the same models with rank-16 LoRA adapters and
      the default `TrainerConfig` (480x832, 33 source + 4 reasoning + 33
      target frames, block remat) takes 3 steps on synthetic triplets, the
@@ -439,7 +450,7 @@ SHARED_DIR = ROOT / "chiprun_out" / "chip_smoke_shared"
 
 # the port's kernel functions, as their names appear in ptxas and the profiler
 OUR_KERNELS = ("flash_fwd_kernel", "flash_bwd_kernel", "int8_attn_kernel",
-               "quant_k_kernel")
+               "k_prepass_kernel")
 TOL = 3e-2                     # bf16 tolerance of a kernel vs its plain version
 REL_TOL = 1e-2                 # ... and of ||kernel - plain|| / ||plain||
 B3_ROUNDED_TOL = 1e-3          # B3 vs the plain backward in its arithmetic
@@ -452,6 +463,17 @@ LSE_TOL = 1e-4                 # max |lse kernel - plain| / max(1, |lse plain|)
 DIT_REL_TOL = 2e-2             # DiT through the kernels vs the naive backend
 DIT_INT8_REL_TOL = 1e-2        # ... through B4 (1.8e-3 measured on the CPU)
 QUANT_FLIP_TOL = 1e-4          # share of int8 values one level off the plain
+# the pre-pass's K mean against `k_mean`: the two fp32 sums differ only in
+# their order; each is within (its longest chain of additions) * 2^-24 *
+# sum |k| of the exact sum, and the chains over random K stay far below 256
+# roundings, so |mean - k_mean| <= 256 * 2^-24 * mean |k| per column
+MEAN_ULPS = 256
+# the pre-pass's key lengths held in phase 2: on and beside its stages (128
+# rows at D = 128, 64 at D = 256), around 384, 512 and 780, a long ragged
+# one, and 110,000 (more rows than the resident CTAs' stages keep: a chunk
+# a CTA, the rows past its stage read twice)
+PREPASS_LENGTHS = (1, 64, 65, 128, 129, 384, 385, 511, 512, 768, 769, 780,
+                   781, 3001, 110000)
 COS_TOL = 0.999                # B4 vs unquantized attention (JAX's test)
 PEAK_BF16_FLOPS = 989e12       # H100 SXM dense bf16 (data sheet)
 PEAK_INT8_OPS = 1979e12        # H100 SXM dense int8 (data sheet)
@@ -678,13 +700,16 @@ def int8_bounds(B, Lq, Lk, N, D, eb=2):
     int8 peak and the bf16 product PV at the bf16 peak; bytes of the inputs
     read once and outputs written once (q, k, v, o in bf16; the pre-pass
     writes int8 K and fp32 row scales that the attention kernel reads, and
-    reads the fp32 K mean)."""
+    writes the fp32 K mean)."""
     mm = B * N * Lq * Lk * D
     q_b, kv_b = eb * B * Lq * N * D, eb * B * Lk * N * D
     ki_b, sk_b, mean_b = B * Lk * N * D, 4 * B * N * Lk, 4 * B * N * D
     return {
         "int8_flash_attention": bound(2 * mm, 2 * q_b + 2 * kv_b, 2 * mm),
         "int8_quantize_k": bound(0, kv_b + mean_b + ki_b + sk_b),
+        # the parent's pre-pass: a torch reduction for the mean, then the
+        # quantization, each reading K (the mean written and read back)
+        "k_mean + quantize": bound(0, 2 * kv_b + 2 * mean_b + ki_b + sk_b),
         "int8_attention_fwd": bound(2 * mm, 2 * q_b + kv_b + ki_b + sk_b,
                                     2 * mm),
     }
@@ -711,7 +736,8 @@ def kernel_label(name):
 
 
 def ptxas_report(log_text):
-    """[(kernel, registers, spill stores, spill loads)] from nvcc -Xptxas -v."""
+    """[(kernel, registers, spill stores, spill loads, static shared memory
+    bytes)] from nvcc -Xptxas -v."""
     rows, name, spills = [], None, (0, 0)
     for line in log_text.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
@@ -722,7 +748,9 @@ def ptxas_report(log_text):
             spills = (int(m.group(1)), int(m.group(2)))
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
-            rows.append((kernel_label(name), int(m.group(1)), *spills))
+            smem = re.search(r"(\d+) bytes smem", line)
+            rows.append((kernel_label(name), int(m.group(1)), *spills,
+                         int(smem.group(1)) if smem else 0))
             name, spills = None, (0, 0)
     return rows
 
@@ -6480,13 +6508,18 @@ def main() -> int:
         + f" (wall {time.perf_counter() - t0:.2f} s)")
     for src in build_s:
         build_log = _build.build_info[src]["log"]
-        for kernel, regs, st, ld in ptxas_report(build_log):
+        for kernel, regs, st, ld, smem in ptxas_report(build_log):
             log(f"[build] {kernel}: {regs} registers, spill stores {st} B, "
-                f"spill loads {ld} B")
+                f"spill loads {ld} B, static shared memory {smem} B")
         for line in build_log.splitlines():
             # warnings, and ptxas's notes of serialized wgmmas (C7515)
             if "warning" in line.lower() or "Performance Loss" in line:
                 log(f"[build] {src}: {line.strip()}")
+    log(f"[build] k_prepass_kernel's dynamic shared memory: its stages of "
+        f"at most {i8.PREPASS_STAGE_BYTES} B each; resident CTAs (its grid "
+        f"and the most chunks a slab): " + ", ".join(
+            f"D={Dh} {str(dt)[6:]} {i8._resident(0, Dh, dt)}"
+            for Dh in i8.HEAD_DIMS for dt in i8.DTYPES))
     # one instantiation per type, head dim (and LSE flag for the forward)
     for source, kernel, opcodes, want in (
             (fa.SOURCE, "flash_fwd_kernel", SASS_OPCODES,
@@ -6882,7 +6915,7 @@ def main() -> int:
         "arithmetic): " + json.dumps(c1))
     torch.cuda.empty_cache()
 
-    # B4: the pre-pass against its plain version on the same K mean, the
+    # B4: the pre-pass against its plain version on `k_mean`, the
     # attention kernel against its plain version on the same quantized K,
     # and the two together against B4's plain version and against
     # unquantized attention; batch 2 at the path's shapes (batched CFG)
@@ -6896,15 +6929,36 @@ def main() -> int:
         ("head_dim 256", (1, 3000, 3000, 2, 256), None, bf16),
         ("fp16", (1, 1000, 700, 2, D), None, torch.float16),
     ]
-    def check_int8(label, q, k, v, mask, quiet=False):
-        """B4's pre-pass, its attention kernel and the whole of it against
-        their plain versions, and the whole against unquantized attention
-        (cosine); ``quiet`` logs only a failure."""
-        B = q.shape[0]
-        mean = i8.k_mean(k)
-        ki, sk = i8.int8_quantize_k(k, mean)
+    def check_prepass(label, k, quiet=False):
+        """The pre-pass twice: its mean against `k_mean` (MEAN_ULPS), and
+        the same bits (int8 K, scales, mean) from both launches; returns
+        (ki, sk). ``quiet`` logs only a failure."""
+        ki, sk, mean = i8.int8_quantize_k(k)
+        ki2, sk2, mean2 = i8.int8_quantize_k(k)
         torch.cuda.synchronize()
-        ki_ref, sk_ref = i8.quantize_k_reference(k, mean)
+        want = i8.k_mean(k)
+        tol = MEAN_ULPS * 2.0 ** -24 * k.float().abs().mean(dim=1)
+        over = ((mean - want).abs() / tol).max().item()
+        same = (torch.equal(ki, ki2) and torch.equal(sk, sk2)
+                and torch.equal(mean, mean2))
+        ok = over <= 1.0 and same
+        if not (quiet and ok):
+            log(f"[kernel vs plain] B4 pre-pass {label}: K mean max abs err "
+                f"{(mean - want).abs().max().item():.3e}, {over:.3e} of its "
+                f"tolerance ({MEAN_ULPS} x 2^-24 x mean |k|); two launches "
+                f"bit for bit: {same}: {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"B4's pre-pass mean strays or is not deterministic: "
+                 f"{label}")
+        return ki, sk
+
+    def check_quantization(label, k, quiet=False):
+        """``check_prepass``, then its int8 K and scales against the plain
+        version on `k_mean` (at most one level off, in at most
+        QUANT_FLIP_TOL of the values; scales within 1e-6); returns (ki,
+        sk). ``quiet`` logs only a failure."""
+        ki, sk = check_prepass(label, k, quiet)
+        ki_ref, sk_ref = i8.quantize_k_reference(k, i8.k_mean(k))
         levels = (ki.int() - ki_ref.int()).abs()
         flips = (levels > 0).float().mean().item()
         sk_err = ((sk - sk_ref).abs() / sk_ref).max().item()
@@ -6923,7 +6977,14 @@ def main() -> int:
         if not ok:
             fail(f"B4's quantization pre-pass disagrees: {label}")
         note("int8_quantize_k", (deq_err, deq_rel))
-        del ki_ref, sk_ref, levels, deq, deq_ref
+        return ki, sk
+
+    def check_int8(label, q, k, v, mask, quiet=False):
+        """B4's pre-pass, its attention kernel and the whole of it against
+        their plain versions, and the whole against unquantized attention
+        (cosine); ``quiet`` logs only a failure."""
+        B = q.shape[0]
+        ki, sk = check_quantization(label, k, quiet)
         out = i8.int8_attention_fwd(q, ki, sk, v, kv_mask=mask)
         torch.cuda.synchronize()
         ref = i8.int8_attention_reference(q, ki, sk, v, kv_mask=mask)
@@ -6969,6 +7030,19 @@ def main() -> int:
                    *qkv(2, Lq, Lk, 3, Dh, dtype=dtype), None, quiet=True)
     log(f"[kernel vs plain] B4 at {len(edges8)} tile-edge lengths (Lq "
         f"1/127/129 x Lk 1/127/129/512, D {D} bf16 and D 256 fp16): ok")
+    # the pre-pass's own edges (PREPASS_LENGTHS): its gates and the
+    # quantization's, on one line unless one fails
+    edges_pre = [(Lk, Dh, dtype) for Lk in PREPASS_LENGTHS
+                 for Dh, dtype in ((D, bf16), (256, torch.float16))]
+    for Lk, Dh, dtype in edges_pre:
+        k = randn(*((1, Lk, 1) if Lk > 30000 else (2, Lk, 3)), Dh,
+                  dtype=dtype)
+        check_quantization(f"slab edge Lk={Lk} D={Dh} {str(dtype)[6:]}", k,
+                           quiet=True)
+        del k
+    log(f"[kernel vs plain] B4 pre-pass at {len(edges_pre)} slab-edge "
+        f"lengths (Lk {'/'.join(map(str, PREPASS_LENGTHS))}, D {D} bf16 and "
+        f"D 256 fp16): ok (mean, bit for bit, int8 levels, scales)")
     torch.cuda.empty_cache()
 
     # the kernels inside a full-width DiT (2 blocks) on a small latent: the
@@ -7315,22 +7389,28 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     # B4 at the standard edit's shapes (batched CFG: batch 2): the whole of
-    # it (K mean, pre-pass, attention) and each kernel; the yardstick is
-    # SDPA's unquantized bf16 forward, which is not the same function (no
-    # PyTorch call computes int8 attention); B1 at the same shapes says
-    # whether the int8 QK^T pays
+    # it (pre-pass and attention) and each kernel; the yardstick is SDPA's
+    # unquantized bf16 forward, which is not the same function (no PyTorch
+    # call computes int8 attention); B1 at the same shapes says whether the
+    # int8 QK^T pays. Beside the pre-pass: `k_mean` alone, the torch
+    # reduction over K that preceded it until the mean moved into it, and
+    # one B4 call under torch.profiler, which must show the two kernels and
+    # nothing else (their device times recorded)
     timing8 = {}
     for shape_name, (B, Lq, Lk), plain_runs in (("self", (2, L, L), 1),
                                                 ("cross", (2, L, Lt), 10)):
         q, k, v = qkv(B, Lq, Lk, N, D)
-        mean = i8.k_mean(k)
-        ki, sk = i8.int8_quantize_k(k, mean)
+        # the pre-pass's gates (phase 2's) at the main path's shape: every
+        # head, as many slabs and rounds as the standard edit's launches
+        ki, sk = check_quantization(
+            f"{shape_name} at the main path's shape {tuple(k.shape)}", k)
         runs = {
             "int8_flash_attention": (
                 lambda: i8.int8_flash_attention(q, k, v),
                 lambda: i8.int8_flash_attention_reference(q, k, v)),
-            "int8_quantize_k": (lambda: i8.int8_quantize_k(k, mean),
-                                lambda: i8.quantize_k_reference(k, mean)),
+            "int8_quantize_k": (lambda: i8.int8_quantize_k(k),
+                                lambda: i8.quantize_k_reference(
+                                    k, i8.k_mean(k))),
             "int8_attention_fwd": (
                 lambda: i8.int8_attention_fwd(q, ki, sk, v),
                 lambda: i8.int8_attention_reference(q, ki, sk, v)),
@@ -7362,7 +7442,39 @@ def main() -> int:
                    f" this" if attention else "")
                 + f"); SDPA bf16 forward, unquantized, not the same "
                 f"function: {sdpa_ms:.4f} ms")
-        del q, k, v, mean, ki, sk, runs, qt, kt, vt
+        pre = timing8[shape_name]["int8_quantize_k"]
+        pre["k_mean_ms"] = cuda_ms(lambda: i8.k_mean(k), runs=10)
+        pre["pair_bound_ms"] = bounds["k_mean + quantize"][0]
+        _, busy_ms, prof = profile_kernels(
+            lambda: i8.int8_flash_attention(q, k, v))
+        seen = {name: (ms, n) for ms, n, name in prof}
+        mine = {key: [(ms, n) for name, (ms, n) in seen.items()
+                      if key in name] for key in ("k_prepass_kernel",
+                                                  "int8_attn_kernel")}
+        if busy_ms <= 0.0:
+            fail(f"one B4 call at the {shape_name} shape under "
+                 "torch.profiler recorded no device events: its kernels "
+                 "cannot be shown")
+        elif (len(seen) != 2 or any(len(m) != 1 or m[0][1] != 1
+                                    for m in mine.values())):
+            fail(f"one B4 call at the {shape_name} shape launched "
+                 f"{sorted(seen)}: expected k_prepass_kernel and "
+                 "int8_attn_kernel once each and nothing else")
+        else:
+            pre["device_ms"] = mine["k_prepass_kernel"][0][0]
+            timing8[shape_name]["int8_attention_fwd"]["device_ms"] = mine[
+                "int8_attn_kernel"][0][0]
+            log(f"[timing] one B4 call at the {shape_name} shape under "
+                f"torch.profiler: k_prepass_kernel {pre['device_ms']:.4f} "
+                f"ms and int8_attn_kernel "
+                f"{mine['int8_attn_kernel'][0][0]:.4f} ms of device time, "
+                "no other kernel (no torch reduction over K)")
+        log(f"[timing] k_mean alone (the parent's torch reduction over K, "
+            f"no longer on the path) {shape_name}: {pre['k_mean_ms']:.4f} "
+            f"ms; the parent's pair's bound (K read twice) "
+            f"{pre['pair_bound_ms']:.4f} ms against the pre-pass's "
+            f"{pre['bound_ms']:.4f} ms")
+        del q, k, v, ki, sk, runs, qt, kt, vt
         torch.cuda.empty_cache()
 
     # ----------------------------------------------------------- 4. the edit
@@ -7522,10 +7634,18 @@ def main() -> int:
                                        f_ground=ground))
     t = torch.full((2,), 937.0, device=dev)
     with torch.no_grad():
-        report_profile(f"one batched-CFG DiT step (batch 2) through B4 at {L} "
-                       "tokens", *profile_kernels(
-                           lambda: dit(x, t, ctx, cos, sin,
-                                       attn_backend="int8")))
+        prof5 = profile_kernels(lambda: dit(x, t, ctx, cos, sin,
+                                            attn_backend="int8"))
+    report_profile(f"one batched-CFG DiT step (batch 2) through B4 at {L} "
+                   "tokens", *prof5)
+    b4_prof = {key: sum(n for _, n, name in prof5[2] if key in name)
+               for key in ("k_prepass_kernel", "int8_attn_kernel")}
+    if prof5[1] <= 0.0:
+        fail("the profiled int8 DiT step recorded no device events: B4's "
+             "kernels cannot be shown")
+    if set(b4_prof.values()) != {2 * dcfg.num_layers}:
+        fail(f"the profiled int8 DiT step ran B4's kernels {b4_prof} times, "
+             f"expected {2 * dcfg.num_layers} each")
     del x, ctx, cos, sin
     torch.cuda.empty_cache()
 
@@ -7867,16 +7987,18 @@ def main() -> int:
             **{key: t[key] for key in ("ms", "tflops", "plain_ms",
                                        "bound_ms", "bound_by", "library_ms",
                                        "shape")}})
-    # B4: its two kernels, with the whole of it (K mean, pre-pass,
-    # attention) beside the attention kernel's row
-    tpu8 = {"int8_quantize_k": "_int8_kernel's K quantization (:68-71)",
+    # B4: its two kernels, with the whole of it (pre-pass and attention)
+    # beside the attention kernel's row
+    tpu8 = {"int8_quantize_k": "_int8_kernel's K quantization (:68-71) "
+                               "and its wrapper's K mean (:130)",
             "int8_attention_fwd": "_int8_kernel"}
+    line8 = {"int8_quantize_k": 68, "int8_attention_fwd": 51}
     for kname in names8:
         main_shape = timing8["self"][kname]
         rows.append({
             "name": kname, "route": "cuda",
             "source": f"videocof_torch/csrc/{i8.SOURCE}",
-            "replaces": "videocof_tpu/ops/int8_attention.py:51",
+            "replaces": f"videocof_tpu/ops/int8_attention.py:{line8[kname]}",
             "tpu_kernel": tpu8[kname],
             "launches": std_launches[kname],
             "launches_on": "standard edit",
@@ -7884,8 +8006,9 @@ def main() -> int:
             "max_rel_l2_err": errs[kname][1],
             **{key: main_shape[key] for key in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                "sdpa_unquantized_ms", "b1_ms", "shape") + (
-                    ("tops",) if "tops" in main_shape else ())},
+                "sdpa_unquantized_ms", "b1_ms", "shape") + tuple(
+                    key for key in ("tops", "device_ms", "k_mean_ms",
+                                    "pair_bound_ms") if key in main_shape)},
             "cross": timing8["cross"][kname],
             **({"b4_whole": dict(
                 timing8["self"]["int8_flash_attention"],

@@ -438,16 +438,54 @@ def test_int8_kernel_matches_plain(cuda, Lq, Lk, D, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("D", [128, 256])
 def test_int8_kernels_are_deterministic(cuda, D):
-    """No atomics: two launches of each B4 kernel give the same bits."""
+    """No floating-point atomics: two launches of each B4 kernel give the
+    same bits (the pre-pass on chunked slabs here, 777 keys; its one-CTA
+    slabs in `test_int8_prepass_matches_plain`)."""
     q, k, v = _qkv(cuda, 2, 1000, 777, 2, D)
-    mean = i8.k_mean(k)
-    (ki, sk), (ki2, sk2) = i8.int8_quantize_k(k, mean), i8.int8_quantize_k(
-        k, mean)
+    (ki, sk, mean), (ki2, sk2, mean2) = i8.int8_quantize_k(
+        k), i8.int8_quantize_k(k)
     a = i8.int8_attention_fwd(q, ki, sk, v)
     b = i8.int8_attention_fwd(q, ki, sk, v)
     torch.cuda.synchronize()
     assert torch.equal(ki, ki2) and torch.equal(sk, sk2)
+    assert torch.equal(mean, mean2)
     assert torch.equal(a, b)
+
+
+# the pre-pass's key lengths: on and beside its stages (128 rows at D =
+# 128, 64 at D = 256), around 384, 512 and 780, a long ragged one, the
+# standard edit's 29,640, and one whose slab outgrows the resident CTAs'
+# stages (a chunk a CTA, the rows past its stage read twice)
+PREPASS_LENGTHS = [1, 64, 65, 128, 129, 384, 385, 511, 512, 768, 769, 780,
+                   781, 3001, 29640, 110000]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Lk", PREPASS_LENGTHS)
+@pytest.mark.parametrize("D,dtype", [(128, torch.bfloat16),
+                                     (256, torch.float16)])
+def test_int8_prepass_matches_plain(cuda, Lk, D, dtype):
+    """The pre-pass's mean against `k_mean` (the sums differ only in their
+    order: within 256 fp32 ulps of the column's mean |k|), its int8 values
+    at most one level off `quantize_k_reference` on `k_mean` in at most
+    1e-4 of them, its row scales within 1e-6, and the same bits twice."""
+    B, N = (1, 1) if Lk > 30000 else (2, 3)
+    k = _qkv(cuda, B, 1, Lk, N, D, dtype)[1]
+    before = i8.launch_counts()["int8_quantize_k"]
+    ki, sk, mean = i8.int8_quantize_k(k)
+    ki2, sk2, mean2 = i8.int8_quantize_k(k)
+    torch.cuda.synchronize()
+    assert i8.launch_counts()["int8_quantize_k"] == before + 2
+    assert torch.equal(ki, ki2) and torch.equal(sk, sk2)
+    assert torch.equal(mean, mean2)
+    want_mean = i8.k_mean(k)
+    scale = k.float().abs().mean(dim=1)
+    assert ((mean - want_mean).abs() <= 256 * 2.0 ** -24 * scale).all()
+    want_i, want_s = i8.quantize_k_reference(k, want_mean)
+    torch.testing.assert_close(sk, want_s, rtol=1e-6, atol=0)
+    levels = (ki.int() - want_i.int()).abs()
+    assert levels.max().item() <= 1
+    assert (levels > 0).float().mean().item() <= 1e-4
 
 
 @pytest.mark.cuda
@@ -501,7 +539,8 @@ def test_int8_kernels_read_strided_inputs(cuda):
                       ).to(torch.bfloat16)
     q, k, v = qkv.unbind(2)
     _check_int8(q, k, v)
-    ki, sk = i8.int8_quantize_k(k, i8.k_mean(k))
+    ki, sk, mean = i8.int8_quantize_k(k)
+    torch.testing.assert_close(mean, i8.k_mean(k), rtol=1e-5, atol=1e-6)
     want_i, want_s = i8.quantize_k_reference(k, i8.k_mean(k))
     torch.testing.assert_close(sk, want_s, rtol=1e-6, atol=0)
     assert (ki.int() - want_i.int()).abs().max().item() <= 1

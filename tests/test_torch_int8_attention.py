@@ -98,21 +98,77 @@ def test_plain_matches_pallas_bf16(L, D):
                                _jax(q, k, v, None, jnp.bfloat16), **BF16_TOL)
 
 
-def test_quantization_matches_jax_quant_tile():
-    """Row scales and int8 values of the centred K: the JAX package's
-    `_quant_tile` on the same fp32 rows."""
+# key lengths on and beside the one-CTA slab limits of a first design of
+# the pre-pass (768 keys at D = 128, 384 at D = 256; 780 in 227 KB), around
+# its stages (128 and 64 rows) and 512, and a long ragged one
+PREPASS_LENGTHS = [1, 64, 65, 128, 129, 384, 385, 511, 512, 768, 769, 780,
+                   781, 3001]
+
+
+@pytest.mark.parametrize("Lk", PREPASS_LENGTHS)
+@pytest.mark.parametrize("D,dtype", [(128, np.float32), (256, np.float32),
+                                     (128, np.float16)])
+def test_quantization_matches_jax_quant_tile(Lk, D, dtype):
+    """B4's pre-pass in its plain version (``int8_quantize_k`` on the CPU)
+    against JAX: the K mean against the wrapper's ``jnp.mean(kt.astype(
+    f32), axis=1)`` (rtol 1e-6: the sums are exact on the 1/128 grid, and
+    the two may differ in how the sum meets 1 / Lk), row scales of the
+    centred K against `_quant_tile`'s (rtol 1e-6), int8 values at most one
+    level off in at most 1e-3 of them (a value on a rounding boundary)."""
     from videocof_tpu.ops.int8_attention import _quant_tile
-    _, k, _ = _qkv(5, 2, 1, 300, 3, 128)
-    tk = torch.from_numpy(k)
-    ki, sk = i8.quantize_k_reference(tk, i8.k_mean(tk))
+    _, k, _ = _qkv(Lk + D, 2, 1, Lk, 3, D)
+    k = k.astype(dtype)
+    ki, sk, mean = i8.int8_quantize_k(torch.from_numpy(k))
     kt = jnp.asarray(k).transpose(0, 2, 1, 3)
-    centred = kt - jnp.mean(kt, axis=2, keepdims=True)
-    want_i, want_s = _quant_tile(centred)
+    want_mean = jnp.mean(kt.astype(jnp.float32), axis=2, keepdims=True)
+    np.testing.assert_allclose(mean.numpy(), np.asarray(want_mean)[:, :, 0],
+                               rtol=1e-6, atol=0)
+    want_i, want_s = _quant_tile(kt.astype(jnp.float32) - want_mean)
     np.testing.assert_allclose(sk.numpy(), np.asarray(want_s)[..., 0],
                                rtol=1e-6, atol=0)
     assert np.abs(ki.numpy().astype(np.int32)
                   - np.asarray(want_i).astype(np.int32)).max() <= 1
     assert (ki.numpy() == np.asarray(want_i)).mean() > 0.999
+
+
+@pytest.mark.parametrize("Lk", [511, 769, 3001])
+def test_prepass_mean_counts_masked_keys(Lk):
+    """The pre-pass takes no key mask: masked keys count in the mean, as in
+    JAX's wrapper. B4's plain version under a key mask against the Pallas
+    kernel at lengths on both sides of the slab limit."""
+    q, k, v = _qkv(2 * Lk, 2, 8, Lk, 2, 128)
+    mask = _mask(Lk + 1, 2, Lk, False)
+    _, _, mean = i8.int8_quantize_k(torch.from_numpy(k))
+    np.testing.assert_array_equal(
+        mean.numpy(), i8.k_mean(torch.from_numpy(k)).numpy())
+    np.testing.assert_allclose(mean.numpy(), k.mean(axis=1, dtype=np.float64),
+                               rtol=1e-6, atol=1e-9)
+    np.testing.assert_allclose(_port(q, k, v, mask, torch.float32),
+                               _jax(q, k, v, mask, jnp.float32), **FP32_TOL)
+
+
+@pytest.mark.parametrize("Lk", PREPASS_LENGTHS + [29640, 110000])
+@pytest.mark.parametrize("D", [128, 256])
+@pytest.mark.parametrize("slabs", [1, 24])
+def test_prepass_plan(Lk, D, slabs):
+    """The chunks the kernel cuts a slab into (264 resident CTAs, two an
+    SM on 132 SMs): none empty, no more than the resident CTAs; of a
+    stage's rows at most (32 KB of 16-bit K) unless the resident CTAs'
+    stages cannot hold the slab; where they can, whole slabs a round of the
+    grid, and no more rounds than the fewest chunks would need."""
+    resident = 264
+    chunks, rows = i8.prepass_plan(Lk, D, slabs, resident)
+    stage_rows = i8.PREPASS_STAGE_BYTES // (2 * D)
+    fewest = -(-Lk // stage_rows)
+    assert chunks * rows >= Lk > (chunks - 1) * rows
+    assert chunks <= resident
+    assert (rows <= stage_rows) == (fewest <= resident)
+    if fewest <= resident:
+        per_round = resident // chunks
+        assert -(-slabs // per_round) == -(-slabs // min(
+            slabs, resident // fewest))
+    else:
+        assert rows == -(-Lk // resident)
 
 
 def test_key_centring_invariance():

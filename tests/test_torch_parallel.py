@@ -194,6 +194,17 @@ def test_make_mesh_coordinates_match_jax(ranks):
             assert got["mesh3d"][shape] == want, (shape, r)
 
 
+def test_rank_device_raises_without_cuda(monkeypatch):
+    """Without CUDA a rank's device is no silent CPU: rank_device raises,
+    whatever LOCAL_RANK says."""
+    from videocof_torch.parallel import rank_device
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for local in ("0", "1"):
+        monkeypatch.setenv("LOCAL_RANK", local)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            rank_device()
+
+
 def test_pad_helpers_match_jax():
     import jax.numpy as jnp
     from videocof_tpu.parallel import sp as jsp

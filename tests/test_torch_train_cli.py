@@ -154,3 +154,19 @@ def test_cli_stops_without_a_gpu(tmp_path, triplet_json):
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA"):
         ptrain.main(_argv(triplet_json, tmp_path, "--steps", "1"))
+
+
+def test_multi_rank_cli_stops_without_a_gpu(tmp_path, triplet_json,
+                                            monkeypatch):
+    """Under WORLD_SIZE > 1 the CLI takes the rank's device from
+    `rank_device`: without CUDA it raises before any model is loaded, as
+    at one rank, and does not train on the CPU."""
+    def no_load(*a, **kw):
+        raise AssertionError("a pipeline was loaded without a GPU")
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    monkeypatch.setattr(ptrain, "init_distributed", lambda **kw: None)
+    monkeypatch.setattr(factory, "load_pipeline", no_load)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ptrain.main(_argv(triplet_json, tmp_path, "--steps", "1"))

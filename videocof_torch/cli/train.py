@@ -89,10 +89,10 @@ def main(argv: Optional[Sequence[str]] = None) -> CoFTrainer:
     if int(os.environ.get("WORLD_SIZE", "1")) > 1:
         if not torch.distributed.is_initialized():
             init_distributed(backend=args.dist_backend)
+        # raises without CUDA, as the factory does at one rank
         placed["device"] = rank_device()
-        if placed["device"].type == "cuda":
-            # NCCL's communicators and the allocator on this rank's card
-            torch.cuda.set_device(placed["device"])
+        # NCCL's communicators and the allocator on this rank's card
+        torch.cuda.set_device(placed["device"])
     main_rank = (not torch.distributed.is_initialized()
                  or torch.distributed.get_rank() == 0)
     if args.offload_t5:

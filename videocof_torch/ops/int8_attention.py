@@ -8,19 +8,19 @@ softmax runs in fp32 off the rescaled logits, PV stays bf16/fp16. Centring K
 drops ``q . k_mean``, a constant per query row, to which the softmax is
 invariant. Two kernels, each with its launch count:
 
-* ``int8_quantize_k``: K centred on its per-(batch, head) fp32 mean and
-  quantized once, int8 [B, N, Lk, D] and fp32 row scales [B, N, Lk] (a view
-  of rows padded to 16 bytes, `sk_row_stride`, for TMA). The TPU
-  kernel requantizes each K tile for every q block; the values are the same.
-  The mean itself is a PyTorch reduction, as JAX computes it in XLA outside
-  its kernel.
+* ``int8_quantize_k``: K's per-(batch, head) fp32 mean (which JAX takes in
+  XLA outside its kernel) and K centred on it and quantized once, int8 [B,
+  N, Lk, D] and fp32 row scales [B, N, Lk] (a view of rows padded to 16
+  bytes, `sk_row_stride`, for TMA), in one launch that reads K once. The
+  TPU kernel requantizes each K tile for every q block; the values are the
+  same.
 * ``int8_attention_fwd``: the attention over q (quantized per q tile inside
   the kernel) and the quantized K, which the kernel reads through TMA tensor
   maps encoded per launch (sm_90a: int8 and bf16/fp16 wgmma, a producer
   warpgroup and two consumer warpgroups).
 
-``int8_flash_attention`` runs the two, the function of JAX's
-`int8_flash_attention`.
+``int8_flash_attention`` runs the two and nothing else, the function of
+JAX's `int8_flash_attention`.
 
 Inference only, as in JAX (the kernel has no VJP): a call with inputs that
 need a gradient raises. Each wrapper launches its kernel for a CUDA tensor
@@ -52,6 +52,9 @@ QUANT_EPS = 1e-6
 RECIP_127 = float(np.float32(1.0 / 127.0))
 # the Pallas wrapper's default key block (`int8_flash_attention`'s block_k)
 JAX_BLOCK_K = 512
+# the K bytes each of the pre-pass's stages keeps (`kPrepStageBytes` in the
+# source)
+PREPASS_STAGE_BYTES = 32 * 1024
 
 
 def key_padding(Lk: int) -> int:
@@ -66,6 +69,23 @@ def sk_row_stride(Lk: int) -> int:
     """Elements between the rows of the pre-pass's row scales: Lk rounded up
     to 4, so that each row starts on 16 bytes as TMA needs."""
     return -(-Lk // 4) * 4
+
+
+def prepass_plan(Lk: int, D: int, slabs: int, resident: int
+                 ) -> Tuple[int, int]:
+    """(chunks, rows) the pre-pass cuts each of ``slabs`` slabs of Lk keys
+    into, none empty and at most ``resident`` (the kernel's grid is a whole
+    number of slabs). Chunks hold a stage's rows (PREPASS_STAGE_BYTES of
+    16-bit K) where the resident CTAs' stages hold a slab: as many whole
+    slabs as fit then take a round of the grid, each cut into the resident
+    CTAs' share. Past that a slab is cut into ``resident`` chunks whose rows
+    outgrow their stage, and the kernel reads the rest twice."""
+    cdiv = lambda a, b: -(-a // b)  # noqa: E731
+    stage_rows = PREPASS_STAGE_BYTES // (2 * D)
+    fewest = cdiv(Lk, stage_rows)
+    chunks = resident // min(slabs, max(1, resident // fewest))
+    rows = cdiv(Lk, chunks)
+    return cdiv(Lk, rows), rows
 
 
 def logit_scale(scale: float) -> float:
@@ -108,8 +128,8 @@ def k_mean(k: torch.Tensor) -> torch.Tensor:
 
 def quantize_k_reference(k: torch.Tensor, mean: torch.Tensor
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of ``int8_quantize_k``: (int8 [B, N, Lk, D], fp32 row
-    scales [B, N, Lk]) of ``k - mean``."""
+    """Plain version of ``int8_quantize_k``'s quantization: (int8 [B, N,
+    Lk, D], fp32 row scales [B, N, Lk]) of ``k - mean``."""
     kf = k.float().transpose(1, 2) - mean[:, :, None, :]
     ki, sk = _quant_rows(kf)
     return ki.to(torch.int8), sk[..., 0]
@@ -167,8 +187,11 @@ def int8_flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
 def _library() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
     lib.int8_quantize_k.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 4
-        + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 4
+        + [ctypes.c_float, ctypes.c_void_p])
+    lib.int8_prepass_resident.argtypes = [ctypes.c_int] * 2 + [
+        ctypes.POINTER(ctypes.c_int)]
+    lib.int8_prepass_resident.restype = ctypes.c_int
     lib.int8_attention_fwd.argtypes = (
         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 10
         + [ctypes.c_float, ctypes.c_void_p])
@@ -200,33 +223,71 @@ def _check_kernel_inputs(q, *others):
                 "rows 16-byte aligned")
 
 
-def int8_quantize_k(k: torch.Tensor, mean: torch.Tensor
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """B4's pre-pass: ``k - mean`` quantized per row, (int8 [B, N, Lk, D],
-    fp32 [B, N, Lk]); ``mean`` is ``k_mean(k)``. On CUDA the scales are a
-    view of rows ``sk_row_stride(Lk)`` apart."""
+@functools.lru_cache(maxsize=None)
+def _resident(device_index: int, D: int, dtype: torch.dtype) -> int:
+    """CTAs of the pre-pass resident on the card at once: its grid, and the
+    most chunks it may cut a slab into."""
+    resident = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        rc = _library().int8_prepass_resident(
+            D, int(dtype == torch.float16), ctypes.byref(resident))
+    if rc != 0 or resident.value <= 0:
+        raise RuntimeError(f"int8_prepass_resident failed: CUDA error {rc}")
+    return resident.value
+
+
+# per (device, stream): the pre-pass's slab counters, zero between launches
+# (each launch sets back to 0 what it counted)
+_counters: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _slab_counters(device: torch.device, slabs: int) -> torch.Tensor:
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    buf = _counters.get(key)
+    if buf is None or buf.numel() < slabs:
+        buf = _counters[key] = torch.zeros(slabs, dtype=torch.int32,
+                                           device=device)
+    return buf
+
+
+def int8_quantize_k(k: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """B4's pre-pass: K's fp32 mean over its keys and ``k - mean``
+    quantized per row, (int8 [B, N, Lk, D], fp32 [B, N, Lk], fp32 mean [B,
+    N, D]); on the CPU ``quantize_k_reference(k, k_mean(k))`` and that
+    mean. On CUDA one launch reads K once, and the scales are a view of
+    rows ``sk_row_stride(Lk)`` apart."""
     B, Lk, N, D = k.shape
     if k.device.type == "cpu":
-        return quantize_k_reference(k, mean)
+        mean = k_mean(k)
+        return (*quantize_k_reference(k, mean), mean)
     _check_kernel_inputs(k)
-    if (mean.dtype != torch.float32 or tuple(mean.shape) != (B, N, D)
-            or not mean.is_contiguous() or mean.device != k.device):
-        raise ValueError(f"mean must be a contiguous fp32 [B, N, D] = "
-                         f"{(B, N, D)} tensor on {k.device}")
-    ki = torch.empty((B, N, Lk, D), dtype=torch.int8, device=k.device)
-    sk = torch.empty((B, N, sk_row_stride(Lk)), dtype=torch.float32,
-                     device=k.device)[..., :Lk]
     if Lk == 0:
-        return ki, sk
-    with torch.cuda.device(k.device):   # the launch goes to the current device
+        raise ValueError("no keys to quantize")
+    dev = k.device
+    chunks, rows = prepass_plan(Lk, D, B * N,
+                                _resident(dev.index, D, k.dtype))
+    ki = torch.empty((B, N, Lk, D), dtype=torch.int8, device=dev)
+    sk = torch.empty((B, N, sk_row_stride(Lk)), dtype=torch.float32,
+                     device=dev)[..., :Lk]
+    mean = torch.empty((B, N, D), dtype=torch.float32, device=dev)
+    partial = count = None
+    if chunks > 1:
+        partial = torch.empty(B * N * chunks * D, dtype=torch.float32,
+                              device=dev)
+        count = _slab_counters(dev, B * N)
+    with torch.cuda.device(dev):   # the launch goes to the current device
         rc = _library().int8_quantize_k(
-            k.data_ptr(), mean.data_ptr(), ki.data_ptr(), sk.data_ptr(),
-            B, N, Lk, D, int(k.dtype == torch.float16), sk.stride(1),
-            *_bld(k), torch.cuda.current_stream(k.device).cuda_stream)
+            k.data_ptr(), ki.data_ptr(), sk.data_ptr(), mean.data_ptr(),
+            None if partial is None else partial.data_ptr(),
+            None if count is None else count.data_ptr(),
+            B, N, Lk, D, int(k.dtype == torch.float16), chunks, rows,
+            sk.stride(1), *_bld(k), float(np.float32(1.0 / Lk)),
+            torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"int8_quantize_k launch failed: CUDA error {rc}")
     int8_quantize_k.launches += 1
-    return ki, sk
+    return ki, sk, mean
 
 
 def int8_attention_fwd(q: torch.Tensor, ki: torch.Tensor, sk: torch.Tensor,
@@ -274,8 +335,8 @@ def int8_attention_fwd(q: torch.Tensor, ki: torch.Tensor, sk: torch.Tensor,
 def int8_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, kv_mask: Optional[torch.Tensor] = None,
                          scale: Optional[float] = None) -> torch.Tensor:
-    """[B, L, N, D] attention with int8 QK^T (kernel B4: ``k_mean``, then
-    ``int8_quantize_k`` and ``int8_attention_fwd``), head_dim a multiple of
+    """[B, L, N, D] attention with int8 QK^T (kernel B4:
+    ``int8_quantize_k``, then ``int8_attention_fwd``), head_dim a multiple of
     128; the output in v's dtype. ``kv_mask`` [B, Lk] bool: keys with False
     are excluded. Raises, and never switches path, for a head_dim that is
     not a multiple of 128, inputs that need a gradient, and on CUDA for what
@@ -291,7 +352,7 @@ def int8_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_kernel_inputs(q, k, v)
     if k.shape[1] == 0:
         raise ValueError("attention over zero keys")
-    ki, sk = int8_quantize_k(k, k_mean(k))
+    ki, sk, _ = int8_quantize_k(k)
     return int8_attention_fwd(q, ki, sk, v, kv_mask=kv_mask, scale=scale)
 
 

@@ -22,9 +22,9 @@ AXES = ("data", "seq", "model")
 
 def rank_device() -> torch.device:
     """This rank's device: ``cuda:<LOCAL_RANK mod the card count>`` (two
-    ranks on one card share cuda:0), or the CPU without CUDA."""
+    ranks on one card share cuda:0). Without CUDA it raises RuntimeError."""
     if not torch.cuda.is_available():
-        return torch.device("cpu")
+        raise RuntimeError("rank_device: no CUDA device on this rank")
     local = int(os.environ.get("LOCAL_RANK", dist.get_rank()
                                if dist.is_initialized() else 0))
     return torch.device("cuda", local % torch.cuda.device_count())
