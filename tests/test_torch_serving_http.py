@@ -107,7 +107,15 @@ def request(url, path, payload=None, raw=None, headers=None):
 def metric_counters(text):
     return {k: v for k, v in re.findall(
         r"^videocof_(requests_total|failures_total|busy|"
-        r"generate_seconds_count) (\S+)$", text, re.M)}
+        r"generate_seconds_count|queue_wait_seconds_sum|"
+        r"queue_wait_seconds_count) (\S+)$", text, re.M)}
+
+
+def counters_but_wait_sum(text):
+    """`metric_counters` less the queue-wait sum (a time), checked >= 0."""
+    got = metric_counters(text)
+    assert float(got.pop("queue_wait_seconds_sum")) >= 0.0
+    return got
 
 
 def _capture_encodes(controller, seen):
@@ -225,7 +233,10 @@ def test_request_sequence_matches_jax(clip, tmp_path, monkeypatch):
     paths = [path for _, path, _ in steps] + ["oversized"]
     for path, (code, body), (_, jbody) in zip(paths, got, jgot):
         if path == "/metrics":
-            assert metric_counters(body) == metric_counters(jbody) == {
+            # JAX's server has no queue-wait summary
+            port = counters_but_wait_sum(body)
+            assert port.pop("queue_wait_seconds_count") == "3"
+            assert port == metric_counters(jbody) == {
                 "requests_total": "5", "failures_total": "2", "busy": "0",
                 "generate_seconds_count": "3"}
         elif path == "/":
@@ -368,9 +379,9 @@ def test_lora_path_outside_model_dirs_is_refused(clip, tmp_path,
         assert read == [(inside, 1.0), (None, 1.0)]
         assert c._merged_loras == {}
         text = request(url, "/metrics")[1]
-    assert metric_counters(text) == {
+    assert counters_but_wait_sum(text) == {
         "requests_total": "6", "failures_total": "4", "busy": "0",
-        "generate_seconds_count": "2"}
+        "generate_seconds_count": "2", "queue_wait_seconds_count": "2"}
 
 
 def test_concurrent_requests_serialize(clip, monkeypatch):
@@ -408,9 +419,49 @@ def test_concurrent_requests_serialize(clip, monkeypatch):
     assert all(r[0] == 200 and r[1]["message"] == "Success" for r in results)
     assert max_active[0] == 1, "generations overlapped past the lock"
     assert max(busy_seen) >= 1
-    assert metric_counters(text) == {
+    assert counters_but_wait_sum(text) == {
         "requests_total": "2", "failures_total": "0", "busy": "0",
-        "generate_seconds_count": "2"}
+        "generate_seconds_count": "2", "queue_wait_seconds_count": "2"}
+
+
+def test_queue_wait_summary_times_the_wait_for_the_lock(clip, monkeypatch,
+                                                        tmp_path):
+    """Two concurrent requests against a controller that sleeps: the second
+    waits for the first's generation, so the wait sum is non-zero; each
+    generation is a ``videocof.request`` span on a trace of all threads."""
+    from torch._C._profiler import _ExperimentalConfig
+    from torch.profiler import ProfilerActivity, profile
+    _, vid_b64 = clip
+    c = VideoCoFController(port_pipeline(), defaults=GenerationConfig(
+        **_edit_defaults()))
+    metrics = api.Metrics()
+
+    def sleeping(*a, **kw):
+        time.sleep(0.3)
+        return {"videos": np.zeros((1, 3, 1, 8, 8), np.float32),
+                "prompt": kw.get("prompt", "")}
+    monkeypatch.setattr(c, "generate", sleeping)
+    monkeypatch.setattr(c, "encode_video_base64", lambda *a, **k: "")
+    payload = {"prompt_textbox": PROMPT, "source_video": vid_b64}
+    with profile(activities=[ProfilerActivity.CPU],
+                 experimental_config=_ExperimentalConfig(
+                     profile_all_threads=True)) as prof:
+        with serving(api, c, metrics) as url:
+            threads = [threading.Thread(target=request,
+                                        args=(url, api.ENDPOINT, payload))
+                       for _ in range(2)]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=60)
+            assert not any(th.is_alive() for th in threads)
+            got = metric_counters(request(url, "/metrics")[1])
+    assert got["queue_wait_seconds_count"] == "2"
+    assert float(got["queue_wait_seconds_sum"]) >= 0.2
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+    assert [ev["name"] for ev in events if ev.get("cat") == "user_annotation"
+            and ev["name"] == "videocof.request"] == ["videocof.request"] * 2
 
 
 def test_webui_exposes_the_same_form():

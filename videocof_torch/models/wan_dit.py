@@ -45,6 +45,7 @@ from ..configs import WanDiTConfig
 from ..ops import attention
 from ..utils.fp8 import compute_dtype as _kernel_dtype
 from ..utils.fp8 import dequantize
+from ..utils.profiling import spanned
 from . import rope as rope_lib
 from .lora import fuse_block_adapters
 
@@ -460,6 +461,7 @@ def unpatchify(x: torch.Tensor, grid, patch_size, out_dim: int) -> torch.Tensor:
 
 # ---------------------------------------------------------------------- model
 
+@spanned("videocof.dit.block")
 def _block_call(block, ad, lora_scale, attn_backend, tag_names, stream, e0,
                 ctx, rope_cos, rope_sin, seq_mask):
     """One block, with its LoRA adapters ``ad`` fused into its weights for
@@ -572,6 +574,7 @@ class WanDiT(nn.Module):
                          seq_lens=seq_lens, sp=sp, clip_fea=clip_fea, y=y,
                          y_camera=y_camera)[0]
 
+    @spanned("videocof.dit")
     def forward_with_residual(self, x: torch.Tensor, t: torch.Tensor,
                               context: torch.Tensor, rope_cos: torch.Tensor,
                               rope_sin: torch.Tensor,

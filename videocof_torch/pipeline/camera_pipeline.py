@@ -16,6 +16,7 @@ import torch
 
 from ..data.camera import pose_params_to_embedding
 from ..models.camera_adapter import CameraAdapter
+from ..utils.profiling import spanned
 from .wan_pipeline import WanPipeline, WanPipelineOutput, latent_frame_count
 
 _PREFIX = "control_adapter."
@@ -96,6 +97,7 @@ class CameraPipeline(WanPipeline):
         return self.camera(packed.to(self.dtype))
 
     @torch.no_grad()
+    @spanned("videocof.edit")
     def camera_to_video(self, prompt: Union[str, Sequence[str]], cam_params,
                         *, negative_prompt: str = "", height: int = 480,
                         width: int = 832, num_frames: int = 81,

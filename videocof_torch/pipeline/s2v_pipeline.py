@@ -17,8 +17,8 @@ from typing import Dict, Optional, Sequence, Union
 
 import torch
 
-from ..models import rope as rope_lib
 from ..models.wan_dit_s2v import WanS2V, wan_s2v_forward
+from ..utils.profiling import spanned
 from .wan_pipeline import WanPipeline, WanPipelineOutput, latent_frame_count
 
 
@@ -42,6 +42,7 @@ class S2VPipeline(WanPipeline):
         return v, None
 
     @torch.no_grad()
+    @spanned("videocof.edit")
     def speech_to_video(self, prompt: Union[str, Sequence[str]], audio_feats,
                         *, negative_prompt: str = "", height: int = 480,
                         width: int = 832, num_frames: int = 81,
@@ -77,9 +78,7 @@ class S2VPipeline(WanPipeline):
             cond["audio"] = audio
         ph, pw = self.dit.cfg.patch_size[1:]
         grid = (Tl, Hl // ph, Wl // pw)
-        cos, sin = rope_lib.build_rope_cos_sin(grid, self.dit.cfg.head_dim)
-        cos = torch.as_tensor(cos, device=self.device)
-        sin = torch.as_tensor(sin, device=self.device)
+        cos, sin = self._rope(grid)
         seg_ids = torch.zeros(grid[0] * grid[1] * grid[2], dtype=torch.long,
                               device=self.device)
         tick("latents")

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from ..models.wan_dit_vace import WanVace, vace_forward
+from ..utils.profiling import spanned
 from .wan_pipeline import WanPipeline, WanPipelineOutput, latent_frame_count
 
 
@@ -78,6 +79,7 @@ class VacePipeline(WanPipeline):
         return v, None
 
     @torch.no_grad()
+    @spanned("videocof.edit")
     def control_to_video(self, prompt: Union[str, Sequence[str]],
                          control_video, *, mask=None,
                          negative_prompt: str = "",

@@ -36,10 +36,12 @@ import torch.nn.functional as F
 
 from ..models import wan_dit
 from ..schedulers import get_scheduler
+from ..utils.profiling import spanned
 from .wan_pipeline import WanPipeline, WanPipelineOutput, latent_frame_count
 
 
 @torch.no_grad()
+@spanned("videocof.edit")
 def batch_edit(pipe: WanPipeline, videos: Sequence, source_frames: Sequence[int],
                prompt_embeds: Sequence, reasoning_frames: int = 4,
                num_inference_steps: int = 4, guidance_scale: float = 1.0,

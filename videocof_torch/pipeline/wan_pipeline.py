@@ -61,6 +61,7 @@ from ..models.wan_dit import WanDiT
 from ..models.wan_vae import WanVAE
 from ..schedulers import get_scheduler
 from ..utils import colorspace
+from ..utils.profiling import span, spanned
 
 
 @dataclasses.dataclass
@@ -98,6 +99,17 @@ def run_t5(t5: T5Encoder, ids: torch.Tensor, mask: torch.Tensor
     state = {k: v.to(ids.device, non_blocking=True)
              for k, v in t5.state_dict().items()}
     return torch.func.functional_call(t5, state, (ids, mask))
+
+
+@spanned("videocof.frames_out")
+def _host_frames(u8: torch.Tensor) -> np.ndarray:
+    """Device uint8 frames -> a host float32 array in [0, 1]."""
+    return u8.cpu().numpy().astype(np.float32) / 255.0
+
+
+@spanned("videocof.frames_out")
+def _host_latents(latents: torch.Tensor) -> np.ndarray:
+    return latents.cpu().numpy()
 
 
 def _to_host(module: torch.nn.Module) -> torch.nn.Module:
@@ -236,13 +248,15 @@ class WanPipeline:
                       ) -> torch.Tensor:
         """Prompts -> [B, text_len, text_dim] embeddings, zeroed past each
         prompt's length."""
-        ids, mask = self.tokenizer(list(prompts), max_length=max_length)
+        with span("videocof.tokenize"):
+            ids, mask = self.tokenizer(list(prompts), max_length=max_length)
         ids = torch.as_tensor(ids, device=self.device)
         mask = torch.as_tensor(mask, device=self.device)
         e = run_t5(self.t5, ids, mask)
         return e * mask[..., None].to(e.dtype)
 
     # ---------------------------------------------------------------- latents
+    @spanned("videocof.video_in")
     def _prepare_video(self, video) -> torch.Tensor:
         """uint8 [0, 255] or float [-1, 1] [B, 3, T, H, W], or uint8 I420
         planes [B, T, H*3//2, W] (codec-native 4:2:0, half the bytes of
@@ -264,6 +278,7 @@ class WanPipeline:
         return wan_vae_streaming
 
     @torch.no_grad()
+    @spanned("videocof.vae_encode")
     def vae_encode(self, video: torch.Tensor) -> torch.Tensor:
         """[B, 3, T, H, W] in [-1, 1] -> mu in self.dtype, streamed when
         T > vae_streaming_threshold_frames."""
@@ -276,6 +291,7 @@ class WanPipeline:
         return mu
 
     @torch.no_grad()
+    @spanned("videocof.vae_decode")
     def vae_decode(self, z: torch.Tensor) -> torch.Tensor:
         """Latents -> frames in [-1, 1], streamed above the threshold."""
         z = z.to(self.dtype)
@@ -285,6 +301,7 @@ class WanPipeline:
         return self.vae.decode(z)
 
     @torch.no_grad()
+    @spanned("videocof.vae_decode")
     def decode_to_u8(self, z: torch.Tensor) -> torch.Tensor:
         """Latents -> device uint8 frames: clip(round(x * 127.5 + 127.5)),
         streamed chunk by chunk above the threshold."""
@@ -305,6 +322,7 @@ class WanPipeline:
         return noise
 
     @torch.no_grad()
+    @spanned("videocof.latents")
     def prepare_cot_latents(self, video: torch.Tensor, ground_latent_count: int,
                             generator: Optional[torch.Generator] = None,
                             noise=None) -> torch.Tensor:
@@ -317,6 +335,7 @@ class WanPipeline:
         return torch.cat([mu.float(), noise], dim=2)
 
     @torch.no_grad()
+    @spanned("videocof.latents")
     def prepare_paired_latents(self, video: torch.Tensor,
                                generator: Optional[torch.Generator] = None,
                                noise=None) -> torch.Tensor:
@@ -406,6 +425,7 @@ class WanPipeline:
             t0 = now
         return tick
 
+    @spanned("videocof.text")
     def _context(self, prompts, do_cfg, negative_prompt, max_sequence_length,
                  prompt_embeds, negative_prompt_embeds) -> torch.Tensor:
         """The text context in self.dtype: the prompts' embeddings, behind
@@ -425,6 +445,7 @@ class WanPipeline:
         return context.to(self.dtype)
 
     @staticmethod
+    @spanned("videocof.schedule")
     def _scheduler(sampler, num_inference_steps, shift, solver_order):
         sched_kw = ({"solver_order": solver_order}
                     if solver_order is not None
@@ -433,6 +454,7 @@ class WanPipeline:
         sched.set_timesteps(num_inference_steps, shift=shift)
         return sched
 
+    @spanned("videocof.schedule")
     def _plan_t2v_teacache(self, sched, num_inference_steps,
                            enable_teacache, teacache_threshold,
                            teacache_skip_start_steps, teacache_coefficients,
@@ -491,35 +513,39 @@ class WanPipeline:
         residual, res_split = None, False
         for i, (dit, g) in enumerate(self._expert_plan(sched,
                                                        guidance_scale)):
-            step_cfg = do_cfg and i < cfg_off
-            ctx_i = context
-            if do_cfg and not step_cfg:
-                ctx_i = context[context.shape[0] // 2:]   # cond rows only
-            res_in = None
-            if skips[i]:
-                need = latents.shape[0] * (2 if step_cfg else 1)
-                if res_split and not step_cfg:
-                    # a CFG-parallel step's residual holds this rank's
-                    # branch: gather the branches for the cond rows
-                    residual = self.sp_ctx.with_cfg_parallel().gather_batch(
-                        residual)
-                    res_split = False
-                res_in = residual[-need:]   # cfg-skip keeps the cond rows
-            v, res = self._denoise_step(
-                dit, latents, float(sched.timesteps[i]), ctx_i, cos, sin,
-                step_cfg, g, condition_count, res_in, skips[i], cond,
-                velocity)
-            if not skips[i]:
-                residual = res
-                res_split = step_cfg and self.cfg_parallel and \
-                    not self.cfg_sequential
-            latents, state = sched.step(v, i, latents, state)
-            if tick is not None:
-                tick(f"step{i} skipped" if skips[i] else f"step{i}")
+            with span("videocof.step"):
+                step_cfg = do_cfg and i < cfg_off
+                ctx_i = context
+                if do_cfg and not step_cfg:
+                    ctx_i = context[context.shape[0] // 2:]  # cond rows
+                res_in = None
+                if skips[i]:
+                    need = latents.shape[0] * (2 if step_cfg else 1)
+                    if res_split and not step_cfg:
+                        # a CFG-parallel step's residual holds this rank's
+                        # branch: gather the branches for the cond rows
+                        sp = self.sp_ctx.with_cfg_parallel()
+                        residual = sp.gather_batch(residual)
+                        res_split = False
+                    # cfg-skip keeps the cond rows
+                    res_in = residual[-need:]
+                v, res = self._denoise_step(
+                    dit, latents, float(sched.timesteps[i]), ctx_i, cos, sin,
+                    step_cfg, g, condition_count, res_in, skips[i], cond,
+                    velocity)
+                if not skips[i]:
+                    residual = res
+                    res_split = step_cfg and self.cfg_parallel and \
+                        not self.cfg_sequential
+                with span("videocof.sampler"):
+                    latents, state = sched.step(v, i, latents, state)
+                if tick is not None:
+                    tick(f"step{i} skipped" if skips[i] else f"step{i}")
         return latents
 
     # ------------------------------------------------------------------- call
     @torch.no_grad()
+    @spanned("videocof.edit")
     def __call__(self, video, prompt: Union[str, Sequence[str]],
                  negative_prompt: str = "",
                  source_frames: int = 33, reasoning_frames: int = 4,
@@ -594,20 +620,12 @@ class WanPipeline:
         tick("encode+latents")
 
         ph, pw = self.dit.cfg.patch_size[1:]
-        f_src = condition_count if repeat_rope else None
-        f_ground = ground_latent_count if repeat_rope else 0
-        temporal_table = None
-        if riflex_k is not None:
-            dcfg = self.dit.cfg
-            temporal_table = riflex_angle_table(
-                dcfg.head_dim, riflex_k, riflex_L_test or 66,
-                riflex_L_test_scale, max_pos=dcfg.rope_max_pos,
-                theta=dcfg.rope_theta)
-        cos, sin = wan_dit.make_rope_for_geometry(
-            self.dit.cfg, (Tl, Hl // ph, Wl // pw), f_src=f_src,
-            f_ground=f_ground, temporal_table=temporal_table)
-        cos = torch.as_tensor(cos, device=self.device)
-        sin = torch.as_tensor(sin, device=self.device)
+        cos, sin = self._rope(
+            (Tl, Hl // ph, Wl // pw),
+            f_src=condition_count if repeat_rope else None,
+            f_ground=ground_latent_count if repeat_rope else 0,
+            riflex=None if riflex_k is None else (
+                riflex_k, riflex_L_test or 66, riflex_L_test_scale))
 
         sched = self._scheduler(sampler, num_inference_steps, shift,
                                 solver_order)
@@ -623,7 +641,7 @@ class WanPipeline:
                                    ground_latent_count)
         tick("decode")
         if output_latents:
-            out.latents = latents.cpu().numpy()
+            out.latents = _host_latents(latents)
         return out
 
     def _decode_outputs(self, latents: torch.Tensor, condition_count: int,
@@ -636,7 +654,7 @@ class WanPipeline:
         if g1 > g0:
             parts.append(self.decode_to_u8(latents[:, :, g0:g1]))
         parts.append(self.decode_to_u8(latents[:, :, g1:]))
-        host = torch.cat(parts, dim=2).cpu().numpy().astype(np.float32) / 255.0
+        host = _host_frames(torch.cat(parts, dim=2))
         tc = self.vae.cfg.temporal_compression_ratio
         gf = 1 + (g1 - g0 - 1) * tc if g1 > g0 else 0   # ground pixel frames
         return WanPipelineOutput(
@@ -645,6 +663,7 @@ class WanPipeline:
 
     # -------------------------------------------------------- text-to-video
     @torch.no_grad()
+    @spanned("videocof.edit")
     def text_to_video(self, prompt: Union[str, Sequence[str]], *,
                       negative_prompt: str = "", height: int = 480,
                       width: int = 832, num_frames: int = 81,
@@ -735,6 +754,7 @@ class WanPipeline:
         return clip(preprocess_frames(frames, clip.cfg)).to(self.dtype)
 
     @torch.no_grad()
+    @spanned("videocof.edit")
     def image_to_video(self, start_image, prompt: Union[str, Sequence[str]],
                        *, end_image=None, num_frames: int = 33,
                        height: int = 480, width: int = 832,
@@ -795,9 +815,21 @@ class WanPipeline:
         return self._decode_whole(latents, output_latents, tick)
 
     # ------------------------------------------------- shared by the variants
-    def _rope(self, grid) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Standard RoPE tables of a latent grid, on the device."""
-        cos, sin = wan_dit.make_rope_for_geometry(self.dit.cfg, grid)
+    @spanned("videocof.rope")
+    def _rope(self, grid, f_src: Optional[int] = None, f_ground: int = 0,
+              riflex: Optional[Tuple[int, int, Optional[float]]] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """RoPE tables of a latent grid, on the device: standard, or CoF
+        repeat-RoPE with ``f_src`` source and ``f_ground`` reasoning frames;
+        ``riflex`` = (k, L_test, L_test_scale) replaces the temporal
+        table by RIFLEx's."""
+        dcfg = self.dit.cfg
+        temporal_table = None if riflex is None else riflex_angle_table(
+            dcfg.head_dim, *riflex, max_pos=dcfg.rope_max_pos,
+            theta=dcfg.rope_theta)
+        cos, sin = wan_dit.make_rope_for_geometry(
+            dcfg, grid, f_src=f_src, f_ground=f_ground,
+            temporal_table=temporal_table)
         return (torch.as_tensor(cos, device=self.device),
                 torch.as_tensor(sin, device=self.device))
 
@@ -805,10 +837,9 @@ class WanPipeline:
                       tick: Callable[[str], None]) -> WanPipelineOutput:
         """The whole clip decoded to uint8 (streamed above the threshold)
         and handed to the host in [0, 1]."""
-        host = self.decode_to_u8(latents).cpu().numpy().astype(
-            np.float32) / 255.0
+        host = _host_frames(self.decode_to_u8(latents))
         tick("decode")
         out = WanPipelineOutput(videos=host, edit_videos=host)
         if output_latents:
-            out.latents = latents.cpu().numpy()
+            out.latents = _host_latents(latents)
         return out

@@ -35,6 +35,7 @@ from __future__ import annotations
 
 import argparse
 import base64
+import contextlib
 import json
 import os
 import sys
@@ -44,6 +45,7 @@ import time
 import traceback
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
+from ..utils.profiling import span
 from .controller import VideoCoFController
 
 ENDPOINT = "/videocof/infer_forward"
@@ -67,6 +69,9 @@ class Metrics:
         self.generating_since = None      # wall time the running one began
         self.generate_seconds_sum = 0.0
         self.generate_seconds_count = 0
+        # from a request's arrival at the generation lock to taking it
+        self.queue_wait_seconds_sum = 0.0
+        self.queue_wait_seconds_count = 0
 
     def stuck_seconds(self) -> float:
         """How long the running generation has run (0 when idle): a wedged
@@ -74,6 +79,33 @@ class Metrics:
         with self._lock:
             t0 = self.generating_since
         return 0.0 if t0 is None else time.time() - t0
+
+    @contextlib.contextmanager
+    def generating(self, lock):
+        """Hold ``lock`` (one generation at a time per card) around the
+        block, which runs inside the ``videocof.request`` span: ``busy``
+        counts the request from its arrival, the wait for the lock goes
+        into the queue-wait summary, and ``busy`` drops before the reply,
+        so a client that has its reply reads a settled gauge."""
+        with self._lock:
+            self.busy += 1
+        arrived = time.perf_counter()
+        try:
+            with lock:
+                with self._lock:
+                    self.queue_wait_seconds_sum += \
+                        time.perf_counter() - arrived
+                    self.queue_wait_seconds_count += 1
+                    self.generating_since = time.time()
+                try:
+                    with span("videocof.request"):
+                        yield
+                finally:
+                    with self._lock:
+                        self.generating_since = None
+        finally:
+            with self._lock:
+                self.busy -= 1
 
     def observe(self, seconds: float, ok: bool):
         with self._lock:
@@ -100,6 +132,11 @@ class Metrics:
                 f"{self.generate_seconds_sum:.3f}",
                 f"videocof_generate_seconds_count "
                 f"{self.generate_seconds_count}",
+                "# TYPE videocof_queue_wait_seconds summary",
+                f"videocof_queue_wait_seconds_sum "
+                f"{self.queue_wait_seconds_sum:.3f}",
+                f"videocof_queue_wait_seconds_count "
+                f"{self.queue_wait_seconds_count}",
                 "# TYPE videocof_uptime_seconds gauge",
                 f"videocof_uptime_seconds {now - self.started:.1f}",
                 "# TYPE videocof_generating_for_seconds gauge",
@@ -281,20 +318,8 @@ def make_handler(controller: VideoCoFController, lock: threading.Lock,
                         kwargs["num_frames"] = int(req["num_frames"])
                     if "sampler_dropdown" in req:
                         kwargs["scheduler"] = "ddim"   # the one it serves
-                with metrics._lock:
-                    metrics.busy += 1
-                try:
-                    with lock:
-                        with metrics._lock:
-                            metrics.generating_since = time.time()
-                        try:
-                            result = controller.generate_media(**kwargs)
-                        finally:
-                            with metrics._lock:
-                                metrics.generating_since = None
-                finally:
-                    with metrics._lock:
-                        metrics.busy -= 1
+                with metrics.generating(lock):
+                    result = controller.generate_media(**kwargs)
                 reply = {"message": "Success", "family": family}
                 if result.get("videos") is not None:
                     reply["base64_encoding"] = \
@@ -424,27 +449,11 @@ def make_handler(controller: VideoCoFController, lock: threading.Lock,
                     self._reply(400, {"message":
                                       "missing source_video[_path]"})
                     return
-                # busy counts generations in flight or waiting for the
-                # lock; it drops before the reply, so a client that has its
-                # reply reads a settled gauge
-                with metrics._lock:
-                    metrics.busy += 1
-                try:
-                    with lock:  # one generation at a time per card
-                        with metrics._lock:
-                            metrics.generating_since = time.time()
-                        try:
-                            if lora_req is not None:
-                                controller.ensure_lora(*lora_req)
-                            result = (controller.generate_t2v(**kwargs)
-                                      if t2v
-                                      else controller.generate(**kwargs))
-                        finally:
-                            with metrics._lock:
-                                metrics.generating_since = None
-                finally:
-                    with metrics._lock:
-                        metrics.busy -= 1
+                with metrics.generating(lock):
+                    if lora_req is not None:
+                        controller.ensure_lora(*lora_req)
+                    result = (controller.generate_t2v(**kwargs) if t2v
+                              else controller.generate(**kwargs))
                 enc = controller.encode_video_base64(result["videos"])
                 metrics.observe(time.time() - t0, ok=True)
                 self._reply(200, {"message": "Success",

@@ -1,80 +1,53 @@
-"""Timing and tracing instrumentation.
+"""Tracing instrumentation.
 
-Counterpart of `videocof_tpu/utils/profiling.py`: a device-synchronized
-timer decorator with structured records (the reference's ``timer`` /
-``timer_record``, `utils/utils.py:352-412`), a trace context and the
-analytic FLOPs of a Wan DiT forward that MFU is reported against. JAX's
-``xla_trace`` captures an XLA profiler trace; here the context is
-``torch_trace`` over ``torch.profiler`` (a Chrome trace file for
-chrome://tracing or Perfetto, the CUDA activity included on a card).
+Counterpart of `videocof_tpu/utils/profiling.py`: a trace context, the
+program's spans and the analytic FLOPs of a Wan DiT forward that MFU is
+reported against. JAX's ``xla_trace`` captures an XLA profiler trace; here
+the context is ``torch_trace`` over ``torch.profiler`` (a Chrome trace file
+for chrome://tracing or Perfetto, the CUDA activity included on a card).
+
+``span(name)`` marks a piece of the program on that trace: while a
+profiler records it is a ``record_function`` range (a ``user_annotation``
+event on the host's timeline, beside the kernels it launched, on the same
+clock, nested in the span that encloses it on the calling thread); with no
+profiler in the process it costs one flag check and records nothing. The
+flag is the process's, so a span on another thread (a server's request)
+reaches a profiler that records all threads. The profiler keeps the spans
+and writes them with its trace; this module keeps none.
 """
 
 from __future__ import annotations
 
 import contextlib
 import functools
-import json
 import os
-import sys
-import time
-from typing import Dict, List, Optional
 
 import torch
-import torch.distributed as dist
+from torch.autograd import profiler as _autograd_profiler
 
-_RECORDS: List[Dict] = []
-
-
-def _sync() -> None:
-    """Wait for all queued work on the current CUDA device (nothing to
-    wait for without one)."""
-    if torch.cuda.is_available() and torch.cuda.is_initialized():
-        torch.cuda.synchronize()
+_OFF = contextlib.nullcontext()
 
 
-def _rank() -> int:
-    return dist.get_rank() if dist.is_initialized() else 0
+def span(name: str):
+    """A context that records ``name`` on a recording profiler's timeline;
+    the shared no-op context when no profiler is on (no allocation, no
+    device synchronisation)."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return torch.profiler.record_function(name)
 
 
-def timer(fn=None, *, name: Optional[str] = None, record: bool = True):
-    """Decorator: device-synchronized wall-clock seconds of each call,
-    appended to the in-process records and printed on rank 0."""
+def spanned(name: str):
+    """Decorator: each call of the function runs inside ``span(name)``."""
 
-    def wrap(f):
-        label = name or f.__qualname__
-
-        @functools.wraps(f)
+    def wrap(fn):
+        @functools.wraps(fn)
         def inner(*args, **kwargs):
-            _sync()
-            t0 = time.perf_counter()
-            out = f(*args, **kwargs)
-            _sync()
-            dt = time.perf_counter() - t0
-            if record:
-                _RECORDS.append({"name": label, "seconds": dt,
-                                 "ts": time.time()})
-            if _rank() == 0:
-                print(f"[timer] {label}: {dt:.3f}s", file=sys.stderr)
-            return out
-
+            with span(name):
+                return fn(*args, **kwargs)
         return inner
 
-    return wrap(fn) if fn is not None else wrap
-
-
-def records() -> List[Dict]:
-    return list(_RECORDS)
-
-
-def dump_records(path: str) -> None:
-    """The records as a jsonl file (the reference writes Excel rows)."""
-    with open(path, "w") as f:
-        for r in _RECORDS:
-            f.write(json.dumps(r) + "\n")
-
-
-def reset_records() -> None:
-    _RECORDS.clear()
+    return wrap
 
 
 @contextlib.contextmanager
