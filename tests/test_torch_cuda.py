@@ -3,8 +3,9 @@ forward B1, the forward with LSE B2, the backward B3) and the int8
 attention kernel B4 against their plain versions, their shape checks, the
 pipeline's and the trainer's default device, fp8 weights, runtime LoRA,
 the Wan2.2 pipeline and the Wan2.2 VAE on the card, umT5 offload and
-the serving controller's weight swap, and Ulysses and ring attention on
-ranks' shards.
+the serving controller's weight swap, Ulysses and ring attention on
+ranks' shards, and the DiT block's fused elementwise passes against their
+plain steps.
 
 These tests need an NVIDIA GPU and nvcc, and skip without them. The module
 imports neither JAX nor the JAX package, so that on a GPU machine without
@@ -24,6 +25,7 @@ from videocof_torch.models.t5_encoder import init_t5_encoder
 from videocof_torch.models.wan_dit import init_wan_dit
 from videocof_torch.models.wan_vae import init_wan_vae
 from videocof_torch.ops import attention
+from videocof_torch.ops import dit_fused as df
 from videocof_torch.ops import flash_attention as fa
 from videocof_torch.ops import int8_attention as i8
 from videocof_torch.ops.flash_attention import (flash_attention,
@@ -1272,3 +1274,225 @@ def test_tp_forward_under_nccl_matches_whole(cuda, tmp_path):
         assert res["q"] == (256, 512)
         assert res["counts"]["flash_attention_fwd"] == 4
         _close(res["got"], res["want"], rel_tol=2e-2)
+
+
+# ------------------------------------------- the DiT's fused elementwise passes
+# The passes against the block's plain steps on the same card. Their
+# residual adds round each product and sum as the plain path's tensors do,
+# so the fp32 stream is the plain one bit for bit. Their row reductions
+# (LayerNorm's mean and variance, RMSNorm's mean square) add in another order
+# than PyTorch's kernels and take rsqrtf, which moves fp32 values by a few
+# ulps and so flips a bf16 rounding in a small share of elements: each bf16
+# output lies within one bf16 ulp of the larger of the two magnitudes (plus
+# 1e-5 for values that cancel to about 0), and at most 0.1% of the elements
+# differ at all. After RoPE the bound is three ulps of the pair's norm: a
+# flipped input moves both values of its rotated pair, each rounded again.
+DIT_SHARE = 1e-3
+DIT_ATOL = 1e-5
+DIT_WIDTHS = [(5120, 40), (1536, 12)]      # the 14B's and the 1.3B's
+DIT_LENGTHS = [(1, 29_640), (2, 77)]       # the edit's tokens; a short batch
+
+
+def _bf16_ulp(t):
+    return torch.exp2(torch.floor(torch.log2(t.clamp_min(2.0 ** -126))) - 7)
+
+
+def _bf16_near(got, want, mag=None, ulps=1):
+    assert got.dtype == want.dtype == torch.bfloat16
+    assert got.shape == want.shape
+    g, w = got.float(), want.float()
+    if mag is None:
+        mag = torch.maximum(g.abs(), w.abs())
+    diff = (g - w).abs()
+    worst = (diff - ulps * _bf16_ulp(mag) - DIT_ATOL).max().item()
+    assert worst <= 0, f"{worst} beyond {ulps} bf16 ulps"
+    share = (diff > 0).float().mean().item()
+    assert share <= DIT_SHARE, f"{share:.2e} of the elements differ"
+
+
+def _pair_norm(t, B, L, D):
+    p = t.float().view(B, L, D // 2, 2)
+    return p.norm(dim=-1, keepdim=True).expand_as(p).reshape(B, L, D)
+
+
+def _dit_inputs(dev, B, L, D, hd, seed, per_sample=False):
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape, dtype=torch.float32, scale=1.0):
+        return (scale * torch.randn(*shape, generator=g, device=dev)).to(dtype)
+
+    e = randn(B, 6, D, scale=0.1)
+    ang = randn(*((B,) if per_sample else ()), L, hd // 2, scale=3.0)
+    bf16 = torch.bfloat16
+    return dict(x=randn(B, L, D, scale=2.0), y=randn(B, L, D, dtype=bf16),
+                e_=[e[:, i][:, None, :] for i in range(6)],
+                q=randn(B, L, D, dtype=bf16), k=randn(B, L, D, dtype=bf16),
+                w=1.0 + randn(D, dtype=bf16, scale=0.1),
+                b=randn(D, dtype=bf16, scale=0.1),
+                cos=torch.cos(ang), sin=torch.sin(ang))
+
+
+def _plain(fn, *args):
+    """A pass's plain version computed on the card (the wrapper takes it
+    only for CPU tensors): the same helpers, on CUDA tensors."""
+    return getattr(df, f"{fn}_reference")(*args)
+
+
+def _stream_checks(t, eps=1e-6):
+    x, y, e_, w, b = t["x"], t["y"], t["e_"], t["w"], t["b"]
+    before = df.launch_counts()
+    tx = df.ln_modulate(x, e_[0], e_[1], eps)
+    _bf16_near(tx, _plain("ln_modulate", x, e_[0], e_[1], eps))
+    x1, nx = df.gate_residual_ln(x, y, e_[2], eps, w, b)
+    want_x, want_nx = _plain("gate_residual_ln", x, y, e_[2], eps, w, b)
+    assert torch.equal(x1, want_x)
+    _bf16_near(nx, want_nx)
+    x1n, nxn = df.gate_residual_ln(x, y, e_[2], eps)       # no norm3
+    assert torch.equal(x1n, want_x) and torch.equal(nxn, want_x.bfloat16())
+    x2, tx2 = df.residual_ln_modulate(x1, y, e_[3], e_[4], eps)
+    want_x, want_tx = _plain("residual_ln_modulate", x1, y, e_[3], e_[4],
+                                 eps)
+    assert torch.equal(x2, want_x)
+    _bf16_near(tx2, want_tx)
+    x3 = df.gate_residual(x2, y, e_[5])
+    assert torch.equal(x3, _plain("gate_residual", x2, y, e_[5]))
+    after = df.launch_counts()
+    assert {k: after[k] - before[k] for k in after} == {
+        "ln_modulate": 1, "qk_norm_rope": 0, "qk_norm_rope_q": 0,
+        "gate_residual_ln": 2, "residual_ln_modulate": 1, "gate_residual": 1}
+
+
+def _qk_checks(t, B, L, D, eps=1e-6):
+    q, k, w = t["q"], t["k"], t["w"]
+    got_q, got_k = df.qk_norm_rope(q, k, w, -w, eps, t["cos"], t["sin"])
+    torch.cuda.synchronize()
+    want_q, want_k = _plain("qk_norm_rope", q, k, w, -w, eps, t["cos"],
+                                t["sin"])
+    for got, want in ((got_q, want_q), (got_k, want_k)):
+        _bf16_near(got, want, mag=_pair_norm(want, B, L, D), ulps=3)
+    # RoPE off, q alone: the cross-attention's q
+    got_q, none = df.qk_norm_rope(q, None, w, None, eps)
+    assert none is None
+    _bf16_near(got_q, _plain("qk_norm_rope", q, None, w, None, eps)[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,N", DIT_WIDTHS)
+@pytest.mark.parametrize("B,L", DIT_LENGTHS)
+def test_dit_stream_passes_match_plain(cuda, D, N, B, L):
+    """ln_modulate, gate_residual_ln (with and without norm3),
+    residual_ln_modulate and gate_residual at the 14B's and the 1.3B's
+    widths, over the edit's 29,640 tokens and a short batch of 2."""
+    _stream_checks(_dit_inputs(cuda, B, L, D, D // N, seed=D + L))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,N", DIT_WIDTHS)
+@pytest.mark.parametrize("B,L", DIT_LENGTHS)
+def test_dit_qk_pass_matches_plain(cuda, D, N, B, L):
+    """q and k RMSNorm with RoPE in one launch, and q alone without it;
+    the short batch takes per-sample tables [B, L, hd/2]."""
+    t = _dit_inputs(cuda, B, L, D, D // N, seed=2 * D + L,
+                    per_sample=B > 1)
+    _qk_checks(t, B, L, D)
+
+
+@pytest.mark.cuda
+def test_dit_passes_read_strided_inputs(cuda):
+    """A stream that is a view of every other row block (a sequence
+    shard's chunk), per-sample tables that are views, and one modulation
+    row broadcast over the batch."""
+    B, L, D, hd = 2, 96, 1536, 128
+    t = _dit_inputs(cuda, B, 2 * L, D, hd, seed=5, per_sample=True)
+    for key in ("x", "y", "q", "k", "cos", "sin"):
+        t[key] = t[key][:, L:]
+    t["e_"] = [e[:1] for e in t["e_"]]
+    assert not t["x"].is_contiguous() and not t["cos"].is_contiguous()
+    _stream_checks(t)
+    _qk_checks(t, B, L, D)
+
+
+@pytest.mark.cuda
+def test_dit_passes_refuse_what_they_do_not_take(cuda):
+    t = _dit_inputs(cuda, 1, 8, 256, 128, seed=6)
+    x, y, e_, q, w = t["x"], t["y"], t["e_"], t["q"], t["w"]
+    with pytest.raises(NotImplementedError):
+        df.ln_modulate(x.bfloat16(), e_[0], e_[1], 1e-6)      # not fp32
+    with pytest.raises(NotImplementedError):
+        df.qk_norm_rope(q.half(), None, w, None, 1e-6)        # not bf16
+    with pytest.raises(NotImplementedError):                  # D % 4
+        df.gate_residual(x[..., :254].contiguous(), y[..., :254].contiguous(),
+                         e_[5][..., :254].contiguous())
+    shifted = x.reshape(-1)[1:1 + x.numel() - 256].view(1, 7, 256)
+    with pytest.raises(NotImplementedError):                  # 4-byte aligned
+        df.ln_modulate(shifted, e_[0], e_[1], 1e-6)
+    with pytest.raises(ValueError):
+        df.gate_residual(x, y[:, :4], e_[5])
+    with pytest.raises(NotImplementedError):
+        df.qk_norm_rope(q, None, w, None, 1e-6, t["cos"].double(),
+                        t["sin"].double())
+    with pytest.raises(ValueError):
+        df.qk_norm_rope(q, None, w, None, 1e-6, t["cos"][:4], t["sin"][:4])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,N,B,L", [(1536, 12, 1, 29_640),
+                                     (5120, 40, 2, 1_560)])
+def test_wan_block_fused_matches_plain(cuda, D, N, B, L):
+    """One WanBlock with bf16 weights on the same inputs: under no_grad its
+    call takes the five passes, under autograd (its parameters require
+    grad) the plain steps. The two updates of the stream agree within one
+    bf16 rounding (2^-8 relative L2): only the passes' reductions differ,
+    and they flip a bf16 rounding of a small share of the branch inputs."""
+    from videocof_torch.configs import WAN21_T2V_1_3B
+    cfg = WAN21_T2V_1_3B.replace(dim=D, num_heads=N, num_layers=1,
+                                 ffn_dim=4 * D)
+    g = torch.Generator(device=cuda).manual_seed(7)
+    blk = init_wan_dit(cfg, g, torch.bfloat16).blocks[0]
+    x = 2.0 * torch.randn(B, L, D, generator=g, device=cuda)
+    e0 = 0.1 * torch.randn(B, 6, D, generator=g, device=cuda)
+    ctx = torch.randn(B, 512, D, generator=g, device=cuda).bfloat16()
+    ang = 3.0 * torch.randn(B, L, D // N // 2, generator=g, device=cuda)
+    rope = (torch.cos(ang), torch.sin(ang))
+    df.reset_counts()
+    with torch.no_grad():
+        fused = blk(x, e0, ctx, rope)
+    with torch.enable_grad():
+        plain = blk(x, e0, ctx, rope).detach()
+    torch.cuda.synchronize()
+    assert df.block_counts() == {"fused": 1, "plain": 1}
+    assert df.launch_counts() == {
+        "ln_modulate": 1, "qk_norm_rope": 1, "qk_norm_rope_q": 1,
+        "gate_residual_ln": 1, "residual_ln_modulate": 1, "gate_residual": 1}
+    du, dp = fused - x, plain - x
+    rel = ((du - dp).norm() / dp.norm()).item()
+    assert rel <= 2.0 ** -8, rel
+
+
+@pytest.mark.cuda
+def test_tiny_edit_fuses_every_block_call(cuda):
+    """Every block call of an edit on the card takes the fused passes, and
+    each pass launches once a call (the q/k pass twice: self-attention's q
+    and k, counted as "qk_norm_rope", then the cross-attention's q alone,
+    "qk_norm_rope_q")."""
+    dcfg = WAN_TINY.replace(dim=256, ffn_dim=512, num_heads=2,
+                            in_dim=VAE_TINY.z_dim, out_dim=VAE_TINY.z_dim,
+                            text_dim=T5_TINY.dim)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    bf16 = torch.bfloat16
+    pipe = WanPipeline(init_wan_dit(dcfg, g, bf16),
+                       init_wan_vae(VAE_TINY, g, bf16),
+                       init_t5_encoder(T5_TINY, g, bf16), dtype=bf16)
+    video = np.random.default_rng(0).integers(0, 256, (1, 3, 9, 32, 32),
+                                              dtype=np.uint8)
+    df.reset_counts()
+    out = pipe(video, "remove the ball", source_frames=9, reasoning_frames=4,
+               num_inference_steps=2, output_latents=True)
+    calls = dcfg.num_layers * 2
+    assert df.block_counts() == {"fused": calls, "plain": 0}
+    assert df.launch_counts() == {
+        "ln_modulate": calls, "qk_norm_rope": calls, "qk_norm_rope_q": calls,
+        "gate_residual_ln": calls, "residual_ln_modulate": calls,
+        "gate_residual": calls}
+    assert np.isfinite(out.latents).all()

@@ -4,8 +4,13 @@ Counterpart of `videocof_tpu/models/wan_dit.py` (`wan_dit_forward`). The
 precision islands are the same: the residual stream is stored in
 ``cfg.stream_dtype``; LayerNorm, AdaLN modulation and the time MLP run in
 fp32; q/k RMSNorm returns its input dtype; matmul inputs are cast to the
-parameter dtype. Patch embedding is patchify + linear (identical to the
-stride == kernel Conv3d). RoPE arrives as per-token cos/sin tables.
+parameter dtype. On CUDA, with no gradient recorded, no tensor parallelism,
+the fp32 stream and bf16 branches, the block's elementwise chain (AdaLN
+modulation, the residual adds with the cross-attention norm, q/k RMSNorm
+with RoPE) runs as the five hand-written passes of `ops/dit_fused.py`, with
+the same arithmetic; elsewhere as the plain steps. Patch embedding is
+patchify + linear (identical to the stride == kernel Conv3d). RoPE arrives
+as per-token cos/sin tables.
 
 Activation checkpointing of the blocks (``remat_blocks``) takes JAX's
 named policies where they mean something on a torch graph (`remat_policy`),
@@ -31,6 +36,7 @@ added onto the patch embeddings.
 from __future__ import annotations
 
 import functools
+import itertools
 import math
 from typing import Dict, Optional, Tuple, Union
 
@@ -42,7 +48,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..configs import WanDiTConfig
-from ..ops import attention
+from ..ops import attention, dit_fused
 from ..utils.fp8 import compute_dtype as _kernel_dtype
 from ..utils.fp8 import dequantize
 from ..utils.profiling import spanned
@@ -257,11 +263,21 @@ class Attention(nn.Module):
         x_in = _tp_enter(x_in, tp)
         kv_in = x_in if kv_in is None else _tp_enter(kv_in, tp)
         w = weights or {}
-        q = _rms_norm_tp(_linear(x_in, self.q, weight=w.get("q")),
-                         self.norm_q.weight, eps, tp, D)
-        k = _rms_norm_tp(_linear(kv_in, self.k, weight=w.get("k")),
-                         self.norm_k.weight, eps, tp, D)
+        q = _linear(x_in, self.q, weight=w.get("q"))
+        k = _linear(kv_in, self.k, weight=w.get("k"))
         v = _linear(kv_in, self.v, weight=w.get("v"))
+        wq, wk = self.norm_q.weight, self.norm_k.weight
+        paired = k.shape == q.shape        # self-attention: one launch
+        if (paired or rope_cs is None) and dit_fused.plain_reason(
+                q.device, None, q.dtype, tp, rope_dtype,
+                (q, k, wq, wk)) is None:
+            q, kn = dit_fused.qk_norm_rope(q, k if paired else None, wq, wk,
+                                           eps, *(rope_cs or (None, None)))
+            k = kn if paired else _rms_norm(k, wk, eps)
+            rope_cs = None                 # rotated in the pass
+        else:
+            q = _rms_norm_tp(q, wq, eps, tp, D)
+            k = _rms_norm_tp(k, wk, eps, tp, D)
         hd = q.shape[-1] // n
         q = q.view(B, L, n, hd)
         k = k.view(B, k.shape[1], n, hd)
@@ -360,41 +376,55 @@ class WanBlock(nn.Module):
         cfg, eps = self.cfg, self.cfg.eps
         tp = self.tp
         fused = fused_block_weights(self, lora)
+        rope_dtype = getattr(torch, cfg.rope_dtype)
+        # the elementwise chain in five passes (`ops/dit_fused.py`) where
+        # nothing needs what the kernels lack: a backward, TP's all-reduce,
+        # other dtypes; else the same steps as plain tensors, in the
+        # branches' dtype
+        df = dit_fused
+        if df.count_block(df.plain_reason(
+                x.device, x.dtype, context.dtype, tp, rope_dtype,
+                itertools.chain((x, e0, context), self.parameters(),
+                                *(d.values() for d in fused.values())))
+                is None):
+            ln_mod, gate_ln = df.ln_modulate, df.gate_residual_ln
+            res_ln, gate_res = df.residual_ln_modulate, df.gate_residual
+        else:
+            bdt = context.dtype
+            ln_mod = functools.partial(df.ln_modulate_reference, dtype=bdt)
+            gate_ln = functools.partial(df.gate_residual_ln_reference,
+                                        dtype=bdt)
+            res_ln = functools.partial(df.residual_ln_modulate_reference,
+                                       dtype=bdt)
+            gate_res = df.gate_residual_reference
         e = self.modulation[None].float() + e0                  # [B, 6, D]
         e_ = [e[:, i][:, None, :] for i in range(6)]
-        sdt = x.dtype
+        norm3 = ((self.norm3.scale, self.norm3.bias) if cfg.cross_attn_norm
+                 else (None, None))
 
-        tx = _layer_norm(x, eps) * (1.0 + e_[1]) + e_[0]
-        y = self.self_attn(tx.to(context.dtype), cfg.num_heads, eps,
+        tx = ln_mod(x, e_[0], e_[1], eps)
+        y = self.self_attn(tx, cfg.num_heads, eps,
                            rope_cs=rope_cs, kv_mask=seq_mask,
-                           backend=attn_backend,
-                           rope_dtype=getattr(torch, cfg.rope_dtype),
+                           backend=attn_backend, rope_dtype=rope_dtype,
                            weights=fused["self_attn"], tp=tp)
         if tag_names:
             y = checkpoint_name(y, "attn_out")
-        x = (x.float() + y.float() * e_[2]).to(sdt)
-
-        if cfg.cross_attn_norm:
-            nx = _layer_norm(x, eps, self.norm3.scale, self.norm3.bias)
-        else:
-            nx = x
+        x, nx = gate_ln(x, y, e_[2], eps, *norm3)
         xattn_backend = None if callable(attn_backend) else attn_backend
         if hasattr(self.cross_attn, "k_img"):
             y = self.cross_attn.forward_i2v(
-                nx.to(context.dtype), cfg.num_heads, eps,
+                nx, cfg.num_heads, eps,
                 context[:, :IMAGE_TOKENS], context[:, IMAGE_TOKENS:],
                 backend=xattn_backend, weights=fused["cross_attn"], tp=tp)
         else:
-            y = self.cross_attn(nx.to(context.dtype), cfg.num_heads, eps,
+            y = self.cross_attn(nx, cfg.num_heads, eps,
                                 kv_in=context, backend=xattn_backend,
                                 weights=fused["cross_attn"], tp=tp)
         if tag_names:
             y = checkpoint_name(y, "xattn_out")
-        x = (x.float() + y.float()).to(sdt)
-
-        tx = _layer_norm(x, eps) * (1.0 + e_[4]) + e_[3]
-        h = ffn_apply(self.ffn, tx.to(context.dtype), tp, fused["ffn"])
-        return (x.float() + h.float() * e_[5]).to(sdt)
+        x, tx = res_ln(x, y, e_[3], e_[4], eps)
+        h = ffn_apply(self.ffn, tx, tp, fused["ffn"])
+        return gate_res(x, h, e_[5])
 
 
 class _MLP2(nn.Module):

@@ -220,14 +220,15 @@ def _bwd_library() -> ctypes.CDLL:
 
 def build() -> Dict[str, float]:
     """Build (or load) every kernel's library of the port, the int8 kernel
-    B4's too, in parallel; returns the build seconds per source (0.0 when it
-    came from the build cache)."""
-    from . import int8_attention   # it imports this module
-    sources = (SOURCE, BWD_SOURCE, int8_attention.SOURCE)
+    B4's and the DiT's fused passes' too, in parallel; returns the build
+    seconds per source (0.0 when it came from the build cache)."""
+    from . import dit_fused, int8_attention   # int8_attention imports this
+    sources = (SOURCE, BWD_SOURCE, int8_attention.SOURCE, dit_fused.SOURCE)
     _build.build_all(sources)
     _library()
     _bwd_library()
     int8_attention._library()
+    dit_fused._library()
     return {s: _build.build_info[s]["seconds"] for s in sources}
 
 
