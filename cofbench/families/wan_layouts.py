@@ -1,4 +1,5 @@
-"""The published checkpoint layouts the benchmark draws its weights in: every
+"""The Wan family's weights: the published checkpoint layouts the benchmark
+draws them in, and their draws from the seed (one stream a model). Every
 key of a Wan2.1 DiT (``diffusion_pytorch_model*.safetensors``), of the
 Wan2.1 VAE (``Wan2.1_VAE.pth``), of the umT5-XXL encoder
 (``models_t5_umt5-xxl-enc-bf16.pth``) and of a LoRA file (kohya or PEFT),
@@ -16,6 +17,10 @@ from __future__ import annotations
 
 import math
 from typing import List, Tuple
+
+import torch
+
+from cofbench.inputs import draw, sub_seed
 
 Entry = Tuple[str, Tuple[int, ...], float, float]    # key, shape, mean, std
 
@@ -176,3 +181,31 @@ def t5(cfg: dict) -> List[Entry]:
                  (2 * cfg["num_buckets"] * h) ** -0.5)]
     out.append(("norm.weight", (d,), 1.0, GAIN_STD))
     return out
+
+
+def dit_weights(config: dict, seed: int, device, dtype):
+    return draw(dit(config["dit"]), sub_seed(seed, "dit"), device, dtype)
+
+
+def vae_weights(config: dict, seed: int, device, dtype):
+    return draw(vae(config["vae"]), sub_seed(seed, "vae"), device, dtype)
+
+
+def t5_weights(config: dict, seed: int, device, dtype):
+    return draw(t5(config["text_encoder"]), sub_seed(seed, "t5"), device,
+                dtype)
+
+
+def lora_files(config: dict, seed: int, device, dtype):
+    """[(LoRA state dict, multiplier)] of the configuration's ``lora`` list,
+    in order; a kohya file carries its ``alpha`` per module."""
+    files = []
+    for spec in config.get("lora", ()):
+        sd = draw(lora(config["dit"], spec["format"], spec["rank"]),
+                  sub_seed(seed, "lora", spec["name"]), device, dtype)
+        if spec["format"] == "kohya":
+            for key in [k for k in sd if k.endswith(".lora_down.weight")]:
+                sd[key[:-len(".lora_down.weight")] + ".alpha"] = torch.tensor(
+                    float(spec["alpha"]))
+        files.append((sd, float(spec["multiplier"])))
+    return files

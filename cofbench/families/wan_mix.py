@@ -1,8 +1,9 @@
-"""The one generator of edits. A traffic mix is a JSON file under
-``cofbench/traffic/`` that gives the clip geometry, the sampler settings and
-the instruction templates; edit ``i`` of a run with seed ``s`` draws its
-source clip (uint8), its latent noise and its instruction from streams of
-``(s, i)`` alone, so a reference can draw the same edit again."""
+"""The Wan family's generator of chain-of-frames edits. A traffic mix is a
+JSON file under ``cofbench/traffic/`` that gives the clip geometry, the
+sampler settings and the instruction templates; edit ``i`` of a run with
+seed ``s`` draws its source clip (uint8), its latent noise and its
+instruction from streams of ``(s, i)`` alone, so a reference can draw the
+same edit again."""
 
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ from typing import Optional
 
 import torch
 
-from .inputs import sub_seed
+from cofbench.inputs import sub_seed
 
 
 def latent_frames(pixel_frames: int, ratio: int = 4) -> int:

@@ -1,12 +1,15 @@
-"""The system under test, `videocof_torch`, as the benchmark drives it: the
-pipeline built from the benchmark's published-layout weights through the
-port's own checkpoint converters (what `factory.load_pipeline` does with a
-checkpoint directory, without writing 28.6 GB to disk first), the LoRA
-files merged in order by `models.lora.merge_lora`, and one edit as a user
-calls `WanPipeline.__call__`. This module is the only one of the harness
+"""The system under test of the Wan family, `videocof_torch`'s
+`WanPipeline`, as the benchmark drives it: the pipeline built from the
+benchmark's published-layout weights through the port's own checkpoint
+converters (what `factory.load_pipeline` does with a checkpoint directory,
+without writing 28.6 GB to disk first), the LoRA files merged in order by
+`models.lora.merge_lora`, and one edit as a user calls
+`WanPipeline.__call__`. This module is the only one of the family
 that imports the program."""
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -123,3 +126,46 @@ def trace_spans(pipe):
     pipe.dit.forward_with_residual = spanned(
         "cof.dit", pipe.dit.forward_with_residual)
 
+
+class DiTCalls:
+    """Host copies of what the DiT computed in one edit: each call's
+    velocity, and the inputs of call ``keep`` (the latents, timestep and
+    prompt embeddings as the DiT took them). Nothing stays on the card."""
+
+    def __init__(self):
+        self.keep: Optional[int] = None
+        self.velocity: list = []
+        self.inputs: Optional[dict] = None
+
+    def start(self, keep: int) -> None:
+        self.keep, self.velocity, self.inputs = keep, [], None
+
+    def take(self) -> dict:
+        out = {"velocity": self.velocity, "inputs": self.inputs,
+               "keep": self.keep}
+        self.velocity, self.inputs = [], None
+        return out
+
+
+def _host(t: torch.Tensor) -> torch.Tensor:
+    """A host copy (a CPU tensor too is copied: the pipeline writes into
+    the velocity after the call)."""
+    return t.to("cpu", copy=True)
+
+
+def capture_dit(pipe) -> DiTCalls:
+    """Wrap the pipeline's DiT forward so that each call leaves its host
+    copies in the returned `DiTCalls` (the velocity before the pipeline
+    freezes the source frames in place)."""
+    calls = DiTCalls()
+    real = pipe.dit.forward_with_residual
+
+    def forward(x, t, context, *args, **kw):
+        out = real(x, t, context, *args, **kw)
+        if len(calls.velocity) == calls.keep:
+            calls.inputs = {"x": _host(x), "t": _host(t),
+                            "context": _host(context)}
+        calls.velocity.append(_host(out[0]))
+        return out
+    pipe.dit.forward_with_residual = forward
+    return calls

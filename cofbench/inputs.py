@@ -1,8 +1,8 @@
-"""Everything a run feeds the program and the reference, made from
-``--seed``: weights in the published layouts (`layouts`), drawn on the
-device in the type they are served in by a few normal draws a model (one
-a 2**30 elements), then scaled view by view; LoRA factors; and each
-edit's source clip, noise and instruction (`traffic`)."""
+"""The seeded streams every run draws from ``--seed``: a 63-bit sub-seed
+for each named stream, and the normal draw of a weight layout on the
+device in the type it is served in (a few calls a model, one a 2**30
+elements, then scaled view by view). Each family draws its weights and its
+units' inputs from these (`cofbench/families/`)."""
 
 from __future__ import annotations
 
@@ -11,7 +11,6 @@ from typing import Dict
 
 import torch
 
-from . import layouts
 
 # elements a draw call fills (below 2**31, so no kernel needs 64-bit indexing)
 DRAW_CHUNK = 1 << 30
@@ -49,33 +48,3 @@ def _numel(shape) -> int:
     for s in shape:
         n *= s
     return n
-
-
-def dit_weights(config: dict, seed: int, device, dtype):
-    return draw(layouts.dit(config["dit"]), sub_seed(seed, "dit"), device,
-                dtype)
-
-
-def vae_weights(config: dict, seed: int, device, dtype):
-    return draw(layouts.vae(config["vae"]), sub_seed(seed, "vae"), device,
-                dtype)
-
-
-def t5_weights(config: dict, seed: int, device, dtype):
-    return draw(layouts.t5(config["text_encoder"]), sub_seed(seed, "t5"),
-                device, dtype)
-
-
-def lora_files(config: dict, seed: int, device, dtype):
-    """[(LoRA state dict, multiplier)] of the configuration's ``lora`` list,
-    in order; a kohya file carries its ``alpha`` per module."""
-    files = []
-    for spec in config.get("lora", ()):
-        sd = draw(layouts.lora(config["dit"], spec["format"], spec["rank"]),
-                  sub_seed(seed, "lora", spec["name"]), device, dtype)
-        if spec["format"] == "kohya":
-            for key in [k for k in sd if k.endswith(".lora_down.weight")]:
-                sd[key[:-len(".lora_down.weight")] + ".alpha"] = torch.tensor(
-                    float(spec["alpha"]))
-        files.append((sd, float(spec["multiplier"])))
-    return files

@@ -1,8 +1,8 @@
 """The attention kernels' share of their roofline: the sum of the bounds
-of the DiT's attention calls of the traced edits (self and cross at the
-cell's shapes; q, k, v read once and o written once, against 989 TFLOP/s
-and 3.35 TB/s), over the summed device time of the port's attention
-kernels (`trace.ATTENTION_KERNELS`), in percent."""
+of the attention calls of the traced units' forwards (as the family gives
+them at the cell's shapes; q, k, v read once and o written once, against
+989 TFLOP/s and 3.35 TB/s), over the summed device time of the port's
+attention kernels (`trace.ATTENTION_KERNELS`), in percent."""
 
 from cofbench import yardstick
 
@@ -13,9 +13,8 @@ def read(w):
     kernel_us = w.trace.device_us("attention")
     if kernel_us <= 0.0:
         return None
-    cfg = w.config["dit"]
-    calls = yardstick.attention_calls(cfg, w.mix.tokens(cfg["patch_size"]),
-                                      w.mix.text_len)
+    fam = w.family
     bound = sum(yardstick.bound_s(*yardstick.attention_work(*c))
-                for c in calls)
-    return 100.0 * w.edits * w.mix.steps * bound / (kernel_us * 1e-6)
+                for c in fam.attention_calls(w.config, w.mix))
+    return 100.0 * w.edits * fam.forwards(w.config, w.mix) * bound / (
+        kernel_us * 1e-6)

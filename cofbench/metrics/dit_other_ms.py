@@ -1,6 +1,6 @@
-"""Device milliseconds per DiT forward in kernels launched inside the
-DiT's span that are neither attention, GEMM nor convolution kernels: the
-elementwise work, norms, RoPE and copies."""
+"""Device milliseconds per denoiser forward in kernels launched inside
+the ``cof.dit`` span that are neither attention, GEMM nor convolution
+kernels: the elementwise work, norms, RoPE and copies."""
 
 
 def read(w):
@@ -10,4 +10,4 @@ def read(w):
     if dit_us <= 0.0:
         return None
     return w.trace.device_us("other", span="cof.dit") / 1e3 / (
-        w.edits * w.mix.steps)
+        w.edits * w.family.forwards(w.config, w.mix))

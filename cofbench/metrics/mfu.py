@@ -1,7 +1,7 @@
-"""Model FLOP of the edits completed in the traced window (the DiT's
-forwards and the VAE's encode and decodes, from shapes: `yardstick`), over
-the window's seconds times the H100's bf16 peak, in percent. The text
-encoder's FLOP are left out."""
+"""Model FLOP of the units completed in the traced window (as the family
+counts them from shapes: for Wan the DiT's forwards and the VAE's encode
+and decodes, the text encoder left out), over the window's seconds times
+the H100's bf16 peak, in percent."""
 
 from cofbench.yardstick import PEAK_BF16_FLOPS
 

@@ -10,15 +10,23 @@ by itself, the trajectory started from the program's own source latents
 and prompt embeddings (what its timed call produced), so that the umT5
 stage's bf16 rounding, which is larger than the DiT's, does not hide the
 DiT's; with ``whole``, the reference's own edit beside it, to hold the
-program's whole edit. The weights are drawn again from the seed
-(`cofbench.inputs`), one model at a time, so that the 14B's fit with
-nothing else on the card."""
+program's whole edit. `step_products` holds a long clip's edit, whose
+float32 trajectory would not fit a run, stage by stage on the streamed VAE:
+one DiT forward on the inputs the program's DiT took at one step, and the
+sampler replayed over the velocities the program's DiT returned. The
+weights are drawn again from the seed (`cofbench.families.wan_layouts`),
+one model at a time, so that the 14B's fit with nothing else on the
+card."""
 
 from __future__ import annotations
 
+import sys
+import time
+
 import torch
 
-from .. import inputs
+from cofbench.families import wan_layouts as layouts
+
 from . import dit, rope, t5, tokenizer, unipc, vae
 
 FP8_MAX = 448.0       # the largest finite float8_e4m3fn
@@ -47,18 +55,20 @@ def encode_text(config, prompt, text_len, seed, device, served_dtype,
     tcfg = config["text_encoder"]
     ids, mask = tokenizer.tokenize(prompt, text_len, tcfg["vocab"])
     ids, mask = (torch.as_tensor(a, device=device) for a in (ids, mask))
-    sd = inputs.t5_weights(config, seed, device, served_dtype)
+    sd = layouts.t5_weights(config, seed, device, served_dtype)
     return t5.encode(sd, tcfg, ids, mask, quant) * mask[..., None]
 
 
 def vae_weights(config, seed, device, served_dtype, quant=None):
-    return vae.Weights(inputs.vae_weights(config, seed, device, served_dtype),
+    return vae.Weights(layouts.vae_weights(config, seed, device, served_dtype),
                        device, quant)
 
 
-def encode_clip(W, config, clip: torch.Tensor) -> torch.Tensor:
+def encode_clip(W, config, clip: torch.Tensor, streamed: bool = False
+                ) -> torch.Tensor:
     """The normalised latent mean of a uint8 clip."""
-    return vae.encode(W, config["vae"], clip.float() * (2.0 / 255.0) - 1.0)
+    return vae.encode(W, config["vae"], clip.float() * (2.0 / 255.0) - 1.0,
+                      streamed)
 
 
 def denoise(config, mix, seed, starts, src, ground, device, served_dtype,
@@ -69,16 +79,8 @@ def denoise(config, mix, seed, starts, src, ground, device, served_dtype,
     of its linears), then the source frozen. Returns the final latents of
     each."""
     dcfg = config["dit"]
-    patch = dcfg["patch_size"]
-    shape = starts[0][0].shape
-    grid = (shape[2] // patch[0], shape[3] // patch[1], shape[4] // patch[2])
-    table = rope.rope_table(grid, dcfg["dim"] // dcfg["num_heads"], src,
-                            ground, mix.riflex_k, mix.riflex_frames or 66
-                            ).to(device)
-    sd = inputs.dit_weights(config, seed, device, served_dtype)
-    loras = inputs.lora_files(config, seed, device, served_dtype)
-    D = dit.Weights(sd, dit.lora_deltas(loras, dcfg["num_layers"]), device,
-                    quant)
+    table = rope_table(config, mix, starts[0][0].shape, src, ground, device)
+    D = dit_weights(config, seed, device, served_dtype, quant)
     out = []
     for latents, context in starts:
         sampler = unipc.UniPC(mix.steps, mix.shift)
@@ -90,12 +92,58 @@ def denoise(config, mix, seed, starts, src, ground, device, served_dtype,
     return out
 
 
-def decode(W, config, latents, src, ground) -> torch.Tensor:
+def rope_table(config, mix, shape, src, ground, device) -> torch.Tensor:
+    """The chain-of-frames RoPE table (RIFLEx where the mix asks) of
+    latents of ``shape``."""
+    dcfg = config["dit"]
+    patch = dcfg["patch_size"]
+    grid = (shape[2] // patch[0], shape[3] // patch[1], shape[4] // patch[2])
+    return rope.rope_table(grid, dcfg["dim"] // dcfg["num_heads"], src,
+                           ground, mix.riflex_k, mix.riflex_frames or 66
+                           ).to(device)
+
+
+def dit_weights(config, seed, device, served_dtype, quant=None):
+    """The DiT's weights drawn again, the LoRA files' deltas beside them."""
+    sd = layouts.dit_weights(config, seed, device, served_dtype)
+    loras = layouts.lora_files(config, seed, device, served_dtype)
+    return dit.Weights(sd, dit.lora_deltas(loras, config["dit"]["num_layers"]),
+                       device, quant)
+
+
+def replay(mix, start, velocities, src, device, quant=None) -> torch.Tensor:
+    """The sampler from ``start`` over the given velocities of each step
+    (the source frames frozen), to the final latents; ``quant`` rounds the
+    state after each step (the control)."""
+    sampler, x = unipc.UniPC(mix.steps, mix.shift), start
+    for i, v in enumerate(velocities):
+        v = v.to(device, torch.float32).clone()
+        v[:, :, :src] = 0.0
+        x = sampler.step(v, i, x)
+        if quant is not None:
+            x = quant(x)
+    return x
+
+
+def step(config, mix, seed, taken, src, ground, device, served_dtype,
+         quant=None) -> torch.Tensor:
+    """One float32 DiT forward on the inputs the program's DiT took at a
+    step (``x``, ``t``, ``context``), with the reference's RoPE and
+    RIFLEx."""
+    x = taken["x"].to(device, torch.float32)
+    D = dit_weights(config, seed, device, served_dtype, quant)
+    table = rope_table(config, mix, x.shape, src, ground, device)
+    return dit.forward(D, config["dit"], x, float(taken["t"][0]),
+                       taken["context"].to(device, torch.float32), table)
+
+
+def decode(W, config, latents, src, ground, streamed: bool = False
+           ) -> torch.Tensor:
     """The reasoning and the edit segments decoded apart, as uint8 frames."""
     parts = [latents[:, :, src:src + ground]] if ground else []
     parts.append(latents[:, :, src + ground:])
-    return torch.cat([to_u8(vae.decode(W, config["vae"], p)) for p in parts],
-                     dim=2)
+    return torch.cat([to_u8(vae.decode(W, config["vae"], p, streamed))
+                      for p in parts], dim=2)
 
 
 def _supported(mix):
@@ -160,4 +208,53 @@ def check_products(config: dict, mix, seed: int, index: int, context,
     if whole:
         out["whole"] = ends[1].cpu()
     out["frames"] = decode(W, config, lat, src, ground).cpu()
+    return out
+
+
+@torch.no_grad()
+def step_products(config: dict, mix, seed: int, index: int, context,
+                  latents, calls: dict, device,
+                  served_dtype=torch.bfloat16) -> dict:
+    """What edit ``index``'s stages should have produced, as
+    `check_products` has it, with the streamed VAE, and two stages in place
+    of the trajectory: ``step``, the DiT's velocity at the step the program
+    kept the inputs of (``calls``: the program's `DiTCalls`), and
+    ``replay``, the final latents of the sampler from the program's source
+    latents and the drawn noise over the velocities the program's DiT
+    returned. Prints each stage's seconds to standard error. All on the
+    host."""
+    _supported(mix)
+    _precise()
+    t0 = time.perf_counter()
+    stages = []
+
+    def tick(name):
+        nonlocal t0
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+        now = time.perf_counter()
+        stages.append(f"{name} {now - t0:.3f} s")
+        t0 = now
+
+    e = mix.edit(seed, index, config["vae"]["z_dim"], device)
+    out = {"context": encode_text(config, e["prompt"], mix.text_len, seed,
+                                  device, served_dtype).cpu()}
+    tick("umT5")
+    W = vae_weights(config, seed, device, served_dtype)
+    out["source"] = encode_clip(W, config, e["clip"], streamed=True).cpu()
+    tick("VAE encode")
+    src = out["source"].shape[2]
+    ground = e["noise"].shape[2] - src
+    lat = torch.as_tensor(latents, device=device, dtype=torch.float32)
+    start = torch.cat([lat[:, :, :src], e["noise"]], dim=2)
+    out["replay"] = replay(mix, start, calls["velocity"], src, device).cpu()
+    tick("sampler")
+    if calls["inputs"] is not None:
+        out["step"] = step(config, mix, seed, calls["inputs"], src, ground,
+                           device, served_dtype).cpu()
+    tick(f"DiT step {calls['keep']}")
+    out["frames"] = decode(W, config, lat, src, ground, streamed=True).cpu()
+    tick("VAE decode")
+    print("cofbench: reference stages: " + ", ".join(stages),
+          file=sys.stderr, flush=True)
     return out

@@ -5,21 +5,22 @@ one cell, on the chip it is started on.
                             --trace <0|1>
 
 The cell is a ``workloads`` entry of ``BENCHMARK.json``: its configuration
-is ``cofbench/configs/<config>.json``, its traffic mix
+is ``cofbench/configs/<config>.json``, whose ``family`` names the model's
+code ``cofbench/families/<family>.py``, its traffic mix
 ``cofbench/traffic/<traffic>.json``, each metric a reader
 ``cofbench/metrics/<name>.py`` and the limits of its comparison
 ``cofbench/limits/<cell>.json``, all found by name, so a cell, a mix, a
-configuration or a metric is added by adding files and entries.
+configuration, a family or a metric is added by adding files and entries.
 
-A run draws the weights on the card from the seed, builds the pipeline,
-warms the cell's shapes up with a one-step edit, then sends edits back to
-back for ``--seconds`` (finishing the last); with ``--trace 1`` under
-`torch.profiler`, the stage walls taken and the per-layer metrics read,
-otherwise the end-to-end ones. Once the window has closed and the program
-is freed, the plain reference recomputes one edit drawn from the seed and
-the last line of standard output is the result, as JSON, the numbers
-compared and their limits last. Without a card it prints no result and
-exits with 3; with JAX loaded in the process, with 4.
+A run has the family draw the weights on the card from the seed, build the
+system and warm the cell's shapes up, then sends units of work (edits)
+back to back for ``--seconds`` (finishing the last); with ``--trace 1``
+under `torch.profiler`, the stage walls taken and the per-layer metrics
+read, otherwise the end-to-end ones. Once the window has closed and the
+program is freed, the family's plain reference checks one unit drawn from
+the seed and the last line of standard output is the result, as JSON, the
+numbers compared and their limits last. Without a card it prints no
+result and exits with 3; with JAX loaded in the process, with 4.
 """
 
 import time
@@ -57,15 +58,17 @@ def manifest(root: Path = ROOT) -> dict:
 
 
 def cell_files(man: dict, cell: str, root: Path = ROOT):
-    """(the ``workloads`` entry, its configuration, its traffic mix)."""
-    from cofbench.mix import Mix
+    """(the ``workloads`` entry, its configuration, its traffic mix as its
+    family reads it)."""
+    from cofbench import families
     work = next((w for w in man["workloads"] if w["name"] == cell), None)
     if work is None:
         raise SystemExit(f"cofbench: no workload {cell!r} in BENCHMARK.json")
     conf = next(c for c in man["configs"] if c["name"] == work["config"])
     config = json.loads((root / conf["file"]).read_text())
-    return work, config, Mix.load(root / "cofbench" / "traffic"
-                                  / f"{work['traffic']}.json")
+    fam = families.load(config["family"], root)
+    return work, config, fam.load_mix(root / "cofbench" / "traffic"
+                                      / f"{work['traffic']}.json")
 
 
 def readers(man: dict, section: str, cell: str, root: Path = ROOT):
@@ -84,12 +87,6 @@ def readers(man: dict, section: str, cell: str, root: Path = ROOT):
     return out
 
 
-def expected_frames(mix) -> tuple:
-    src, ground, _, _, _ = mix.latent_grid()
-    pixel = lambda n: 1 + (n - 1) * 4     # noqa: E731
-    return (1, 3, pixel(ground) + pixel(src), mix.height, mix.width)
-
-
 def measure(man: dict, cell: str, seed: int, seconds: float, traced: bool,
             device, t0: float = T0, root: Path = ROOT):
     """One run of ``cell`` on ``device``, its files read under ``root``:
@@ -97,44 +94,32 @@ def measure(man: dict, cell: str, seed: int, seconds: float, traced: bool,
     limit)."""
     import torch
 
-    from cofbench import check, inputs, program, yardstick
+    from cofbench import check, families, inputs
     from cofbench import trace as trace_mod
-    from cofbench.reference import edit as reference
     from cofbench.window import Window, closed_loop
     work, config, mix = cell_files(man, cell, root)
+    fam = families.load(config["family"], root)
     dtype = getattr(torch, DTYPES[config["precision"]])
-    z = config["vae"]["z_dim"]
+    limits = check.limits(cell, root)
     cuda = torch.device(device).type == "cuda"
 
     def sync():
         if cuda:
             torch.cuda.synchronize()
 
-    pipe = program.build(config, inputs.dit_weights(config, seed, device,
-                                                    dtype),
-                         inputs.vae_weights(config, seed, device, dtype),
-                         inputs.t5_weights(config, seed, device, dtype),
-                         inputs.lora_files(config, seed, device, dtype),
-                         device, dtype)
-    # the cell's shapes, warmed up by a one-step edit of inputs of its own
-    program.edit(pipe, mix, mix.edit(seed, -1, z, device), steps=1)
+    system = fam.system(config, seed, device, dtype)
+    fam.warm_up(system, config, mix, seed, device)
     if traced:
-        program.trace_spans(pipe)
-    texts = program.keep_text(pipe)
+        fam.trace_spans(system)
+    fam.instrument(system, config, mix, seed, limits)
     sync()
     setup_peak = torch.cuda.max_memory_allocated() if cuda else 0
     if cuda:
         torch.cuda.reset_peak_memory_stats()
-    w = Window(config, mix, setup_s=time.perf_counter() - t0)
+    w = Window(config, mix, setup_s=time.perf_counter() - t0, root=root)
 
     def one(i, timings):
-        e = mix.edit(seed, i, z, device)
-        with torch.profiler.record_function("cof.edit"):
-            frames, latents = program.edit(pipe, mix, e, timings)
-        # the embedding goes to the host, so that the card holds none of
-        # the harness's past the call and the peak is the program's own
-        context = texts.pop().cpu()
-        return frames, latents, context
+        return fam.unit(system, config, mix, seed, i, device, timings)
 
     if traced:
         from torch.profiler import ProfilerActivity, profile
@@ -149,7 +134,7 @@ def measure(man: dict, cell: str, seed: int, seconds: float, traced: bool,
         outs, w.timings, w.seconds = closed_loop(one, seconds, False, sync)
     w.edits = len(outs)
     w.peak_bytes = torch.cuda.max_memory_allocated() if cuda else 0
-    w.flops = yardstick.edit_flops(config, mix)
+    w.flops = fam.unit_flops(config, mix)
 
     metrics = {}
     for m, mod in readers(man, "per_layer" if traced else "end_to_end",
@@ -158,27 +143,21 @@ def measure(man: dict, cell: str, seed: int, seconds: float, traced: bool,
         if value is not None:
             metrics[m["name"]] = {"value": value, "unit": m["unit"]}
 
-    shape = expected_frames(mix)
-    failed = sum(not check.well_formed(f, shape) for f, _, _ in outs)
+    shape = fam.output_shape(config, mix)
+    failed = sum(not check.well_formed(o["frames"], shape) for o in outs)
     index = random.Random(inputs.sub_seed(seed, "sample")).randrange(
         len(outs))
-    frames, latents, context = outs[index]
-    prog = {"frames": frames, "latents": latents,
-            "context": context.float()}
-    del outs, pipe, texts, context
+    out = outs[index]
+    del outs, system
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
-    limits = check.limits(cell, root)
     t_ref = time.perf_counter()
-    ref = reference.check_products(config, mix, seed, index, prog["context"],
-                                   latents, device, dtype,
-                                   whole="edit_rel_l2" in limits)
+    found = fam.check(config, mix, seed, index, out, device, dtype, limits)
     print(f"cofbench: set-up {w.setup_s:.3f} s, window {w.seconds:.3f} s "
           f"({w.edits} edits), reference {time.perf_counter() - t_ref:.3f} "
           f"s", file=sys.stderr, flush=True)
-    ok, table = check.judge(check.numbers(prog, ref, mix.latent_grid()[0]),
-                            limits)
+    ok, table = check.judge(found, limits)
     dev = {"platform": "gpu" if cuda else "cpu",
            "kind": torch.cuda.get_device_name(0) if cuda else "cpu",
            "count": work["chips"],

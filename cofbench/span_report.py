@@ -99,33 +99,27 @@ def report(man: dict, cell: str, seed: int, seconds: float, rounds: int,
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from cofbench import inputs, program, run, spans, trace, yardstick
+    from cofbench import check, families, run, spans, trace
     from cofbench.window import Window, closed_loop
     work, config, mix = run.cell_files(man, cell, root)
+    fam = families.load(config["family"], root)
     dtype = getattr(torch, run.DTYPES[config["precision"]])
-    z = config["vae"]["z_dim"]
     cuda = torch.device(device).type == "cuda"
 
     def sync():
         if cuda:
             torch.cuda.synchronize()
 
-    pipe = program.build(config, inputs.dit_weights(config, seed, device,
-                                                    dtype),
-                         inputs.vae_weights(config, seed, device, dtype),
-                         inputs.t5_weights(config, seed, device, dtype),
-                         inputs.lora_files(config, seed, device, dtype),
-                         device, dtype)
-    program.edit(pipe, mix, mix.edit(seed, -1, z, device), steps=1)
+    system = fam.system(config, seed, device, dtype)
+    fam.warm_up(system, config, mix, seed, device)
+    fam.instrument(system, config, mix, seed, check.limits(cell, root))
     out = {"cell": cell, "seed": seed, "setup_s": time.perf_counter() - T0,
            "span_cost_us": span_cost_us(), "rounds": []}
     count = [0]
 
     def one(i, timings):
-        e = mix.edit(seed, count[0], z, device)
+        fam.unit(system, config, mix, seed, count[0], device, timings)
         count[0] += 1
-        with torch.profiler.record_function("cof.edit"):
-            program.edit(pipe, mix, e, timings)
 
     def traced_window():
         acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda
@@ -150,7 +144,7 @@ def report(man: dict, cell: str, seed: int, seconds: float, rounds: int,
         outs, _, secs = closed_loop(one, seconds, False, sync)
         row["untraced_edit_s"] = secs / len(outs)
         if r == 0:
-            program.trace_spans(pipe)
+            fam.trace_spans(system)
         if r % 2:
             row["traced_spans_off_edit_s"] = spans_off_edit_s()
         prof, outs, timings, secs = traced_window()
@@ -167,7 +161,7 @@ def report(man: dict, cell: str, seed: int, seconds: float, rounds: int,
         row["export_and_read_s"] = time.perf_counter() - t
         w = Window(config, mix, seconds=secs, edits=len(outs),
                    timings=timings, trace=tr,
-                   flops=yardstick.edit_flops(config, mix))
+                   flops=fam.unit_flops(config, mix), root=root)
         row["edits"] = w.edits
         row["busy_s"] = tr.busy_us / 1e6
         row["window_s"] = tr.window_us / 1e6

@@ -1,8 +1,9 @@
-"""The harness rehearsed on the CPU: a tiny configuration and mix added as
-files to a copy of the benchmark run through the window, the metric
-readers, the last line and the comparison with the reference; an addition
-edits no file that was there; and `run.py` without a card exits non-zero
-with no result."""
+"""The harness rehearsed on the CPU: a tiny configuration and mixes added
+as files to a copy of the benchmark run through the window, the metric
+readers, the last line and the comparison with the reference (the whole
+trajectory, or one step and the sampler); so does a second family added
+as files; an addition edits no file that was there; and `run.py` without
+a card exits non-zero with no result."""
 
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+from cofbench.tests import tiny, toy
 from cofbench.tests.conftest import digests, measure
 
 ROOT = Path(__file__).resolve().parents[2]
@@ -64,3 +66,28 @@ def test_run_without_a_card_exits_nonzero_with_no_result():
     assert res.returncode != 0
     assert res.stdout.strip() == ""
     assert "no result" in res.stderr
+
+
+def test_the_step_cell_holds_one_step_and_the_sampler(checkout):
+    root, _ = checkout
+    result, lines = measure(root, traced=False, cell=tiny.STEP_CELL)
+    assert result["correct"], result["check"]
+    assert set(result["check"]) == {"text_rel_l2", "source_rel_l2",
+                                    "step_rel_l2", "sampler_rel_l2",
+                                    "frame_rms", "malformed_edits"}
+    assert any("step_rel_l2" in line for line in lines)
+
+
+def test_a_family_added_as_files_runs_through_measure(toy_checkout):
+    root, before = toy_checkout
+    after = digests(root)
+    assert {k for k in before if after.get(k) != before[k]} == {
+        "BENCHMARK.json"}
+    result, _ = measure(root, traced=False, cell=toy.CELL)
+    assert result["correct"], result["check"]
+    assert set(result["check"]) == {"toy_rel_l2", "malformed_edits"}
+    assert set(result["metrics"]) == {"edit_s", "setup_s"}
+    result, _ = measure(root, traced=True, cell=toy.CELL)
+    assert result["correct"], result["check"]
+    # the stage walls the toy's units give; no device trace on the CPU
+    assert set(result["metrics"]) == {"dit_step_s"}

@@ -1,8 +1,10 @@
 """The plain reference held against the program (`videocof_torch`) on the
 CPU at its test presets' sizes, both in float32 on the same drawn weights:
 the tokenizer, umT5, the VAE's encode and decode, the DiT (LoRA merged,
-repeat-RoPE, RIFLEx), Flow-UniPC and a whole edit. The test imports both;
-the reference imports nothing of the program."""
+repeat-RoPE, RIFLEx), Flow-UniPC and a whole edit; the streamed reference
+VAE against the whole-clip one; and the one-step check's capture against
+what the program's DiT took. The test imports both; the reference imports
+nothing of the program."""
 
 from __future__ import annotations
 
@@ -10,7 +12,9 @@ import numpy as np
 import pytest
 import torch
 
-from cofbench import inputs, layouts, program
+from cofbench.families import wan_layouts as inputs
+from cofbench.families import wan_layouts as layouts
+from cofbench.families import wan_program as program
 from cofbench.reference import dit, edit, rope, t5, tokenizer, unipc, vae
 from cofbench.tests import tiny
 
@@ -131,7 +135,7 @@ def test_whole_edit_against_the_program(pipe):
 
 
 def test_stage_products_of_a_float32_program_match(pipe):
-    from cofbench import check
+    from cofbench.families import wan as check
     mix = tiny.mix()
     kept = program.keep_text(pipe)
     e = mix.edit(SEED, 4, tiny.VAE["z_dim"], "cpu")
@@ -143,3 +147,44 @@ def test_stage_products_of_a_float32_program_match(pipe):
     assert max(got["text_rel_l2"], got["source_rel_l2"],
                got["latent_rel_l2"], got["edit_rel_l2"]) < 1e-5, got
     assert got["frame_rms"] < 0.05, got
+
+
+@pytest.mark.parametrize("frames", [1, 5, 9, 13])
+def test_streamed_vae_equals_the_whole_clip(weights, frames):
+    from cofbench.check import rel
+    W = vae.Weights(weights["vae"], "cpu")
+    gen = torch.Generator().manual_seed(frames)
+    clip = torch.rand(1, 3, frames, 32, 32, generator=gen) * 2 - 1
+    assert rel(vae.encode(W, tiny.VAE, clip, streamed=True),
+               vae.encode(W, tiny.VAE, clip)) <= 1e-5
+    z = torch.randn(1, 4, (frames - 1) // 4 + 1, 4, 4, generator=gen)
+    assert rel(vae.decode(W, tiny.VAE, z, streamed=True),
+               vae.decode(W, tiny.VAE, z)) <= 1e-5
+
+
+def test_the_kept_step_is_what_the_dit_took_and_reads_zero_in_float32():
+    from cofbench.families import wan
+    mix = tiny.mix(**tiny.STEP_MIX)
+    s = wan.system(tiny.CONFIG, SEED, "cpu", F32)
+    real, seen = s.pipe.dit.forward_with_residual, []
+
+    def spy(x, t, context, *args, **kw):
+        out = real(x, t, context, *args, **kw)
+        seen.append((x.clone(), t.clone(), context.clone(), out[0].clone()))
+        return out
+    s.pipe.dit.forward_with_residual = spy
+    wan.instrument(s, tiny.CONFIG, mix, SEED, tiny.STEP_LIMITS)
+    out = wan.unit(s, tiny.CONFIG, mix, SEED, 2, "cpu")
+    calls = out["dit"]
+    assert len(seen) == len(calls["velocity"]) == mix.steps
+    x, t, context, v = seen[calls["keep"]]
+    for got, want in zip((calls["inputs"][k] for k in ("x", "t", "context")),
+                         (x, t, context)):
+        assert torch.equal(got, want)
+    for got, (_, _, _, want) in zip(calls["velocity"], seen):
+        assert torch.equal(got, want)
+    found = wan.check(tiny.CONFIG, mix, SEED, 2, out, "cpu", F32,
+                      tiny.STEP_LIMITS)
+    assert set(found) == set(tiny.STEP_LIMITS)
+    assert max(v for k, v in found.items() if k != "frame_rms") < 1e-5, found
+    assert found["frame_rms"] < 0.05, found

@@ -117,7 +117,7 @@ def test_a_program_without_spans_reads_none():
 
 
 def _window(events, mix, config):
-    from cofbench import yardstick
+    from cofbench.families import wan_yardstick as yardstick
     from cofbench.window import Window
     return Window(config, mix, seconds=1e-3, edits=1,
                   timings=[{"text": 0.1, "encode+latents": 0.2,
@@ -127,7 +127,7 @@ def _window(events, mix, config):
 
 
 def test_program_spans_leave_the_benchmarks_readings_unchanged():
-    from cofbench.mix import Mix
+    from cofbench.families.wan_mix import Mix
     from cofbench.run import ROOT, manifest, readers
     config = json.loads((ROOT / "cofbench/configs/wan21-t2v-1.3b.json")
                         .read_text())

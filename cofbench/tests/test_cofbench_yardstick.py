@@ -7,6 +7,7 @@ import pytest
 import torch
 
 from cofbench import yardstick
+from cofbench.families import wan_yardstick
 from cofbench.tests import tiny
 from cofbench.trace import Kernel, Trace, kernel_class, read_events
 from cofbench.window import Window
@@ -31,11 +32,11 @@ def test_dit_flops_by_hand():
     io = 2 * L * 8 * 4 * (4 + 4)
     text = 2 * Lt * 8 * (6 + 8)
     time = 2 * 8 * (4 + 8 + 48)
-    assert yardstick.dit_linear_flops(CFG, L, Lt) == 3 * block + io + text \
-        + time
+    assert wan_yardstick.dit_linear_flops(CFG, L, Lt) == 3 * block + io \
+        + text + time
     attn = 4 * L * L * 8 + 4 * L * Lt * 8
-    assert yardstick.dit_step_flops(CFG, L, Lt) == 3 * (block + attn) + io
-    assert len(yardstick.attention_calls(CFG, L, Lt)) == 6
+    assert wan_yardstick.dit_step_flops(CFG, L, Lt) == 3 * (block + attn) + io
+    assert len(wan_yardstick.attention_calls(CFG, L, Lt)) == 6
 
 
 def test_dit_step_flops_agrees_with_the_programs_count():
@@ -44,7 +45,7 @@ def test_dit_step_flops_agrees_with_the_programs_count():
     cfg = {k: getattr(WAN21_T2V_14B, k) for k in (
         "dim", "ffn_dim", "num_layers", "in_dim", "out_dim")}
     cfg["patch_size"] = list(WAN21_T2V_14B.patch_size)
-    assert yardstick.dit_step_flops(cfg, 29640, 512) == dit_matmul_flops(
+    assert wan_yardstick.dit_step_flops(cfg, 29640, 512) == dit_matmul_flops(
         WAN21_T2V_14B, 29640, 512)
 
 
@@ -56,9 +57,9 @@ def test_vae_flops_count_convolutions_from_shapes():
         torch.nn.functional.conv3d(x, w, padding=1)
     # 5x8x8 outputs of 4 channels, 3x27 products each, 2 FLOP a product
     assert counter.get_total_flops() == 2 * 5 * 64 * 4 * 81
-    f = yardstick.vae_flops(tiny.CONFIG, tiny.mix())
+    f = wan_yardstick.vae_flops(tiny.CONFIG, tiny.mix())
     assert f["encode"] > 0 and f["decode"] > 0
-    assert yardstick.vae_flops(tiny.CONFIG, tiny.mix(source_frames=9))[
+    assert wan_yardstick.vae_flops(tiny.CONFIG, tiny.mix(source_frames=9))[
         "encode"] > f["encode"]
 
 
@@ -98,7 +99,7 @@ def test_trace_reader_assigns_spans_and_unions_busy_time():
 def _window(kernel_us):
     """One traced 1.3B-shaped edit whose kernels took ``kernel_us`` each."""
     import json
-    from cofbench.mix import Mix
+    from cofbench.families.wan_mix import Mix
     from cofbench.run import ROOT
     config = json.loads((ROOT / "cofbench/configs/wan21-t2v-1.3b.json")
                         .read_text())

@@ -6,14 +6,19 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
+from pathlib import Path
 from typing import Callable, List, Optional
 
 from .trace import Trace
 
+ROOT = Path(__file__).resolve().parents[1]
+
 
 @dataclass
 class Window:
-    """What the metric readers (`cofbench/metrics/<name>.py`) read."""
+    """What the metric readers (`cofbench/metrics/<name>.py`) read; they
+    reach the model through ``family``, found by the configuration's
+    ``family`` under the checkout ``root``."""
     config: dict
     mix: object
     seconds: float = 0.0
@@ -23,6 +28,12 @@ class Window:
     setup_s: float = 0.0
     peak_bytes: int = 0
     flops: dict = field(default_factory=dict)    # one edit's, by layer
+    root: Path = ROOT
+
+    @property
+    def family(self):
+        from cofbench import families
+        return families.load(self.config["family"], self.root)
 
 
 def closed_loop(edit: Callable[[int, Optional[dict]], object],
